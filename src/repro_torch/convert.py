@@ -1,0 +1,67 @@
+"""Carry state across: the JAX package's arrays (as numpy) <-> the port's.
+
+The two packages hand operators and FRSZ2 stores to each other through
+numpy.  Bit patterns are kept: the port holds unsigned codes in signed
+containers of the same width (``uint32`` codes become an ``int32`` view,
+``uint16`` an ``int16`` view; ``uint8`` stays), and the inverse views them
+back.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import frsz2 as F
+from repro_torch.device import resolve_device
+from repro_torch.sparse.csr import CSR
+
+__all__ = ["csr_from_numpy", "csr_to_numpy", "store_from_numpy",
+           "store_to_numpy"]
+
+_SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32,
+           np.dtype(np.uint64): np.int64}
+_UNSIGNED = {torch.int16: np.uint16, torch.int32: np.uint32,
+             torch.int64: np.uint64}
+
+
+def csr_from_numpy(indptr, indices, data, shape, device="cuda") -> CSR:
+    dev = resolve_device(device)
+    return CSR(indptr=torch.tensor(np.asarray(indptr, np.int32), device=dev),
+               indices=torch.tensor(np.asarray(indices, np.int32), device=dev),
+               data=torch.tensor(np.asarray(data), device=dev),
+               shape=tuple(int(s) for s in shape))
+
+
+def csr_to_numpy(A: CSR):
+    """-> (indptr, indices, data, shape) as numpy arrays."""
+    return (A.indptr.cpu().numpy(), A.indices.cpu().numpy(),
+            A.data.cpu().numpy(), tuple(A.shape))
+
+
+def _codes_to_torch(codes: np.ndarray, device) -> torch.Tensor:
+    codes = np.ascontiguousarray(codes)
+    signed = _SIGNED.get(codes.dtype)
+    return torch.tensor(codes if signed is None else codes.view(signed),
+                        device=device)
+
+
+def store_from_numpy(store: dict, spec: F.FrszSpec, device="cuda") -> dict:
+    """``{"codes", "exps"}`` numpy arrays -> the port's store, same bits."""
+    dev = resolve_device(device)
+    codes = _codes_to_torch(store["codes"], dev)
+    want = F.code_dtype(spec.l) if spec.aligned else torch.int32
+    if codes.dtype != want:
+        raise ValueError(f"codes of {spec.name} must hold {want} patterns, "
+                         f"got {store['codes'].dtype}")
+    exps = torch.tensor(np.asarray(store["exps"], np.int32), device=dev)
+    return {"codes": codes, "exps": exps}
+
+
+def store_to_numpy(store: dict, spec: F.FrszSpec) -> dict:
+    """The port's store -> ``{"codes", "exps"}`` with unsigned code arrays,
+    as the JAX package holds them."""
+    codes = store["codes"].cpu().numpy()
+    unsigned = _UNSIGNED.get(store["codes"].dtype)
+    if unsigned is not None:
+        codes = codes.view(unsigned)
+    return {"codes": codes, "exps": store["exps"].cpu().numpy()}

@@ -1,0 +1,332 @@
+"""Composable GMRES cycle pipeline: the three pluggable stages.
+
+The port of ``repro/solver/pipeline.py`` (scalar part):
+
+  * :class:`Orthogonalizer` — how ``w`` is orthogonalized against the live
+    basis rows each Arnoldi step.  ``mgs`` is the seed scheme (one-shot
+    dots/combine plus the conditional "twice is enough" re-orthogonalization,
+    paper Fig. 1 steps 6-10); ``cgs2`` always runs two passes.
+  * :class:`Preconditioner` — right preconditioning ``A M^{-1}``: identity,
+    Jacobi (``M = diag(A)``), or a user-callable hook.
+  * :class:`PrecisionPolicy` — which storage format holds the Krylov basis,
+    chosen per restart cycle from the explicit restart residual.
+
+PyTorch runs eagerly, so MGS reads its ``fired`` flag on the host once per
+iteration and runs the second pass only when it fires (the reference
+selects between the two with ``lax.cond``); every result is the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable
+
+import torch
+
+from repro_torch.core.accessor import NativeFormat, StorageFormat, format_by_name
+from repro_torch.dist.context import LOCAL
+
+__all__ = [
+    "Orthogonalizer",
+    "MGSOrthogonalizer",
+    "CGS2Orthogonalizer",
+    "orthogonalizer_by_name",
+    "Preconditioner",
+    "IdentityPreconditioner",
+    "JacobiPreconditioner",
+    "CallablePreconditioner",
+    "resolve_preconditioner",
+    "PrecisionPolicy",
+    "StaticPolicy",
+    "AdaptivePolicy",
+    "policy_by_name",
+    "resolve_policy",
+]
+
+
+# ---------------------------------------------------------------------------
+# Orthogonalizers
+# ---------------------------------------------------------------------------
+
+
+class Orthogonalizer:
+    """Orthogonalize ``w`` against the first ``rows`` rows of the basis.
+
+    ``__call__(acc, store, w, rows, eta, dist, w_norm) -> (w_orth, h, hj1,
+    fired)``: ``h`` (``rows``,) is the Hessenberg column, ``hj1 =
+    ||w_orth||`` (a 0-d tensor), and ``fired`` (a Python int) counts an
+    *extra* basis sweep beyond the nominal ``passes`` (MGS's conditional
+    re-orthogonalization) — the driver folds it into ``bytes_read``.
+    ``w_norm`` is the caller's already-computed ``||w||``.
+    """
+
+    name: str = "base"
+    passes: int = 1
+
+    def __call__(self, acc, store, w, rows, eta, dist=LOCAL,
+                 w_norm=None):  # pragma: no cover
+        raise NotImplementedError
+
+
+class MGSOrthogonalizer(Orthogonalizer):
+    """Seed scheme: one-shot dots/combine + conditional re-orthogonalization
+    iff ``||w_orth|| < eta * ||w||`` (the "twice is enough" criterion)."""
+
+    name = "mgs"
+    passes = 1
+
+    def __call__(self, acc, store, w, rows, eta, dist=LOCAL, w_norm=None):
+        w_pre = dist.norm(w) if w_norm is None else w_norm
+        h = acc.dots(store, w, rows)
+        w = w - acc.combine(store, h)
+        hj1 = dist.norm(w)
+        fired = bool(hj1 < eta * w_pre)          # one host read per iteration
+        if fired:
+            u = acc.dots(store, w, rows)
+            w = w - acc.combine(store, u)
+            h = h + u
+            hj1 = dist.norm(w)
+        return w, h, hj1, int(fired)
+
+
+class CGS2Orthogonalizer(Orthogonalizer):
+    """Classical Gram-Schmidt, applied twice unconditionally (CGS-2)."""
+
+    name = "cgs2"
+    passes = 2
+
+    def __call__(self, acc, store, w, rows, eta, dist=LOCAL, w_norm=None):
+        h = acc.dots(store, w, rows)
+        w = w - acc.combine(store, h)
+        u = acc.dots(store, w, rows)
+        w = w - acc.combine(store, u)
+        # both sweeps are already in the nominal `passes`: no extras
+        return w, h + u, dist.norm(w), 0
+
+
+_ORTHOGONALIZERS = {"mgs": MGSOrthogonalizer, "cgs2": CGS2Orthogonalizer}
+
+
+def orthogonalizer_by_name(name) -> Orthogonalizer:
+    if isinstance(name, Orthogonalizer):
+        return name
+    try:
+        return _ORTHOGONALIZERS[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown orthogonalizer {name!r}; "
+            f"have {sorted(_ORTHOGONALIZERS)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Preconditioners (right preconditioning: A M^{-1})
+# ---------------------------------------------------------------------------
+
+
+class Preconditioner:
+    """``apply(x) -> M^{-1} x``."""
+
+    def apply(self, x):  # pragma: no cover - overridden
+        raise NotImplementedError
+
+
+class IdentityPreconditioner(Preconditioner):
+    """No-op: ``apply`` returns its input unchanged."""
+
+    def apply(self, x):
+        return x
+
+
+class JacobiPreconditioner(Preconditioner):
+    """Diagonal scaling ``M = diag(A)`` (zero diagonal entries scale by 1)."""
+
+    def __init__(self, diag: torch.Tensor):
+        d = torch.as_tensor(diag)
+        one = torch.ones((), dtype=d.dtype, device=d.device)
+        self.inv_diag = torch.where(d != 0, 1.0 / torch.where(d != 0, d, one),
+                                    one)
+
+    @classmethod
+    def from_operator(cls, A) -> JacobiPreconditioner:
+        diag_fn = getattr(A, "diag", None)
+        if diag_fn is None:
+            raise ValueError(
+                "precond='jacobi' needs an operator with .diag() "
+                f"(got {type(A).__name__}); pass a Preconditioner instead")
+        return cls(diag_fn())
+
+    def apply(self, x):
+        return x * self.inv_diag.to(x.dtype)
+
+
+class CallablePreconditioner(Preconditioner):
+    """User hook: any ``fn(x) -> M^{-1} x`` on tensors."""
+
+    def __init__(self, fn: Callable, name: str | None = None):
+        self.fn = fn
+        self.name = name
+
+    def apply(self, x):
+        return self.fn(x)
+
+
+def resolve_preconditioner(precond, A) -> Preconditioner:
+    """None | 'identity' | 'jacobi' | callable | Preconditioner -> object."""
+    if precond is None or precond == "identity":
+        return IdentityPreconditioner()
+    if isinstance(precond, Preconditioner):
+        return precond
+    if precond == "jacobi":
+        return JacobiPreconditioner.from_operator(A)
+    if callable(precond):
+        return CallablePreconditioner(precond)
+    raise ValueError(f"unknown preconditioner {precond!r}")
+
+
+# ---------------------------------------------------------------------------
+# Precision policies
+# ---------------------------------------------------------------------------
+
+
+class PrecisionPolicy:
+    """Selects the basis storage format per restart cycle: ``formats()`` is
+    the static tuple of candidates, ``level(rr, cycle)`` maps the explicit
+    restart residual (a float) to an index into it."""
+
+    def formats(self) -> tuple:  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def level(self, rr: float, cycle: int) -> int:  # pragma: no cover
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticPolicy(PrecisionPolicy):
+    """One format for the whole solve (the seed behaviour)."""
+
+    fmt: StorageFormat
+
+    def formats(self) -> tuple:
+        return (self.fmt,)
+
+    def level(self, rr: float, cycle: int) -> int:
+        return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptivePolicy(PrecisionPolicy):
+    """Drop precision as the residual falls (inexact-Krylov schedule).
+
+    ``levels[i]`` is active while ``thresholds[i-1] >= rr > thresholds[i]``
+    (``thresholds`` strictly decreasing, one fewer than ``levels``).
+    """
+
+    levels: tuple
+    thresholds: tuple
+
+    def __post_init__(self):
+        if len(self.thresholds) != len(self.levels) - 1:
+            raise ValueError("need len(thresholds) == len(levels) - 1")
+        if not all(a > b for a, b in zip(self.thresholds,
+                                         self.thresholds[1:])):
+            raise ValueError("thresholds must be strictly decreasing")
+
+    def formats(self) -> tuple:
+        return tuple(self.levels)
+
+    def level(self, rr: float, cycle: int) -> int:
+        return sum(int(rr < t) for t in self.thresholds)
+
+    @classmethod
+    def from_target(cls, levels, target_rrn: float,
+                    safety: float = 0.5) -> AdaptivePolicy:
+        """Switch points from the target RRN and the format epsilons: level
+        ``i`` is admissible below ``safety * target_rrn / eps_i``, clipped
+        into ``(0, 1]`` and kept strictly decreasing."""
+        if target_rrn <= 0:
+            raise ValueError(f"target_rrn must be positive, "
+                             f"got {target_rrn}")
+        thresholds = []
+        ceiling = 1.0
+        for fmt in levels[1:]:
+            t = min(safety * float(target_rrn) / fmt.eps(), ceiling)
+            # a later (cheaper) level must activate strictly later
+            if thresholds and t >= thresholds[-1]:
+                t = thresholds[-1] / 2.0
+            thresholds.append(t)
+            ceiling = t
+        return cls(levels=tuple(levels), thresholds=tuple(thresholds))
+
+
+#: default adaptive ladder: full precision until the residual clears 1e-2,
+#: frsz2_32 to 1e-6, frsz2_16 for the long tail.
+_ADAPTIVE_DEFAULT = (("float64", None), ("frsz2_32", 1e-2), ("frsz2_16", 1e-6))
+
+
+def policy_by_name(name: str, *, arith_dtype=torch.float64,
+                   target_rrn: float | None = None,
+                   m: int | None = None, **ctx) -> PrecisionPolicy:
+    """Resolve a policy from a name: ``static:<fmt>``, ``adaptive``,
+    ``adaptive:auto`` (switch points from ``target_rrn``), or
+    ``adaptive:<f0>,<f1>@<t1>,<f2>@<t2>,...``."""
+    ctx = dict(ctx, target_rrn=target_rrn, m=m)
+    kind, _, rest = name.partition(":")
+    if kind == "static":
+        if not rest:
+            raise ValueError("static policy needs a format: 'static:<fmt>'")
+        return StaticPolicy(format_by_name(rest, arith_dtype=arith_dtype,
+                                           **ctx))
+    if kind != "adaptive":
+        raise ValueError(
+            f"unknown policy {name!r}; expected one of 'static:<fmt>', "
+            f"'adaptive', 'adaptive:auto', or "
+            f"'adaptive:<f0>,<f1>@<t1>,...'")
+    if rest == "auto":
+        if target_rrn is not None:
+            levels = tuple(
+                format_by_name(f, arith_dtype=arith_dtype, **ctx)
+                for f, _ in _ADAPTIVE_DEFAULT)
+            return AdaptivePolicy.from_target(levels, target_rrn)
+        ladder = _ADAPTIVE_DEFAULT       # no target: the fixed defaults
+    elif not rest:
+        ladder = _ADAPTIVE_DEFAULT
+    else:
+        ladder = []
+        for i, part in enumerate(rest.split(",")):
+            fmt_name, _, thr = part.partition("@")
+            if i == 0 and not thr:
+                ladder.append((fmt_name, None))
+            elif not thr:
+                raise ValueError(
+                    f"adaptive level {part!r} needs a threshold 'fmt@thr'")
+            else:
+                ladder.append((fmt_name, float(thr)))
+    levels = tuple(format_by_name(f, arith_dtype=arith_dtype, **ctx)
+                   for f, _ in ladder)
+    thresholds = tuple(t for _, t in ladder[1:])
+    return AdaptivePolicy(levels=levels, thresholds=thresholds)
+
+
+def resolve_policy(policy, storage, arith_dtype,
+                   target_rrn: float | None = None,
+                   m: int | None = None) -> PrecisionPolicy:
+    """Combine the ``policy`` / ``storage`` arguments into one policy:
+    ``policy`` wins when given; otherwise the storage format (object, name,
+    or None -> native arith dtype) becomes a :class:`StaticPolicy`."""
+    if policy is not None:
+        if isinstance(policy, PrecisionPolicy):
+            return policy
+        if isinstance(policy, str):
+            return policy_by_name(policy, arith_dtype=arith_dtype,
+                                  target_rrn=target_rrn, m=m)
+        raise ValueError(
+            f"unknown policy {policy!r}; expected a PrecisionPolicy or a "
+            f"name ('static:<fmt>', 'adaptive', 'adaptive:auto', "
+            f"'adaptive:<f0>,<f1>@<t1>,...')")
+    if storage is None:
+        return StaticPolicy(NativeFormat(dtype=arith_dtype))
+    if isinstance(storage, str):
+        return StaticPolicy(format_by_name(storage, arith_dtype=arith_dtype,
+                                           target_rrn=target_rrn, m=m))
+    if isinstance(storage, PrecisionPolicy):
+        return storage
+    return StaticPolicy(storage)

@@ -13,6 +13,11 @@ def pytest_configure(config):
         "transfer_guard: device-driver sweep under "
         "jax.transfer_guard('disallow') — CI runs these as their own step",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA CUDA card (PyTorch port kernels); skips "
+        "without one — run on the card with `pytest -m cuda`",
+    )
 
 
 @pytest.fixture(scope="session")
