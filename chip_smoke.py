@@ -133,20 +133,27 @@ def _bits(t):
 
 
 def _codec_pair(x, spec):
-    """Kernel and plain compress/decompress of ``x``; asserts bit equality."""
+    """Kernel and plain compress/decompress of ``x``; asserts bit equality.
+
+    Returns the kernel's codes and values and the largest differences from
+    the plain version: in code units for compress (codes and exponents),
+    in values for decompress."""
     import torch
 
     from repro_torch.kernels import ops
 
     bk = ops.compress(x, spec, kernel=True)
     bp = ops.compress(x, spec, kernel=False)
+    code_err = max(float((a.long() - b.long()).abs().max())
+                   for a, b in ((bk.codes, bp.codes), (bk.exps, bp.exps)))
     check(torch.equal(bk.codes, bp.codes) and torch.equal(bk.exps, bp.exps),
           f"compress != plain for {spec.name} shape {tuple(x.shape)}")
     vk = ops.decompress(bk, kernel=True)
     vp = ops.decompress(bp, kernel=False)
     check(torch.equal(_bits(vk), _bits(vp)),
           f"decompress != plain for {spec.name} shape {tuple(x.shape)}")
-    return bk, vk
+    value_err = float((vk.double() - vp.double()).abs().max())
+    return bk, vk, code_err, value_err
 
 
 def _contraction_err(bc, vec, op, r):
@@ -178,7 +185,7 @@ def phase_kernels():
     V /= torch.linalg.vector_norm(V, dim=1, keepdim=True)   # Krylov-like rows
     w = torch.randn((n,), generator=gen, dtype=torch.float64, device=dev)
 
-    bc, Vdec = _codec_pair(V, spec)
+    bc, Vdec, code_err, value_err = _codec_pair(V, spec)
     results = {}
     for r in (R_FULL, R_HALF):
         h = torch.randn((r,), generator=gen, dtype=torch.float64, device=dev)
@@ -204,7 +211,7 @@ def phase_kernels():
             x = (x * torch.exp2(torch.randint(-8, 8, (5, 1001), generator=g2,
                                               device=dev).double())).to(dtype)
             x[0, ::7] = 0.0
-            sbc, _ = _codec_pair(x, sp)
+            sbc, *_ = _codec_pair(x, sp)
             if dtype in (torch.float32, torch.float64):
                 tol = 1e-12 if dtype == torch.float64 else 1e-5
                 hv = torch.randn((5,), generator=g2, dtype=dtype, device=dev)
@@ -230,7 +237,8 @@ def phase_kernels():
         b, by = bound_ms(nbytes, flops)
         e = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=b, bound_by=by, library_ms=library_ms, **extra)
+                 bound_ms=b, bound_by=by, library_ms=library_ms,
+                 status="matches plain", **extra)
         emit(e)
         return e
 
@@ -242,12 +250,13 @@ def phase_kernels():
                                    kernel=True)),
         timed(lambda: ops.compress(x_row, spec, out=(codes_row, exps_row),
                                    kernel=False)),
-        n * 8 + row_bytes, 0.0, 0.0, shape=f"1 x {n}")
+        n * 8 + row_bytes, 0.0, code_err, shape=f"1 x {n}",
+        err_unit="code")
     entries["frsz2_decompress"] = entry(
         "frsz2_decompress", codec_src, "src/repro/kernels/frsz2_kernel.py:75",
         timed(lambda: ops.decompress(row_bc, kernel=True)),
         timed(lambda: ops.decompress(row_bc, kernel=False)),
-        row_bytes + n * 8, 0.0, 0.0, shape=f"1 x {n}")
+        row_bytes + n * 8, 0.0, value_err, shape=f"1 x {n}")
     for r in (R_FULL, R_HALF):
         sub = F.BlockCompressed(codes=bc.codes[:r], exps=bc.exps[:r], n=n,
                                 spec=spec)

@@ -7,6 +7,7 @@ Tolerances:
 * ``dots``/``combine`` against the JAX jnp route: 1e-13 relative — the same
   f64 products summed in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,13 +93,14 @@ def test_rows_dots_combine_match_reference(name, rng):
     aj, at = _pair(name, m, n)
     sj, st = aj.empty(), at.empty()
     V = rng.standard_normal((m, n)) * np.exp2(rng.integers(-6, 6, (m, n)))
+    write, read = jax.jit(aj.write_row), jax.jit(aj.read_row)
     for j in range(m):
-        sj = aj.write_row(sj, jnp.asarray(j), jnp.asarray(V[j]))
+        sj = write(sj, jnp.asarray(j), jnp.asarray(V[j]))
         assert at.write_row(st, j, torch.from_numpy(V[j])) is None
     _assert_tree_equal(_store_np(at.fmt, st), sj)
     for j in range(m):
         assert np.array_equal(at.read_row(st, j).numpy(),
-                              np.asarray(aj.read_row(sj, jnp.asarray(j))))
+                              np.asarray(read(sj, jnp.asarray(j))))
     assert np.array_equal(at.read_all(st).numpy(), np.asarray(aj.read_all(sj)))
     w = rng.standard_normal(n)
     h = rng.standard_normal(m)
