@@ -39,9 +39,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet (on-chip-measurement guide): HBM3 at 3.35 TB/s; FP64
-# outside the tensor cores at 34 TFLOP/s.  The codec does integer bit work
-# only, which the table has no rate for: its bound is its bytes.
+# H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 outside the tensor cores at
+# 34 TFLOP/s.  The codec does integer bit work only, for which the data sheet
+# lists no peak rate: its bound is its bytes.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
 
