@@ -12,16 +12,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    101-row basis of n = 1,259,712 (``synth:atmosmod --n 1270432``): each
    kernel against its plain PyTorch version on the card (codec bit-equal,
    contractions within 1e-12 relative at r = 101 and r = 51 rows), spot
-   checks of f32/f16/bf16 values, l = 8/16, bs = 1/8/64/128 and a ragged n,
-   and CUDA-event times (median of 30) beside the byte bound, the plain
-   version and, for the contractions, ``torch.mv`` on the decoded basis;
-4. solve to convergence — ``synth:atmosmod`` n = 8000, m = 100, frsz2_32,
-   MGS: kernel route (twice: identical iterations and bit-equal x) against
-   the plain route on the card, plus a float64 row;
+   checks of f32/f16/bf16 values, l = 8/16, bs = 1/8/64/128 and a ragged n;
+   the ELL SpMV on that operator, dense and with a frsz2_32-coded operand,
+   against its plain version (within 1e-13 relative), with spot checks of
+   f32 values, a ragged column count and bs = 8/64/128; the Givens step of
+   the device cycle over m = 100 steps, bit-equal to its plain version; and
+   CUDA-event times (median of 30) beside the byte bound, the plain version
+   and a PyTorch call computing the same function (``torch.mv`` on the
+   decoded basis, ``torch.sparse_csr_tensor @ x``);
+4. solve to convergence — ``synth:atmosmod`` n = 8000, m = 100, frsz2_32 and
+   float64, MGS: the device driver (one CUDA graph replay per restart)
+   against the host driver (equal iterations, restarts, ``bytes_read`` and
+   ``op_reads``, x within 1e-10), two device solves bit-equal, and the
+   kernel route against the plain route on the card;
 5. full-width solve — ``synth:atmosmod --n 1270432``, m = 100, float64 and
    frsz2_32 with a bounded iteration budget, through ``gmres`` as a user
-   calls it; launch counts are set to 0 just before and read just after:
-   every kernel ran in the frsz2_32 solve, none in the float64 one.
+   calls it, host driver (slice 1's path) and device driver (slice 2's
+   path, twice: capture, then replay), each with the launch counts set to 0
+   just before and read just after.  The device driver matches the host
+   driver as in phase 4; every kernel of a path launched in its frsz2_32
+   solve, and no FRSZ2 kernel in the float64 ones.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -50,6 +60,15 @@ M = 100                    # restart length
 R_FULL, R_HALF = 101, 51   # live basis rows: m + 1, and half of it
 REPS = 30
 FULL_MAX_ITERS = 500
+
+#: kernels by the path whose solve launches them: slice 1's host driver
+#: reads each basis row decompressed; slice 2's device driver hands it to
+#: the ELL kernel coded (``ell_spmv_frsz2``) and steps the least squares
+#: with ``gmres_givens``.  Both run the dense ELL kernel on every residual.
+HOST_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
+             "frsz2_rmatvec", "ell_spmv")
+DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
+               "ell_spmv_frsz2", "gmres_givens")
 
 
 def check(ok: bool, what: str) -> None:
@@ -87,6 +106,19 @@ def bound_ms(nbytes: float, flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP64_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def entry(name, source, replaces, ms, plain_ms, nbytes, flops, err,
+          library_ms=None, **extra):
+    """One kernel's record for the ``{"kernels": [...]}`` line, printed as
+    it is measured; ``launches`` is filled in from phase 5."""
+    b, by = bound_ms(nbytes, flops)
+    e = dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=b, bound_by=by, library_ms=library_ms,
+             status="matches plain", **extra)
+    emit(e)
+    return e
 
 
 def phase_build():
@@ -231,17 +263,6 @@ def phase_kernels():
     row_bc = F.BlockCompressed(codes=bc.codes[7], exps=bc.exps[7], n=n,
                                spec=spec)
     entries = {}
-
-    def entry(name, source, replaces, ms, plain_ms, nbytes, flops, err,
-              library_ms=None, **extra):
-        b, by = bound_ms(nbytes, flops)
-        e = dict(name=name, route="cuda", source=source, replaces=replaces,
-                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=b, bound_by=by, library_ms=library_ms,
-                 status="matches plain", **extra)
-        emit(e)
-        return e
-
     codec_src = "src/repro_torch/kernels/csrc/frsz2_codec.cu"
     dot_src = "src/repro_torch/kernels/csrc/frsz2_dot.cu"
     entries["frsz2_compress"] = entry(
@@ -284,29 +305,187 @@ def phase_kernels():
     return entries
 
 
-def _solve_row(label, A, b, x_sol, fmt, target, max_iters):
+def _rel_err(yk, yp):
+    """(max abs error, the same relative to max |plain|)."""
+    abs_err = float((yk.double() - yp.double()).abs().max())
+    return abs_err, abs_err / max(float(yp.double().abs().max()), 1e-300)
+
+
+def phase_ell(A):
+    """The ELL SpMV kernels on the main-path operator, and spot checks."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    dev = A.device
+    E = A.to_ell()
+    nr, w = E.vals.shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((nr,), generator=gen, dtype=torch.float64, device=dev)
+    v = x / torch.linalg.vector_norm(x)                # a Krylov-like row
+    spec = F.FrszSpec(bs=32, l=32, dtype=torch.float64)
+    bc = ops.compress(v, spec)
+    errs = {}
+    for name, operand in (("ell_spmv", x), ("ell_spmv_frsz2", bc)):
+        yk = ops.ell_spmv(E.vals, E.cols, operand, kernel=True)
+        yp = ops.ell_spmv(E.vals, E.cols, operand, kernel=False)
+        errs[name] = _rel_err(yk, yp)
+        check(errs[name][1] <= 1e-13,
+              f"{name} relative error {errs[name][1]:.3e} > 1e-13")
+        print(f"[ell] {name} n={nr} w={w}: max abs err {errs[name][0]:.3e}, "
+              f"relative {errs[name][1]:.3e}")
+
+    # spot checks: f32 values, a ragged column count, other block sizes
+    g2 = torch.Generator(device=dev).manual_seed(5)
+    nr2, nc2, w2 = 777, 1001, 5
+    cols = torch.randint(0, nc2, (nr2, w2), generator=g2, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((nr2, w2), generator=g2, dtype=torch.float64, device=dev)
+    pad = torch.rand((nr2, w2), generator=g2, device=dev) < 0.2
+    cols[pad] = 0
+    vals[pad] = 0.0
+    xr = torch.randn((nc2,), generator=g2, dtype=torch.float64, device=dev)
+    spots = 0
+    for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
+        vd = vals.to(dtype)
+        operands = [xr.to(dtype)] + [
+            ops.compress(xr.to(dtype), F.FrszSpec(bs=bs, l=l, dtype=dtype))
+            for bs, l in ((8, 32), (64, 16), (128, 8), (32, 32))]
+        for op in operands:
+            _, rel = _rel_err(ops.ell_spmv(vd, cols, op, kernel=True),
+                              ops.ell_spmv(vd, cols, op, kernel=False))
+            check(rel <= tol, f"ell spot check {dtype} relative error {rel:.3e}")
+            spots += 1
+    # the main path's operator in f32 values
+    _, rel = _rel_err(ops.ell_spmv(E.vals.float(), E.cols, x, kernel=True),
+                      ops.ell_spmv(E.vals.float(), E.cols, x, kernel=False))
+    check(rel <= 1e-6, f"ell f32 main-shape relative error {rel:.3e}")
+    print(f"[ell] spot checks passed: {spots + 1} (f32/f64 values, nc=1001 "
+          "ragged, frsz2 bs 8/32/64/128, l 8/16/32)")
+
+    # times; the bound counts vals, cols, the operand and y once each
+    mat_bytes = E.vals.numel() * 8 + E.cols.numel() * 4
+    indptr = A.indptr
+    csr = torch.sparse_csr_tensor(indptr, A.indices, A.data, size=A.shape)
+    src = "src/repro_torch/kernels/csrc/ell_spmv.cu"
+    entries = {}
+    for name, operand, x_bytes, replaces in (
+            ("ell_spmv", x, nr * 8, "src/repro/kernels/ell_spmv.py:49"),
+            ("ell_spmv_frsz2", bc, bc.codes.numel() * 4 + bc.exps.numel() * 4,
+             "src/repro/kernels/ell_spmv.py:76")):
+        lib_x = x if name == "ell_spmv" else ops.decompress(bc)
+        entries[name] = entry(
+            name, src, replaces,
+            timed(lambda op=operand: ops.ell_spmv(E.vals, E.cols, op,
+                                                  kernel=True)),
+            timed(lambda op=operand: ops.ell_spmv(E.vals, E.cols, op,
+                                                  kernel=False)),
+            mat_bytes + x_bytes + nr * 8, 2.0 * nr * w, errs[name][0],
+            library_ms=timed(lambda lx=lib_x: csr @ lx),
+            shape=f"{nr} x {w}, nnz {A.nnz}",
+            library="torch.sparse_csr_tensor @ x (decoded operand)")
+    return entries
+
+
+def phase_givens():
+    """The device cycle's Givens step over a cycle of m = 100 steps: kernel
+    bit-equal to its plain version; its time at the last step."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = M
+    L = ref.givens_layout(m)
+    sk, sp = ref.givens_init_ref(m, dev), ref.givens_init_ref(m, dev)
+    b_norm = torch.tensor(3.0, dtype=torch.float64, device=dev)
+    for s in (sk, sp):
+        s[L["g"]] = 1.5
+    steps = []
+    for j in range(m):
+        h = torch.randn((j + 1,), generator=gen, dtype=torch.float64,
+                        device=dev)
+        hj1 = torch.rand((), generator=gen, dtype=torch.float64, device=dev)
+        w_pre = hj1 + torch.rand((), generator=gen, dtype=torch.float64,
+                                 device=dev)
+        fired = hj1 < 0.7 * w_pre
+        steps.append((h, hj1, w_pre, fired))
+        ops.givens_step(sk, h, hj1, w_pre, fired, b_norm, j, m, 1e-300,
+                        kernel=True)
+        ops.givens_step(sp, h, hj1, w_pre, fired, b_norm, j, m, 1e-300,
+                        kernel=False)
+    check(torch.equal(sk, sp), "gmres_givens != plain over a 100-step cycle")
+    check(float(sk[L["alive"]]) == 1.0, "Givens cycle died on random input")
+    err = float((sk - sp).abs().max())
+    print(f"[givens] m={m}: kernel bit-equal to plain over {m} steps")
+    h, hj1, w_pre, fired = steps[-1]
+    j = m - 1
+    # bytes: h, the three scalars, cs/sn/g read and R's column, cs, sn, g,
+    # est written; flops: 6 per earlier rotation plus the new one
+    nbytes = (j + 1) * 8 + 3 * 8 + 2 * j * 8 + 2 * 8 + (j + 2) * 8 + 6 * 8
+    return {"gmres_givens": entry(
+        "gmres_givens", "src/repro_torch/kernels/csrc/gmres_step.cu",
+        "src/repro/solver/gmres.py:159 (jnp in the device cycle; no Pallas "
+        "kernel: a helper, not a TPU-kernel port)",
+        timed(lambda: ops.givens_step(sk, h, hj1, w_pre, fired, b_norm, j, m,
+                                      1e-300, kernel=True)),
+        timed(lambda: ops.givens_step(sp, h, hj1, w_pre, fired, b_norm, j, m,
+                                      1e-300, kernel=False), reps=5),
+        nbytes, 6.0 * j + 10.0, err, shape=f"step j={j} of m={m}",
+        helper=True)}
+
+
+def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver):
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.solver import gmres
 
     ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = gmres(A, b, storage=fmt, m=M, max_iters=max_iters, target_rrn=target)
+    res = gmres(A, b, storage=fmt, m=M, max_iters=max_iters, target_rrn=target,
+                driver=driver)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     err = float(torch.linalg.vector_norm(res.x - x_sol)
                 / torch.linalg.vector_norm(x_sol))
     row = dict(phase=label, n=A.shape[0], format=getattr(fmt, "name", fmt),
-               iters=res.iterations, restarts=res.restarts, rrn=res.rrn,
-               converged=bool(res.converged), x_err=err, wall_s=wall,
+               driver=driver, iters=res.iterations, restarts=res.restarts,
+               rrn=res.rrn, converged=bool(res.converged), x_err=err,
+               wall_s=wall, wall_per_iter_ms=wall * 1e3 / max(res.iterations, 1),
                bytes_read=res.bytes_read,
                bytes_read_per_s=res.bytes_read / wall, op_reads=res.op_reads,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=launches)
     emit(row)
     return res, row
+
+
+def _check_launches(row, path, what):
+    """Every kernel of ``path`` launched; no other FRSZ2 kernel did."""
+    lc = row["launches"]
+    check(all(lc[k] > 0 for k in path), f"{what} skipped a kernel: {lc}")
+    check(not any(v for k, v in lc.items()
+                  if k.startswith("frsz2_") and k not in path),
+          f"{what} launched a kernel off its path: {lc}")
+
+
+def _check_drivers_agree(dev_res, host_res, dev_row, host_row, what):
+    import torch
+
+    for key in ("iters", "restarts", "bytes_read", "op_reads"):
+        check(dev_row[key] == host_row[key],
+              f"{what}: device driver {key} {dev_row[key]} != host "
+              f"{host_row[key]}")
+    rel = float(torch.linalg.vector_norm(dev_res.x - host_res.x)
+                / torch.linalg.vector_norm(host_res.x))
+    check(rel <= 1e-10, f"{what}: device x vs host x relative {rel:.3e}")
+    return rel
 
 
 def phase_solve():
@@ -317,48 +496,80 @@ def phase_solve():
 
     A, target = make_problem("synth:atmosmod", 8000, device="cuda")
     b, x_sol = rhs_for(A, device="cuda")
-    k1, rk1 = _solve_row("solve", A, b, x_sol, "frsz2_32", target, 20000)
-    k2, _ = _solve_row("solve", A, b, x_sol, "frsz2_32", target, 20000)
+    rows = {}
+    for fmt in ("frsz2_32", "float64"):
+        h, rh = _solve_row("solve", A, b, x_sol, fmt, target, 20000, "host")
+        d1, rd1 = _solve_row("solve-capture", A, b, x_sol, fmt, target, 20000,
+                             "device")
+        d2, rd2 = _solve_row("solve", A, b, x_sol, fmt, target, 20000,
+                             "device")
+        check(d1.converged and h.converged, f"n=8000 {fmt} did not converge")
+        check(rd1["x_err"] < 1e-6, f"n=8000 {fmt} solution error "
+                                   f"{rd1['x_err']:.3e}")
+        rel = _check_drivers_agree(d1, h, rd1, rh, f"n=8000 {fmt}")
+        check(d1.iterations == d2.iterations and torch.equal(d1.x, d2.x),
+              f"n=8000 {fmt}: two device solves differ: not deterministic")
+        rows[fmt] = (h, rh, d2, rd2)
+        print(f"[solve] {fmt}: device {d1.iterations} it = host "
+              f"{h.iterations} it, x rel diff {rel:.3e}, two device solves "
+              "bit-equal")
+    _check_launches(rows["frsz2_32"][1], HOST_PATH, "n=8000 host frsz2_32")
+    _check_launches(rows["frsz2_32"][3], DEVICE_PATH, "n=8000 device frsz2_32")
+    _check_launches(rows["float64"][3], ("ell_spmv", "gmres_givens"),
+                    "n=8000 device float64")
     plain = format_by_name("frsz2_32", use_kernels=False)
-    p, rp = _solve_row("solve-plain", A, b, x_sol, plain, target, 20000)
-    _solve_row("solve", A, b, x_sol, "float64", target, 20000)
-    check(k1.converged and p.converged, "n=8000 frsz2_32 solve did not converge")
-    check(k1.x.shape == x_sol.shape and rk1["x_err"] < 1e-6,
-          f"n=8000 frsz2_32 solution error {rk1['x_err']:.3e}")
-    check(abs(k1.iterations - p.iterations) <= 1,
-          f"kernel route {k1.iterations} vs plain {p.iterations} iterations")
-    check(k1.iterations == k2.iterations and torch.equal(k1.x, k2.x),
-          "two kernel-route solves differ: not deterministic")
-    check(all(v > 0 for v in rk1["launches"].values()),
-          f"kernel route skipped a kernel: {rk1['launches']}")
-    check(not any(rp["launches"].values()),
-          f"plain route launched kernels: {rp['launches']}")
-    print(f"[solve] kernel {k1.iterations} it, plain {p.iterations} it, "
-          "two kernel runs bit-equal")
+    p, rp = _solve_row("solve-plain", A, b, x_sol, plain, target, 20000,
+                       "host")
+    k = rows["frsz2_32"][0]
+    check(p.converged, "n=8000 plain-route solve did not converge")
+    check(abs(k.iterations - p.iterations) <= 1,
+          f"kernel route {k.iterations} vs plain {p.iterations} iterations")
+    check(not any(v for kk, v in rp["launches"].items()
+                  if kk.startswith("frsz2_")),
+          f"plain route launched FRSZ2 kernels: {rp['launches']}")
+    print(f"[solve] kernel route {k.iterations} it, plain route "
+          f"{p.iterations} it")
 
 
-def phase_full_width():
+def phase_full_width(A, target):
+    """Each path's full-width frsz2_32 solve, counts read just after it:
+    returns the launches per kernel from the path that runs it."""
     import torch
 
-    from repro_torch.sparse import make_problem, rhs_for
+    from repro_torch.sparse import rhs_for
 
-    t0 = time.perf_counter()
-    A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
     b, x_sol = rhs_for(A, device="cuda")
-    torch.cuda.synchronize()
-    print(f"[full] n={A.shape[0]} nnz={A.nnz} set up in "
-          f"{time.perf_counter() - t0:.1f} s")
-    rows = {}
+    launches = {}
     for fmt in ("float64", "frsz2_32"):
-        res, rows[fmt] = _solve_row("full", A, b, x_sol, fmt, target,
-                                    FULL_MAX_ITERS)
-        check(bool(torch.isfinite(res.x).all()) and res.rrn < 1.0,
-              f"{fmt} full-width solve did not reduce the residual")
-    check(all(v > 0 for v in rows["frsz2_32"]["launches"].values()),
-          f"frsz2_32 main path skipped a kernel: {rows['frsz2_32']['launches']}")
-    check(not any(rows["float64"]["launches"].values()),
-          f"float64 solve launched FRSZ2 kernels: {rows['float64']['launches']}")
-    return rows["frsz2_32"]["launches"]
+        h, rh = _solve_row("full", A, b, x_sol, fmt, target, FULL_MAX_ITERS,
+                           "host")
+        d1, rd1 = _solve_row("full-capture", A, b, x_sol, fmt, target,
+                             FULL_MAX_ITERS, "device")
+        d2, rd2 = _solve_row("full", A, b, x_sol, fmt, target,
+                             FULL_MAX_ITERS, "device")
+        for res in (h, d1, d2):
+            check(bool(torch.isfinite(res.x).all()) and res.rrn < 1.0,
+                  f"{fmt} full-width solve did not reduce the residual")
+        rel = _check_drivers_agree(d2, h, rd2, rh, f"full-width {fmt}")
+        check(torch.equal(d1.x, d2.x), f"full-width {fmt}: two device "
+                                       "solves differ")
+        print(f"[full] {fmt}: device {d2.iterations} it = host "
+              f"{h.iterations} it, x rel diff {rel:.3e}; walls host "
+              f"{rh['wall_s']:.4f} s, device first {rd1['wall_s']:.4f} s, "
+              f"second {rd2['wall_s']:.4f} s; peak memory device "
+              f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB")
+        if fmt == "float64":
+            _check_launches(rh, ("ell_spmv",), "float64 host solve")
+            _check_launches(rd2, ("ell_spmv", "gmres_givens"),
+                            "float64 device solve")
+        else:
+            _check_launches(rh, HOST_PATH, "frsz2_32 host solve (slice 1)")
+            _check_launches(rd2, DEVICE_PATH, "frsz2_32 device solve (slice 2)")
+            launches = {k: rh["launches"][k] for k in HOST_PATH}
+            launches.update({k: rd2["launches"][k] for k in DEVICE_PATH})
+            paths = {k: "host" for k in HOST_PATH}
+            paths.update({k: "device" for k in DEVICE_PATH})
+    return launches, paths
 
 
 def main() -> int:
@@ -371,14 +582,24 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.sparse import make_problem
+
     t_start = time.perf_counter()
     phase_build()
     phase_device()
+    t0 = time.perf_counter()
+    A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[setup] n={A.shape[0]} nnz={A.nnz} in "
+          f"{time.perf_counter() - t0:.1f} s")
     entries = phase_kernels()
+    entries.update(phase_ell(A))
+    entries.update(phase_givens())
     phase_solve()
-    launches = phase_full_width()
+    launches, paths = phase_full_width(A, target)
     for name, e in entries.items():
         e["launches"] = launches[name]
+        e["path"] = paths[name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     emit({"kernels": list(entries.values())})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,14 +2,15 @@
 
 A second package beside the JAX reference ``repro``: it imports neither JAX
 nor ``repro``.  Entry points run on CUDA unless the caller asks for the CPU;
-on the card the FRSZ2 basis is written, read, dotted and combined by
-hand-written CUDA kernels (``kernels/csrc``), on the CPU by their plain
-PyTorch versions.
+on the card the FRSZ2 basis is written, read, dotted and combined, and the
+operator applied, by hand-written CUDA kernels (``kernels/csrc``), on the
+CPU by their plain PyTorch versions.
 
   core     — FRSZ2 codec and the Accessor storage formats
   kernels  — Hopper kernels, their plain versions, the wrappers, the build
   sparse   — CSR/ELL operators and the synthetic problem suite
-  solver   — restarted (CB-)GMRES and its pipeline stages
+  solver   — restarted (CB-)GMRES (device and host drivers) and its
+             pipeline stages
   dist     — the reduction context (local only so far)
   launch   — ``python -m repro_torch.launch.solve``
   convert  — numpy hand-over of operators and stores to/from the JAX package

@@ -13,6 +13,8 @@ A :class:`BasisAccessor` manages a *row basis* ``V`` of fixed capacity
   * ``read_row(store, j)``       — random access decompress of one row
   * ``dots(store, w, rows)``     — ``V[:rows] @ w``   (orthogonalization)
   * ``combine(store, h)``        — ``h @ V[:len(h)]`` (update / solution)
+  * ``operand(store, j)``        — row j as an SpMV operand: FRSZ2 rows stay
+    coded (the ELL kernel decodes each gathered entry), others are read
 
 Unlike the JAX package, whose stores are immutable pytrees, the port updates
 in place: ``write_row`` writes into the store's row ``j`` and returns
@@ -106,6 +108,11 @@ class StorageFormat:
 
     def read_all(self, store, arith_dtype, n: int):  # pragma: no cover
         raise NotImplementedError
+
+    def operand(self, store, j: int, arith_dtype, n: int):
+        """Row ``j`` in the form an operator's matvec takes it: by default
+        the row read in the arithmetic dtype."""
+        return self.read_row(store, j, arith_dtype, n)
 
     def dots(self, store, w, arith_dtype, n: int, rows: int):
         """h = V[:rows] @ w."""
@@ -222,6 +229,16 @@ class FrszFormat(StorageFormat):
         return ops.decompress(self._as_bc(store, n),
                               kernel=self.use_kernels).to(arith_dtype)
 
+    def operand(self, store, j: int, arith_dtype, n: int):
+        """The coded row itself, where the ELL kernel can decode it (the
+        spec holds the arithmetic dtype and is inside the kernel contract,
+        and the plain route is not forced); else the row read."""
+        if (self.use_kernels is False or self.spec.dtype != arith_dtype
+                or not ops.kernel_supported(self.spec)):
+            return self.read_row(store, j, arith_dtype, n)
+        return F.BlockCompressed(codes=store["codes"][j],
+                                 exps=store["exps"][j], n=n, spec=self.spec)
+
     def dots(self, store, w, arith_dtype, n: int, rows: int):
         bc = self._as_bc(self.take(store, rows), n)
         return ops.matvec(bc, w.to(self.spec.dtype),
@@ -298,6 +315,10 @@ class MixedFormat(StorageFormat):
         fmt, sub, jj = self._locate(store, j)
         return fmt.read_row(sub, jj, arith_dtype, n)
 
+    def operand(self, store, j: int, arith_dtype, n: int):
+        fmt, sub, jj = self._locate(store, j)
+        return fmt.operand(sub, jj, arith_dtype, n)
+
     def read_all(self, store, arith_dtype, n: int):
         return torch.cat(
             [self.head.read_all(store["head"], arith_dtype, n),
@@ -355,6 +376,10 @@ class BasisAccessor:
 
     def read_all(self, store):
         return self.fmt.read_all(store, self.arith_dtype, self.n)
+
+    def operand(self, store, j: int):
+        """Row j as an operator's matvec takes it (coded for FRSZ2)."""
+        return self.fmt.operand(store, j, self.arith_dtype, self.n)
 
     def dots(self, store, w, rows: int | None = None):
         """h = V[:rows] @ w (orthogonalization dot products)."""
@@ -460,14 +485,14 @@ def _build_mixed(name, *, arith_dtype=torch.float64, target_rrn=None, m=None,
 def _build_sharded(name, **ctx):
     raise NotImplementedError(
         f"{name!r}: sharded basis storage is not ported yet "
-        "(ROADMAP.md, open item 1, queue 11: multi-GPU)")
+        "(ROADMAP.md, open item 1: slice 5, multi-GPU)")
 
 
 @register_format("emul")
 def _build_emul(name, **ctx):
     raise NotImplementedError(
         f"{name!r}: the SZ/SZ3/ZFP emulator formats are not ported yet "
-        "(ROADMAP.md, open item 1, queue 5: core/emulators.py)")
+        "(ROADMAP.md, open item 1: slice 3, core/emulators.py)")
 
 
 def format_by_name(name: str, *, arith_dtype=torch.float64, bs: int = 32,

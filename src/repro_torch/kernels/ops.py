@@ -1,4 +1,4 @@
-"""Public wrappers of the FRSZ2 kernels: route, validate, allocate, count.
+"""Public wrappers of the Hopper kernels: route, validate, allocate, count.
 
 Routing follows the JAX package's kernel contract (``kernel_supported``,
 the same answer as ``repro/kernels/ops.py:60``):
@@ -12,9 +12,10 @@ the same answer as ``repro/kernels/ops.py:60``):
 
 ``kernel=False`` forces the plain version on the card too, so that
 ``chip_smoke.py`` can compare the two routes there; ``kernel=True`` on a CPU
-tensor raises.  Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it
-launches its kernel, and nowhere else, so a run can show which kernels its
-main path went through.
+tensor raises.  The ELL SpMV and the Givens step of the GMRES cycle route
+the same way, by the device of their tensors.  Each wrapper adds one to
+``LAUNCHES[<kernel>]`` where it launches its kernel, and nowhere else, so a
+run can show which kernels its main path went through.
 
 Outputs are allocated with ``torch.empty`` and launched on the current
 stream.  ``compress`` can write into caller-given code/exponent rows (a basis
@@ -28,11 +29,12 @@ from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "kernel_supported", "compress",
-           "decompress", "matvec", "rmatvec"]
+           "decompress", "matvec", "rmatvec", "ell_spmv", "givens_step"]
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"frsz2_compress": 0, "frsz2_decompress": 0, "frsz2_matvec": 0,
-            "frsz2_rmatvec": 0}
+            "frsz2_rmatvec": 0, "ell_spmv": 0, "ell_spmv_frsz2": 0,
+            "gmres_givens": 0}
 
 
 def reset_launches() -> None:
@@ -45,8 +47,10 @@ def kernel_supported(spec: F.FrszSpec) -> bool:
     return spec.aligned and spec.l <= 32 and 128 % spec.bs == 0
 
 
-def _use_kernel(t: torch.Tensor, spec: F.FrszSpec, kernel: bool | None) -> bool:
-    if kernel is False or not kernel_supported(spec):
+def _use_kernel(t: torch.Tensor, spec: F.FrszSpec | None,
+                kernel: bool | None) -> bool:
+    """``spec=None``: a kernel with no codec contract (ELL, Givens step)."""
+    if kernel is False or (spec is not None and not kernel_supported(spec)):
         return False
     if t.is_cuda:
         return True
@@ -65,6 +69,16 @@ def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+_FLOATS = (torch.float32, torch.float64)
+
+
+def _check_value_dtype(spec: F.FrszSpec, what: str) -> None:
+    if spec.dtype not in _FLOATS:
+        raise NotImplementedError(
+            f"fused {F.dtype_name(spec.dtype)} {what} have no kernel: the "
+            "solver builds f32/f64 specs only")
+
+
 def _check_basis(bc: F.BlockCompressed):
     spec = bc.spec
     if bc.codes.ndim != 3:
@@ -74,10 +88,7 @@ def _check_basis(bc: F.BlockCompressed):
     dev = bc.codes.device
     _expect(bc.codes, "codes", (m, nb, spec.bs), F.code_dtype(spec.l), dev)
     _expect(bc.exps, "exps", (m, nb), torch.int32, dev)
-    if spec.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"fused {F.dtype_name(spec.dtype)} contractions have no kernel: the "
-            "solver builds f32/f64 specs only")
+    _check_value_dtype(spec, "contractions")
     return m, nb
 
 
@@ -206,3 +217,89 @@ def rmatvec(bc: F.BlockCompressed, h: torch.Tensor, *,
     KD.rmatvec_2d(bc.codes.view(m, nb * spec.bs), bc.exps, hs, y, spec)
     LAUNCHES["frsz2_rmatvec"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# ELL SpMV, dense or FRSZ2-coded operand
+# ---------------------------------------------------------------------------
+
+
+def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x, *,
+             kernel: bool | None = None) -> torch.Tensor:
+    """``y (nr,) = ELL(vals, cols) @ x``; ``x`` is a dense ``(nc,)`` vector or
+    an FRSZ2 :class:`~repro_torch.core.frsz2.BlockCompressed` one, decoded
+    entry by entry inside the kernel.  ``vals`` (nr, w) f32/f64, ``cols``
+    (nr, w) int32 with every entry in ``[0, nc)``.
+    """
+    coded = isinstance(x, F.BlockCompressed)
+    if vals.ndim != 2:
+        raise ValueError(f"vals must be (nr, w), got {tuple(vals.shape)}")
+    if coded and (x.codes.ndim != 2 or x.exps.ndim != 1):
+        raise ValueError("a coded operand must be one vector: codes (nb, bs), "
+                         f"exps (nb,); got {tuple(x.codes.shape)}, "
+                         f"{tuple(x.exps.shape)}")
+    if not coded and x.ndim != 1:
+        raise ValueError(f"x must be a vector, got {tuple(x.shape)}")
+    if not _use_kernel(vals, x.spec if coded else None, kernel):
+        if coded:
+            return ref.ell_spmv_frsz2_ref(vals, cols, x)
+        return ref.ell_spmv_ref(vals, cols, x)
+    nr, w = vals.shape
+    dev = vals.device
+    if vals.dtype not in _FLOATS:
+        raise NotImplementedError(f"ELL values of {vals.dtype} have no kernel")
+    _expect(vals, "vals", (nr, w), vals.dtype, dev)
+    _expect(cols, "cols", (nr, w), torch.int32, dev)
+    y = torch.empty((nr,), dtype=vals.dtype, device=dev)
+    if nr == 0 or w == 0:
+        return y.zero_()
+    from repro_torch.kernels import ell_spmv as KE
+
+    if coded:
+        spec = x.spec
+        _check_value_dtype(spec, "operands")
+        nb = x.exps.shape[0]
+        _expect(x.codes, "codes", (nb, spec.bs), F.code_dtype(spec.l), dev)
+        _expect(x.exps, "exps", (nb,), torch.int32, dev)
+        KE.ell_spmv_frsz2_2d(vals, cols, x.codes, x.exps, y, spec)
+        LAUNCHES["ell_spmv_frsz2"] += 1
+    else:
+        xs = x.to(vals.dtype).contiguous()
+        if xs.device != dev:
+            raise ValueError(f"x is on {xs.device}, expected {dev}")
+        KE.ell_spmv_2d(vals, cols, xs, y)
+        LAUNCHES["ell_spmv"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# One Givens step of the GMRES cycle (the device driver's bookkeeping)
+# ---------------------------------------------------------------------------
+
+
+def givens_step(state: torch.Tensor, h: torch.Tensor, hj1: torch.Tensor,
+                w_pre: torch.Tensor, fired: torch.Tensor, b_norm: torch.Tensor,
+                j: int, m: int, target: float, *,
+                kernel: bool | None = None) -> None:
+    """Step ``j`` of the cycle's Givens least squares, in place on the f64
+    ``state`` (layout: :func:`repro_torch.kernels.ref.givens_layout`).  See
+    :func:`repro_torch.kernels.ref.givens_step_ref` for what it computes."""
+    if not 0 <= j < m:
+        raise ValueError(f"step j={j} outside a cycle of m={m}")
+    if not _use_kernel(state, None, kernel):
+        ref.givens_step_ref(state, h, hj1, w_pre, fired, b_norm, j, m, target)
+        return
+    dev = state.device
+    dt = h.dtype
+    if dt not in _FLOATS:
+        raise NotImplementedError(f"a Givens step in {dt} has no kernel")
+    _expect(state, "state", (ref.givens_layout(m)["size"],), torch.float64,
+            dev)
+    _expect(h, "h", (j + 1,), dt, dev)
+    for name, t in (("hj1", hj1), ("w_pre", w_pre), ("b_norm", b_norm)):
+        _expect(t, name, (), dt, dev)
+    _expect(fired, "fired", (), torch.bool, dev)
+    from repro_torch.kernels import gmres_step as KG
+
+    KG.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m, target)
+    LAUNCHES["gmres_givens"] += 1

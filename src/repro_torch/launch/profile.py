@@ -1,9 +1,10 @@
 """Where a solve's time goes on the card: device busy share and kernel times.
 
   python -m repro_torch.launch.profile --problem synth:atmosmod \
-      --n 1270432 --formats float64,frsz2_32
+      --n 1270432 --formats float64,frsz2_32 --driver device
 
-For each format: one warm-up solve, then one solve under ``torch.profiler``
+For each format: one warm-up solve (with ``--driver device`` it captures the
+cycle's CUDA graph), then one solve under ``torch.profiler``
 (CPU + CUDA activities).  Prints the wall time (host clock around work that
 ends in a synchronize), the summed device time of all kernels, their ratio
 (the device busy share; the rest is the card waiting on the host), and the
@@ -23,11 +24,12 @@ from repro_torch.sparse import make_problem, rhs_for
 
 
 def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
-                  top: int = 10) -> dict:
+                  driver: str = "device", top: int = 10) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(storage=fmt, m=m, max_iters=max_iters, target_rrn=target)
+    kw = dict(storage=fmt, m=m, max_iters=max_iters, target_rrn=target,
+              driver=driver)
     gmres(A, b, **kw)                               # warm-up: builds, caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -41,7 +43,7 @@ def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
                if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    return dict(format=fmt, n=A.shape[0], iters=res.iterations,
+    return dict(format=fmt, driver=driver, n=A.shape[0], iters=res.iterations,
                 wall_s=wall, device_s=device_us * 1e-6,
                 device_busy_share=device_us * 1e-6 / wall,
                 wall_per_iter_ms=wall * 1e3 / max(res.iterations, 1),
@@ -57,14 +59,18 @@ def main(argv=None):
     ap.add_argument("--formats", default="float64,frsz2_32")
     ap.add_argument("--m", type=int, default=100)
     ap.add_argument("--max-iters", type=int, default=500)
+    ap.add_argument("--driver", default="device",
+                    help="restart loop(s), comma-separated: device, host")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     A, target = make_problem(args.problem, args.n, device=dev)
     b, _ = rhs_for(A, device=dev)
-    for fmt in args.formats.split(","):
-        print(json.dumps(profile_solve(A, b, fmt, m=args.m,
-                                       max_iters=args.max_iters,
-                                       target=target)), flush=True)
+    for driver in args.driver.split(","):
+        for fmt in args.formats.split(","):
+            print(json.dumps(profile_solve(A, b, fmt, m=args.m,
+                                           max_iters=args.max_iters,
+                                           target=target, driver=driver)),
+                  flush=True)
 
 
 if __name__ == "__main__":

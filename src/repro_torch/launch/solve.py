@@ -6,10 +6,13 @@
 Runs on CUDA by default (FRSZ2 stores then go through the Hopper kernels);
 ``--device cpu`` runs the plain PyTorch versions on the CPU.  The flags and
 the JSON rows are those of ``python -m repro.launch.solve`` for what this
-port has so far.  ``--driver`` defaults to ``host``: the device-resident
-driver is not ported yet.  Pipeline flags: ``--precond jacobi``, ``--ortho
-cgs2``, ``--policy adaptive[:auto|:<ladder>]`` (appends one run whose
-storage format is chosen per restart cycle; its row names the policy).
+port has so far.  ``--driver`` defaults to ``device``, as in the reference:
+each restart cycle runs on the device with no host read (one CUDA graph
+replay per restart on the card); ``--driver host`` runs the host-looped
+parity oracle, one host read per Arnoldi step.  Pipeline flags:
+``--precond jacobi``, ``--ortho cgs2``, ``--policy
+adaptive[:auto|:<ladder>]`` (appends one run whose storage format is
+chosen per restart cycle; its row names the policy).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ def _sync(dev: torch.device) -> None:
 
 def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
                 max_iters: int = 20000, target_rrn: float | None = None,
-                driver: str = "host", precond: str | None = None,
+                driver: str = "device", precond: str | None = None,
                 ortho: str = "mgs", policy: str | None = None,
                 device: str = "cuda", verbose: bool = True):
     dev = resolve_device(device)
@@ -77,8 +80,10 @@ def main(argv=None):
     ap.add_argument("--formats", default="float64,float32,frsz2_32,float16")
     ap.add_argument("--m", type=int, default=100)
     ap.add_argument("--target-rrn", type=float, default=None)
-    ap.add_argument("--driver", choices=["device", "host"], default="host",
-                    help="restart loop; 'device' is not ported yet")
+    ap.add_argument("--driver", choices=["device", "host"], default="device",
+                    help="restart loop: 'device' (one CUDA graph replay per "
+                         "restart cycle) or 'host' (one host read per "
+                         "Arnoldi step)")
     ap.add_argument("--precond", default=None,
                     help="right preconditioner: jacobi (default: none)")
     ap.add_argument("--ortho", choices=["mgs", "cgs2"], default="mgs",

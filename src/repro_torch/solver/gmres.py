@@ -1,7 +1,6 @@
 """Restarted GMRES(m) with a compressed Krylov basis (CB-GMRES, paper Fig. 1).
 
-The port of ``repro/solver/gmres.py``'s host-looped driver, decision for
-decision:
+The port of ``repro/solver/gmres.py``'s two drivers, decision for decision:
 
   * Arnoldi with the orthogonalization expressed as the two Accessor hot
     loops ``h = V_j w`` (dots) and ``w -= V_j^T h`` (combine);
@@ -13,17 +12,30 @@ decision:
     any storage format: float64/float32/float16, FRSZ2 (the Hopper kernels
     on the card), or mixed.
 
-Vectors live on the device of ``b``; the small Hessenberg least-squares
-problem (at most ``(m+1) x m``) lives on the host in f64, so each Arnoldi
-step reads its Hessenberg column once.  Every result carries ``bytes_read``
-(the modelled basis read traffic) and ``op_reads`` (modelled operator
-passes), computed exactly as the reference's host driver computes them.
+Both drivers share the restart loop (:func:`_restart_loop`): the explicit
+residuals, the choice of the stopping iteration ``j_stop``, the back
+substitution on the host in f64, the solution update, the stagnation guard,
+and ``bytes_read`` / ``op_reads`` (the modelled basis and operator traffic,
+computed exactly as the reference computes them).  They differ in the cycle:
 
-The reference's device-resident driver (one ``lax.while_loop``) has no
-counterpart yet: it needs a CUDA-graph capture of one cycle.
+  * ``driver="device"`` (the default, as in the reference): one cycle runs
+    all ``m`` iterations with an ``alive`` mask and no host read, as the
+    reference's ``fori_loop`` does (:func:`_device_cycle`).  On CUDA it is
+    captured once per policy level as a CUDA graph and replayed once per
+    restart; ``R``, ``g``, ``est`` and the extra-sweep count come back in
+    one tensor, one host read per restart.  On the CPU the same cycle runs
+    eagerly.
+  * ``driver="host"``: the cycle loops in Python and reads each step's
+    Hessenberg column on the host (:func:`_cycle`), stopping once ``alive``
+    drops.  It is the parity oracle of the device driver.
+
+The two give the same bits: the device cycle's Givens step
+(``ops.givens_step``) rounds as the host's Python floats do, and both
+drivers normalize basis rows by the same tensor division.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from collections.abc import Callable
@@ -34,19 +46,20 @@ import torch
 
 from repro_torch.core.accessor import BasisAccessor
 from repro_torch.dist.context import LOCAL
+from repro_torch.kernels import ops, ref
 from repro_torch.solver.pipeline import (
+    CallablePreconditioner,
+    IdentityPreconditioner,
+    JacobiPreconditioner,
     orthogonalizer_by_name,
     resolve_policy,
     resolve_preconditioner,
 )
+from repro_torch.sparse.csr import CSR, ELL
 
 __all__ = ["GmresResult", "gmres", "gmres_batched", "cb_gmres"]
 
 _TINY = 1e-300
-
-_DEVICE_DRIVER = ("driver='device' (the device-resident restart loop) is not "
-                  "ported yet: it needs a CUDA-graph capture of one cycle "
-                  "(ROADMAP.md, open item 1, queue 7); use driver='host'")
 
 
 @dataclasses.dataclass
@@ -71,10 +84,22 @@ def _givens(a: float, b: float) -> tuple[float, float]:
     return 1.0, 0.0
 
 
+def _normalized(w: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
+    """``w / max(nrm, tiny)`` for a 0-d ``nrm``: one tensor division, the
+    same in both drivers (on CUDA, dividing by a Python float would multiply
+    by its reciprocal instead, which can differ in the last bit)."""
+    return w / torch.clamp(nrm, min=_TINY)
+
+
+# ---------------------------------------------------------------------------
+# Host-looped cycle (the parity oracle)
+# ---------------------------------------------------------------------------
+
+
 def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
-           beta: float, eta: float, target: float, ortho, precond,
+           beta: torch.Tensor, eta: float, target: float, ortho, precond,
            dist=LOCAL):
-    """One GMRES(m) cycle.  w0 = r0 (unnormalized); beta = ||r0||.
+    """One GMRES(m) cycle.  w0 = r0 (unnormalized); beta = ||r0|| (0-d).
 
     Writes the basis into ``store`` in place and returns ``(R, g, est,
     extra_rows)``: the rotated Hessenberg ``R`` (m+1, m), the rotated rhs
@@ -90,11 +115,11 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
     ``est`` the same way, which gives the same results.
     """
     m = acc.m - 1
-    acc.write_row(store, 0, w0 / max(beta, _TINY))
+    acc.write_row(store, 0, _normalized(w0, beta))
 
     R = np.zeros((m + 1, m))
     g = np.zeros(m + 1)
-    g[0] = beta
+    g[0] = float(beta)
     cs = np.zeros(m)
     sn = np.zeros(m)
     est = np.full(m, np.inf)
@@ -104,13 +129,13 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
         v = acc.read_row(store, j)
         w = matvec(precond.apply(v)).to(acc.arith_dtype)
         w_pre = dist.norm(w)
-        w, h, hj1, fired = ortho(acc, store, w, j + 1, eta, dist, w_pre)
+        w, h, hj1_t, fired = ortho(acc, store, w, j + 1, eta, dist, w_pre)
         extra_rows += fired * (j + 1)
 
         *col, hj1, w_pre = torch.cat(
-            [h, torch.stack([hj1, w_pre])]).tolist()  # one host read per step
+            [h, torch.stack([hj1_t, w_pre])]).tolist()  # one host read per step
         breakdown = hj1 <= 1e-30 * w_pre + _TINY
-        acc.write_row(store, j + 1, w / max(hj1, _TINY))
+        acc.write_row(store, j + 1, _normalized(w, hj1_t))
 
         # Hessenberg column = [h_{1:j,j}; h_{j+1,j}] then apply rotations
         col.append(hj1)
@@ -136,9 +161,176 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
     return R, g, est, extra_rows
 
 
+# ---------------------------------------------------------------------------
+# Device cycle: all m iterations, no host read, one CUDA graph per level
+# ---------------------------------------------------------------------------
+
+
+def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
+                  r, beta, b_norm, eta: float, target: float, ortho, precond,
+                  fused: bool, dist=LOCAL) -> None:
+    """One GMRES(m) cycle with no host read (the reference's ``_cycle``).
+
+    ``r``, ``beta`` and ``b_norm`` are tensors (``beta``, ``b_norm`` 0-d);
+    the basis goes into ``store`` and the least squares into ``state`` (f64,
+    laid out as :func:`repro_torch.kernels.ref.givens_layout`), both in
+    place.  All ``m`` iterations run: once ``alive`` drops (the estimate met
+    ``target``, or a breakdown), the Givens step takes no more columns and
+    repeats the last ``est``.  ``fused``: the operator reads each FRSZ2
+    basis row as codes (the ELL kernel decodes in registers) instead of a
+    decompressed row; it needs the operator's own matvec and no
+    preconditioner, and gives the same bits.
+    """
+    m = acc.m - 1
+    L = ref.givens_layout(m)
+    acc.write_row(store, 0, _normalized(r, beta))
+    state.copy_(init)
+    state[L["g"]].copy_(beta)
+    for j in range(m):
+        if fused:
+            w = matvec(acc.operand(store, j))
+        else:
+            w = matvec(precond.apply(acc.read_row(store, j)))
+        w = w.to(acc.arith_dtype)
+        w_pre = dist.norm(w)
+        w, h, hj1, fired = ortho.branch_free(acc, store, w, j + 1, eta, dist,
+                                             w_pre)
+        acc.write_row(store, j + 1, _normalized(w, hj1))
+        ops.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m, target)
+
+
+class _DeviceCycle:
+    """The device cycle of one policy level, with its own basis store, its
+    least-squares state and static inputs.
+
+    On CUDA the first call runs the cycle once on a side stream (every
+    kernel library is then built and loaded, cuBLAS has its workspace),
+    captures it as a CUDA graph and keeps the kernel launches the capture
+    counted; every call then copies its inputs into the static ones,
+    replays the graph and adds those launches to ``ops.LAUNCHES`` (a replay
+    runs no Python, so it would count nothing).  A failed capture or replay
+    raises.  On the CPU every call runs the cycle eagerly.
+    """
+
+    def __init__(self, matvec, acc: BasisAccessor, eta: float, target: float,
+                 ortho, precond, fused: bool, pins=()):
+        m = acc.m - 1
+        self.acc = acc
+        self.store = acc.empty()
+        self.init = ref.givens_init_ref(m, acc.device)
+        self.state = torch.empty_like(self.init)
+        ad, dev = acc.arith_dtype, self.init.device
+        self.r = torch.empty((acc.n,), dtype=ad, device=dev)
+        self.beta = torch.empty((), dtype=ad, device=dev)
+        self.b_norm = torch.empty((), dtype=ad, device=dev)
+        self._args = (matvec, eta, target, ortho, precond, fused)
+        self.pins = pins            # keeps the tensors the graph reads alive
+        self.graph = None
+        self.launches: dict[str, int] = {}
+
+    def _run(self) -> None:
+        matvec, eta, target, ortho, precond, fused = self._args
+        _device_cycle(matvec, self.acc, self.store, self.state, self.init,
+                      self.r, self.beta, self.b_norm, eta, target, ortho,
+                      precond, fused)
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._run()                       # warm-up: real launches
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(ops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._run()
+        self.launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        ops.LAUNCHES.update(before)           # a capture launches nothing
+        self.graph = graph
+
+    def __call__(self, r, beta, b_norm):
+        self.r.copy_(r)
+        self.beta.copy_(beta)
+        self.b_norm.copy_(b_norm)
+        if self.state.is_cuda:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            for k, v in self.launches.items():
+                ops.LAUNCHES[k] += v
+        else:
+            self._run()
+        m = self.acc.m - 1
+        L = ref.givens_layout(m)
+        # one host read per restart; a copy, since on the CPU .cpu() would
+        # hand back the state itself, which the next cycle overwrites
+        out = self.state[:L["cs"]].cpu().numpy().copy()
+        return (out[:L["g"]].reshape(m + 1, m), out[L["g"]:L["est"]],
+                out[L["est"]:L["extra"]], int(out[L["extra"]]))
+
+
+#: captured cycles, least recently used first.  A graph reads its operator,
+#: preconditioner and store by address, so the key is the identity of those
+#: tensors (never a content fingerprint: an equal matrix elsewhere would be
+#: read through stale pointers) and the entry pins them.
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_SIZE = 8
+
+
+def _operator_key(A, user_matvec):
+    """What the captured cycle reads through the operator: key and pins."""
+    if user_matvec is not None:
+        return ("matvec", id(user_matvec)), (user_matvec,)
+    ell = A._ell() if isinstance(A, CSR) else A
+    if isinstance(ell, ELL):
+        return ("ell", id(ell.vals), id(ell.cols)), (A, ell.vals, ell.cols)
+    return ("obj", id(A)), (A,)
+
+
+def _precond_key(p):
+    if isinstance(p, IdentityPreconditioner):
+        return ("identity",), ()
+    if isinstance(p, JacobiPreconditioner):
+        return ("jacobi", id(p.inv_diag)), (p.inv_diag,)
+    if isinstance(p, CallablePreconditioner):
+        return ("fn", id(p.fn)), (p.fn,)
+    return ("obj", id(p)), (p,)
+
+
+def _device_cycle_for(A, user_matvec, matvec, acc, eta, target, ortho,
+                      precond, fused) -> _DeviceCycle:
+    """The level's cycle: on CUDA from the cache (captured on first use),
+    on the CPU a fresh one."""
+    if torch.device(acc.device).type != "cuda":
+        return _DeviceCycle(matvec, acc, eta, target, ortho, precond, fused)
+    op_key, op_pins = _operator_key(A, user_matvec)
+    pc_key, pc_pins = _precond_key(precond)
+    key = (op_key, pc_key, acc.fmt, acc.m, acc.n, acc.arith_dtype,
+           str(torch.device(acc.device)), type(ortho), ortho.name,
+           float(eta), float(target), fused)
+    cyc = _GRAPHS.get(key)
+    if cyc is not None:
+        _GRAPHS.move_to_end(key)
+        return cyc
+    cyc = _GRAPHS[key] = _DeviceCycle(matvec, acc, eta, target, ortho,
+                                      precond, fused, op_pins + pc_pins)
+    while len(_GRAPHS) > _GRAPHS_SIZE:
+        _GRAPHS.popitem(last=False)
+    return cyc
+
+
+# ---------------------------------------------------------------------------
+# The restart loop both drivers share
+# ---------------------------------------------------------------------------
+
+
 def _solve_and_update(acc: BasisAccessor, store, R, g, j_stop: int, x0,
                       precond):
-    """y = argmin ||beta e1 - H y|| (truncated at j_stop), x = x0 + M^{-1}V y."""
+    """y = argmin ||beta e1 - H y|| (truncated at j_stop), x = x0 + M^{-1}V y.
+
+    Only the live rows ``y[:j_stop]`` are combined: rows past ``j_stop`` may
+    hold non-finite values after a breakdown, and a zero coefficient would
+    not keep them out (0 * inf is nan)."""
     m = acc.m - 1
     active = np.arange(m) < j_stop
     # back substitution on the leading (j_stop, j_stop) block of R
@@ -163,14 +355,21 @@ def _cycle_row_reads(j_stop: int, passes: int, extra_rows: int = 0) -> int:
     return j_stop * (2 + passes * (j_stop + 1)) + extra_rows
 
 
-def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
-                ortho, precond, x0=None, dist=LOCAL) -> GmresResult:
+def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
+                  precond, cycle_for, x0=None, dist=LOCAL) -> GmresResult:
+    """Restart until converged, stagnated or out of iterations.
+
+    ``cycle_for(lvl)`` returns ``(store, run)`` for a policy level:
+    ``run(r, beta, b_norm, b_norm_f)`` runs one cycle (``beta``, ``b_norm``
+    0-d tensors, ``b_norm_f`` the same as a float) and returns ``(R, g,
+    est, extra_rows)`` on the host.
+    """
     arith_dtype = accs[0].arith_dtype
     b = b.to(arith_dtype)
-    b_norm = dist.norm(b).item()
+    b_norm_t = dist.norm(b)
+    b_norm = b_norm_t.item()
     x = torch.zeros_like(b) if x0 is None else x0.to(arith_dtype)
 
-    stores: dict[int, Any] = {}         # one store per policy level, on use
     history: list[np.ndarray] = []
     restart_rrns: list[float] = []
     total_iters = 0
@@ -185,7 +384,8 @@ def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
 
     while total_iters < max_iters and not converged:
         r = b - matvec(x).to(arith_dtype)
-        beta = dist.norm(r).item()
+        beta_t = dist.norm(r)
+        beta = beta_t.item()
         restart_rrns.append(beta / b_norm)
         op_reads += 1.0
         rrn = restart_rrns[-1]
@@ -194,15 +394,12 @@ def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
             break
         lvl = int(policy.level(restart_rrns[-1], len(restart_rrns) - 1))
         acc = accs[lvl]
-        if lvl not in stores:
-            stores[lvl] = acc.empty()
-        R, g, est, extra_rows = _cycle(matvec, acc, b_norm, stores[lvl], r,
-                                       beta, eta, target_rrn, ortho, precond,
-                                       dist)
+        store, run = cycle_for(lvl)
+        R, g, est, extra_rows = run(r, beta_t, b_norm_t, b_norm)
         # first inner iteration that met the target (1-based count)
         hit = np.nonzero(est <= target_rrn)[0]
         j_stop = int(hit[0]) + 1 if hit.size else m
-        x = _solve_and_update(acc, stores[lvl], R, g, j_stop, x, precond)
+        x = _solve_and_update(acc, store, R, g, j_stop, x, precond)
         history.append(est[:j_stop])
         total_iters += j_stop
         bytes_read += _cycle_row_reads(j_stop, ortho.passes, extra_rows) * (
@@ -239,6 +436,43 @@ def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
     )
 
 
+def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
+                ortho, precond, x0=None, dist=LOCAL) -> GmresResult:
+    stores: dict[int, Any] = {}         # one store per policy level, on use
+
+    def cycle_for(lvl):
+        acc = accs[lvl]
+        if lvl not in stores:
+            stores[lvl] = acc.empty()
+        store = stores[lvl]
+
+        def run(r, beta, b_norm, b_norm_f):
+            return _cycle(matvec, acc, b_norm_f, store, r, beta, eta,
+                          target_rrn, ortho, precond, dist)
+        return store, run
+
+    return _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn,
+                         ortho, precond, cycle_for, x0=x0, dist=dist)
+
+
+def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
+                  target_rrn, eta, ortho, precond, x0=None) -> GmresResult:
+    fused = (user_matvec is None
+             and isinstance(precond, IdentityPreconditioner))
+    cycles: dict[int, _DeviceCycle] = {}
+
+    def cycle_for(lvl):
+        cyc = cycles.get(lvl)
+        if cyc is None:
+            cyc = cycles[lvl] = _device_cycle_for(
+                A, user_matvec, matvec, accs[lvl], eta, target_rrn, ortho,
+                precond, fused)
+        return cyc.store, lambda r, beta, b_norm, _: cyc(r, beta, b_norm)
+
+    return _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn,
+                         ortho, precond, cycle_for, x0=x0)
+
+
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
@@ -261,7 +495,7 @@ def gmres(
     arith_dtype: Any = None,
     eta: float = 0.7071067811865475,
     matvec: Callable | None = None,
-    driver: str = "host",
+    driver: str = "device",
     shard: int | None = None,
     reorder: str = "auto",
 ) -> GmresResult:
@@ -276,28 +510,31 @@ def gmres(
     :class:`~repro_torch.solver.pipeline.Preconditioner`; ``ortho`` is
     'mgs' or 'cgs2'.
 
-    ``driver`` is ``"host"`` (the host-looped driver, one host read per
-    Arnoldi step); ``"device"`` is not ported yet and raises.  ``shard`` and
-    ``reorder="rcm"`` are not ported yet either; ``reorder="auto"`` is a
-    no-op off the sharded path, as in the reference.
+    ``driver`` is ``"device"`` (default: each restart cycle runs on the
+    device with no host read, replayed as one CUDA graph per policy level on
+    the card, one host read per restart) or ``"host"`` (the host-looped
+    parity oracle, one host read per Arnoldi step).  Both give the same
+    iterations, ``bytes_read`` and ``op_reads``.  ``shard`` and
+    ``reorder="rcm"`` are not ported yet; ``reorder="auto"`` is a no-op off
+    the sharded path, as in the reference.
     """
-    if driver == "device":
-        raise NotImplementedError(_DEVICE_DRIVER)
-    if driver != "host":
-        raise ValueError(f"unknown driver {driver!r}")
+    if driver not in ("device", "host"):
+        raise ValueError(f"unknown driver {driver!r}; "
+                         "expected one of ('device', 'host')")
     if shard is not None:
         raise NotImplementedError(
             "shard= (the multi-GPU solve) is not ported yet "
-            "(ROADMAP.md, open item 1, queue 11)")
+            "(ROADMAP.md, open item 1: slice 5)")
     if reorder not in _REORDERS:
         raise ValueError(f"unknown reorder mode {reorder!r}; "
                          f"expected one of {_REORDERS}")
     if reorder == "rcm":
         raise NotImplementedError(
             "reorder='rcm' (operator planning) is not ported yet "
-            "(ROADMAP.md, open item 1, queue 10)")
+            "(ROADMAP.md, open item 1: slice 4)")
     if arith_dtype is None:
         arith_dtype = b.dtype
+    user_matvec = matvec
     if matvec is None:
         matvec = A.matvec
     policy = resolve_policy(policy, storage, arith_dtype, target_rrn, m)
@@ -307,15 +544,19 @@ def gmres(
         for f in policy.formats())
     precond = resolve_preconditioner(precond, A)
     ortho = orthogonalizer_by_name(ortho)
-    return _gmres_host(matvec, accs, policy, b.to(arith_dtype), m, max_iters,
-                       target_rrn, eta, ortho, precond, x0=x0)
+    b = b.to(arith_dtype)
+    if driver == "host":
+        return _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn,
+                           eta, ortho, precond, x0=x0)
+    return _gmres_device(A, user_matvec, matvec, accs, policy, b, m,
+                         max_iters, target_rrn, eta, ortho, precond, x0=x0)
 
 
 def gmres_batched(A, B, **kw):
     """Several right-hand sides at once: not ported yet."""
     raise NotImplementedError(
         "gmres_batched (vmap and block multi-RHS) is not ported yet "
-        "(ROADMAP.md, open item 1, queues 7 and 9)")
+        "(ROADMAP.md, open item 1: slice 3)")
 
 
 def cb_gmres(A, b, storage="frsz2_32", **kw) -> GmresResult:

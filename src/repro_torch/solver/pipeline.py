@@ -11,9 +11,13 @@ The port of ``repro/solver/pipeline.py`` (scalar part):
   * :class:`PrecisionPolicy` — which storage format holds the Krylov basis,
     chosen per restart cycle from the explicit restart residual.
 
+Each orthogonalizer has two forms.  ``__call__`` is the host driver's:
 PyTorch runs eagerly, so MGS reads its ``fired`` flag on the host once per
-iteration and runs the second pass only when it fires (the reference
-selects between the two with ``lax.cond``); every result is the same.
+iteration and runs the second pass only when it fires.  ``branch_free`` is
+the device driver's, with no host read, so that a CUDA graph can hold it:
+MGS always runs the second pass and selects its results with ``fired`` (a
+0-d device tensor), as the reference's ``lax.cond`` selects.  Both give the
+same bits.
 """
 from __future__ import annotations
 
@@ -66,6 +70,12 @@ class Orthogonalizer:
                  w_norm=None):  # pragma: no cover
         raise NotImplementedError
 
+    def branch_free(self, acc, store, w, rows, eta, dist=LOCAL,
+                    w_norm=None):  # pragma: no cover
+        """As ``__call__`` with no host read: ``fired`` is a 0-d bool tensor
+        on the device of ``w``."""
+        raise NotImplementedError
+
 
 class MGSOrthogonalizer(Orthogonalizer):
     """Seed scheme: one-shot dots/combine + conditional re-orthogonalization
@@ -87,6 +97,20 @@ class MGSOrthogonalizer(Orthogonalizer):
             hj1 = dist.norm(w)
         return w, h, hj1, int(fired)
 
+    def branch_free(self, acc, store, w, rows, eta, dist=LOCAL, w_norm=None):
+        w_pre = dist.norm(w) if w_norm is None else w_norm
+        h = acc.dots(store, w, rows)
+        w = w - acc.combine(store, h)
+        hj1 = dist.norm(w)
+        fired = hj1 < eta * w_pre
+        # the second pass always runs; where it does not fire, torch.where
+        # keeps the first pass's bits (a zero coefficient would not: 0 * inf
+        # is nan once a breakdown has put non-finite rows in the basis)
+        u = acc.dots(store, w, rows)
+        w2 = w - acc.combine(store, u)
+        return (torch.where(fired, w2, w), torch.where(fired, h + u, h),
+                torch.where(fired, dist.norm(w2), hj1), fired)
+
 
 class CGS2Orthogonalizer(Orthogonalizer):
     """Classical Gram-Schmidt, applied twice unconditionally (CGS-2)."""
@@ -101,6 +125,10 @@ class CGS2Orthogonalizer(Orthogonalizer):
         w = w - acc.combine(store, u)
         # both sweeps are already in the nominal `passes`: no extras
         return w, h + u, dist.norm(w), 0
+
+    def branch_free(self, acc, store, w, rows, eta, dist=LOCAL, w_norm=None):
+        w, h, hj1, _ = self(acc, store, w, rows, eta, dist, w_norm)
+        return w, h, hj1, torch.zeros((), dtype=torch.bool, device=w.device)
 
 
 _ORTHOGONALIZERS = {"mgs": MGSOrthogonalizer, "cgs2": CGS2Orthogonalizer}
@@ -147,12 +175,19 @@ class JacobiPreconditioner(Preconditioner):
 
     @classmethod
     def from_operator(cls, A) -> JacobiPreconditioner:
+        """Built once per operator object and kept on it, so that repeated
+        solves hand the device driver the same tensor (its captured cycle
+        reads ``inv_diag`` by address)."""
+        p = getattr(A, "_jacobi", None)
+        if p is not None:
+            return p
         diag_fn = getattr(A, "diag", None)
         if diag_fn is None:
             raise ValueError(
                 "precond='jacobi' needs an operator with .diag() "
                 f"(got {type(A).__name__}); pass a Preconditioner instead")
-        return cls(diag_fn())
+        p = A._jacobi = cls(diag_fn())
+        return p
 
     def apply(self, x):
         return x * self.inv_diag.to(x.dtype)

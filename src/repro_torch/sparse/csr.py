@@ -1,14 +1,16 @@
-"""Sparse matrix formats and SpMV in plain PyTorch.
+"""Sparse matrix formats and SpMV.
 
 Two formats, as in the JAX package:
 
-* :class:`CSR` — the assembly format.  Its matvec gathers over a padded
+* :class:`CSR` — the assembly format.  Its matvec runs over a padded
   ``(n, w)`` row view (an :class:`ELL` built once, vectorised, on the
-  operator's device) and sums each row: no float atomics, so a matvec gives
-  the same bits on every run, on the card too (``index_add_`` and
-  ``scatter_add_`` would not).
-* :class:`ELL` — fixed row width, SpMV by gather + dense row reduce.
-  Padding slots hold value 0 and column 0.
+  operator's device, and cached on the CSR).
+* :class:`ELL` — fixed row width.  Padding slots hold value 0 and column 0.
+  Its matvec goes through :func:`repro_torch.kernels.ops.ell_spmv`: the
+  hand-written ELL kernel for CUDA tensors, the plain gather-and-sum for CPU
+  tensors.  Both sum each row in slot order with no float atomics, so a
+  matvec gives the same bits on every run (``index_add_`` and
+  ``scatter_add_`` would not), and the same bits as the JAX package's.
 
 Index arrays are ``int32`` and values keep their dtype, as in the reference,
 so :meth:`CSR.fingerprint` hashes the same bytes as the JAX package's.
@@ -20,6 +22,9 @@ import hashlib
 
 import numpy as np
 import torch
+
+from repro_torch.core import frsz2 as F
+from repro_torch.kernels import ops
 
 __all__ = ["CSR", "ELL", "csr_from_coo"]
 
@@ -40,9 +45,15 @@ class ELL:
     def device(self):
         return self.vals.device
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x: gather, multiply, sum each row (deterministic)."""
-        return (self.vals * x[self.cols].to(self.vals.dtype)).sum(dim=1)
+    def matvec(self, x: torch.Tensor | F.BlockCompressed, *,
+               kernel: bool | None = None) -> torch.Tensor:
+        """y = A @ x: gather, multiply, sum each row (deterministic).
+
+        ``x`` may be an FRSZ2 ``BlockCompressed`` vector: the kernel decodes
+        each gathered entry in registers.  ``kernel=False`` forces the plain
+        version on the card too; the default routes by device.
+        """
+        return ops.ell_spmv(self.vals, self.cols, x, kernel=kernel)
 
     def diag(self) -> torch.Tensor:
         """(n,) main diagonal (padding slots carry val 0, so they drop out)."""
@@ -122,8 +133,10 @@ class CSR:
             ell = self._padded = self.to_ell()
         return ell
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._ell().matvec(x)
+    def matvec(self, x: torch.Tensor | F.BlockCompressed, *,
+               kernel: bool | None = None) -> torch.Tensor:
+        """y = A @ x through the cached ELL view (see :meth:`ELL.matvec`)."""
+        return self._ell().matvec(x, kernel=kernel)
 
     def diag(self) -> torch.Tensor:
         """(n,) main diagonal (zeros where a row has no diagonal entry)."""

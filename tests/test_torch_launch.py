@@ -31,7 +31,7 @@ def test_cli_runs_on_cpu_with_reference_row_keys(tmp_path):
     assert [r["format"] for r in rows] == ["float64", "frsz2_32"]
     for r in rows:
         assert list(r) == list(ref[0])
-        assert r["converged"] and r["driver"] == "host" and r["n"] == 512
+        assert r["converged"] and r["driver"] == "device" and r["n"] == 512
         assert r["bytes_read"] > 0 and r["x_err"] < 1e-8
 
 

@@ -90,7 +90,7 @@ def test_budget_and_trivial_rhs_edges():
 def test_unported_options_raise_naming_the_roadmap():
     _, At, b, _ = _problem("synth:atmosmod", 64)
     bt = torch.from_numpy(b)
-    for kw in (dict(driver="device"), dict(shard=2), dict(reorder="rcm")):
+    for kw in (dict(shard=2), dict(reorder="rcm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gmres(At, bt, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
