@@ -31,13 +31,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    path, twice: capture, then replay), each with the launch counts set to 0
    just before and read just after.  The device driver matches the host
    driver as in phase 4; every kernel of a path launched in its frsz2_32
-   solve, and no FRSZ2 kernel in the float64 ones.
+   solve, and no FRSZ2 kernel in the float64 ones;
+6. block kernels at the main-path block shape — a frsz2_32 block basis of
+   p = 8 segments of n_seg = 1,259,776: the fused block dots and block
+   combine against their plain versions (within 1e-12 relative) at 101 and
+   51 live block rows, with spot checks (f32 values, p = 1 and 3, a ragged
+   n, bs = 8/64/128, l = 8/16); the batched ELL SpMV (8 operands, one
+   launch) bit-equal to its plain version; the block Givens step of the
+   block cycle bit-equal to its plain version over m = 100 steps at p = 8;
+   CUDA-event times beside the bound, the plain version and ``torch.mm``
+   on the decoded basis (``torch.sparse_csr_tensor @ X`` for the ELL);
+7. block solves (slice 3's path) — ``gmres_batched`` at n = 8000, p = 8,
+   m = 100, float64 and frsz2_32: the block device driver against the block
+   host driver (equal per-column iterations, restarts, ``bytes_read``,
+   ``op_reads``, bits of X), the kernel route against the plain route and
+   the vmap baseline; then at full width (n = 1,259,712, p = 8 right-hand
+   sides from ``_batch_rhs``, m = 100), block on the device driver twice
+   (capture, then replay) and on the host driver, and vmap, each with the
+   launch counts set to 0 just before and read just after: every column
+   converges, the drivers agree, every kernel of the block path launches in
+   the frsz2_32 block solve and no FRSZ2 kernel in the float64 one.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import re
@@ -69,6 +89,12 @@ HOST_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
              "frsz2_rmatvec", "ell_spmv")
 DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
                "ell_spmv_frsz2", "gmres_givens")
+#: slice 3's block path: each block row written and read back through the
+#: codec, the fused block contractions, the batched ELL, the block Givens
+#: step; no scalar contraction
+BLOCK_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_block_dots",
+              "frsz2_block_combine", "ell_spmv", "gmres_block_givens")
+P_BLOCK = 8                # right-hand sides of the block solves
 
 
 def check(ok: bool, what: str) -> None:
@@ -572,6 +598,344 @@ def phase_full_width(A, target):
     return launches, paths
 
 
+def release():
+    """Free the captured cycles (their stores and graph pools) and the
+    allocator's cache between phases."""
+    import torch
+
+    from repro_torch.solver import clear_graph_cache
+
+    clear_graph_cache()
+    torch.cuda.empty_cache()
+
+
+def _block_store(spec, p, n, rows, gen):
+    """A frsz2 block basis of ``rows`` block rows of ``p`` Krylov-like
+    (unit-norm) vectors of length ``n``, written as the block cycle writes
+    it; returns the accessor, the store and its BlockCompressed view."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.core.accessor import BlockBasisAccessor, FrszFormat
+
+    acc = BlockBasisAccessor(fmt=FrszFormat(spec), m=rows, p=p, n=n,
+                             arith_dtype=spec.dtype, device="cuda")
+    store = acc.empty()
+    for i in range(rows):
+        W = torch.randn((p, n), generator=gen, dtype=torch.float64,
+                        device="cuda")
+        W /= torch.linalg.vector_norm(W, dim=1, keepdim=True)
+        acc.write_block(store, i, W.to(spec.dtype))
+    bc = F.BlockCompressed(codes=store["codes"], exps=store["exps"],
+                           n=acc.n_flat, spec=spec)
+    return acc, store, bc
+
+
+def _block_pair(bc, p, W, Y, rows):
+    """Kernel and plain block dots and combine; relative errors."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for op, fn, arg in (("dots", ops.block_dots, W),
+                        ("combine", ops.block_combine, Y)):
+        kw = dict(p=p, rows=rows) if op == "dots" else dict(p=p)
+        a = arg if op == "dots" else arg[:rows]
+        out[op] = _rel_err(fn(bc, a, kernel=True, **kw),
+                           fn(bc, a, kernel=False, **kw))
+    return out
+
+
+def phase_block_kernels(A):
+    """The block kernels at the main-path block shape, and spot checks."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = A.shape[0]
+    p = q = P_BLOCK
+    spec = F.FrszSpec(bs=32, l=32, dtype=torch.float64)
+    acc, store, bc = _block_store(spec, p, n, R_FULL, gen)
+    n_seg = acc.n_seg
+    W = torch.randn((q, n), generator=gen, dtype=torch.float64, device=dev)
+    Y = torch.randn((R_FULL, p, q), generator=gen, dtype=torch.float64,
+                    device=dev)
+    errs = {}
+    for r in (R_FULL, R_HALF):
+        errs[r] = _block_pair(bc, p, W, Y, r)
+        for op, (abs_err, rel) in errs[r].items():
+            check(rel <= 1e-12, f"block {op} r={r} relative error "
+                                f"{rel:.3e} > 1e-12")
+            print(f"[block] {op} rows={r} (p={p}, n_seg={n_seg}): max abs "
+                  f"err {abs_err:.3e}, relative {rel:.3e}")
+
+    # spot checks: f32 values, p = 1 and 3, a ragged n, other bs and l
+    g2 = torch.Generator(device=dev).manual_seed(8)
+    spots = [(torch.float32, 32, 32, 8), (torch.float64, 32, 32, 1),
+             (torch.float64, 32, 32, 3), (torch.float64, 32, 8, 4),
+             (torch.float64, 32, 64, 3), (torch.float64, 16, 128, 8),
+             (torch.float32, 8, 32, 16), (torch.float64, 32, 32, 13)]
+    for dtype, l, bs, pp in spots:
+        sp = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+        _, _, sbc = _block_store(sp, pp, 1001, 7, g2)
+        Ws = torch.randn((pp, 1001), generator=g2, dtype=dtype, device=dev)
+        Ys = torch.randn((7, pp, pp), generator=g2, dtype=dtype, device=dev)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for rows in (7, 3):
+            for op, (_, rel) in _block_pair(sbc, pp, Ws, Ys, rows).items():
+                check(rel <= tol, f"block {op} spot {sp.name} p={pp} "
+                                  f"rows={rows}: relative error {rel:.3e}")
+    print(f"[block] spot checks passed: {len(spots)} (f32/f64, p 1/3/4/8/13/"
+          "16, n=1001 ragged, bs 8/32/64/128, l 8/16/32)")
+
+    # the batched ELL SpMV: one launch for p operands, bit-equal
+    E = A.to_ell()
+    X = torch.randn((p, n), generator=gen, dtype=torch.float64, device=dev)
+    yk = ops.ell_spmv(E.vals, E.cols, X, kernel=True)
+    yp = ops.ell_spmv(E.vals, E.cols, X, kernel=False)
+    check(torch.equal(yk, yp), "batched ell_spmv != plain")
+    print(f"[block] batched ell_spmv ({p} x {n}, w={E.vals.shape[1]}): "
+          "bit-equal to plain")
+
+    # the block Givens step over a cycle of m = 100 block steps
+    m = M
+    L = ref.block_givens_layout(m, p)
+    sk = ref.block_givens_init_ref(m, p, dev)
+    S = torch.triu(torch.rand((p, p), generator=gen, dtype=torch.float64,
+                              device=dev)) + torch.eye(p, device=dev)
+    sk[L["G"]:L["G"] + p * p] = S.reshape(-1)
+    sp = sk.clone()
+    bn = 1.0 + torch.rand((p,), generator=gen, dtype=torch.float64,
+                          device=dev)
+    for j in range(m):
+        H = torch.randn((j + 1, p, p), generator=gen, dtype=torch.float64,
+                        device=dev)
+        T = torch.triu(torch.rand((p, p), generator=gen, dtype=torch.float64,
+                                  device=dev)) + 0.5 * torch.eye(p, device=dev)
+        fired = torch.tensor(j % 3 == 0, device=dev)
+        ops.block_givens_step(sk, H, T, fired, bn, j, m, p, 1e-300,
+                              kernel=True)
+        ops.block_givens_step(sp, H, T, fired, bn, j, m, p, 1e-300,
+                              kernel=False)
+        check(torch.equal(sk, sp), f"gmres_block_givens != plain at step {j}")
+    check(float(sk[L["alive"]]) == 1.0, "block Givens cycle died on random "
+                                        "input")
+    print(f"[block] block Givens step m={m} p={p}: kernel bit-equal to plain "
+          f"over {m} steps")
+
+    # times
+    entries = {}
+    src = "src/repro_torch/kernels/csrc/frsz2_block.cu"
+    nb = n_seg // spec.bs
+    seg_bytes = n_seg * 4 + nb * 4
+    for r in (R_FULL, R_HALF):
+        M_rows = r * p
+        Vdec = ops.decompress(F.BlockCompressed(
+            codes=bc.codes[:r].reshape(M_rows, nb, spec.bs),
+            exps=bc.exps[:r].reshape(M_rows, nb), n=n_seg, spec=spec))
+        Wp = torch.nn.functional.pad(W, (0, n_seg - n))
+        Y2 = Y[:r].reshape(M_rows, q)
+        flops = 2.0 * M_rows * n_seg * q
+        for op, call, lib, replaces, io_bytes in (
+                ("dots", lambda k, r=r: ops.block_dots(bc, W, p=p, rows=r,
+                                                       kernel=k),
+                 lambda V=Vdec, Wp=Wp: V @ Wp.T,
+                 "src/repro/kernels/frsz2_block.py:64",
+                 q * n_seg * 8 + M_rows * q * 8),
+                ("combine", lambda k, r=r: ops.block_combine(bc, Y[:r], p=p,
+                                                             kernel=k),
+                 lambda V=Vdec, Y2=Y2: Y2.T @ V,
+                 "src/repro/kernels/frsz2_block.py:104",
+                 M_rows * q * 8 + q * n_seg * 8)):
+            e = entry(f"frsz2_block_{op}", src, replaces,
+                      timed(functools.partial(call, True)),
+                      timed(functools.partial(call, False), reps=3),
+                      M_rows * seg_bytes + io_bytes, flops, errs[r][op][0],
+                      library_ms=timed(lib), rows=r, p=p, q=q,
+                      shape=f"{r} x {p} x {n_seg}",
+                      library="torch.mm on the decoded f64 basis",
+                      path="block")
+            if r == R_FULL:
+                entries[f"frsz2_block_{op}"] = e
+        del Vdec
+    mat_bytes = E.vals.numel() * 8 + E.cols.numel() * 4
+    csr = torch.sparse_csr_tensor(A.indptr, A.indices, A.data, size=A.shape)
+    XT = X.T.contiguous()
+    entries["ell_spmv_batched"] = entry(
+        "ell_spmv_batched", "src/repro_torch/kernels/csrc/ell_spmv.cu",
+        "src/repro/kernels/ell_spmv.py:49 (jax.vmap over ell_spmv_2d, "
+        "src/repro/solver/block.py:219)",
+        timed(lambda: ops.ell_spmv(E.vals, E.cols, X, kernel=True)),
+        timed(lambda: ops.ell_spmv(E.vals, E.cols, X, kernel=False)),
+        mat_bytes + 2 * p * n * 8, 2.0 * p * E.vals.numel(), 0.0,
+        library_ms=timed(lambda: csr @ XT), kernel="ell_spmv",
+        shape=f"{p} x {n} x {E.vals.shape[1]}", path="block",
+        library="torch.sparse_csr_tensor @ X (n, 8)")
+    j = m - 1
+    H = torch.randn((j + 1, p, p), generator=gen, dtype=torch.float64,
+                    device=dev)
+    T = torch.triu(torch.rand((p, p), generator=gen, dtype=torch.float64,
+                              device=dev)) + 0.5 * torch.eye(p, device=dev)
+    fired = torch.tensor(False, device=dev)
+    jp = j * p
+    # bytes: H, T, bn, cs/sn of the jp earlier columns read; R's column
+    # block, G's 2p rows, cs/sn's p rows and est written.  Flops: 6 per
+    # element rotation, p columns, jp*p earlier and p*p new rotations
+    nbytes = ((j + 1) * p * p + p * p + p + 2 * jp * p
+              + (m + 1) * p * p + 2 * 2 * p * p + 2 * p * p + p) * 8
+    flops = 6.0 * p * (jp * p + p * p)
+    entries["gmres_block_givens"] = entry(
+        "gmres_block_givens", "src/repro_torch/kernels/csrc/gmres_step.cu",
+        "src/repro/solver/block.py:140 (jnp _block_apply_prior and "
+        "_block_triangularize in the block cycle; no Pallas kernel: a "
+        "helper, not a TPU-kernel port)",
+        timed(lambda: ops.block_givens_step(sk, H, T, fired, bn, j, m, p,
+                                            1e-300, kernel=True)),
+        timed(lambda: ops.block_givens_step(sp, H, T, fired, bn, j, m, p,
+                                            1e-300, kernel=False), reps=3),
+        nbytes, flops, 0.0, shape=f"block step j={j} of m={m}, p={p}",
+        helper=True, path="block")
+    del store, bc
+    return entries
+
+
+def _block_row(label, A, B, x_sol, fmt, target, max_iters, method, driver):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.solver import gmres_batched
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gmres_batched(A, B, storage=fmt, m=M, max_iters=max_iters,
+                        target_rrn=target, method=method, driver=driver)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    X = torch.stack([r.x for r in res])
+    err = float(torch.linalg.vector_norm(res[0].x - x_sol)
+                / torch.linalg.vector_norm(x_sol))
+    p = B.shape[0]
+    row = dict(phase=label, n=A.shape[0], p=p, method=method,
+               format=getattr(fmt, "name", fmt), driver=driver,
+               iters=[r.iterations for r in res],
+               restarts=[r.restarts for r in res],
+               converged=all(r.converged for r in res),
+               rrn_max=max(r.rrn for r in res), x_err_rhs0=err,
+               wall_s=wall, wall_per_solve_s=wall / p,
+               bytes_read_per_rhs=sum(r.bytes_read for r in res) / p,
+               op_reads_per_rhs=sum(r.op_reads for r in res) / p,
+               bytes_read=[r.bytes_read for r in res],
+               op_reads=[r.op_reads for r in res],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit(row)
+    return res, X, row
+
+
+def _check_block_drivers(dev_X, host_X, dev_row, host_row, what):
+    import torch
+
+    for key in ("iters", "restarts", "bytes_read", "op_reads"):
+        check(dev_row[key] == host_row[key],
+              f"{what}: block device driver {key} {dev_row[key]} != host "
+              f"{host_row[key]}")
+    check(torch.equal(dev_X, host_X), f"{what}: block device X != host X")
+
+
+def phase_block_solve():
+    """Block solves at n = 8000: device vs host driver, kernel vs plain
+    route, and the vmap baseline."""
+    from repro_torch.core.accessor import format_by_name
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.sparse import make_problem, rhs_for
+
+    A, target = make_problem("synth:atmosmod", 8000, device="cuda")
+    b, x_sol = rhs_for(A, device="cuda")
+    B = _batch_rhs(b, P_BLOCK)
+    host_rows = {}
+    for fmt in ("frsz2_32", "float64"):
+        _, Xh, rh = _block_row("block-solve", A, B, x_sol, fmt, target,
+                               20000, "block", "host")
+        host_rows[fmt] = rh
+        _, Xd1, rd1 = _block_row("block-solve-capture", A, B, x_sol, fmt,
+                                 target, 20000, "block", "device")
+        _, Xd2, rd2 = _block_row("block-solve", A, B, x_sol, fmt, target,
+                                 20000, "block", "device")
+        _, _, rv = _block_row("vmap-solve", A, B, x_sol, fmt, target, 20000,
+                              "vmap", "device")
+        for r in (rh, rd1, rd2, rv):
+            check(r["converged"], f"n=8000 {fmt} {r['method']} "
+                                  f"{r['driver']} did not converge")
+        _check_block_drivers(Xd1, Xh, rd1, rh, f"n=8000 {fmt}")
+        _check_block_drivers(Xd2, Xh, rd2, rh, f"n=8000 {fmt} replay")
+        if fmt == "frsz2_32":
+            _check_launches(rd2, BLOCK_PATH, "n=8000 block frsz2_32")
+        print(f"[block-solve] {fmt}: block device = host, iterations "
+              f"{rd2['iters']}, restarts {rd2['restarts'][0]}; vmap "
+              f"{rv['iters']}; bytes per RHS block/vmap "
+              f"{rd2['bytes_read_per_rhs'] / rv['bytes_read_per_rhs']:.3f}")
+    plain = format_by_name("frsz2_32", use_kernels=False)
+    _, _, rp = _block_row("block-solve-plain", A, B, x_sol, plain, target,
+                          20000, "block", "host")
+    check(rp["converged"], "n=8000 plain-route block solve did not converge")
+    rk = host_rows["frsz2_32"]
+    check(all(abs(a - b) <= 1 for a, b in zip(rp["iters"], rk["iters"])),
+          f"block kernel route {rk['iters']} vs plain {rp['iters']}")
+    check(not any(v for k, v in rp["launches"].items()
+                  if k.startswith("frsz2_")),
+          f"plain route launched FRSZ2 kernels: {rp['launches']}")
+    print(f"[block-solve] kernel route {rk['iters']}, plain route "
+          f"{rp['iters']}")
+
+
+def phase_block_full_width(A, target):
+    """Slice 3's path at full width: returns its launches per kernel, read
+    from the frsz2_32 block device-driver solve (the replay)."""
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.sparse import rhs_for
+
+    b, x_sol = rhs_for(A, device="cuda")
+    B = _batch_rhs(b, P_BLOCK)
+    launches = {}
+    for fmt in ("float64", "frsz2_32"):
+        _, Xd1, rd1 = _block_row("block-full-capture", A, B, x_sol, fmt,
+                                 target, FULL_MAX_ITERS, "block", "device")
+        _, Xd2, rd2 = _block_row("block-full", A, B, x_sol, fmt, target,
+                                 FULL_MAX_ITERS, "block", "device")
+        _, Xh, rh = _block_row("block-full", A, B, x_sol, fmt, target,
+                               FULL_MAX_ITERS, "block", "host")
+        release()
+        _, _, rv = _block_row("vmap-full", A, B, x_sol, fmt, target,
+                              FULL_MAX_ITERS, "vmap", "device")
+        release()
+        for r in (rd1, rd2, rh, rv):
+            check(r["converged"], f"full-width {fmt} {r['method']} "
+                                  f"{r['driver']}: a column did not converge")
+        _check_block_drivers(Xd1, Xh, rd1, rh, f"full-width {fmt}")
+        _check_block_drivers(Xd2, Xh, rd2, rh, f"full-width {fmt} replay")
+        ratio = rd2["bytes_read_per_rhs"] / rv["bytes_read_per_rhs"]
+        print(f"[block-full] {fmt}: block iterations {rd2['iters']} "
+              f"restarts {rd2['restarts'][0]}, vmap {rv['iters']}; walls "
+              f"block device first {rd1['wall_s']:.4f} s, replay "
+              f"{rd2['wall_s']:.4f} s, host {rh['wall_s']:.4f} s, vmap "
+              f"{rv['wall_s']:.4f} s; peak memory block "
+              f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB, vmap "
+              f"{rv['peak_mem_bytes'] / 2**30:.2f} GiB; modelled basis "
+              f"bytes per RHS block/vmap {ratio:.3f}")
+        if fmt == "float64":
+            _check_launches(rd2, ("ell_spmv", "gmres_block_givens"),
+                            "float64 block solve")
+        else:
+            _check_launches(rd2, BLOCK_PATH, "frsz2_32 block solve (slice 3)")
+            launches = {k: rd2["launches"][k] for k in BLOCK_PATH}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -597,9 +961,19 @@ def main() -> int:
     entries.update(phase_givens())
     phase_solve()
     launches, paths = phase_full_width(A, target)
+    release()
+    entries.update(phase_block_kernels(A))
+    release()
+    phase_block_solve()
+    release()
+    block_launches = phase_block_full_width(A, target)
     for name, e in entries.items():
-        e["launches"] = launches[name]
-        e["path"] = paths[name]
+        key = e.get("kernel", name)
+        if e.get("path") == "block":
+            e["launches"] = block_launches[key]
+        else:
+            e["launches"] = launches[key]
+            e["path"] = paths[key]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     emit({"kernels": list(entries.values())})
     emit({"ok": True, "device": {"platform": "gpu",

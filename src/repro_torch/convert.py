@@ -1,10 +1,14 @@
 """Carry state across: the JAX package's arrays (as numpy) <-> the port's.
 
-The two packages hand operators and FRSZ2 stores to each other through
+The two packages hand operators and basis stores to each other through
 numpy.  Bit patterns are kept: the port holds unsigned codes in signed
 containers of the same width (``uint32`` codes become an ``int32`` view,
 ``uint16`` an ``int16`` view; ``uint8`` stays), and the inverse views them
-back.
+back.  A store is given with its format: an FRSZ2 spec (or
+``FrszFormat``) for ``{"codes", "exps"}``, a ``NativeFormat`` for a plain
+array, a ``MixedFormat`` for ``{"head", "tail"}``.  A block-GMRES store is
+one of these over flat rows of ``p * n_seg`` values, so it carries across
+the same way.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import frsz2 as F
+from repro_torch.core.accessor import FrszFormat, MixedFormat, NativeFormat
 from repro_torch.device import resolve_device
 from repro_torch.sparse.csr import CSR
 
@@ -45,9 +50,17 @@ def _codes_to_torch(codes: np.ndarray, device) -> torch.Tensor:
                         device=device)
 
 
-def store_from_numpy(store: dict, spec: F.FrszSpec, device="cuda") -> dict:
-    """``{"codes", "exps"}`` numpy arrays -> the port's store, same bits."""
+def store_from_numpy(store, fmt, device="cuda"):
+    """A JAX package store (numpy arrays) -> the port's store, same bits.
+    ``fmt``: a :class:`~repro_torch.core.frsz2.FrszSpec` or a storage
+    format (native, FRSZ2 or mixed)."""
     dev = resolve_device(device)
+    if isinstance(fmt, MixedFormat):
+        return {"head": store_from_numpy(store["head"], fmt.head, dev),
+                "tail": store_from_numpy(store["tail"], fmt.tail, dev)}
+    if isinstance(fmt, NativeFormat):
+        return torch.tensor(np.asarray(store), dtype=fmt.dtype, device=dev)
+    spec = fmt.spec if isinstance(fmt, FrszFormat) else fmt
     codes = _codes_to_torch(store["codes"], dev)
     want = F.code_dtype(spec.l) if spec.aligned else torch.int32
     if codes.dtype != want:
@@ -57,9 +70,15 @@ def store_from_numpy(store: dict, spec: F.FrszSpec, device="cuda") -> dict:
     return {"codes": codes, "exps": exps}
 
 
-def store_to_numpy(store: dict, spec: F.FrszSpec) -> dict:
-    """The port's store -> ``{"codes", "exps"}`` with unsigned code arrays,
-    as the JAX package holds them."""
+def store_to_numpy(store, fmt):
+    """The port's store -> the JAX package's layout: numpy arrays, unsigned
+    code arrays as the JAX package holds them.  ``fmt`` as for
+    :func:`store_from_numpy`."""
+    if isinstance(fmt, MixedFormat):
+        return {"head": store_to_numpy(store["head"], fmt.head),
+                "tail": store_to_numpy(store["tail"], fmt.tail)}
+    if isinstance(fmt, NativeFormat):
+        return store.cpu().numpy()
     codes = store["codes"].cpu().numpy()
     unsigned = _UNSIGNED.get(store["codes"].dtype)
     if unsigned is not None:

@@ -17,6 +17,7 @@ from repro_torch.core.frsz2 import (
 )
 from repro_torch.core.accessor import (
     BasisAccessor,
+    BlockBasisAccessor,
     FrszFormat,
     MixedFormat,
     NativeFormat,

@@ -16,6 +16,12 @@ A :class:`BasisAccessor` manages a *row basis* ``V`` of fixed capacity
   * ``operand(store, j)``        — row j as an SpMV operand: FRSZ2 rows stay
     coded (the ELL kernel decodes each gathered entry), others are read
 
+A :class:`BlockBasisAccessor` holds block-GMRES's shared basis of block
+vectors ``V (m, p, n)`` through the same formats: each block row is one
+flat storage row of ``p`` segments, each zero-padded to the format's
+``block_align()``, and ``block_dots``/``block_combine`` contract the live
+block rows (the FRSZ2 ones through the fused block kernels).
+
 Unlike the JAX package, whose stores are immutable pytrees, the port updates
 in place: ``write_row`` writes into the store's row ``j`` and returns
 nothing (FRSZ2 compresses straight into ``store["codes"][j]`` /
@@ -43,12 +49,18 @@ import torch
 from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ops
 
+#: lane width the JAX package aligns FRSZ2 block-basis segments to
+#: (``repro/core/accessor.py:_KERNEL_LANES``); kept so that block stores and
+#: ``nbytes`` match the reference byte for byte
+_KERNEL_LANES = 128
+
 __all__ = [
     "StorageFormat",
     "NativeFormat",
     "FrszFormat",
     "MixedFormat",
     "BasisAccessor",
+    "BlockBasisAccessor",
     "auto_mixed_head",
     "register_format",
     "format_by_name",
@@ -123,6 +135,36 @@ class StorageFormat:
         """y = h @ V[:len(h)]."""
         V = self.read_all(self.take(store, h.shape[0]), arith_dtype, n)
         return h.to(arith_dtype) @ V
+
+    # -- block-basis contract -----------------------------------------------
+    def block_align(self) -> int:
+        """Per-RHS segment alignment of flattened block rows (``1``: pack the
+        segments tightly)."""
+        return 1
+
+    def block_dots(self, store, W, arith_dtype, n: int, p: int, n_seg: int,
+                   rows: int):
+        """``H[i, a, b] = <V[i, a], W[b]>`` over the first ``rows`` flat
+        block rows of ``p`` segments of ``n_seg`` values (the trailing
+        ``n_seg - n`` of each are zero padding): ``(rows, p, q)``.
+
+        The reference's ``einsum`` over ``V[..., :n]``, written as one
+        matrix product on the contiguous ``(rows * p, n_seg)`` view with
+        ``W`` zero-padded: a slice of the basis would be copied on every
+        call (inside a CUDA graph, one growing copy per step)."""
+        V = self.read_all(self.take(store, rows), arith_dtype, p * n_seg)
+        Wp = torch.nn.functional.pad(W.to(arith_dtype), (0, n_seg - n))
+        return (V.reshape(rows * p, n_seg) @ Wp.T).reshape(rows, p, -1)
+
+    def block_combine(self, store, Y, arith_dtype, n: int, p: int,
+                      n_seg: int):
+        """``out[b] = sum_{i,a} Y[i, a, b] V[i, a]`` over the ``len(Y)``
+        leading block rows, in the padded segment layout ``(q, n_seg)``
+        (one matrix product on the contiguous view, as ``block_dots``)."""
+        rows = Y.shape[0]
+        V = self.read_all(self.take(store, rows), arith_dtype, p * n_seg)
+        Y2 = Y.to(arith_dtype).reshape(rows * p, -1)
+        return Y2.T @ V.reshape(rows * p, n_seg)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +291,25 @@ class FrszFormat(StorageFormat):
         return ops.rmatvec(bc, h.to(self.spec.dtype),
                            kernel=self.use_kernels).to(arith_dtype)
 
+    def block_align(self) -> int:
+        # segments start on a codec-block boundary (the block kernels view
+        # the flat row as (p, n_seg) with no block straddling a segment
+        # edge) and on the reference's lane boundary (same stores, same
+        # nbytes as the JAX package)
+        return math.lcm(self.spec.bs, _KERNEL_LANES)
+
+    def block_dots(self, store, W, arith_dtype, n: int, p: int, n_seg: int,
+                   rows: int):
+        bc = self._as_bc(store, p * n_seg)
+        return ops.block_dots(bc, W, p=p, rows=rows,
+                              kernel=self.use_kernels).to(arith_dtype)
+
+    def block_combine(self, store, Y, arith_dtype, n: int, p: int,
+                      n_seg: int):
+        bc = self._as_bc(store, p * n_seg)
+        return ops.block_combine(bc, Y, p=p,
+                                 kernel=self.use_kernels).to(arith_dtype)
+
     def nbytes(self, m: int, n: int) -> int:
         return m * F.storage_nbytes(n, self.spec)
 
@@ -341,6 +402,33 @@ class MixedFormat(StorageFormat):
             y = y + self.tail.combine(store["tail"], h[rh:], arith_dtype, n)
         return y
 
+    def block_align(self) -> int:
+        # one alignment for both sub-stores: head and tail rows of the same
+        # basis must agree on the segment layout
+        return math.lcm(self.head.block_align(), self.tail.block_align())
+
+    def block_dots(self, store, W, arith_dtype, n: int, p: int, n_seg: int,
+                   rows: int):
+        kh = self.head.rows(store["head"])
+        rh = min(rows, kh)
+        parts = [self.head.block_dots(store["head"], W, arith_dtype, n, p,
+                                      n_seg, rh)]
+        if rows > rh:
+            parts.append(self.tail.block_dots(store["tail"], W, arith_dtype,
+                                              n, p, n_seg, rows - rh))
+        return torch.cat(parts)
+
+    def block_combine(self, store, Y, arith_dtype, n: int, p: int,
+                      n_seg: int):
+        kh = self.head.rows(store["head"])
+        rh = min(Y.shape[0], kh)
+        out = self.head.block_combine(store["head"], Y[:rh], arith_dtype, n,
+                                      p, n_seg)
+        if Y.shape[0] > rh:
+            out = out + self.tail.block_combine(store["tail"], Y[rh:],
+                                                arith_dtype, n, p, n_seg)
+        return out
+
     def nbytes(self, m: int, n: int) -> int:
         kh, kt = self._split(m)
         return self.head.nbytes(kh, n) + self.tail.nbytes(kt, n)
@@ -392,6 +480,73 @@ class BasisAccessor:
 
     def nbytes(self) -> int:
         return self.fmt.nbytes(self.m, self.n)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockBasisAccessor:
+    """Fixed-capacity basis of block vectors ``V (m, p, n)``: block-GMRES's
+    shared Krylov buffer, in any storage format.
+
+    Each block row (the ``p`` Krylov directions of one block step) is one
+    flat storage row of ``p`` segments, one per right-hand side, each
+    zero-padded to the format's ``block_align()`` (``n_seg``): native
+    formats pack tightly, FRSZ2 aligns segments so that the fused block
+    kernels view the row as ``(p, n_seg)``.  Pad values decode to exact
+    zeros.  ``nbytes`` prices the shared basis once: one stored row serves
+    all ``p`` right-hand sides.  As the scalar accessor, the port writes in
+    place and ``block_dots``/``block_combine`` take the live block rows
+    (``rows``, ``len(Y)``) instead of a row mask.
+    """
+
+    fmt: Any
+    m: int                      # block-row capacity (the solver passes m+1)
+    p: int                      # block width: right-hand sides
+    n: int                      # vector length
+    arith_dtype: Any = torch.float64
+    device: Any = "cpu"
+
+    @property
+    def n_seg(self) -> int:
+        """Aligned per-RHS segment length inside one flat row."""
+        a = self.fmt.block_align()
+        return -(-self.n // a) * a
+
+    @property
+    def n_flat(self) -> int:
+        return self.p * self.n_seg
+
+    def empty(self):
+        return self.fmt.empty(self.m, self.n_flat, self.device)
+
+    def write_block(self, store, j: int, W) -> None:
+        """Store block row ``j`` from ``W (p, n)`` (compress), in place."""
+        Wp = torch.nn.functional.pad(W, (0, self.n_seg - self.n))
+        self.fmt.write_row(store, j, Wp.reshape(self.n_flat))
+
+    def read_block(self, store, j: int):
+        """Block row ``j`` read back as ``(p, n)``."""
+        v = self.fmt.read_row(store, j, self.arith_dtype, self.n_flat)
+        return v.reshape(self.p, self.n_seg)[:, :self.n]
+
+    def read_all_blocks(self, store):
+        V = self.fmt.read_all(store, self.arith_dtype, self.n_flat)
+        return V.reshape(-1, self.p, self.n_seg)[..., :self.n]
+
+    def block_dots(self, store, W, rows: int):
+        """``H[i, a, b] = <V[i, a], W[b]>`` for the ``rows`` live block
+        rows: ``(rows, p, q)``."""
+        return self.fmt.block_dots(store, W, self.arith_dtype, self.n, self.p,
+                                   self.n_seg, rows).to(self.arith_dtype)
+
+    def block_combine(self, store, Y):
+        """``out[b] = sum_{i,a} Y[i, a, b] V[i, a]`` over the ``len(Y)``
+        leading block rows: ``(q, n)``."""
+        out = self.fmt.block_combine(store, Y, self.arith_dtype, self.n,
+                                     self.p, self.n_seg)
+        return out.to(self.arith_dtype)[:, :self.n]
+
+    def nbytes(self) -> int:
+        return self.fmt.nbytes(self.m, self.n_flat)
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +647,7 @@ def _build_sharded(name, **ctx):
 def _build_emul(name, **ctx):
     raise NotImplementedError(
         f"{name!r}: the SZ/SZ3/ZFP emulator formats are not ported yet "
-        "(ROADMAP.md, open item 1: slice 3, core/emulators.py)")
+        "(ROADMAP.md, open item 1: slice 4, core/emulators.py)")
 
 
 def format_by_name(name: str, *, arith_dtype=torch.float64, bs: int = 32,

@@ -24,6 +24,14 @@ class DistContext:
         """||x|| of the vector ``x`` (a 0-d tensor on x's device)."""
         return torch.linalg.vector_norm(x)
 
+    def col_norms(self, X: torch.Tensor) -> torch.Tensor:
+        """``||X[b]||`` for each row-stacked vector of a block ``X (p, n)``."""
+        return torch.linalg.vector_norm(X, dim=1)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Global sum of an already locally reduced value: itself, here."""
+        return x
+
 
 #: the default, single-device context: every reduction is local.
 LOCAL = DistContext()

@@ -30,6 +30,11 @@
 //  * the int32 columns are read as they are: nothing widens them.
 //  * the operand's gathers of a banded operator land in a few MB around the
 //    row band, which L2 (50 MB) holds.
+// A block of q dense operands x (q, nc) -> y (q, nr) is one launch with
+// grid (row tiles, q), the counterpart of `jax.vmap` over `ell_spmv_2d` in
+// the JAX package's block-GMRES (`repro/solver/block.py:219`).  Each column
+// re-reads vals and cols (q x 106 MB at the main-path size); reading them
+// once for all q columns is later work.
 #include <algorithm>
 
 #include "frsz2_common.cuh"
@@ -40,11 +45,15 @@ constexpr int kRows = 128;                 // rows (and threads) per block
 constexpr int kSlots = 32;                 // slots per row staged at once
 constexpr int kStride = kSlots + 1;        // padded: no bank conflicts
 
-// Dense operand, already in the value type.
+// Dense operand, already in the value type: column blockIdx.y of a (q, nc)
+// block.
 template <typename T>
 struct DenseX {
   const T* x;
-  __device__ __forceinline__ T operator()(int c) const { return __ldg(x + c); }
+  long long nc;
+  __device__ __forceinline__ T operator()(int c) const {
+    return __ldg(x + blockIdx.y * nc + c);
+  }
 };
 
 // FRSZ2-coded operand: the code of entry c and its block's exponent.
@@ -88,14 +97,15 @@ __global__ void __launch_bounds__(kRows)
       for (int k = 0; k < ks; ++k) acc += p[k];
     }
   }
-  if (threadIdx.x < rows) y[row0 + threadIdx.x] = acc;
+  if (threadIdx.x < rows) y[blockIdx.y * nr + row0 + threadIdx.x] = acc;
 }
 
 template <typename T, class Load>
 void launch(const void* vals, const int* cols, Load load, void* y, long long nr, int w,
-            cudaStream_t s) {
+            cudaStream_t s, int q = 1) {
   const long long blocks = (nr + kRows - 1) / kRows;
-  ell_spmv_kernel<T, Load><<<static_cast<unsigned>(blocks), kRows, 0, s>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(q));
+  ell_spmv_kernel<T, Load><<<grid, kRows, 0, s>>>(
       static_cast<const T*>(vals), cols, load, static_cast<T*>(y), nr, w);
 }
 
@@ -138,20 +148,23 @@ bool dispatch_coded(const void* vals, const int* cols, const void* codes, const 
 
 extern "C" {
 
-// y (nr,) = ELL(vals, cols) @ x.  vals (nr, w) and x (nc,) of the value
-// kind (0 = f32, 1 = f64); cols (nr, w) int32, every entry in [0, nc).
+// y (q, nr) = ELL(vals, cols) @ x for each of q operands.  vals (nr, w)
+// and x (q, nc) of the value kind (0 = f32, 1 = f64); cols (nr, w) int32,
+// every entry in [0, nc).
 int ell_spmv(const void* vals, const void* cols, const void* x, void* y, long long nr,
-             int w, int kind, void* stream) {
+             int w, long long nc, int q, int kind, void* stream) {
   using namespace ell;
-  if (nr <= 0 || w <= 0 || nr > (1LL << 31) * kRows) return cudaErrorInvalidValue;
+  if (nr <= 0 || w <= 0 || nc <= 0 || q <= 0 || q > frsz2::kMaxGridY ||
+      nr > (1LL << 31) * kRows)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cols);
   switch (kind) {
     case frsz2::kF32:
-      launch<float>(vals, c, DenseX<float>{static_cast<const float*>(x)}, y, nr, w, s);
+      launch<float>(vals, c, DenseX<float>{static_cast<const float*>(x), nc}, y, nr, w, s, q);
       break;
     case frsz2::kF64:
-      launch<double>(vals, c, DenseX<double>{static_cast<const double*>(x)}, y, nr, w, s);
+      launch<double>(vals, c, DenseX<double>{static_cast<const double*>(x), nc}, y, nr, w, s, q);
       break;
     default:
       return cudaErrorInvalidValue;

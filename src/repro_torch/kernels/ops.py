@@ -13,9 +13,10 @@ the same answer as ``repro/kernels/ops.py:60``):
 ``kernel=False`` forces the plain version on the card too, so that
 ``chip_smoke.py`` can compare the two routes there; ``kernel=True`` on a CPU
 tensor raises.  The ELL SpMV and the Givens step of the GMRES cycle route
-the same way, by the device of their tensors.  Each wrapper adds one to
-``LAUNCHES[<kernel>]`` where it launches its kernel, and nowhere else, so a
-run can show which kernels its main path went through.
+the same way, by the device of their tensors, and so do the block
+contractions and the block Givens step of block-GMRES.  Each wrapper adds
+one to ``LAUNCHES[<kernel>]`` where it launches its kernel, and nowhere
+else, so a run can show which kernels its main path went through.
 
 Outputs are allocated with ``torch.empty`` and launched on the current
 stream.  ``compress`` can write into caller-given code/exponent rows (a basis
@@ -29,12 +30,17 @@ from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "kernel_supported", "compress",
-           "decompress", "matvec", "rmatvec", "ell_spmv", "givens_step"]
+           "decompress", "matvec", "rmatvec", "block_dots", "block_combine",
+           "ell_spmv", "givens_step", "block_givens_step"]
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"frsz2_compress": 0, "frsz2_decompress": 0, "frsz2_matvec": 0,
-            "frsz2_rmatvec": 0, "ell_spmv": 0, "ell_spmv_frsz2": 0,
-            "gmres_givens": 0}
+            "frsz2_rmatvec": 0, "frsz2_block_dots": 0,
+            "frsz2_block_combine": 0, "ell_spmv": 0, "ell_spmv_frsz2": 0,
+            "gmres_givens": 0, "gmres_block_givens": 0}
+
+#: the widest block (right-hand sides per block row) the block kernels take
+_MAX_BLOCK_P = 16
 
 
 def reset_launches() -> None:
@@ -220,6 +226,128 @@ def rmatvec(bc: F.BlockCompressed, h: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# fused decode + block contraction over a flattened block basis
+# ---------------------------------------------------------------------------
+
+
+def _block_view(bc: F.BlockCompressed, p: int, rows: int):
+    """The first ``rows`` flat block rows of ``p`` segments viewed as
+    ``rows * p`` segment rows: (codes (M, nbs, bs), exps (M, nbs), n_seg).
+
+    The layout of ``repro/kernels/ops.py:_block_layout``: every segment is
+    a whole number of codec blocks (``BlockBasisAccessor`` aligns it to
+    ``block_align()``), so no block straddles a segment edge."""
+    m, nb = bc.exps.shape
+    if p <= 0 or nb % p:
+        raise ValueError(f"{nb} codec blocks per row do not split into "
+                         f"p={p} segments")
+    if not 0 <= rows <= m:
+        raise ValueError(f"rows={rows} outside a store of {m} block rows")
+    nbs = nb // p
+    words = bc.codes.shape[-1]           # bs codes, or packed words
+    return (bc.codes[:rows].reshape(rows * p, nbs, words),
+            bc.exps[:rows].reshape(rows * p, nbs), nbs * bc.spec.bs)
+
+
+def _check_block_p(q: int) -> None:
+    if not 1 <= q <= _MAX_BLOCK_P:
+        raise NotImplementedError(
+            f"a block of {q} right-hand sides has no kernel "
+            f"(1..{_MAX_BLOCK_P})")
+
+
+def _dots_chunk(M: int, n_seg: int) -> int:
+    """Columns one block-dots block reduces: enough (row group, chunk)
+    blocks to fill the card, at most 8192 columns each, a multiple of the
+    kernel's 256-column staging tile.  A function of the shape only, so a
+    contraction gives the same bits on every call."""
+    from repro_torch.kernels import frsz2_block as KB
+
+    groups = -(-M // KB.ROWS_PER_BLOCK)
+    want = max(1, -(-2048 // groups))
+    cols = -(-n_seg // want)
+    cols = -(-cols // KB.SUB_COLS) * KB.SUB_COLS
+    return min(max(cols, KB.SUB_COLS), 32 * KB.SUB_COLS)
+
+
+def block_dots(bc: F.BlockCompressed, W: torch.Tensor, *, p: int,
+               rows: int, kernel: bool | None = None) -> torch.Tensor:
+    """``H (rows, p, q) = einsum('ian,bn->iab', decompress(V)[:rows], W)``.
+
+    ``bc`` holds flat block rows of ``p`` segment-aligned per-RHS segments
+    of ``n_seg`` values; only the first ``rows`` (the live block rows) are
+    read.  ``W (q, n)`` with ``n <= n_seg`` is zero-padded to the segment
+    length (the store's pad values decode to exact zeros).  Contracted in
+    the spec's value dtype.
+    """
+    spec = bc.spec
+    codes, exps, n_seg = _block_view(bc, p, rows)
+    q, n = W.shape
+    if n > n_seg:
+        raise ValueError(f"W has {n} columns, segments hold {n_seg}")
+    Wp = torch.nn.functional.pad(W.to(spec.dtype), (0, n_seg - n))
+    if not _use_kernel(bc.codes, spec, kernel):
+        if not kernel_supported(spec):
+            V = F.decompress(F.BlockCompressed(codes=codes, exps=exps,
+                                               n=n_seg, spec=spec))
+            return (V @ Wp.T).reshape(rows, p, q)
+        return ref.block_dots_ref(codes, exps, Wp, spec).reshape(rows, p, q)
+    _check_block_p(q)
+    _check_basis(bc)
+    if bc.codes.data_ptr() % 32:
+        raise ValueError("block dots read codes in 32-byte sectors: the "
+                         "store must start 32-byte aligned")
+    dev = bc.codes.device
+    Wp = Wp.contiguous()
+    _expect(Wp, "W", (q, n_seg), spec.dtype, dev)
+    M = rows * p
+    Y = torch.empty((M, q), dtype=spec.dtype, device=dev)
+    if M == 0:
+        return Y.reshape(rows, p, q)
+    from repro_torch.kernels import frsz2_block as KB
+
+    cols = _dots_chunk(M, n_seg)
+    partial = torch.empty((M, -(-n_seg // cols), q), dtype=spec.dtype,
+                          device=dev)
+    KB.block_dots_2d(codes.view(M, n_seg), exps, Wp, partial, Y, cols, spec)
+    LAUNCHES["frsz2_block_dots"] += 1
+    return Y.reshape(rows, p, q)
+
+
+def block_combine(bc: F.BlockCompressed, Y: torch.Tensor, *, p: int,
+                  kernel: bool | None = None) -> torch.Tensor:
+    """``out (q, n_seg) = einsum('iab,ian->bn', Y, decompress(V)[:rows])``
+    for the ``rows = len(Y)`` leading block rows; ``Y (rows, p, q)``.  The
+    caller trims the segment padding back to the logical length."""
+    spec = bc.spec
+    rows, pY, q = Y.shape
+    if pY != p:
+        raise ValueError(f"Y must be (rows, {p}, q), got {tuple(Y.shape)}")
+    codes, exps, n_seg = _block_view(bc, p, rows)
+    M = rows * p
+    Y2 = Y.to(spec.dtype).reshape(M, q)
+    if not _use_kernel(bc.codes, spec, kernel):
+        if not kernel_supported(spec):
+            V = F.decompress(F.BlockCompressed(codes=codes, exps=exps,
+                                               n=n_seg, spec=spec))
+            return Y2.T @ V
+        return ref.block_combine_ref(codes, exps, Y2, spec)
+    _check_block_p(q)
+    _check_basis(bc)
+    dev = bc.codes.device
+    Y2 = Y2.contiguous()
+    _expect(Y2, "Y", (M, q), spec.dtype, dev)
+    out = torch.empty((q, n_seg), dtype=spec.dtype, device=dev)
+    if M == 0:
+        return out.zero_()
+    from repro_torch.kernels import frsz2_block as KB
+
+    KB.block_combine_2d(codes.view(M, n_seg), exps, Y2, out, spec)
+    LAUNCHES["frsz2_block_combine"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ELL SpMV, dense or FRSZ2-coded operand
 # ---------------------------------------------------------------------------
 
@@ -229,7 +357,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x, *,
     """``y (nr,) = ELL(vals, cols) @ x``; ``x`` is a dense ``(nc,)`` vector or
     an FRSZ2 :class:`~repro_torch.core.frsz2.BlockCompressed` one, decoded
     entry by entry inside the kernel.  ``vals`` (nr, w) f32/f64, ``cols``
-    (nr, w) int32 with every entry in ``[0, nc)``.
+    (nr, w) int32 with every entry in ``[0, nc)``.  A dense block ``x (q,
+    nc)`` gives ``y (q, nr)`` in one launch (counted as one ``ell_spmv``).
     """
     coded = isinstance(x, F.BlockCompressed)
     if vals.ndim != 2:
@@ -238,8 +367,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x, *,
         raise ValueError("a coded operand must be one vector: codes (nb, bs), "
                          f"exps (nb,); got {tuple(x.codes.shape)}, "
                          f"{tuple(x.exps.shape)}")
-    if not coded and x.ndim != 1:
-        raise ValueError(f"x must be a vector, got {tuple(x.shape)}")
+    if not coded and x.ndim not in (1, 2):
+        raise ValueError(f"x must be (nc,) or (q, nc), got {tuple(x.shape)}")
     if not _use_kernel(vals, x.spec if coded else None, kernel):
         if coded:
             return ref.ell_spmv_frsz2_ref(vals, cols, x)
@@ -250,8 +379,9 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x, *,
         raise NotImplementedError(f"ELL values of {vals.dtype} have no kernel")
     _expect(vals, "vals", (nr, w), vals.dtype, dev)
     _expect(cols, "cols", (nr, w), torch.int32, dev)
-    y = torch.empty((nr,), dtype=vals.dtype, device=dev)
-    if nr == 0 or w == 0:
+    y = torch.empty((*(() if coded else x.shape[:-1]), nr), dtype=vals.dtype,
+                    device=dev)
+    if y.numel() == 0 or w == 0:
         return y.zero_()
     from repro_torch.kernels import ell_spmv as KE
 
@@ -267,7 +397,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x, *,
         xs = x.to(vals.dtype).contiguous()
         if xs.device != dev:
             raise ValueError(f"x is on {xs.device}, expected {dev}")
-        KE.ell_spmv_2d(vals, cols, xs, y)
+        KE.ell_spmv_2d(vals, cols, xs.view(-1, xs.shape[-1]),
+                       y.view(-1, nr))
         LAUNCHES["ell_spmv"] += 1
     return y
 
@@ -303,3 +434,35 @@ def givens_step(state: torch.Tensor, h: torch.Tensor, hj1: torch.Tensor,
 
     KG.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m, target)
     LAUNCHES["gmres_givens"] += 1
+
+
+def block_givens_step(state: torch.Tensor, H: torch.Tensor, T: torch.Tensor,
+                      fired: torch.Tensor, bn_safe: torch.Tensor, j: int,
+                      m: int, p: int, target: float, *,
+                      kernel: bool | None = None) -> None:
+    """Block step ``j`` of the block cycle's banded least squares, in place
+    on the f64 ``state`` (layout:
+    :func:`repro_torch.kernels.ref.block_givens_layout`).  See
+    :func:`repro_torch.kernels.ref.block_givens_step_ref` for what it
+    computes."""
+    if not 0 <= j < m:
+        raise ValueError(f"step j={j} outside a cycle of m={m}")
+    if not _use_kernel(state, None, kernel):
+        ref.block_givens_step_ref(state, H, T, fired, bn_safe, j, m, p,
+                                  target)
+        return
+    _check_block_p(p)
+    dev = state.device
+    _expect(state, "state", (ref.block_givens_layout(m, p)["size"],),
+            torch.float64, dev)
+    H = H.to(torch.float64).contiguous()
+    T = T.to(torch.float64).contiguous()
+    bn_safe = bn_safe.to(torch.float64).contiguous()
+    _expect(H.view(-1, p), "H", ((j + 1) * p, p), torch.float64, dev)
+    _expect(T, "T", (p, p), torch.float64, dev)
+    _expect(bn_safe, "bn_safe", (p,), torch.float64, dev)
+    _expect(fired, "fired", (), torch.bool, dev)
+    from repro_torch.kernels import gmres_step as KG
+
+    KG.block_givens_step(state, H, T, fired, bn_safe, j, m, p, target)
+    LAUNCHES["gmres_block_givens"] += 1

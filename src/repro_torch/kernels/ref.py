@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the Hopper kernels: what each kernel computes.
 
-The kernels in ``frsz2_kernel.py`` / ``frsz2_dot.py`` / ``ell_spmv.py`` /
-``gmres_step.py`` must match these: bit for bit on the codec, the ELL SpMV
-and the Givens step, to float tolerance on the basis contractions.  The
+The kernels in ``frsz2_kernel.py`` / ``frsz2_dot.py`` / ``frsz2_block.py`` /
+``ell_spmv.py`` / ``gmres_step.py`` must match these: bit for bit on the
+codec, the ELL SpMV and the two Givens steps, to float tolerance on the
+basis contractions.  The
 contractions accumulate in the value dtype of the spec (f64 for the solver's
 formats).  On the CPU the wrappers in ``ops.py`` run these; on the card
 ``chip_smoke.py`` holds each kernel against them.
@@ -50,6 +51,43 @@ def rmatvec_ref(codes, exps, h, spec: F.FrszSpec) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Block contractions over a flattened block basis (csrc/frsz2_block.cu)
+# ---------------------------------------------------------------------------
+
+
+#: segment rows the plain block contractions decode at once (the codec's
+#: int64 temporaries of a whole full-width block basis would not fit)
+_REF_ROWS = 128
+
+
+def block_dots_ref(codes, exps, W, spec: F.FrszSpec) -> torch.Tensor:
+    """Y[r, b] = sum_c decompress(V)[r, c] * W[b, c].
+
+    codes: (M, nb, bs) element codes of M segment rows; exps: (M, nb);
+    W: (q, nb*bs)  ->  Y: (M, q), contracted in the spec's value dtype.
+    """
+    Wt = W.to(spec.dtype).T
+    parts = [decompress_ref(c, e, spec) @ Wt
+             for c, e in zip(codes.split(_REF_ROWS), exps.split(_REF_ROWS))]
+    return torch.cat(parts) if parts else Wt.new_zeros((0, W.shape[0]))
+
+
+def block_combine_ref(codes, exps, Y, spec: F.FrszSpec) -> torch.Tensor:
+    """out[b, c] = sum_r Y[r, b] * decompress(V)[r, c].
+
+    codes: (M, nb, bs); exps: (M, nb); Y: (M, q)  ->  out: (q, nb*bs).
+    """
+    Y = Y.to(spec.dtype)
+    nb, bs = codes.shape[-2:]
+    out = Y.new_zeros((Y.shape[1], nb * bs))
+    for r0 in range(0, codes.shape[0], _REF_ROWS):
+        r1 = r0 + _REF_ROWS
+        out = out + Y[r0:r1].T @ decompress_ref(codes[r0:r1], exps[r0:r1],
+                                                spec)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ELL SpMV (csrc/ell_spmv.cu)
 # ---------------------------------------------------------------------------
 
@@ -61,12 +99,15 @@ def ell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
     vals (nr, w) f32/f64; cols (nr, w) int32 (padding slots: val 0, col 0);
     x (nc,), taken in the dtype of ``vals``.  Each row sums its w products
     in slot order, starting from 0: the order of the JAX package's gather
-    sum and of the kernel, so all three give the same bits.
+    sum and of the kernel, so all three give the same bits.  A block ``x
+    (q, nc)`` gives ``y (q, nr)``, each column on its own, as ``jax.vmap``
+    of the single-vector product.
     """
     xv = x.to(vals.dtype)
-    y = torch.zeros(vals.shape[0], dtype=vals.dtype, device=vals.device)
+    y = torch.zeros((*x.shape[:-1], vals.shape[0]), dtype=vals.dtype,
+                    device=vals.device)
     for k in range(vals.shape[1]):
-        y = y + vals[:, k] * xv[cols[:, k]]
+        y = y + vals[:, k] * xv[..., cols[:, k]]
     return y
 
 
@@ -158,3 +199,136 @@ def givens_step_ref(state: torch.Tensor, h: torch.Tensor, hj1: torch.Tensor,
     s[L["est"] + j] = resid
     s[L["extra"]] += float(bool(fired)) * (j + 1)
     s[L["alive"]] = float(not breakdown and resid > target)
+
+
+# ---------------------------------------------------------------------------
+# One block Givens step of the block-GMRES cycle (csrc/gmres_step.cu)
+# ---------------------------------------------------------------------------
+
+
+def block_givens_layout(m: int, p: int) -> dict:
+    """Offsets of the block cycle's f64 state vector for ``m`` block steps
+    of ``p`` columns: ``R`` ((m+1)p x mp, row-major), ``G`` ((m+1)p x p),
+    ``est`` (m x p), ``extra`` (1), ``cs`` (mp x p), ``sn`` (mp x p),
+    ``alive`` (1).  ``R``, ``G``, ``est`` and ``extra`` come first, so the
+    driver's one read per restart is a prefix of it."""
+    mp = m * p
+    off = {"R": 0, "G": (mp + p) * mp}
+    off["est"] = off["G"] + (mp + p) * p
+    off["extra"] = off["est"] + mp
+    off["cs"] = off["extra"] + 1
+    off["sn"] = off["cs"] + mp * p
+    off["alive"] = off["sn"] + mp * p
+    off["size"] = off["alive"] + 1
+    return off
+
+
+def block_givens_init_ref(m: int, p: int, device) -> torch.Tensor:
+    """The state at the start of a cycle, ``G`` still 0: ``R``, ``G``, ``sn``
+    zero, ``cs`` one (identity rotations), ``est`` +inf, ``extra`` 0,
+    ``alive`` 1."""
+    L = block_givens_layout(m, p)
+    s = torch.zeros(L["size"], dtype=torch.float64, device=device)
+    s[L["est"]:L["extra"]] = math.inf
+    s[L["cs"]:L["sn"]] = 1.0
+    s[L["alive"]] = 1.0
+    return s
+
+
+def _rotate(u: list, v: list, c: float, s: float) -> None:
+    """Rows ``u, v <- c u + s v, -s u + c v``, in place, each operation
+    rounded on its own (no fused multiply-add)."""
+    for t, (a, b) in enumerate(zip(u, v)):
+        u[t] = c * a + s * b
+        v[t] = -s * a + c * b
+
+
+def block_apply_prior(slab: list, cs: list, sn: list, jp: int, p: int
+                      ) -> None:
+    """Apply the stored rotations of columns ``< jp`` to a column slab (a
+    list of rows), in place: rotation ``[c, k]`` acts on rows ``(c,
+    c+p-k)``, in k order (``repro/solver/gmres.py::_block_apply_prior``)."""
+    for c in range(jp):
+        for k in range(p):
+            _rotate(slab[c], slab[c + p - k], cs[c][k], sn[c][k])
+
+
+def block_triangularize(W: list, G2: list, p: int):
+    """Annihilate the band of a step's ``2p`` window rows ``W``, in place,
+    and rotate the rhs rows ``G2`` alike: rotation ``(k, k+i)``, i = p..1,
+    pairs each subdiagonal entry with the pivot row (zero-safe Givens),
+    then zeros below the diagonal exactly
+    (``repro/solver/gmres.py::_block_triangularize``).  Returns the new
+    rotations ``(cs, sn)``, ``[k][p-i]`` acting on rows ``(k, k+i)``."""
+    csn = [[1.0] * p for _ in range(p)]
+    snn = [[0.0] * p for _ in range(p)]
+    for k in range(p):
+        for i in range(p, 0, -1):
+            r1 = k + i
+            a, b = W[k][k], W[r1][k]
+            denom = math.sqrt(a * a + b * b)
+            c, sv = (a / denom, b / denom) if denom > 0 else (1.0, 0.0)
+            _rotate(W[k], W[r1], c, sv)
+            _rotate(G2[k], G2[r1], c, sv)
+            csn[k][p - i] = c
+            snn[k][p - i] = sv
+        for r in range(k + 1, 2 * p):
+            W[r][k] = 0.0
+    return csn, snn
+
+
+def block_givens_step_ref(state: torch.Tensor, H: torch.Tensor,
+                          T: torch.Tensor, fired: torch.Tensor,
+                          bn_safe: torch.Tensor, j: int, m: int, p: int,
+                          target: float) -> None:
+    """Block step ``j`` of the cycle's banded least squares, in place on
+    ``state`` (layout: :func:`block_givens_layout`).
+
+    ``H`` ((j+1)p, p) are the couplings of the new block with the live
+    basis rows, ``T`` (p, p) the triangular factor of its QR, ``fired``
+    whether MGS re-orthogonalized, ``bn_safe`` (p,) the columns' right-hand
+    side norms.  While ``alive``: build the step's column slab (``H`` over
+    ``T`` over zeros), :func:`block_apply_prior`, then
+    :func:`block_triangularize` its rows ``jp..jp+2p-1`` with ``G``'s; write
+    the slab into columns ``jp..jp+p-1`` of ``R``, the new rotations into
+    ``cs``/``sn``, and ``est[j, b] = ||G[jp+p:jp+2p, b]|| / bn_safe[b]``
+    (squares summed in row order), add ``fired * (j+1)`` to ``extra``, and
+    drop ``alive`` on a total breakdown (every diagonal entry of ``T``
+    zero) or once every column meets ``target``.  Once dead, ``est[j]``
+    repeats ``est[max(j-1, 0)]`` and nothing else changes.  Python floats,
+    operation for operation as the kernel rounds them.
+    """
+    L = block_givens_layout(m, p)
+    mp = m * p
+    s = state
+    e0 = L["est"]
+    if not float(s[L["alive"]]):
+        jj = max(j - 1, 0)
+        s[e0 + j * p:e0 + (j + 1) * p] = s[e0 + jj * p:e0 + (jj + 1) * p]
+        return
+    jp = j * p
+    slab = H.double().reshape(-1, p).tolist() + T.double().tolist()
+    cs = s[L["cs"]:L["cs"] + jp * p].view(-1, p).tolist() if jp else []
+    sn = s[L["sn"]:L["sn"] + jp * p].view(-1, p).tolist() if jp else []
+    block_apply_prior(slab, cs, sn, jp, p)
+    Gv = s[L["G"]:L["est"]].view(mp + p, p)
+    G2 = Gv[jp:jp + 2 * p].tolist()
+    csn, snn = block_triangularize(slab[jp:jp + 2 * p], G2, p)
+    R = s[:L["G"]].view(mp + p, mp)
+    R[:(j + 2) * p, jp:jp + p] = torch.tensor(slab, dtype=torch.float64)
+    Gv[jp:jp + 2 * p] = torch.tensor(G2, dtype=torch.float64)
+    s[L["cs"] + jp * p:L["cs"] + (jp + p) * p] = torch.tensor(
+        csn, dtype=torch.float64).ravel()
+    s[L["sn"] + jp * p:L["sn"] + (jp + p) * p] = torch.tensor(
+        snn, dtype=torch.float64).ravel()
+    bn = bn_safe.double().tolist()
+    est = []
+    for b in range(p):
+        acc = 0.0
+        for r in range(p, 2 * p):
+            acc = acc + G2[r][b] * G2[r][b]
+        est.append(math.sqrt(acc) / bn[b])
+    s[e0 + j * p:e0 + (j + 1) * p] = torch.tensor(est, dtype=torch.float64)
+    s[L["extra"]] += float(bool(fired)) * (j + 1)
+    dead = all(abs(v) <= _TINY for v in T.double().diagonal().tolist())
+    s[L["alive"]] = float(not dead and any(e > target for e in est))

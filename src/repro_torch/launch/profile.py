@@ -8,7 +8,9 @@ cycle's CUDA graph), then one solve under ``torch.profiler``
 (CPU + CUDA activities).  Prints the wall time (host clock around work that
 ends in a synchronize), the summed device time of all kernels, their ratio
 (the device busy share; the rest is the card waiting on the host), and the
-kernels that took the most device time, as JSON lines.  Needs a CUDA card.
+kernels that took the most device time, as JSON lines.  ``--batch k``
+profiles a solve of k right-hand sides (``_batch_rhs``) through
+``gmres_batched`` with ``--method block`` or ``vmap``.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -19,22 +21,32 @@ import time
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.solver import gmres
+from repro_torch.launch.solve import _batch_rhs
+from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
 
 
 def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
-                  driver: str = "device", top: int = 10) -> dict:
+                  driver: str = "device", batch: int = 1,
+                  method: str = "vmap", top: int = 10) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(storage=fmt, m=m, max_iters=max_iters, target_rrn=target,
               driver=driver)
-    gmres(A, b, **kw)                               # warm-up: builds, caches
+    if batch > 1:
+        B = _batch_rhs(b, batch)
+
+        def solve():
+            return gmres_batched(A, B, method=method, **kw)
+    else:
+        def solve():
+            return [gmres(A, b, **kw)]
+    solve()                                         # warm-up: builds, caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = gmres(A, b, **kw)
+        results = solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernels are the events that ran on the card; the host ops that
@@ -43,10 +55,12 @@ def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
                if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    return dict(format=fmt, driver=driver, n=A.shape[0], iters=res.iterations,
-                wall_s=wall, device_s=device_us * 1e-6,
+    iters = sum(r.iterations for r in results)
+    return dict(format=fmt, driver=driver, batch=batch,
+                method=method if batch > 1 else None, n=A.shape[0],
+                iters=iters, wall_s=wall, device_s=device_us * 1e-6,
                 device_busy_share=device_us * 1e-6 / wall,
-                wall_per_iter_ms=wall * 1e3 / max(res.iterations, 1),
+                wall_per_iter_ms=wall * 1e3 / max(iters, 1),
                 top=[dict(name=e.key[:100], calls=e.count,
                           device_ms=e.self_device_time_total * 1e-3)
                      for e in kernels])
@@ -61,16 +75,22 @@ def main(argv=None):
     ap.add_argument("--max-iters", type=int, default=500)
     ap.add_argument("--driver", default="device",
                     help="restart loop(s), comma-separated: device, host")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="right-hand sides per solve")
+    ap.add_argument("--method", default="vmap",
+                    help="batched method(s), comma-separated: vmap, block")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     A, target = make_problem(args.problem, args.n, device=dev)
     b, _ = rhs_for(A, device=dev)
-    for driver in args.driver.split(","):
-        for fmt in args.formats.split(","):
-            print(json.dumps(profile_solve(A, b, fmt, m=args.m,
-                                           max_iters=args.max_iters,
-                                           target=target, driver=driver)),
-                  flush=True)
+    methods = args.method.split(",") if args.batch > 1 else ["vmap"]
+    for method in methods:
+        for driver in args.driver.split(","):
+            for fmt in args.formats.split(","):
+                print(json.dumps(profile_solve(
+                    A, b, fmt, m=args.m, max_iters=args.max_iters,
+                    target=target, driver=driver, batch=args.batch,
+                    method=method)), flush=True)
 
 
 if __name__ == "__main__":

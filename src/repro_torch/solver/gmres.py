@@ -57,7 +57,8 @@ from repro_torch.solver.pipeline import (
 )
 from repro_torch.sparse.csr import CSR, ELL
 
-__all__ = ["GmresResult", "gmres", "gmres_batched", "cb_gmres"]
+__all__ = ["GmresResult", "gmres", "gmres_batched", "cb_gmres",
+           "clear_graph_cache"]
 
 _TINY = 1e-300
 
@@ -199,6 +200,34 @@ def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
         ops.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m, target)
 
 
+def _capture(run: Callable):
+    """Capture ``run()`` as a CUDA graph: ``(graph, launches)``.
+
+    ``run`` first runs once on a side stream (every kernel library is then
+    built and loaded, cuBLAS has its workspace) and counts the launches it
+    really makes; the capture then counts them again, and those counts are
+    taken back out of ``ops.LAUNCHES`` and returned, for :func:`_replay` to
+    add per replay (a replay runs no Python).  A failed capture raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                 # warm-up: real launches
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(ops.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    ops.LAUNCHES.update(before)               # a capture launches nothing
+    return graph, launches
+
+
+def _replay(graph, launches: dict) -> None:
+    graph.replay()
+    for k, v in launches.items():
+        ops.LAUNCHES[k] += v
+
+
 class _DeviceCycle:
     """The device cycle of one policy level, with its own basis store, its
     least-squares state and static inputs.
@@ -234,30 +263,14 @@ class _DeviceCycle:
                       self.r, self.beta, self.b_norm, eta, target, ortho,
                       precond, fused)
 
-    def _capture(self) -> None:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._run()                       # warm-up: real launches
-        torch.cuda.current_stream().wait_stream(side)
-        before = dict(ops.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._run()
-        self.launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        ops.LAUNCHES.update(before)           # a capture launches nothing
-        self.graph = graph
-
     def __call__(self, r, beta, b_norm):
         self.r.copy_(r)
         self.beta.copy_(beta)
         self.b_norm.copy_(b_norm)
         if self.state.is_cuda:
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            for k, v in self.launches.items():
-                ops.LAUNCHES[k] += v
+                self.graph, self.launches = _capture(self._run)
+            _replay(self.graph, self.launches)
         else:
             self._run()
         m = self.acc.m - 1
@@ -269,12 +282,31 @@ class _DeviceCycle:
                 out[L["est"]:L["extra"]], int(out[L["extra"]]))
 
 
-#: captured cycles, least recently used first.  A graph reads its operator,
-#: preconditioner and store by address, so the key is the identity of those
-#: tensors (never a content fingerprint: an equal matrix elsewhere would be
-#: read through stale pointers) and the entry pins them.
+#: captured cycles (scalar and block), least recently used first.  A graph
+#: reads its operator, preconditioner and store by address, so the key is
+#: the identity of those tensors (never a content fingerprint: an equal
+#: matrix elsewhere would be read through stale pointers) and the entry
+#: pins them.
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
 _GRAPHS_SIZE = 8
+
+
+def clear_graph_cache() -> None:
+    """Drop every captured cycle, with the basis stores and the graph
+    memory it holds (a full-width block basis holds gigabytes)."""
+    _GRAPHS.clear()
+
+
+def _cached_graph(key, build):
+    """The cached cycle under ``key``, or ``build()`` cached there."""
+    cyc = _GRAPHS.get(key)
+    if cyc is not None:
+        _GRAPHS.move_to_end(key)
+        return cyc
+    cyc = _GRAPHS[key] = build()
+    while len(_GRAPHS) > _GRAPHS_SIZE:
+        _GRAPHS.popitem(last=False)
+    return cyc
 
 
 def _operator_key(A, user_matvec):
@@ -308,15 +340,8 @@ def _device_cycle_for(A, user_matvec, matvec, acc, eta, target, ortho,
     key = (op_key, pc_key, acc.fmt, acc.m, acc.n, acc.arith_dtype,
            str(torch.device(acc.device)), type(ortho), ortho.name,
            float(eta), float(target), fused)
-    cyc = _GRAPHS.get(key)
-    if cyc is not None:
-        _GRAPHS.move_to_end(key)
-        return cyc
-    cyc = _GRAPHS[key] = _DeviceCycle(matvec, acc, eta, target, ortho,
-                                      precond, fused, op_pins + pc_pins)
-    while len(_GRAPHS) > _GRAPHS_SIZE:
-        _GRAPHS.popitem(last=False)
-    return cyc
+    return _cached_graph(key, lambda: _DeviceCycle(
+        matvec, acc, eta, target, ortho, precond, fused, op_pins + pc_pins))
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +368,38 @@ def _solve_and_update(acc: BasisAccessor, store, R, g, j_stop: int, x0,
         y[jj] = yi if active[jj] else 0.0
     yt = torch.as_tensor(y[:j_stop], dtype=acc.arith_dtype, device=x0.device)
     return x0 + precond.apply(acc.combine(store, yt))
+
+
+def _block_solve_and_update(acc, store, R, G, j_stop: int, X0, precond):
+    """Block least squares: ``Y = argmin ||G - R Y||`` over the leading
+    ``j_stop`` block columns, then ``X = X0 + M^{-1} (V Y)``.
+
+    ``R ((m+1)p, mp)`` is the rotated stacked Hessenberg, ``G ((m+1)p,
+    p)`` the rotated rhs, both on the host.  Deflated directions have an
+    exactly zero diagonal entry (their whole column is zero); they get a
+    zero coefficient, which is the minimization over the deflated subspace
+    (``repro/solver/gmres.py::_block_solve_and_update``).  The back
+    substitution runs on the host in f64; only the ``j_stop`` live block
+    rows are combined."""
+    p = acc.p
+    k = j_stop * p
+    Rk = R[:k, :k]
+    solved = np.abs(np.diagonal(Rk)) > _TINY
+    Y = np.zeros((k, p))
+    for jj in range(k - 1, -1, -1):
+        if solved[jj]:
+            Y[jj] = (G[jj] - Rk[jj, jj + 1:] @ Y[jj + 1:]) / Rk[jj, jj]
+    Yt = torch.as_tensor(Y.reshape(j_stop, p, p), dtype=acc.arith_dtype,
+                         device=X0.device)
+    return X0 + _apply_rows(precond, acc.block_combine(store, Yt))
+
+
+def _apply_rows(precond, X):
+    """The right preconditioner on each row of ``X (p, n)``: the identity
+    and Jacobi broadcast over the block, a user callable runs row by row."""
+    if isinstance(precond, (IdentityPreconditioner, JacobiPreconditioner)):
+        return precond.apply(X)
+    return torch.stack([precond.apply(x) for x in X])
 
 
 def _cycle_row_reads(j_stop: int, passes: int, extra_rows: int = 0) -> int:
@@ -480,6 +537,23 @@ def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
 _REORDERS = ("auto", "rcm", "none")
 
 
+def _check_unported(shard, reorder: str) -> None:
+    """Raise for the options of the reference that this port has not yet:
+    ``shard`` and ``reorder="rcm"``; ``reorder="auto"`` is a no-op off the
+    sharded path, as in the reference."""
+    if shard is not None:
+        raise NotImplementedError(
+            "shard= (the multi-GPU solve) is not ported yet "
+            "(ROADMAP.md, open item 1: slice 5)")
+    if reorder not in _REORDERS:
+        raise ValueError(f"unknown reorder mode {reorder!r}; "
+                         f"expected one of {_REORDERS}")
+    if reorder == "rcm":
+        raise NotImplementedError(
+            "reorder='rcm' (operator planning) is not ported yet "
+            "(ROADMAP.md, open item 1: slice 4)")
+
+
 def gmres(
     A: Any,
     b: torch.Tensor,
@@ -521,17 +595,7 @@ def gmres(
     if driver not in ("device", "host"):
         raise ValueError(f"unknown driver {driver!r}; "
                          "expected one of ('device', 'host')")
-    if shard is not None:
-        raise NotImplementedError(
-            "shard= (the multi-GPU solve) is not ported yet "
-            "(ROADMAP.md, open item 1: slice 5)")
-    if reorder not in _REORDERS:
-        raise ValueError(f"unknown reorder mode {reorder!r}; "
-                         f"expected one of {_REORDERS}")
-    if reorder == "rcm":
-        raise NotImplementedError(
-            "reorder='rcm' (operator planning) is not ported yet "
-            "(ROADMAP.md, open item 1: slice 4)")
+    _check_unported(shard, reorder)
     if arith_dtype is None:
         arith_dtype = b.dtype
     user_matvec = matvec
@@ -552,11 +616,56 @@ def gmres(
                          max_iters, target_rrn, eta, ortho, precond, x0=x0)
 
 
-def gmres_batched(A, B, **kw):
-    """Several right-hand sides at once: not ported yet."""
-    raise NotImplementedError(
-        "gmres_batched (vmap and block multi-RHS) is not ported yet "
-        "(ROADMAP.md, open item 1: slice 3)")
+def gmres_batched(
+    A: Any,
+    B: torch.Tensor,
+    *,
+    X0: torch.Tensor | None = None,
+    storage: Any = None,
+    policy: Any = None,
+    precond: Any = None,
+    ortho: Any = "mgs",
+    m: int = 100,
+    max_iters: int = 20000,
+    target_rrn: float = 1e-14,
+    arith_dtype: Any = None,
+    eta: float = 0.7071067811865475,
+    matvec: Callable | None = None,
+    method: str = "vmap",
+    driver: str = "device",
+    shard: int | None = None,
+    reorder: str = "auto",
+) -> list[GmresResult]:
+    """Solve A X[i] = B[i] for a batch of right-hand sides ``B (k, n)``.
+
+    ``method="vmap"`` (default) solves the k systems one after another in
+    k independent Krylov spaces through :func:`gmres` with the ``driver``
+    asked for (the device driver's captured cycle is reused from one system
+    to the next): each system gets the bits of its own solve, and the
+    results' ``bytes_read``/``op_reads`` sum over the batch as the JAX
+    package's vmapped solve does.  ``method="block"`` shares one block
+    Krylov space (:func:`repro_torch.solver.block.gmres_block`): every
+    Arnoldi sweep reads the operator and the shared basis once for the
+    whole batch.  Returns one :class:`GmresResult` per right-hand side.
+    """
+    if B.ndim != 2:
+        raise ValueError(f"B must be (batch, n), got {tuple(B.shape)}")
+    if method not in ("vmap", "block"):
+        raise ValueError(f"unknown batched method {method!r}; "
+                         "expected one of ('vmap', 'block')")
+    if driver not in ("device", "host"):
+        raise ValueError(f"unknown driver {driver!r}; "
+                         "expected one of ('device', 'host')")
+    kw = dict(storage=storage, policy=policy, precond=precond, ortho=ortho,
+              m=m, max_iters=max_iters, target_rrn=target_rrn,
+              arith_dtype=arith_dtype, eta=eta, matvec=matvec, driver=driver,
+              shard=shard, reorder=reorder)
+    if method == "block":
+        from repro_torch.solver.block import gmres_block
+
+        return gmres_block(A, B, X0=X0, **kw)
+    return [gmres(A, B[i], x0=None if X0 is None else X0[i], **kw)
+            for i in range(B.shape[0])]
 
 
 def cb_gmres(A, b, storage="frsz2_32", **kw) -> GmresResult:

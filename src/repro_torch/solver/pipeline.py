@@ -1,17 +1,20 @@
 """Composable GMRES cycle pipeline: the three pluggable stages.
 
-The port of ``repro/solver/pipeline.py`` (scalar part):
+The port of ``repro/solver/pipeline.py``:
 
   * :class:`Orthogonalizer` — how ``w`` is orthogonalized against the live
     basis rows each Arnoldi step.  ``mgs`` is the seed scheme (one-shot
     dots/combine plus the conditional "twice is enough" re-orthogonalization,
     paper Fig. 1 steps 6-10); ``cgs2`` always runs two passes.
+    :class:`BlockOrthogonalizer` is the same for block-GMRES: a block
+    ``W (p, n)`` against the shared block basis, then the rank-revealing
+    :func:`block_qr` that deflates dependent and converged columns.
   * :class:`Preconditioner` — right preconditioning ``A M^{-1}``: identity,
     Jacobi (``M = diag(A)``), or a user-callable hook.
   * :class:`PrecisionPolicy` — which storage format holds the Krylov basis,
     chosen per restart cycle from the explicit restart residual.
 
-Each orthogonalizer has two forms.  ``__call__`` is the host driver's:
+Each orthogonalizer, scalar or block, has two forms.  ``__call__`` is the host driver's:
 PyTorch runs eagerly, so MGS reads its ``fired`` flag on the host once per
 iteration and runs the second pass only when it fires.  ``branch_free`` is
 the device driver's, with no host read, so that a CUDA graph can hold it:
@@ -34,6 +37,12 @@ __all__ = [
     "MGSOrthogonalizer",
     "CGS2Orthogonalizer",
     "orthogonalizer_by_name",
+    "DEFLATE_RTOL",
+    "block_qr",
+    "BlockOrthogonalizer",
+    "BlockMGSOrthogonalizer",
+    "BlockCGS2Orthogonalizer",
+    "block_orthogonalizer_by_name",
     "Preconditioner",
     "IdentityPreconditioner",
     "JacobiPreconditioner",
@@ -143,6 +152,148 @@ def orthogonalizer_by_name(name) -> Orthogonalizer:
         raise ValueError(
             f"unknown orthogonalizer {name!r}; "
             f"have {sorted(_ORTHOGONALIZERS)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Block orthogonalizers (block-GMRES: one basis sweep serves all p RHS)
+# ---------------------------------------------------------------------------
+
+_TINY = 1e-300
+#: relative threshold below which a new block direction is linearly
+#: dependent and deflates (zero ``Q`` row, zero ``T`` diagonal), relative to
+#: the largest column scale of the incoming block, so converged columns
+#: (exactly zero residuals) always deflate
+DEFLATE_RTOL = 1e-13
+
+
+def block_qr(W: torch.Tensor, dist=LOCAL, scale=None):
+    """Rank-revealing QR of a block ``W (p, n)`` of row-stacked vectors.
+
+    Returns ``(Q, T, dep)`` with ``W[b] = sum_{a<=b} T[a, b] Q[a]``: ``Q``
+    has orthonormal rows except where ``dep`` marks a column as linearly
+    dependent (or zero): those rows are exact zeros and their ``T``
+    diagonal is 0.  Gram-Schmidt with a second projection pass, columns in
+    order; no host read, so a CUDA graph can hold it.
+    """
+    p = W.shape[0]
+    if scale is None:
+        scale = dist.col_norms(W)
+    block_scale = scale.max()
+    Q = torch.zeros_like(W)
+    T = torch.zeros((p, p), dtype=W.dtype, device=W.device)
+    dep = torch.zeros((p,), dtype=torch.bool, device=W.device)
+    for k in range(p):
+        wk = W[k]
+        if k:
+            r = dist.sum(Q[:k] @ wk)
+            wk = wk - r @ Q[:k]
+            r2 = dist.sum(Q[:k] @ wk)
+            wk = wk - r2 @ Q[:k]
+            T[:k, k] = r + r2
+        nrm = dist.norm(wk)
+        dep_k = nrm <= DEFLATE_RTOL * block_scale + _TINY
+        Q[k] = torch.where(dep_k, 0.0, wk / torch.clamp(nrm, min=_TINY))
+        T[k, k] = torch.where(dep_k, 0.0, nrm)
+        dep[k] = dep_k
+    return Q, T, dep
+
+
+class BlockOrthogonalizer:
+    """Orthogonalize a block ``W (p, n)`` against the live block rows.
+
+    ``__call__(acc, store, W, rows, eta, dist, w_norms) -> (Q, H, T,
+    fired)``: ``acc`` is a
+    :class:`~repro_torch.core.accessor.BlockBasisAccessor`, ``H (rows, p,
+    p)`` the block Hessenberg couplings (one basis sweep serves all p
+    columns), ``(Q, T)`` the rank-revealing :func:`block_qr` of the
+    orthogonalized block.  ``fired`` counts an extra conditional sweep, as
+    in the scalar protocol; ``w_norms`` are the caller's ``||W[b]||``.
+    ``branch_free`` is the same with no host read (``fired`` a 0-d bool
+    tensor), for the captured cycle.
+    """
+
+    name: str = "base"
+    passes: int = 1
+
+    def __call__(self, acc, store, W, rows, eta, dist=LOCAL,
+                 w_norms=None):  # pragma: no cover
+        raise NotImplementedError
+
+    def branch_free(self, acc, store, W, rows, eta, dist=LOCAL,
+                    w_norms=None):  # pragma: no cover
+        raise NotImplementedError
+
+
+class BlockMGSOrthogonalizer(BlockOrthogonalizer):
+    """One block sweep plus the conditional re-orthogonalization, which
+    fires when *any* column lost more than the ``eta`` fraction of its norm
+    (the block shares one sweep, so the second pass is all or nothing)."""
+
+    name = "mgs"
+    passes = 1
+
+    def __call__(self, acc, store, W, rows, eta, dist=LOCAL, w_norms=None):
+        w_pre = dist.col_norms(W) if w_norms is None else w_norms
+        H = acc.block_dots(store, W, rows)
+        W = W - acc.block_combine(store, H)
+        fired = bool((dist.col_norms(W) < eta * w_pre).any())  # host read
+        if fired:
+            U = acc.block_dots(store, W, rows)
+            W = W - acc.block_combine(store, U)
+            H = H + U
+        Q, T, _ = block_qr(W, dist, scale=w_pre)
+        return Q, H, T, int(fired)
+
+    def branch_free(self, acc, store, W, rows, eta, dist=LOCAL, w_norms=None):
+        w_pre = dist.col_norms(W) if w_norms is None else w_norms
+        H = acc.block_dots(store, W, rows)
+        W = W - acc.block_combine(store, H)
+        fired = (dist.col_norms(W) < eta * w_pre).any()
+        # the second pass always runs; torch.where keeps the first pass's
+        # bits where it does not fire
+        U = acc.block_dots(store, W, rows)
+        W2 = W - acc.block_combine(store, U)
+        W = torch.where(fired, W2, W)
+        H = torch.where(fired, H + U, H)
+        Q, T, _ = block_qr(W, dist, scale=w_pre)
+        return Q, H, T, fired
+
+
+class BlockCGS2Orthogonalizer(BlockOrthogonalizer):
+    """Two unconditional block sweeps (CGS-2)."""
+
+    name = "cgs2"
+    passes = 2
+
+    def __call__(self, acc, store, W, rows, eta, dist=LOCAL, w_norms=None):
+        w_pre = dist.col_norms(W) if w_norms is None else w_norms
+        H = acc.block_dots(store, W, rows)
+        W = W - acc.block_combine(store, H)
+        U = acc.block_dots(store, W, rows)
+        W = W - acc.block_combine(store, U)
+        Q, T, _ = block_qr(W, dist, scale=w_pre)
+        return Q, H + U, T, 0
+
+    def branch_free(self, acc, store, W, rows, eta, dist=LOCAL, w_norms=None):
+        Q, H, T, _ = self(acc, store, W, rows, eta, dist, w_norms)
+        return Q, H, T, torch.zeros((), dtype=torch.bool, device=W.device)
+
+
+_BLOCK_ORTHOGONALIZERS = {"mgs": BlockMGSOrthogonalizer,
+                          "cgs2": BlockCGS2Orthogonalizer}
+
+
+def block_orthogonalizer_by_name(name) -> BlockOrthogonalizer:
+    if isinstance(name, BlockOrthogonalizer):
+        return name
+    if isinstance(name, Orthogonalizer):
+        name = name.name                 # a scalar choice carries over by name
+    try:
+        return _BLOCK_ORTHOGONALIZERS[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown block orthogonalizer {name!r}; "
+            f"have {sorted(_BLOCK_ORTHOGONALIZERS)}") from None
 
 
 # ---------------------------------------------------------------------------

@@ -7,16 +7,28 @@ Tolerances: codec bit-equal to the plain version; f64 contractions within
 order); the ELL SpMV and the Givens step bit-equal (the same operations in
 the same order); solves within one iteration of the plain route, two kernel
 solves bit-equal (the kernels use no float atomics), and a graph-replayed
-device-driver solve bit-equal to the host driver's.
+device-driver solve bit-equal to the host driver's.  The block kernels:
+f64 block contractions within 1e-12 relative (f32 1e-5), the batched ELL
+and the block Givens step bit-equal, and the block device driver's solve
+(captured, then replayed) bit-equal to the block host driver's.
 """
 import pytest
 import torch
 
 from repro_torch.core import frsz2 as F
-from repro_torch.core.accessor import format_by_name
-from repro_torch.kernels import ops
-from repro_torch.solver import gmres
+from repro_torch.core.accessor import BlockBasisAccessor, format_by_name
+from repro_torch.kernels import ops, ref
+from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
+
+
+#: the scalar FRSZ2 codec and contraction kernels; the scalar device path;
+#: the kernels only the block path launches
+SCALAR_CODEC = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
+                "frsz2_rmatvec")
+SCALAR_DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec",
+                      "ell_spmv", "ell_spmv_frsz2", "gmres_givens")
+BLOCK_ONLY = ("frsz2_block_dots", "frsz2_block_combine", "gmres_block_givens")
 
 
 @pytest.fixture
@@ -43,8 +55,8 @@ def test_kernels_match_plain_on_card(cuda, dtype, l, bs):
     for fn, v in ((ops.matvec, x[0]), (ops.rmatvec, x[:, 0])):
         yk, yp = fn(bk, v), fn(bk, v, kernel=False)
         assert float((yk - yp).abs().max()) <= tol * float(yp.abs().max())
-    assert all(c == 1 for k, c in ops.LAUNCHES.items()
-               if k.startswith("frsz2_")), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] == 1 for k in SCALAR_CODEC), ops.LAUNCHES
+    assert not any(ops.LAUNCHES[k] for k in BLOCK_ONLY), ops.LAUNCHES
 
 
 @pytest.mark.cuda
@@ -54,10 +66,11 @@ def test_solve_on_card_matches_plain_route_and_repeats(cuda):
     ops.reset_launches()
     r1 = gmres(A, b, storage="frsz2_32", m=40, target_rrn=target)
     # the device driver hands each basis row to the ELL kernel coded, so it
-    # decompresses no row; every other kernel runs
+    # decompresses no row; every other kernel of the scalar path runs, and
+    # no kernel of the block path
     assert ops.LAUNCHES["frsz2_decompress"] == 0, ops.LAUNCHES
-    assert all(v > 0 for k, v in ops.LAUNCHES.items()
-               if k != "frsz2_decompress"), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in SCALAR_DEVICE_PATH), ops.LAUNCHES
+    assert not any(ops.LAUNCHES[k] for k in BLOCK_ONLY), ops.LAUNCHES
     r2 = gmres(A, b, storage="frsz2_32", m=40, target_rrn=target)
     rp = gmres(A, b, storage=format_by_name("frsz2_32", use_kernels=False),
                m=40, target_rrn=target)
@@ -94,8 +107,6 @@ def test_ell_kernels_match_plain_on_card(cuda, vdt, spec):
 
 @pytest.mark.cuda
 def test_givens_kernel_matches_plain_on_card(cuda):
-    from repro_torch.kernels import ref
-
     gen = torch.Generator(device=cuda).manual_seed(2)
     m = 30
     L = ref.givens_layout(m)
@@ -130,3 +141,94 @@ def test_graph_replayed_device_solve_equals_host_solve(cuda):
             assert rd.bytes_read == rh.bytes_read
             assert rd.op_reads == rh.op_reads
             assert torch.equal(rd.x, rh.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,bs,p", [(torch.float64, 32, 32, 8),
+                                          (torch.float64, 16, 64, 3),
+                                          (torch.float32, 32, 8, 1),
+                                          (torch.float64, 8, 128, 16)])
+def test_block_kernels_match_plain_on_card(cuda, dtype, l, bs, p):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+    m, n = 9, 3001
+    acc = BlockBasisAccessor(fmt=format_by_name(f"frsz2_{l}", bs=bs,
+                                                arith_dtype=dtype),
+                             m=m, p=p, n=n, arith_dtype=dtype, device=cuda)
+    store = acc.empty()
+    for j in range(m):
+        acc.write_block(store, j, torch.randn((p, n), generator=gen,
+                                              dtype=dtype, device=cuda))
+    bc = F.BlockCompressed(codes=store["codes"], exps=store["exps"],
+                           n=acc.n_flat, spec=spec)
+    W = torch.randn((p, n), generator=gen, dtype=dtype, device=cuda)
+    Y = torch.randn((m, p, p), generator=gen, dtype=dtype, device=cuda)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    ops.reset_launches()
+    for rows in (m, 4):
+        hk = ops.block_dots(bc, W, p=p, rows=rows)
+        hp = ops.block_dots(bc, W, p=p, rows=rows, kernel=False)
+        assert float((hk - hp).abs().max()) <= tol * float(hp.abs().max())
+        ok = ops.block_combine(bc, Y[:rows], p=p)
+        op = ops.block_combine(bc, Y[:rows], p=p, kernel=False)
+        assert float((ok - op).abs().max()) <= tol * float(op.abs().max())
+        assert not ok[:, n:].any()                 # segment padding
+    assert ops.LAUNCHES["frsz2_block_dots"] == 2
+    assert ops.LAUNCHES["frsz2_block_combine"] == 2
+
+
+@pytest.mark.cuda
+def test_batched_ell_and_block_givens_match_plain_on_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    A, _ = make_problem("synth:atmosmod", 4096, device=cuda)
+    E = A.to_ell()
+    X = torch.randn((5, A.shape[0]), generator=gen, dtype=torch.float64,
+                    device=cuda)
+    ops.reset_launches()
+    assert torch.equal(ops.ell_spmv(E.vals, E.cols, X),
+                       ops.ell_spmv(E.vals, E.cols, X, kernel=False))
+    assert ops.LAUNCHES["ell_spmv"] == 1
+    m, p = 12, 4
+    L = ref.block_givens_layout(m, p)
+    sk = ref.block_givens_init_ref(m, p, cuda)
+    sk[L["G"]:L["G"] + p * p] = torch.eye(p, device=cuda).reshape(-1)
+    sp = sk.clone()
+    bn = torch.ones((p,), dtype=torch.float64, device=cuda)
+    for j in range(m):
+        H = torch.randn((j + 1, p, p), generator=gen, dtype=torch.float64,
+                        device=cuda)
+        T = torch.triu(torch.randn((p, p), generator=gen, dtype=torch.float64,
+                                   device=cuda))
+        if j == 3:
+            T[2] = 0.0                             # a deflated direction
+        fired = torch.tensor(j % 2 == 1, device=cuda)
+        # the target stops the cycle part way: dead steps are covered too
+        for s, k in ((sk, True), (sp, False)):
+            ops.block_givens_step(s, H, T, fired, bn, j, m, p, 1e-3, kernel=k)
+        assert torch.equal(sk, sp), j
+
+
+@pytest.mark.cuda
+def test_graph_replayed_block_solve_equals_host_solve(cuda):
+    A, target = make_problem("synth:atmosmod", 4096, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    t = torch.arange(b.shape[0], dtype=b.dtype, device=cuda)
+    B = torch.stack([b, b * 1.1 + 0.05 * torch.sin(2 * t), torch.cos(t)])
+    for fmt in ("frsz2_32", "float64"):
+        kw = dict(storage=fmt, m=30, target_rrn=target, method="block")
+        rh = gmres_batched(A, B, driver="host", **kw)
+        ops.reset_launches()
+        r1 = gmres_batched(A, B, **kw)                         # captures
+        r2 = gmres_batched(A, B, **kw)                         # replays
+        assert ops.LAUNCHES["gmres_block_givens"] > 0
+        if fmt == "frsz2_32":
+            assert ops.LAUNCHES["frsz2_block_dots"] > 0
+            assert ops.LAUNCHES["frsz2_matvec"] == 0
+        for rd in (r1, r2):
+            for a, c in zip(rd, rh):
+                assert a.converged
+                assert (a.iterations, a.restarts) == (c.iterations,
+                                                      c.restarts)
+                assert (a.bytes_read, a.op_reads) == (c.bytes_read,
+                                                      c.op_reads)
+                assert torch.equal(a.x, c.x)

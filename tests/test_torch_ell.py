@@ -117,8 +117,8 @@ def test_ell_wrapper_validates_and_refuses_a_kernel_on_the_cpu(rng):
         ops.ell_spmv(V, C, x, kernel=True)
     with pytest.raises(ValueError):
         ops.ell_spmv(V[0], C, x)
-    with pytest.raises(ValueError):
-        ops.ell_spmv(V, C, x[None])
+    with pytest.raises(ValueError):          # (q, nc) is a batch; 3-D is not
+        ops.ell_spmv(V, C, x[None, None])
     bc = ops.compress(x[None], TF.FrszSpec(bs=4, l=32, dtype=torch.float64))
     with pytest.raises(ValueError, match="one vector"):
         ops.ell_spmv(V, C, bc)

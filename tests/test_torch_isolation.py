@@ -23,7 +23,11 @@ KERNEL_CALLS = {"compress", "decompress", "matvec", "rmatvec", "compress_2d",
                 "library", "bind", "write_row", "read_row", "read_all", "dots",
                 "combine", "gmres", "cb_gmres", "ell_spmv", "ell_spmv_2d",
                 "ell_spmv_frsz2_2d", "givens_step", "operand", "replay",
-                "CUDAGraph", "graph", "_capture", "_run"}
+                "CUDAGraph", "graph", "_capture", "_replay", "_run",
+                "block_dots", "block_combine", "block_dots_2d",
+                "block_combine_2d", "block_givens_step", "write_block",
+                "read_block", "read_all_blocks", "gmres_batched",
+                "gmres_block"}
 
 
 def _banned(module: str) -> bool:
@@ -81,4 +85,5 @@ def test_no_try_falls_back_from_a_kernel(path):
 def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"ops.py", "gmres.py", "accessor.py", "chip_smoke.py",
-            "ell_spmv.py", "gmres_step.py", "csr.py"} <= names
+            "ell_spmv.py", "gmres_step.py", "csr.py", "block.py",
+            "frsz2_block.py"} <= names

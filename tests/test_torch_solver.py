@@ -93,8 +93,10 @@ def test_unported_options_raise_naming_the_roadmap():
     for kw in (dict(shard=2), dict(reorder="rcm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gmres(At, bt, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gmres_batched(At, bt[None])
+    for kw in (dict(shard=2), dict(reorder="rcm")):
+        for method in ("vmap", "block"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                gmres_batched(At, bt[None], method=method, **kw)
     with pytest.raises(ValueError):
         gmres(At, bt, reorder="sideways")
     with pytest.raises(ValueError):
