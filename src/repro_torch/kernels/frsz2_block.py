@@ -28,7 +28,7 @@ from repro_torch.kernels.frsz2_kernel import KIND, bs_log2
 
 #: segment rows one block-dots block covers, and the columns of W it stages
 #: in shared memory at once; ``csrc/frsz2_block.cu`` uses the same
-ROWS_PER_BLOCK = 128
+ROWS_PER_BLOCK = 64
 SUB_COLS = 256
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -294,9 +294,9 @@ def block_dots(bc: F.BlockCompressed, W: torch.Tensor, *, p: int,
         return ref.block_dots_ref(codes, exps, Wp, spec).reshape(rows, p, q)
     _check_block_p(q)
     _check_basis(bc)
-    if bc.codes.data_ptr() % 32:
-        raise ValueError("block dots read codes in 32-byte sectors: the "
-                         "store must start 32-byte aligned")
+    if bc.codes.data_ptr() % 16:
+        raise ValueError("block dots read codes in 16-byte words: the "
+                         "store must start 16-byte aligned")
     dev = bc.codes.device
     Wp = Wp.contiguous()
     _expect(Wp, "W", (q, n_seg), spec.dtype, dev)
