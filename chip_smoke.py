@@ -52,6 +52,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    converges, the drivers agree, every kernel of the block path launches in
    the frsz2_32 block solve and no FRSZ2 kernel in the float64 one.
 
+8. decode attention (slice 4's kernel) at the ``decode_32k`` length with
+   yi-9b's heads — B = 8, Hkv = 4, G = 8, D = 128, S = 32768, lengths from
+   a seed in [1, S] and one full row, FRSZ2 K/V with uint8 exponents, l = 16
+   and l = 8: the kernel against its plain version on the card (within
+   1e-5 of the largest output), spot checks (D = 64, G = 1/2/3/4/12, S = 1000, bf16 q, int32
+   exponents, a length-1 row), CUDA-event times beside the bound, the plain
+   version and ``scaled_dot_product_attention`` on the decoded K/V with a
+   length mask;
+9. serving yi-9b at full width and depth (48 layers, bf16, random weights
+   from a seed): the teacher-forcing check (prefill + one decode step
+   against the parallel forward, B = 2, S = 256) for ``bf16`` and
+   ``frsz2_16`` caches, within 5e-2 of the largest logit; then
+   ``serve`` as a user calls it, 16 requests over 8 slots, prompt 2048,
+   32 new tokens each (64 decode steps, a 2120-position cache) for
+   ``frsz2_16``, ``frsz2_8`` and ``bf16``, each with the launch counts set
+   to 0 just before and read just after: 32 tokens in range per request,
+   finite logits, ``decode_attn`` launched 48 times a decode step in the
+   FRSZ2 runs and never in the ``bf16`` one, ``frsz2_compress`` twice a
+   layer per prefill and decode step.  After each FRSZ2 run, on what that
+   run served: the last layer's cache codes and exponents bit-equal to the
+   plain compress of the K/V that the prefill (B x Hkv x 2048 rows) and the
+   last decode step wrote there, and the kernel against its plain version
+   on the last decode attention's q, cache and lengths (bf16 q as served,
+   within one bf16 step of the largest output; the same q in f32, within
+   1e-5 of it).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
 """
@@ -74,6 +100,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # lists no peak rate: its bound is its bytes.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12         # f32 outside the tensor cores (data sheet)
 
 N_MAIN = 1270432           # --n of the paper-sized atmosmod problem
 M = 100                    # restart length
@@ -95,6 +122,18 @@ DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
 BLOCK_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_block_dots",
               "frsz2_block_combine", "ell_spmv", "gmres_block_givens")
 P_BLOCK = 8                # right-hand sides of the block solves
+
+#: phase 8: yi-9b's heads at the decode_32k length (``SHAPES``)
+ATTN_B, ATTN_HKV, ATTN_G, ATTN_D, ATTN_S = 8, 4, 8, 128, 32768
+#: f32 q: max |kernel - plain| over max |plain| (f32 sums in another order,
+#: base-2 exponentials); bf16 q: one bf16 step (2^-7 absolute in the spot
+#: checks, 2^-7 of the largest output on the served cache)
+ATTN_TOL, ATTN_TOL_BF16 = 1e-5, 2 ** -7
+#: phase 9: the serving run, and the teacher-forcing check's tolerance
+SERVE_ARCH = "yi-9b"
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 16, 8, 2048, 32
+SERVE_FORMATS = ("frsz2_16", "frsz2_8", "bf16")
+TF_B, TF_S, TF_TOL = 2, 256, 5e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -128,17 +167,17 @@ def timed(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float = 0.0):
+def bound_ms(nbytes: float, flops: float = 0.0, peak: float = FP64_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def entry(name, source, replaces, ms, plain_ms, nbytes, flops, err,
-          library_ms=None, **extra):
+          library_ms=None, peak=FP64_FLOPS, **extra):
     """One kernel's record for the ``{"kernels": [...]}`` line, printed as
-    it is measured; ``launches`` is filled in from phase 5."""
-    b, by = bound_ms(nbytes, flops)
+    it is measured; ``launches`` is filled in from the path's run."""
+    b, by = bound_ms(nbytes, flops, peak)
     e = dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=b, bound_by=by, library_ms=library_ms,
@@ -936,6 +975,355 @@ def phase_block_full_width(A, target):
     return launches
 
 
+def _attn_inputs(gen, B, Hkv, G, S, D, l, exp_dtype, qdt=None):
+    """Seeded q and K/V coded on the card by the compress kernel."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    spec = F.FrszSpec(bs=D, l=l, dtype=torch.float32, rounding="nearest",
+                      exp_dtype=exp_dtype)
+    bcs = []
+    for _ in range(2):
+        x = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+        bc = ops.compress(x, spec)
+        bcs.append(F.BlockCompressed(codes=bc.codes, exps=bc.exps, n=D,
+                                     spec=spec))
+        del x
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=dev)
+    return q if qdt is None else q.to(qdt), bcs[0], bcs[1]
+
+
+def _attn_pair(q, kbc, vbc, lengths, **kw):
+    """Kernel and plain decode attention; returns (kernel out, max abs err,
+    max abs err over the largest |plain output|)."""
+    from repro_torch.kernels import ops
+
+    ok = ops.decode_attention(q, kbc, vbc, lengths, kernel=True, **kw)
+    op = ops.decode_attention(q, kbc, vbc, lengths, kernel=False, **kw)
+    check(ok.dtype == op.dtype == q.dtype and ok.shape == op.shape,
+          "decode attention kernel and plain disagree on type or shape")
+    err = float((ok.float() - op.float()).abs().max())
+    return ok, err, err / float(op.float().abs().max())
+
+
+def phase_decode_attn():
+    """Slice 4's kernel at the decode_32k length with yi-9b's heads."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    B, Hkv, G, D, S = ATTN_B, ATTN_HKV, ATTN_G, ATTN_D, ATTN_S
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[-1] = S
+    valid = int(lengths.sum())
+    print(f"[attn] B={B} Hkv={Hkv} G={G} D={D} S={S}; lengths "
+          f"{lengths.tolist()}")
+    entries = {}
+    src = "src/repro_torch/kernels/csrc/decode_attn.cu"
+    for l in (16, 8):
+        q, kbc, vbc = _attn_inputs(gen, B, Hkv, G, S, D, l, torch.uint8)
+        ok, err, rel = _attn_pair(q, kbc, vbc, lengths)
+        print(f"[attn] l={l}: kernel vs plain max abs error {err:.3e}, "
+              f"{rel:.3e} of the largest output (tolerance {ATTN_TOL})")
+        check(rel <= ATTN_TOL, f"decode_attn l={l}: max abs error {err:.3e}"
+                               f" is {rel:.3e} of the largest output")
+        # the PyTorch call computing the same function: SDPA over the
+        # decoded K/V, the G query heads of a kv head as its G queries
+        kd = ops.decompress(kbc, kernel=True).view(B, Hkv, S, D)
+        vd = ops.decompress(vbc, kernel=True).view(B, Hkv, S, D)
+        q4 = q.view(B, Hkv, G, D)
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]
+                )[:, None, None, :]
+        sdpa = functools.partial(
+            torch.nn.functional.scaled_dot_product_attention, q4, kd, vd,
+            attn_mask=mask)
+        lib_err = float((sdpa().reshape(B, Hkv * G, D) - ok).abs().max())
+        check(lib_err <= ATTN_TOL * float(ok.abs().max()),
+              f"SDPA on the decoded cache differs by {lib_err:.3e}")
+        code_bytes = F.code_dtype(l).itemsize
+        nbytes = (2 * valid * Hkv * (D * code_bytes + 1)
+                  + 2 * B * Hkv * G * D * 4)
+        flops = 4.0 * valid * Hkv * G * D
+        e = entry("decode_attn", src, "src/repro/kernels/decode_attn.py:85",
+                  timed(lambda: ops.decode_attention(q, kbc, vbc, lengths,
+                                                     kernel=True)),
+                  timed(lambda: ops.decode_attention(q, kbc, vbc, lengths,
+                                                     kernel=False), reps=3),
+                  nbytes, flops, err, library_ms=timed(sdpa),
+                  peak=FP32_FLOPS, l=l, rel_err=rel,
+                  shape=f"B={B} Hkv={Hkv} G={G} D={D} S={S}, "
+                        f"{valid} valid positions",
+                  library="scaled_dot_product_attention on the decoded "
+                          "f32 K/V with a length mask",
+                  library_err=lib_err, path="serve")
+        if l == 16:
+            entries["decode_attn"] = e
+        del q, kbc, vbc, kd, vd, ok, sdpa
+        torch.cuda.empty_cache()
+
+    # spot checks: head width, group sizes, ragged S, bf16 q, int32
+    # exponents, a length-1 row
+    g2 = torch.Generator(device=dev).manual_seed(77)
+    spots = [(64, 16, 2, torch.uint8, torch.float32),
+             (64, 8, 1, torch.int32, torch.float32),
+             (128, 16, 4, torch.uint8, torch.bfloat16),
+             (128, 8, 3, torch.uint8, torch.float32),
+             (128, 16, 12, torch.int32, torch.float32),
+             (64, 16, 8, torch.uint8, torch.bfloat16)]
+    lens = torch.tensor([1, 517, 1000], dtype=torch.int32, device=dev)
+    for D_, l, G_, edt, qdt in spots:
+        q, kbc, vbc = _attn_inputs(g2, 3, 2, G_, 1000, D_, l, edt, qdt)
+        _, err, rel = _attn_pair(q, kbc, vbc, lens)
+        ok = rel <= ATTN_TOL if qdt == torch.float32 else err <= ATTN_TOL_BF16
+        check(ok, f"decode_attn spot D={D_} l={l} G={G_} {edt} {qdt}: max "
+                  f"abs error {err:.3e}, {rel:.3e} of the largest output")
+    print(f"[attn] spot checks passed: {len(spots)} (D 64/128, G 1/2/3/4/8/"
+          "12, S=1000, bf16 q, int32 exponents, a length-1 row)")
+    return entries
+
+
+def _serve_config(kv_format):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(SERVE_ARCH), kv_format=kv_format)
+
+
+def _teacher_forcing(params, kv_format):
+    """Relative errors of prefill's and one decode step's logits against
+    the parallel forward over S+1 tokens."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill, trunk
+    from repro_torch.models.layers import rms_norm
+
+    cfg = _serve_config(kv_format)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_B, TF_S + 1), generator=gen,
+                           device="cuda")
+    h, _ = trunk(params, cfg, tokens)
+
+    def head(x):
+        return (rms_norm(x, params["final_ln"]) @ params["unembed"]).float()
+
+    want, want2 = head(h[:, TF_S - 1]), head(h[:, TF_S])
+    del h
+    got, cache = prefill(params, cfg, tokens[:, :TF_S], cache_len=TF_S + 4)
+    got2, _ = decode_step(params, cfg, cache, tokens[:, TF_S])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return rel(got, want), rel(got2, want2)
+
+
+class _ServeTap:
+    """For one serve run, keeps the inputs of the last decode attention and
+    the K/V of the last two cache writes of each kind (prefill, decode):
+    the last layer's K and V.  ``kvcache.encode_heads`` and
+    ``ops.decode_attention`` are wrapped for the run and run unchanged."""
+
+    def __init__(self, prompt: int):
+        from repro_torch.kernels import ops
+        from repro_torch.models import kvcache
+
+        self.prompt = prompt
+        self.prefill, self.decode, self.attn = [], [], None
+        self._slots = ((kvcache, "encode_heads"), (ops, "decode_attention"))
+        self._orig = [getattr(m, n) for m, n in self._slots]
+
+    def __enter__(self):
+        encode, attend = self._orig
+
+        def encode_heads(x, fmt, head_dim):
+            keep = self.prefill if x.shape[-2] == self.prompt else self.decode
+            keep.append(x)
+            del keep[:-2]
+            return encode(x, fmt, head_dim)
+
+        def decode_attention(q, k_bc, v_bc, lengths, **kw):
+            self.attn = (q, k_bc, v_bc, lengths, kw)
+            return attend(q, k_bc, v_bc, lengths, **kw)
+
+        for (m, n), f in zip(self._slots, (encode_heads, decode_attention)):
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self._slots, self._orig):
+            setattr(m, n, f)
+
+
+def _check_served_cache(tap, fmt_name):
+    """The last layer's coded K/V and its last decode attention, as served,
+    against the plain versions; returns the errors."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    check(tap.attn is not None and len(tap.prefill) == len(tap.decode) == 2,
+          f"{fmt_name}: the serve run wrote or read no FRSZ2 cache")
+    q, kbc, vbc, lengths, kw = tap.attn
+    B, Hkv, S = kbc.exps.shape[:3]
+    pos = lengths.reshape(B).long() - 1          # the last decode write
+    bi = torch.arange(B, device=pos.device)
+    rows = 0
+    for bc, xp, xd in zip((kbc, vbc), tap.prefill, tap.decode):
+        # prefill: positions [0, prompt); decode: position lengths - 1
+        for x, codes, exps in (
+                (xp, bc.codes[:, :, :SERVE_PROMPT], bc.exps[:, :, :SERVE_PROMPT]),
+                (xd[:, :, 0], bc.codes[bi, :, pos], bc.exps[bi, :, pos])):
+            want = ops.compress(x.float(), bc.spec, kernel=False)
+            check(torch.equal(codes.reshape(want.codes.shape), want.codes)
+                  and torch.equal(exps.reshape(want.exps.shape),
+                                  want.exps.to(exps.dtype)),
+                  f"{fmt_name}: served cache codes differ from the plain "
+                  f"compress of the same K/V ({tuple(x.shape)})")
+            rows += x.numel() // x.shape[-1]
+    _, err16, rel16 = _attn_pair(q, kbc, vbc, lengths, **kw)
+    check(rel16 <= ATTN_TOL_BF16,
+          f"{fmt_name}: decode_attn on the served cache, {q.dtype} q: max abs "
+          f"error {err16:.3e}, {rel16:.3e} of the largest output")
+    _, err32, rel32 = _attn_pair(q.float(), kbc, vbc, lengths, **kw)
+    check(rel32 <= ATTN_TOL,
+          f"{fmt_name}: decode_attn on the served cache, f32 q: max abs "
+          f"error {err32:.3e}, {rel32:.3e} of the largest output")
+    lens = lengths.reshape(B).tolist()
+    print(f"[serve] {fmt_name} served cache: {rows} coded rows of the last "
+          f"layer bit-equal to the plain compress; decode_attn vs plain at "
+          f"B={B} Hkv={Hkv} G={q.shape[1] // Hkv} S={S} lengths "
+          f"{min(lens)}..{max(lens)}: {q.dtype} q {err16:.3e} ({rel16:.3e} "
+          f"of the largest output), f32 q {err32:.3e} ({rel32:.3e})")
+    return dict(served_attn_err=err16, served_attn_rel_err=rel16,
+                served_attn_err_f32q=err32, served_attn_rel_err_f32q=rel32,
+                served_rows_bit_equal=rows)
+
+
+def phase_serve(device_line):
+    """Slice 4's path: yi-9b served at full width and depth."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeConfig, decode_steps, serve
+    from repro_torch.models import init_params, kvcache
+
+    cfg = _serve_config("frsz2_16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in
+                  _leaves(params))
+    print(f"[serve] {SERVE_ARCH}: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd={cfg.hd}, "
+          f"{cfg.dtype}; {w_bytes / 1e9:.3f} GB of weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for fmt in ("bf16", "frsz2_16"):
+        e1, e2 = _teacher_forcing(params, fmt)
+        print(f"[serve] teacher forcing {fmt}: prefill {e1:.3e}, decode "
+              f"{e2:.3e} (relative to the largest logit, tolerance {TF_TOL})")
+        check(e1 <= TF_TOL and e2 <= TF_TOL,
+              f"teacher forcing {fmt}: {e1:.3e}, {e2:.3e} > {TF_TOL}")
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
+    sc = ServeConfig(slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+                     max_new=SERVE_NEW)
+    steps = decode_steps(len(reqs), sc)
+    sc.max_ctx = SERVE_PROMPT + steps + 8
+    # the byte bound of a decode step: every weight but the embedding
+    # table, and the cache positions it reads (mean over the run's steps)
+    step_w = w_bytes - params["embed"].numel() * params["embed"].element_size()
+    mean_len = SERVE_PROMPT + (steps + 1) / 2
+    rows, launches = [], {}
+    for fmt_name in SERVE_FORMATS:
+        cfg_f = _serve_config(fmt_name)
+        fmt = kvcache.cache_format(fmt_name)
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        with _ServeTap(SERVE_PROMPT) as tap:
+            ops.reset_launches()
+            t = time.perf_counter()
+            out = serve(cfg_f, sc, reqs, params=params, device="cuda",
+                        verbose=False, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = dict(ops.LAUNCHES)
+        check(sorted(out) == list(range(len(reqs))), "serve lost a request")
+        check(all(len(v) == SERVE_NEW and all(0 <= x < cfg.vocab_size
+                                              for x in v)
+                  for v in out.values()),
+              f"{fmt_name}: a completion is not {SERVE_NEW} tokens in range")
+        check(stats["nonfinite_logits"] == 0,
+              f"{fmt_name}: {stats['nonfinite_logits']} logits not finite")
+        check(len(stats["step_s"]) == steps and len(stats["prefill_s"]) == 1,
+              f"{fmt_name}: {len(stats['step_s'])} decode steps, "
+              f"{len(stats['prefill_s'])} prefills")
+        frsz = fmt.kind == "frsz2"
+        want = {"decode_attn": cfg.num_layers * steps if frsz else 0,
+                "frsz2_compress": 2 * cfg.num_layers * (1 + steps)
+                if frsz else 0}
+        for k, n in want.items():
+            check(got[k] == n, f"{fmt_name}: {k} launched {got[k]} times, "
+                               f"the path implies {n}")
+        others = {k: v for k, v in got.items() if v and k not in want}
+        check(not others, f"{fmt_name}: other kernels launched: {others}")
+        served = _check_served_cache(tap, fmt_name) if frsz else {}
+        del tap
+        per_pos = (cfg.hd * fmt.bits_per_value(cfg.hd) / 8) * 2
+        cache_read = (cfg.num_layers * SERVE_SLOTS * cfg.num_kv_heads
+                      * mean_len * per_pos)
+        step_bound = (step_w + cache_read) / HBM_BYTES_PER_S * 1e3
+        step_ms = statistics.median(stats["step_s"]) * 1e3
+        row = dict(phase="serve", kv_format=fmt_name, arch=SERVE_ARCH,
+                   requests=len(reqs), slots=SERVE_SLOTS,
+                   prompt=SERVE_PROMPT, max_new=SERVE_NEW,
+                   max_ctx=sc.max_ctx, decode_steps=steps,
+                   prefill_s=stats["prefill_s"],
+                   step_ms_median=step_ms,
+                   step_ms_min=min(stats["step_s"]) * 1e3,
+                   decode_tokens_per_s=SERVE_SLOTS * steps
+                   / sum(stats["step_s"]),
+                   step_bound_ms=step_bound,
+                   step_weight_bytes=step_w, step_cache_bytes=cache_read,
+                   wall_s=wall,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   cache_nbytes=kvcache.cache_nbytes(
+                       fmt, cfg.num_layers, SERVE_SLOTS, cfg.num_kv_heads,
+                       sc.max_ctx, cfg.hd),
+                   launches={k: v for k, v in got.items() if v},
+                   sample=out[0][:8], device=device_line, **served)
+        emit(row)
+        rows.append(row)
+        if fmt_name == "frsz2_16":
+            launches = got
+    for r in rows:
+        print(f"[serve] {r['kv_format']}: prefill {r['prefill_s'][0]:.3f} s, "
+              f"decode step median {r['step_ms_median']:.2f} ms (bound "
+              f"{r['step_bound_ms']:.2f} ms), {r['decode_tokens_per_s']:.1f} "
+              f"tokens/s, peak {r['peak_mem_bytes'] / 2**30:.2f} GiB, cache "
+              f"{r['cache_nbytes'] / 1e9:.3f} GB")
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     import torch
 
@@ -950,7 +1338,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    phase_device()
+    device_line = phase_device()
     t0 = time.perf_counter()
     A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
     torch.cuda.synchronize()
@@ -967,10 +1355,17 @@ def main() -> int:
     phase_block_solve()
     release()
     block_launches = phase_block_full_width(A, target)
+    del A
+    release()
+    entries.update(phase_decode_attn())
+    release()
+    serve_launches = phase_serve(device_line)
     for name, e in entries.items():
         key = e.get("kernel", name)
         if e.get("path") == "block":
             e["launches"] = block_launches[key]
+        elif e.get("path") == "serve":
+            e["launches"] = serve_launches[key]
         else:
             e["launches"] = launches[key]
             e["path"] = paths[key]

@@ -9,6 +9,13 @@ back.  A store is given with its format: an FRSZ2 spec (or
 array, a ``MixedFormat`` for ``{"head", "tail"}``.  A block-GMRES store is
 one of these over flat rows of ``p * n_seg`` values, so it carries across
 the same way.
+
+Model weights and KV caches are nested dicts of arrays.  bf16 arrays from
+JAX are numpy arrays of the ``bfloat16`` extension type; they are carried
+through their ``uint16`` bit patterns (an ``int16`` tensor viewed as
+``torch.bfloat16``), and come back as ``uint16`` bit patterns, which
+``arr.view(jnp.bfloat16)`` turns into JAX's type.  KV codes keep their bit
+patterns as the basis codes do.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from repro_torch.device import resolve_device
 from repro_torch.sparse.csr import CSR
 
 __all__ = ["csr_from_numpy", "csr_to_numpy", "store_from_numpy",
-           "store_to_numpy"]
+           "store_to_numpy", "params_from_numpy", "params_to_numpy",
+           "kv_cache_from_numpy", "kv_cache_to_numpy"]
 
 _SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32,
            np.dtype(np.uint64): np.int64}
@@ -84,3 +92,46 @@ def store_to_numpy(store, fmt):
     if unsigned is not None:
         codes = codes.view(unsigned)
     return {"codes": codes, "exps": store["exps"].cpu().numpy()}
+
+
+def _array_to_torch(a, device) -> torch.Tensor:
+    a = np.array(a)                 # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    signed = _SIGNED.get(a.dtype)
+    return torch.from_numpy(a if signed is None else a.view(signed)).to(device)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    a = t.numpy()
+    unsigned = _UNSIGNED.get(t.dtype)
+    return a if unsigned is None else a.view(unsigned)
+
+
+def _tree(x, leaf):
+    if isinstance(x, dict):
+        return {k: _tree(v, leaf) for k, v in x.items()}
+    return leaf(x)
+
+
+def params_from_numpy(params, device="cuda"):
+    """A nested dict of numpy arrays (e.g. the JAX package's weights) ->
+    the same dict of tensors, same bits (bf16 included)."""
+    dev = resolve_device(device)
+    return _tree(params, lambda a: _array_to_torch(a, dev))
+
+
+def params_to_numpy(params):
+    """Inverse of :func:`params_from_numpy`; bf16 as uint16 patterns."""
+    return _tree(params, _tensor_to_numpy)
+
+
+#: a decode cache (``{"lengths", "self": {...}}``) carries across as the
+#: weights do; its codes keep the JAX package's bit patterns (uint16 there
+#: for l = 16, int16 here)
+kv_cache_from_numpy = params_from_numpy
+kv_cache_to_numpy = params_to_numpy

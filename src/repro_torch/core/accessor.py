@@ -640,14 +640,14 @@ def _build_mixed(name, *, arith_dtype=torch.float64, target_rrn=None, m=None,
 def _build_sharded(name, **ctx):
     raise NotImplementedError(
         f"{name!r}: sharded basis storage is not ported yet "
-        "(ROADMAP.md, open item 1: slice 5, multi-GPU)")
+        "(ROADMAP.md, open item 1: slice 6, multi-GPU)")
 
 
 @register_format("emul")
 def _build_emul(name, **ctx):
     raise NotImplementedError(
         f"{name!r}: the SZ/SZ3/ZFP emulator formats are not ported yet "
-        "(ROADMAP.md, open item 1: slice 4, core/emulators.py)")
+        "(ROADMAP.md, open item 1: slice 5, core/emulators.py)")
 
 
 def format_by_name(name: str, *, arith_dtype=torch.float64, bs: int = 32,

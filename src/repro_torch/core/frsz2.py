@@ -91,8 +91,10 @@ class FrszSpec:
       dtype: the value dtype the codec round-trips.
       rounding: 'truncate' (paper Sec. IV step 5: "cut") or 'nearest'
         (round-half-up before the cut).
-      exp_dtype: storage dtype of the per-block exponent (32-bit, as in the
-        paper: "frsz2_32 needs 33 bits per value on average").
+      exp_dtype: storage dtype of the per-block exponent: ``torch.int32``
+        (as in the paper: "frsz2_32 needs 33 bits per value on average") or
+        ``torch.uint8`` (the KV cache's; it holds a biased exponent of at
+        most 8 bits, so it takes f32, bf16 and f16 values only).
     """
 
     bs: int = 128
@@ -118,8 +120,11 @@ class FrszSpec:
             raise ValueError(f"unknown rounding {self.rounding!r}")
         if self.bs < 1:
             raise ValueError("bs must be positive")
-        if self.exp_dtype != torch.int32:
-            raise ValueError("exp_dtype must be torch.int32")
+        if self.exp_dtype not in (torch.int32, torch.uint8):
+            raise ValueError("exp_dtype must be torch.int32 or torch.uint8")
+        if self.exp_dtype == torch.uint8 and ieee["expbits"] > 8:
+            raise ValueError(f"uint8 exponents cannot hold the {ieee['expbits']}"
+                             f"-bit exponents of {dtype_name(self.dtype)}")
 
     # -- derived ------------------------------------------------------------
     @property

@@ -14,7 +14,8 @@ the same answer as ``repro/kernels/ops.py:60``):
 ``chip_smoke.py`` can compare the two routes there; ``kernel=True`` on a CPU
 tensor raises.  The ELL SpMV and the Givens step of the GMRES cycle route
 the same way, by the device of their tensors, and so do the block
-contractions and the block Givens step of block-GMRES.  Each wrapper adds
+contractions and the block Givens step of block-GMRES, and the decode
+attention over an FRSZ2-coded KV cache.  Each wrapper adds
 one to ``LAUNCHES[<kernel>]`` where it launches its kernel, and nowhere
 else, so a run can show which kernels its main path went through.
 
@@ -31,13 +32,14 @@ from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "kernel_supported", "compress",
            "decompress", "matvec", "rmatvec", "block_dots", "block_combine",
-           "ell_spmv", "givens_step", "block_givens_step"]
+           "ell_spmv", "givens_step", "block_givens_step",
+           "decode_attention"]
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"frsz2_compress": 0, "frsz2_decompress": 0, "frsz2_matvec": 0,
             "frsz2_rmatvec": 0, "frsz2_block_dots": 0,
             "frsz2_block_combine": 0, "ell_spmv": 0, "ell_spmv_frsz2": 0,
-            "gmres_givens": 0, "gmres_block_givens": 0}
+            "gmres_givens": 0, "gmres_block_givens": 0, "decode_attn": 0}
 
 #: the widest block (right-hand sides per block row) the block kernels take
 _MAX_BLOCK_P = 16
@@ -123,20 +125,26 @@ def compress(x: torch.Tensor, spec: F.FrszSpec, *, out=None,
     if out is None:
         codes = torch.empty((*batch, nb, spec.bs), dtype=F.code_dtype(spec.l),
                             device=dev)
-        exps = torch.empty((*batch, nb), dtype=torch.int32, device=dev)
+        exps = torch.empty((*batch, nb), dtype=spec.exp_dtype, device=dev)
     else:
         codes, exps = out
         _expect(codes, "codes", (*batch, nb, spec.bs), F.code_dtype(spec.l),
                 dev)
-        _expect(exps, "exps", (*batch, nb), torch.int32, dev)
+        _expect(exps, "exps", (*batch, nb), spec.exp_dtype, dev)
     rows = codes.numel() // (nb * spec.bs) if nb else 0
     if rows and n:
         from repro_torch.kernels import frsz2_kernel as K
 
+        # the kernel writes int32 exponents; a uint8 spec's are narrowed
+        # after it (the biased exponents of its value types fit in 8 bits)
+        e32 = (exps if spec.exp_dtype == torch.int32 else
+               torch.empty(exps.shape, dtype=torch.int32, device=dev))
         x2 = x.to(spec.dtype).contiguous().reshape(rows, n)
-        K.compress_2d(x2, codes.view(rows, nb * spec.bs), exps.view(rows, nb),
+        K.compress_2d(x2, codes.view(rows, nb * spec.bs), e32.view(rows, nb),
                       spec)
         LAUNCHES["frsz2_compress"] += 1
+        if e32 is not exps:
+            exps.copy_(e32)
     return F.BlockCompressed(codes=codes, exps=exps, n=n, spec=spec)
 
 
@@ -150,7 +158,7 @@ def decompress(bc: F.BlockCompressed, *, kernel: bool | None = None
     dev = bc.codes.device
     _expect(bc.codes, "codes", (*batch, nb, spec.bs), F.code_dtype(spec.l),
             dev)
-    _expect(bc.exps, "exps", (*batch, nb), torch.int32, dev)
+    _expect(bc.exps, "exps", (*batch, nb), spec.exp_dtype, dev)
     if bc.n > nb * bs:
         raise ValueError(f"n={bc.n} exceeds the {nb * bs} coded values")
     out = torch.empty((*batch, bc.n), dtype=spec.dtype, device=dev)
@@ -158,7 +166,8 @@ def decompress(bc: F.BlockCompressed, *, kernel: bool | None = None
     if rows:
         from repro_torch.kernels import frsz2_kernel as K
 
-        K.decompress_2d(bc.codes.view(rows, nb * bs), bc.exps.view(rows, nb),
+        K.decompress_2d(bc.codes.view(rows, nb * bs),
+                        bc.exps.to(torch.int32).view(rows, nb),
                         out.view(rows, bc.n), spec)
         LAUNCHES["frsz2_decompress"] += 1
     return out
@@ -466,3 +475,83 @@ def block_givens_step(state: torch.Tensor, H: torch.Tensor, T: torch.Tensor,
 
     KG.block_givens_step(state, H, T, fired, bn_safe, j, m, p, target)
     LAUNCHES["gmres_block_givens"] += 1
+
+
+# ---------------------------------------------------------------------------
+# Flash-decode attention over an FRSZ2-coded KV cache
+# ---------------------------------------------------------------------------
+
+#: head widths and code lengths the decode-attention kernel takes
+_ATTN_D = (64, 128)
+_ATTN_L = (8, 16)
+_ATTN_Q = (torch.float32, torch.bfloat16)
+
+
+def decode_attention(q: torch.Tensor, k_bc: F.BlockCompressed,
+                     v_bc: F.BlockCompressed, lengths: torch.Tensor, *,
+                     sm_scale: float | None = None,
+                     kernel: bool | None = None) -> torch.Tensor:
+    """One new token's GQA attention over a coded K/V cache.
+
+    ``q (B, H, D)``; ``k_bc``/``v_bc`` hold codes ``(B, Hkv, S, nbd, bs)``
+    and exponents ``(B, Hkv, S, nbd)`` with ``D = nbd * bs`` (the KV cache
+    uses ``bs = D``); ``lengths (B,)`` or ``(B, 1)``: positions at or past
+    ``lengths[b]`` are masked.  Returns ``(B, H, D)`` in q's dtype,
+    computed in f32 (``sm_scale`` defaults to ``D ** -0.5``).  The kernel
+    takes f32 values coded with ``l`` 8 or 16, ``D`` 64 or 128, f32 or bf16
+    q, any ``S`` and any ``G = H / Hkv``; it reads uint8 exponents (the KV
+    cache's), and int32 ones are narrowed for it first.
+    """
+    spec = k_bc.spec
+    B, H, D = q.shape
+    _, Hkv, S, nbd = k_bc.exps.shape
+    if H % Hkv or nbd * spec.bs != D or v_bc.exps.shape != k_bc.exps.shape:
+        raise ValueError(f"q {tuple(q.shape)} does not fit caches of exps "
+                         f"{tuple(k_bc.exps.shape)} / "
+                         f"{tuple(v_bc.exps.shape)} at bs={spec.bs}")
+    G = H // Hkv
+    kcodes = k_bc.codes.reshape(B, Hkv, S, D)
+    vcodes = v_bc.codes.reshape(B, Hkv, S, D)
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if not _use_kernel(q, spec, kernel):
+        return ref.decode_attn_ref(q, kcodes, k_bc.exps, vcodes, v_bc.exps,
+                                   lengths.reshape(B), spec,
+                                   sm_scale=sm_scale)
+    if (D not in _ATTN_D or spec.l not in _ATTN_L or q.dtype not in _ATTN_Q
+            or spec.dtype != torch.float32):
+        raise NotImplementedError(
+            f"decode attention has no kernel for D={D}, l={spec.l}, "
+            f"{F.dtype_name(spec.dtype)} values, {q.dtype} queries "
+            f"(D in {_ATTN_D}, l in {_ATTN_L}, f32 values, f32/bf16 q)")
+    dev = q.device
+    q = q.contiguous()
+    cd = F.code_dtype(spec.l)
+    for name, t in (("k codes", kcodes), ("v codes", vcodes)):
+        _expect(t, name, (B, Hkv, S, D), cd, dev)
+        if t.data_ptr() % (D // 32 * t.element_size()):
+            raise ValueError(f"{name} must be aligned to the kernel's "
+                             f"{D // 32}-code loads")
+    exps = []
+    for name, t in (("k exps", k_bc.exps), ("v exps", v_bc.exps)):
+        _expect(t, name, (B, Hkv, S, nbd), spec.exp_dtype, dev)
+        exps.append(t.to(torch.uint8))     # f32 biased exponents: 8 bits
+    lens = lengths.reshape(B).to(torch.int32).contiguous()
+    if lens.device != dev:
+        raise ValueError(f"lengths are on {lens.device}, expected {dev}")
+    from repro_torch.kernels import decode_attn as KA
+
+    chunk, nsplit = KA.splits(B, Hkv, G, S)
+    part_acc = torch.empty((B, Hkv, G, nsplit, D), dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty((B, Hkv, G, nsplit, 2), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    if B and S:
+        KA.decode_attn(q.view(B, Hkv, G, D), kcodes, exps[0], vcodes,
+                       exps[1], lens, part_acc, part_ml,
+                       out.view(B, Hkv, G, D), chunk, spec, float(sm_scale))
+        LAUNCHES["decode_attn"] += 1
+    else:
+        out.zero_()
+    return out

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the Hopper kernels: what each kernel computes.
 
 The kernels in ``frsz2_kernel.py`` / ``frsz2_dot.py`` / ``frsz2_block.py`` /
-``ell_spmv.py`` / ``gmres_step.py`` must match these: bit for bit on the
-codec, the ELL SpMV and the two Givens steps, to float tolerance on the
-basis contractions.  The
+``ell_spmv.py`` / ``gmres_step.py`` / ``decode_attn.py`` must match these:
+bit for bit on the codec, the ELL SpMV and the two Givens steps, to float
+tolerance on the basis contractions and the decode attention.  The
 contractions accumulate in the value dtype of the spec (f64 for the solver's
 formats).  On the CPU the wrappers in ``ops.py`` run these; on the card
 ``chip_smoke.py`` holds each kernel against them.
@@ -332,3 +332,47 @@ def block_givens_step_ref(state: torch.Tensor, H: torch.Tensor,
     s[L["extra"]] += float(bool(fired)) * (j + 1)
     dead = all(abs(v) <= _TINY for v in T.double().diagonal().tolist())
     s[L["alive"]] = float(not dead and any(e > target for e in est))
+
+
+# ---------------------------------------------------------------------------
+# Flash-decode attention over an FRSZ2-coded KV cache (csrc/decode_attn.cu)
+# ---------------------------------------------------------------------------
+
+
+def decode_attn_ref(q, kcodes, kexps, vcodes, vexps, lengths,
+                    spec: F.FrszSpec, sm_scale: float | None = None
+                    ) -> torch.Tensor:
+    """Single-token decode attention, GQA, over a coded K/V cache.
+
+    q: (B, H, D) new-token queries; kcodes/vcodes: (B, Hkv, S, D) codes,
+    coded along D in blocks of ``spec.bs``; kexps/vexps: (B, Hkv, S, nb);
+    lengths: (B,) valid cache length per sequence.  Returns (B, H, D) in
+    q's dtype, computed in f32: ``softmax(q k^T * sm_scale) v`` over the
+    first ``lengths[b]`` positions.  A row with no valid position gives
+    zeros (its softmax sum is divided by 1, as the kernel does).  Decoded
+    one sequence at a time, so the codec's int64 temporaries stay small.
+    """
+    B, H, D = q.shape
+    Hkv, S = kcodes.shape[1], kcodes.shape[2]
+    G = H // Hkv
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    out = []
+    for b in range(B):
+        k = decompress_ref(kcodes[b].reshape(Hkv, S, -1, spec.bs), kexps[b],
+                           spec)[..., :D].float()          # (Hkv, S, D)
+        v = decompress_ref(vcodes[b].reshape(Hkv, S, -1, spec.bs), vexps[b],
+                           spec)[..., :D].float()
+        qg = q[b].reshape(Hkv, G, D).float()
+        s = torch.einsum("hgd,hsd->hgs", qg, k) * sm_scale
+        valid = torch.arange(S, device=q.device) < lengths[b]
+        s = torch.where(valid, s, -math.inf)
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - torch.where(
+            torch.isfinite(m), m, 0.0)), 0.0)
+        den = p.sum(-1, keepdim=True)
+        o = torch.einsum("hgs,hsd->hgd", p, v)
+        out.append(o / torch.where(den > 0, den, 1.0))
+    if not out:
+        return q.new_zeros((0, H, D))
+    return torch.stack(out).reshape(B, H, D).to(q.dtype)

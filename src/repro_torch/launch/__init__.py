@@ -1,1 +1,1 @@
-"""Launchers: solving."""
+"""Launchers: solving and serving."""

@@ -1,0 +1,165 @@
+"""Serving driver: batched prefill + decode against a compressed KV cache.
+
+  python -m repro_torch.launch.serve --arch yi-9b
+  python -m repro_torch.launch.serve --arch yi-9b --reduced --device cpu
+
+A fixed pool of decode slots, the JAX package's loop (``repro.launch.serve``)
+step for step: the first wave of requests is prefilled into a fresh cache;
+a slot whose request has its ``max_new`` tokens takes the next queued
+request and decodes on from the slot's cache (that request's prompt is not
+prefilled: the reference's re-prefill branch runs only when every slot is
+free while requests wait, which its loop never reaches).  Greedy decoding.
+
+Runs on CUDA by default: an FRSZ2 cache (``--kv-format frsz2_16``, the
+config's default) is written by the FRSZ2 compress kernel and read by the
+flash-decode attention kernel; ``--device cpu`` runs the plain PyTorch
+versions.  Weights are random, drawn from seed 0 on the device, layer by
+layer.  The flags are the reference's, plus ``--device``; the cache holds
+every position the run writes (the reference CLI's ``prompt + max_new +
+8`` overflows as soon as requests outnumber slots, and the JAX package then
+drops the writes past its end).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.device import resolve_device
+from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.config import ArchConfig
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    slots: int = 4                 # concurrent decode slots (batch)
+    prompt_len: int = 32
+    max_new: int = 32
+    max_ctx: int = 128
+    seed: int = 0
+    greedy: bool = True
+
+
+def decode_steps(n_requests: int, sc: ServeConfig) -> int:
+    """Decode steps the loop runs: each slot serves every ``slots``-th
+    request, ``max_new`` steps each."""
+    return -(-n_requests // sc.slots) * sc.max_new if n_requests else 0
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
+          params: dict | None = None, device="cuda", verbose: bool = True,
+          stats: dict | None = None) -> dict:
+    """Generate ``max_new`` tokens for every request; returns completions.
+
+    ``params`` (the weights, on ``device``) defaults to random ones drawn
+    from ``sc.seed``.  ``stats``, if given, receives the wall of each
+    prefill (``prefill_s``) and of each decode step including its host
+    read of the new tokens (``step_s``), in seconds, and the count of
+    logits that were not finite (``nonfinite_logits``).
+    """
+    dev = resolve_device(device)
+    need = sc.prompt_len + decode_steps(len(requests), sc)
+    if need > sc.max_ctx:
+        raise ValueError(f"max_ctx={sc.max_ctx} cannot hold the {need} "
+                         "positions this run writes")
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(sc.seed))
+    B = sc.slots
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    if stats is not None:
+        stats.update(prefill_s=[], step_s=[])
+
+    queue = list(enumerate(requests))
+    active = [None] * B            # request id per slot
+    out = {i: [] for i in range(len(requests))}
+    t0 = time.perf_counter()
+    steps = 0
+
+    def admit_wave():
+        wave = [queue.pop(0) for _ in range(min(B, len(queue)))]
+        prompt = np.zeros((B, sc.prompt_len), np.int64)
+        for slot, (rid, toks) in enumerate(wave):
+            prompt[slot, :] = toks[:sc.prompt_len]
+            active[slot] = rid
+        t = time.perf_counter()
+        logits, cache = prefill(params, cfg, torch.from_numpy(prompt).to(dev),
+                                cache_len=sc.max_ctx)
+        tokens = logits.argmax(-1)
+        if stats is not None:
+            bad.add_((~torch.isfinite(logits)).sum())
+            _sync(dev)
+            stats["prefill_s"].append(time.perf_counter() - t)
+        return tokens, cache
+
+    tokens, cache = admit_wave()
+    while any(a is not None for a in active):
+        t = time.perf_counter()
+        host = tokens.tolist()
+        for slot, rid in enumerate(active):
+            if rid is not None:
+                out[rid].append(host[slot])
+        logits, cache = decode_step(params, cfg, cache, tokens)
+        tokens = logits.argmax(-1)
+        steps += 1
+        for slot, rid in enumerate(active):
+            if rid is not None and len(out[rid]) >= sc.max_new:
+                # slot finished: the next request takes the slot and decodes
+                # on from its cache, as in the reference
+                active[slot] = None
+                if queue:
+                    nrid, _ = queue.pop(0)
+                    active[slot] = nrid
+        if all(a is None for a in active) and queue:
+            tokens, cache = admit_wave()
+        if stats is not None:
+            bad.add_((~torch.isfinite(logits)).sum())
+            _sync(dev)
+            stats["step_s"].append(time.perf_counter() - t)
+    if stats is not None:
+        stats["nonfinite_logits"] = int(bad)
+    dt = time.perf_counter() - t0
+    if verbose:
+        print(f"[serve] {len(requests)} requests x {sc.max_new} tokens in "
+              f"{dt:.1f}s ({steps} decode steps, kv={cfg.kv_format}, "
+              f"{dev.type})")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--kv-format", default=None)
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the model runs (cuda: the Hopper kernels)")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.kv_format:
+        cfg = dataclasses.replace(cfg, kv_format=args.kv_format)
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+            .astype(np.int32) for _ in range(args.requests)]
+    sc = ServeConfig(prompt_len=args.prompt_len, max_new=args.max_new)
+    sc.max_ctx = sc.prompt_len + decode_steps(len(reqs), sc) + 8
+    out = serve(cfg, sc, reqs, device=args.device)
+    print("sample completion:", out[0][:16])
+
+
+if __name__ == "__main__":
+    main()

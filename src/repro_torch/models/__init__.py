@@ -1,0 +1,12 @@
+"""Model zoo: the config system and the dense family's serving path."""
+from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
+from repro_torch.models.lm import (
+    decode_step,
+    init_decode_cache,
+    init_params,
+    prefill,
+    trunk,
+)
+
+__all__ = ["SHAPES", "ArchConfig", "ShapeConfig", "decode_step",
+           "init_decode_cache", "init_params", "prefill", "trunk"]

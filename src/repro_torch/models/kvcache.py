@@ -1,0 +1,255 @@
+"""FRSZ2-compressed KV cache: the paper's technique inside LM serving.
+
+The decode-time KV cache has the Krylov basis's access profile (paper
+Sec. II): each entry is **written once** (at its token's step) and **re-read
+on every later step**, a memory-bound stream that dominates long-context
+decode.  K and V are stored as FRSZ2 blocks with ``bs = head_dim``: one
+block, and one ``e_max``, per (position, kv head).  A block is always
+produced whole at append time, so the paper's whole-block-write constraint
+(Sec. IV-A) holds by construction.
+
+Formats:
+  * ``none``      — f32 cache (reference)
+  * ``bf16``      — cast compression
+  * ``frsz2_16``  — 16-bit codes + uint8 exponent  (~16.06 bits/value)
+  * ``frsz2_8``   — 8-bit codes + uint8 exponent   (~8.06 bits/value)
+
+The cache is a dict of preallocated tensors, layer-stacked ``(L, B, Hkv, S,
+D)``; :func:`append` writes into a layer's view in place (the JAX package
+returns a new array from ``.at[].set``; the values are the same, without a
+copy of the cache per layer and step).  Codes are held as the codec's
+signed containers (``int16`` for l = 16, ``uint8`` for l = 8) with the JAX
+package's bit patterns.
+
+On the card, an FRSZ2 cache is written by the FRSZ2 compress kernel, and
+:func:`attend` over it with neither ``window`` nor ``ring`` runs the
+hand-written flash-decode kernel (``ops.decode_attention``), and on the
+CPU by that kernel's plain version through the same call.  The raw formats
+and the windowed or ring cases run the plain masked softmax, which is where
+the JAX package runs jnp for them too.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import frsz2 as F
+from repro_torch.kernels import ops
+
+f32 = torch.float32
+
+__all__ = ["CacheFormat", "cache_format", "init_cache", "append", "attend",
+           "build_cache", "cache_nbytes", "encode_heads", "decode_heads"]
+
+_RAW = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheFormat:
+    kind: str                  # 'raw' | 'frsz2'
+    l: int = 16                # code bits (frsz2)
+    raw_dtype: str = "bfloat16"
+
+    def spec(self, head_dim: int) -> F.FrszSpec:
+        return F.FrszSpec(bs=head_dim, l=self.l, dtype=torch.float32,
+                          rounding="nearest", exp_dtype=torch.uint8)
+
+    def code_dtype(self) -> torch.dtype:
+        return F.code_dtype(self.l)
+
+    def raw_torch_dtype(self) -> torch.dtype:
+        return _RAW[self.raw_dtype]
+
+    def bits_per_value(self, head_dim: int) -> float:
+        if self.kind == "raw":
+            return self.raw_torch_dtype().itemsize * 8
+        return (head_dim * self.l + 8) / head_dim
+
+
+def cache_format(name: str) -> CacheFormat:
+    if name in ("none", "f32", "float32"):
+        return CacheFormat(kind="raw", raw_dtype="float32")
+    if name in ("bf16", "bfloat16"):
+        return CacheFormat(kind="raw", raw_dtype="bfloat16")
+    if name.startswith("frsz2_"):
+        return CacheFormat(kind="frsz2", l=int(name.split("_")[1]))
+    raise ValueError(f"unknown kv format {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# codec on (..., D) vectors — one FRSZ2 block per trailing head_dim slice
+# ---------------------------------------------------------------------------
+
+
+def encode_heads(x: torch.Tensor, fmt: CacheFormat, head_dim: int):
+    """x (..., D) -> (codes (..., D), exps (..., 1) uint8), ``nearest``
+    rounding; through the compress kernel for a CUDA tensor."""
+    bc = ops.compress(x.to(f32), fmt.spec(head_dim))
+    return bc.codes.reshape(x.shape), bc.exps
+
+
+def decode_heads(codes: torch.Tensor, exps: torch.Tensor, fmt: CacheFormat,
+                 head_dim: int) -> torch.Tensor:
+    """Inverse of :func:`encode_heads` -> (..., D) f32."""
+    spec = fmt.spec(head_dim)
+    bc = F.BlockCompressed(codes=codes.reshape(*codes.shape[:-1], 1, head_dim),
+                           exps=exps, n=head_dim, spec=spec)
+    return ops.decompress(bc)
+
+
+# ---------------------------------------------------------------------------
+# cache: dict of layer-stacked tensors, written in place
+# ---------------------------------------------------------------------------
+
+
+def init_cache(fmt: CacheFormat, L: int, B: int, Hkv: int, S: int, D: int,
+               device=None) -> dict:
+    """Layer-stacked zero cache.  Layout (L, B, Hkv, S, D)."""
+    shape = (L, B, Hkv, S, D)
+    if fmt.kind == "raw":
+        dt = fmt.raw_torch_dtype()
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    cd = fmt.code_dtype()
+    eshape = (L, B, Hkv, S, 1)
+    return {
+        "k_codes": torch.zeros(shape, dtype=cd, device=device),
+        "k_exps": torch.zeros(eshape, dtype=torch.uint8, device=device),
+        "v_codes": torch.zeros(shape, dtype=cd, device=device),
+        "v_exps": torch.zeros(eshape, dtype=torch.uint8, device=device),
+    }
+
+
+def append(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+           lengths: torch.Tensor, fmt: CacheFormat, *, ring: int = 0) -> dict:
+    """Write k/v (B, T, Hkv, D) at per-sequence positions ``lengths``, in
+    place into ``layer_cache`` (one layer's tensors), and return it.
+
+    ``ring`` > 0 wraps positions modulo ``ring`` (sliding-window cache).
+    Works for T == 1 (decode) and T == S (prefill bulk write).  Positions
+    must lie inside the cache (the JAX package drops writes past its end;
+    ``launch.serve`` sizes the cache so that there are none).
+    """
+    B, T, Hkv, D = k_new.shape
+    dev = k_new.device
+    buf0 = layer_cache["k"] if fmt.kind == "raw" else layer_cache["k_codes"]
+    S = buf0.shape[2]
+    pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=dev)
+    if ring:
+        pos = pos % ring
+    # one flat row index per (b, h, t) into the (B * Hkv * S, width) views
+    rows = (torch.arange(B * Hkv, device=dev).view(B, Hkv, 1) * S
+            + pos[:, None, :]).reshape(-1)
+    parts = {"k": k_new.transpose(1, 2), "v": v_new.transpose(1, 2)}
+    if fmt.kind == "frsz2":
+        parts = {f"{n}_{w}": x for n, t in parts.items()
+                 for w, x in zip(("codes", "exps"), encode_heads(t, fmt, D))}
+    for name, x in parts.items():
+        buf = layer_cache[name]
+        width = buf.shape[-1]
+        buf.view(-1, width).index_copy_(
+            0, rows, x.reshape(-1, width).to(buf.dtype))
+    return layer_cache
+
+
+def _decoded(layer_cache: dict, fmt: CacheFormat, D: int):
+    """The whole cache decoded -> k, v (B, Hkv, S, D) f32."""
+    if fmt.kind == "raw":
+        return layer_cache["k"].to(f32), layer_cache["v"].to(f32)
+    return (decode_heads(layer_cache["k_codes"], layer_cache["k_exps"], fmt, D),
+            decode_heads(layer_cache["v_codes"], layer_cache["v_exps"], fmt, D))
+
+
+_NEG = -1e30
+
+
+def attend(q: torch.Tensor, layer_cache: dict, lengths: torch.Tensor,
+           fmt: CacheFormat, *, chunk: int = 0, window: int = 0,
+           ring: int = 0) -> torch.Tensor:
+    """Flash-decode semantics: q (B, H, D) against the (compressed) cache.
+
+    ``window``: mask keys older than window.  ``ring``: the cache is a ring
+    buffer of that size (positions stored modulo ring).  ``chunk`` is
+    accepted for interface parity and ignored.  An FRSZ2 cache with neither
+    goes to ``ops.decode_attention``, which routes by device (the kernel on
+    the card, its plain version on the CPU; both scale the logits rather
+    than q); the rest is one masked softmax over the whole cache, as the
+    JAX package's.
+    """
+    B, H, D = q.shape
+    buf = layer_cache["k"] if fmt.kind == "raw" else layer_cache["k_codes"]
+    _, Hkv, S, _ = buf.shape
+    if fmt.kind == "frsz2" and not window and not ring:
+        spec = fmt.spec(D)
+        kbc, vbc = (F.BlockCompressed(
+            codes=layer_cache[f"{n}_codes"].view(B, Hkv, S, 1, D),
+            exps=layer_cache[f"{n}_exps"], n=D, spec=spec) for n in "kv")
+        return ops.decode_attention(q, kbc, vbc, lengths, sm_scale=D ** -0.5)
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, D).to(f32) * D ** -0.5
+    k, v = _decoded(layer_cache, fmt, D)                      # (B,Hkv,S,D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k)                # (B,Hkv,G,S)
+    kpos = torch.arange(S, device=q.device)
+    lens = lengths.to(torch.int64)[:, None]
+    if ring:
+        # ring buffer: slot holds absolute position p ≡ slot (mod ring),
+        # p in [len - ring, len); reconstruct the absolute position.
+        wrap = torch.div(lens - 1 - kpos[None, :], ring, rounding_mode="floor")
+        abs_pos = kpos[None, :] + wrap.clamp(min=0) * ring
+        valid = (abs_pos < lens) & (abs_pos >= lens - ring)
+    else:
+        valid = kpos[None, :] < lens                          # (B, S)
+        if window:
+            valid &= kpos[None, :] >= lens - window
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, _NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(vmask, torch.exp(s - m), 0.0)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v)
+    o = o / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def build_cache(k_all: torch.Tensor, v_all: torch.Tensor, fmt: CacheFormat, *,
+                cache_len: int = 0, ring: int = 0, out: dict | None = None
+                ) -> dict:
+    """Bulk-construct one layer's cache from full-sequence K/V (prefill).
+
+    k/v (B, S, Hkv, D) -> cache dict with S axis = cache_len (padded) or
+    ring (last ``ring`` positions, placed at their modular slots).  The
+    whole buffer is produced at once — the paper's whole-block-write
+    discipline at maximum scale.  ``out`` (one layer's preallocated
+    tensors of that length) is written in place and returned; the padding
+    past the prompt is zeroed.
+    """
+    B, S, Hkv, D = k_all.shape
+    k_bhsd = k_all.transpose(1, 2)
+    v_bhsd = v_all.transpose(1, 2)
+    if ring and S > ring:
+        shift = (S - ring) % ring
+        k_bhsd = torch.roll(k_bhsd[:, :, S - ring:], shift, dims=2)
+        v_bhsd = torch.roll(v_bhsd[:, :, S - ring:], shift, dims=2)
+        S = ring
+    target = max(cache_len or S, S)
+    if out is None:
+        out = {n: t[0] for n, t in init_cache(fmt, 1, B, Hkv, target, D,
+                                              device=k_all.device).items()}
+    if fmt.kind == "raw":
+        parts = {"k": k_bhsd, "v": v_bhsd}
+    else:
+        parts = {}
+        for n, x in (("k", k_bhsd), ("v", v_bhsd)):
+            parts[f"{n}_codes"], parts[f"{n}_exps"] = encode_heads(x, fmt, D)
+    for name, x in parts.items():
+        buf = out[name]
+        buf[:, :, :S].copy_(x)
+        buf[:, :, S:].zero_()
+    return out
+
+
+def cache_nbytes(fmt: CacheFormat, L, B, Hkv, S, D) -> int:
+    n = L * B * Hkv * S
+    if fmt.kind == "raw":
+        return 2 * n * D * fmt.raw_torch_dtype().itemsize
+    return 2 * n * (D * F.code_dtype(fmt.l).itemsize + 1)

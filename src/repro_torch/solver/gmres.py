@@ -544,14 +544,14 @@ def _check_unported(shard, reorder: str) -> None:
     if shard is not None:
         raise NotImplementedError(
             "shard= (the multi-GPU solve) is not ported yet "
-            "(ROADMAP.md, open item 1: slice 5)")
+            "(ROADMAP.md, open item 1: slice 6, multi-GPU)")
     if reorder not in _REORDERS:
         raise ValueError(f"unknown reorder mode {reorder!r}; "
                          f"expected one of {_REORDERS}")
     if reorder == "rcm":
         raise NotImplementedError(
             "reorder='rcm' (operator planning) is not ported yet "
-            "(ROADMAP.md, open item 1: slice 4)")
+            "(ROADMAP.md, open item 1: slice 5, operator planning)")
 
 
 def gmres(

@@ -10,7 +10,12 @@ solves bit-equal (the kernels use no float atomics), and a graph-replayed
 device-driver solve bit-equal to the host driver's.  The block kernels:
 f64 block contractions within 1e-12 relative (f32 1e-5), the batched ELL
 and the block Givens step bit-equal, and the block device driver's solve
-(captured, then replayed) bit-equal to the block host driver's.
+(captured, then replayed) bit-equal to the block host driver's.  The
+decode attention: with f32 q within 1e-5 of its plain version, relative
+to the largest output (f32 sums in another order, base-2 exponentials);
+with bf16 q within 2^-7 (one bf16 step); a cache written on the card bit-equal to one written on the
+CPU; yi-9b ``reduced()`` decode logits on the card within 1e-3 of the CPU's
+(relative to the largest logit: f32 matrix products in another order).
 """
 import pytest
 import torch
@@ -20,6 +25,8 @@ from repro_torch.core.accessor import BlockBasisAccessor, format_by_name
 from repro_torch.kernels import ops, ref
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
+from repro_torch.configs import get_arch
+from repro_torch.models import decode_step, init_params, kvcache, prefill
 
 
 #: the scalar FRSZ2 codec and contraction kernels; the scalar device path;
@@ -232,3 +239,80 @@ def test_graph_replayed_block_solve_equals_host_solve(cuda):
                 assert (a.bytes_read, a.op_reads) == (c.bytes_read,
                                                       c.op_reads)
                 assert torch.equal(a.x, c.x)
+
+
+def _coded_kv(gen, B, Hkv, S, D, l, exp_dtype, dev):
+    spec = F.FrszSpec(bs=D, l=l, dtype=torch.float32, rounding="nearest",
+                      exp_dtype=exp_dtype)
+    bcs = []
+    for _ in range(2):
+        x = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+        bc = ops.compress(x, spec)
+        bcs.append(F.BlockCompressed(codes=bc.codes, exps=bc.exps, n=D,
+                                     spec=spec))
+    return bcs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,l,G,exp_dtype,qdt", [
+    (128, 16, 8, torch.uint8, torch.float32),
+    (128, 8, 8, torch.uint8, torch.bfloat16),
+    (64, 16, 2, torch.int32, torch.float32),
+    (64, 8, 1, torch.uint8, torch.float32),
+    (128, 16, 3, torch.uint8, torch.float32),
+    (128, 16, 12, torch.int32, torch.bfloat16)])
+def test_decode_attention_matches_plain_on_card(cuda, D, l, G, exp_dtype,
+                                                qdt):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, Hkv, S = 3, 2, 1000
+    kbc, vbc = _coded_kv(gen, B, Hkv, S, D, l, exp_dtype, cuda)
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda).to(qdt)
+    lengths = torch.tensor([1, 517, S], dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    ok = ops.decode_attention(q, kbc, vbc, lengths)
+    assert ops.LAUNCHES["decode_attn"] == 1
+    op = ops.decode_attention(q, kbc, vbc, lengths, kernel=False)
+    assert ok.dtype == op.dtype == qdt
+    err = float((ok.float() - op.float()).abs().max())
+    if qdt == torch.float32:
+        assert err <= 1e-5 * float(op.abs().max())
+    else:
+        assert err <= 2 ** -7
+    assert torch.equal(ok, ops.decode_attention(q, kbc, vbc, lengths))
+
+
+@pytest.mark.cuda
+def test_kv_cache_and_decode_on_card_match_cpu(cuda):
+    cfg = get_arch("yi-9b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 25),
+                           generator=torch.Generator().manual_seed(1))
+
+    def to(tree):
+        return ({k: to(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.to(cuda))
+
+    on_card = to(params)
+    lc, cc = prefill(params, cfg, tokens[:, :24], cache_len=32)
+    lg, cg = prefill(on_card, cfg, tokens[:, :24].to(cuda), cache_len=32)
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
+    ops.reset_launches()
+    dc, cc = decode_step(params, cfg, cc, tokens[:, 24])
+    dg, cg = decode_step(on_card, cfg, cg, tokens[:, 24].to(cuda))
+    assert ops.LAUNCHES["decode_attn"] == cfg.num_layers
+    assert ops.LAUNCHES["frsz2_compress"] == 2 * cfg.num_layers
+    assert float((dg.cpu() - dc).abs().max()) <= 1e-3 * float(dc.abs().max())
+    # the compress kernel writes the plain codec's bits: the same K/V
+    # written on the card and on the CPU give the same cache
+    fmt = kvcache.cache_format(cfg.kv_format)
+    x = torch.randn((2, 5, 2, cfg.hd), generator=torch.Generator()
+                    .manual_seed(2))
+    lens = torch.tensor([3, 7], dtype=torch.int32)
+    caches = []
+    for dev in ("cpu", cuda):
+        c = {n: t[0] for n, t in kvcache.init_cache(fmt, 1, 2, 2, 16, cfg.hd,
+                                                    device=dev).items()}
+        kvcache.append(c, x.to(dev), (2 * x).to(dev), lens.to(dev), fmt)
+        caches.append(c)
+    for n in caches[0]:
+        assert torch.equal(caches[0][n], caches[1][n].cpu()), n

@@ -6,6 +6,8 @@ difference is a bug.  Inputs are made with numpy from a seed, converted to
 the value dtype once (by JAX), and handed to both packages as the same bit
 patterns.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,3 +107,42 @@ def test_spec_validation_matches():
             TF.FrszSpec(**kw)
     with pytest.raises(ValueError):
         TF.FrszSpec(l=32, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("dtype_name,l,bs", [("float32", 16, 128),
+                                             ("float32", 8, 64),
+                                             ("float32", 21, 32),
+                                             ("bfloat16", 8, 32),
+                                             ("float16", 16, 8)],
+                         ids=lambda v: str(v))
+def test_uint8_exponent_spec_bit_identical(dtype_name, l, bs):
+    """``exp_dtype=uint8`` (the KV cache's spec): codes, exponents (uint8 on
+    both sides) and decompressed values equal the JAX package's, and the
+    int32 spec gives the same codes and exponent values."""
+    jdt, tdt, udt, _ = _DT[dtype_name]
+    xj, xt, udt = _inputs(dtype_name, seed=l * 7 + bs)
+    js = JF.FrszSpec(bs=bs, l=l, dtype=jdt, rounding="nearest",
+                     exp_dtype=jnp.uint8)
+    ts = TF.FrszSpec(bs=bs, l=l, dtype=tdt, rounding="nearest",
+                     exp_dtype=torch.uint8)
+    jb = jax.jit(JF.compress, static_argnums=1)(xj, js)
+    tb = TF.compress(xt, ts)
+    assert tb.exps.dtype == torch.uint8 and np.asarray(jb.exps).dtype == np.uint8
+    assert np.array_equal(tb.exps.numpy(), np.asarray(jb.exps))
+    codes = store_to_numpy({"codes": tb.codes, "exps": tb.exps}, ts)["codes"]
+    assert np.array_equal(codes, np.asarray(jb.codes))
+    yj = np.asarray(jax.lax.bitcast_convert_type(jax.jit(JF.decompress)(jb),
+                                                 jnp.dtype(udt)))
+    assert np.array_equal(_ubits(TF.decompress(tb), udt), yj)
+    t32 = TF.compress(xt, dataclasses.replace(ts, exp_dtype=torch.int32))
+    assert t32.exps.dtype == torch.int32
+    assert torch.equal(t32.codes, tb.codes)
+    assert torch.equal(t32.exps, tb.exps.to(torch.int32))
+
+
+def test_exponent_dtype_validation():
+    TF.FrszSpec(exp_dtype=torch.uint8)                    # f32 values: fits
+    for kw in (dict(exp_dtype=torch.int16), dict(exp_dtype=torch.int64),
+               dict(exp_dtype=torch.uint8, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            TF.FrszSpec(**kw)

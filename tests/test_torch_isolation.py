@@ -27,7 +27,9 @@ KERNEL_CALLS = {"compress", "decompress", "matvec", "rmatvec", "compress_2d",
                 "block_dots", "block_combine", "block_dots_2d",
                 "block_combine_2d", "block_givens_step", "write_block",
                 "read_block", "read_all_blocks", "gmres_batched",
-                "gmres_block"}
+                "gmres_block", "decode_attention", "decode_attn", "attend",
+                "append", "build_cache", "encode_heads", "decode_heads",
+                "decode_step", "prefill", "serve"}
 
 
 def _banned(module: str) -> bool:
@@ -86,4 +88,5 @@ def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"ops.py", "gmres.py", "accessor.py", "chip_smoke.py",
             "ell_spmv.py", "gmres_step.py", "csr.py", "block.py",
-            "frsz2_block.py"} <= names
+            "frsz2_block.py", "decode_attn.py", "kvcache.py", "lm.py",
+            "serve.py", "registry.py"} <= names
