@@ -14,8 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    contractions within 1e-12 relative at r = 101 and r = 51 rows), spot
    checks of f32/f16/bf16 values, l = 8/16, bs = 1/8/64/128 and a ragged n;
    the ELL SpMV on that operator, dense and with a frsz2_32-coded operand,
-   against its plain version (within 1e-13 relative), with spot checks of
-   f32 values, a ragged column count and bs = 8/64/128; the Givens step of
+   bit-equal to its plain version and to a second call, with spot checks of
+   f32 values, a ragged column count and bs = 8/64/128; the scaled FRSZ2
+   decode through the ELL kernel (an identity operator on coded vectors of
+   every l = 16 code and of l = 8 and l = 32 codes, at exponents in the
+   flush zone, on the guard's edges and at 2*bias+1, w = 7 and w = 1)
+   bit-equal to ``ops.decompress`` after ``+ 0.0``; the Givens step of
    the device cycle over m = 100 steps, bit-equal to its plain version; and
    CUDA-event times (median of 30) beside the byte bound, the plain version
    and a PyTorch call computing the same function (``torch.mv`` on the
@@ -36,8 +40,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    p = 8 segments of n_seg = 1,259,776: the fused block dots and block
    combine against their plain versions (within 1e-12 relative) at 101 and
    51 live block rows, with spot checks (f32 values, p = 1 and 3, a ragged
-   n, bs = 8/64/128, l = 8/16); the batched ELL SpMV (8 operands, one
-   launch) bit-equal to its plain version; the block Givens step of the
+   n, bs = 8/64/128, l = 8/16); the block dots twice, bit-equal, and with
+   one-hot rows of W equal to the decoded basis at those columns; the
+   batched ELL SpMV (8 operands, one launch) bit-equal to its plain version
+   and to a second call; the block Givens step of the
    block cycle bit-equal to its plain version over m = 100 steps at p = 8;
    CUDA-event times beside the bound, the plain version and ``torch.mm``
    on the decoded basis (``torch.sparse_csr_tensor @ X`` for the ELL);
@@ -59,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-5 of the largest output), spot checks (D = 64, G = 1/2/3/4/12, S = 1000, bf16 q, int32
    exponents, a length-1 row), CUDA-event times beside the bound, the plain
    version and ``scaled_dot_product_attention`` on the decoded K/V with a
-   length mask;
+   length mask, at S = 32768 and at phase 9's serving shape (S = 2120,
+   lengths 2048-2112);
 9. serving yi-9b at full width and depth (48 layers, bf16, random weights
    from a seed): the teacher-forcing check (prefill + one decode step
    against the parallel forward, B = 2, S = 256) for ``bf16`` and
@@ -376,6 +383,82 @@ def _rel_err(yk, yp):
     return abs_err, abs_err / max(float(yp.double().abs().max()), 1e-300)
 
 
+def _all_codes(l, gen):
+    """Every code of l <= 16 bits; for l = 32, the edge codes (0, the sign
+    alone, 1, all ones, the largest and smallest fields of either sign)
+    and seeded codes, 2^16 in all.  As the codec's signed containers."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+
+    dev = gen.device
+    if l <= 16:
+        c = torch.arange(1 << l, device=dev)
+    else:
+        edges = torch.tensor([0, 1 << 31, 1, (1 << 32) - 1, (1 << 31) - 1,
+                              (1 << 31) + 1, 1 << 30, 3 << 30], device=dev)
+        c = torch.cat([edges, torch.randint(0, 1 << 32, ((1 << 16) - 8,),
+                                            generator=gen, device=dev)])
+    if l < 64 and l > 8:
+        c = c - (c >= (1 << (l - 1))).long() * (1 << l)
+    return c.to(F.code_dtype(l))
+
+
+def _identity_ell_checks(dev):
+    """The scaled decode through the ELL kernel: an identity operator on a
+    coded vector built directly from codes and exponents (every l = 16
+    code, l = 8 codes, 2^16 l = 32 codes, each block under exponents
+    0..l+8, a seeded spread, 2*bias and 2*bias+1) equals ``ops.decompress``
+    of the same vector, as integer bits after ``+ 0.0``.  Slot 0 of row i
+    holds entry i; at w = 7 (the compiled width) the other slots hold entry
+    0, code 0 (+0), with value 0."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bs = 32
+    checked = 0
+    for dtype, bias, ibits in ((torch.float64, 1023, torch.int64),
+                               (torch.float32, 127, torch.int32)):
+        for l in (16, 32, 8):
+            codes = _all_codes(l, gen)
+            spread = torch.randint(0, 2 * bias + 2, (16,), generator=gen,
+                                   device=dev)
+            emax = torch.cat([torch.arange(l + 9, device=dev), spread,
+                              torch.tensor([2 * bias - 1, 2 * bias,
+                                            2 * bias + 1], device=dev)])
+            per = codes.numel() // bs
+            spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+            bc = F.BlockCompressed(
+                codes=codes.reshape(per, bs).repeat(emax.numel(), 1),
+                exps=emax.to(torch.int32).repeat_interleave(per),
+                n=emax.numel() * codes.numel(), spec=spec)
+            n = bc.n
+            want = ops.decompress(bc, kernel=True) + 0.0
+            check(torch.equal(want.view(ibits),
+                              (ops.decompress(bc, kernel=False) + 0.0
+                               ).view(ibits)),
+                  f"decompress kernel != plain on every code, l={l}")
+            for w in (7, 1):
+                cols = torch.zeros((n, w), dtype=torch.int32, device=dev)
+                cols[:, 0] = torch.arange(n, dtype=torch.int32, device=dev)
+                vals = torch.zeros((n, w), dtype=dtype, device=dev)
+                vals[:, 0] = 1.0
+                got = ops.ell_spmv(vals, cols, bc, kernel=True) + 0.0
+                check(torch.equal(got.view(ibits), want.view(ibits)),
+                      f"scaled decode through ell_spmv_frsz2 != decompress "
+                      f"({F.dtype_name(dtype)}, l={l}, w={w}): "
+                      f"{int((got.view(ibits) != want.view(ibits)).sum())} "
+                      "entries differ")
+                checked += n
+            del bc, want, cols, vals, got
+    print(f"[ell] scaled decode: {checked} coded entries through the ELL "
+          "kernel (w 7 and 1, f64/f32, l 8/16/32, exponents 0..l+8, a "
+          "spread, 2*bias, 2*bias+1) bit-equal to decompress")
+
+
 def phase_ell(A):
     """The ELL SpMV kernels on the main-path operator, and spot checks."""
     import torch
@@ -396,10 +479,13 @@ def phase_ell(A):
         yk = ops.ell_spmv(E.vals, E.cols, operand, kernel=True)
         yp = ops.ell_spmv(E.vals, E.cols, operand, kernel=False)
         errs[name] = _rel_err(yk, yp)
-        check(errs[name][1] <= 1e-13,
-              f"{name} relative error {errs[name][1]:.3e} > 1e-13")
-        print(f"[ell] {name} n={nr} w={w}: max abs err {errs[name][0]:.3e}, "
-              f"relative {errs[name][1]:.3e}")
+        check(torch.equal(yk, yp), f"{name} != plain: relative error "
+                                   f"{errs[name][1]:.3e}")
+        check(torch.equal(ops.ell_spmv(E.vals, E.cols, operand, kernel=True),
+                          yk), f"{name}: two calls differ")
+        print(f"[ell] {name} n={nr} w={w}: bit-equal to plain, two calls "
+              "bit-equal")
+    _identity_ell_checks(dev)
 
     # spot checks: f32 values, a ragged column count, other block sizes
     g2 = torch.Generator(device=dev).manual_seed(5)
@@ -684,6 +770,38 @@ def _block_pair(bc, p, W, Y, rows):
     return out
 
 
+def _one_hot_dots_check(bc, p, n, n_seg, spec):
+    """Block dots against one-hot rows of W: each column of H is the
+    decoded basis at that row's column (one product by 1, the rest by 0),
+    at columns on chunk, stage and step edges of the kernel."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    dev = bc.codes.device
+    q = 8
+    at = [0, 1, 255, 256, 4095, 4097, n_seg // 2 + 5, n - 1]
+    W1 = torch.zeros((q, n), dtype=spec.dtype, device=dev)
+    W1[torch.arange(q), torch.tensor(at)] = 1.0
+    H = ops.block_dots(bc, W1, p=p, rows=R_FULL, kernel=True)
+    M = R_FULL * p
+    nbs = n_seg // spec.bs
+    cv = bc.codes[:R_FULL].reshape(M, nbs, spec.bs)
+    ev = bc.exps[:R_FULL].reshape(M, nbs)
+    for b, c in enumerate(at):
+        blk = c // spec.bs
+        v = ops.decompress(F.BlockCompressed(
+            codes=cv[:, blk:blk + 1].contiguous(),
+            exps=ev[:, blk:blk + 1].contiguous(), n=spec.bs, spec=spec),
+            kernel=False)[:, c % spec.bs]
+        check(torch.equal(H[:, :, b].reshape(M), v),
+              f"block dots with a one-hot row at column {c} != the decoded "
+              "basis there")
+    print(f"[block] dots with one-hot W rows at columns {at}: equal to the "
+          "decoded basis")
+
+
 def phase_block_kernels(A):
     """The block kernels at the main-path block shape, and spot checks."""
     import torch
@@ -709,6 +827,10 @@ def phase_block_kernels(A):
                                 f"{rel:.3e} > 1e-12")
             print(f"[block] {op} rows={r} (p={p}, n_seg={n_seg}): max abs "
                   f"err {abs_err:.3e}, relative {rel:.3e}")
+    check(torch.equal(ops.block_dots(bc, W, p=p, rows=R_FULL, kernel=True),
+                      ops.block_dots(bc, W, p=p, rows=R_FULL, kernel=True)),
+          "block dots: two calls differ")
+    _one_hot_dots_check(bc, p, n, n_seg, spec)
 
     # spot checks: f32 values, p = 1 and 3, a ragged n, other bs and l
     g2 = torch.Generator(device=dev).manual_seed(8)
@@ -735,6 +857,8 @@ def phase_block_kernels(A):
     yk = ops.ell_spmv(E.vals, E.cols, X, kernel=True)
     yp = ops.ell_spmv(E.vals, E.cols, X, kernel=False)
     check(torch.equal(yk, yp), "batched ell_spmv != plain")
+    check(torch.equal(ops.ell_spmv(E.vals, E.cols, X, kernel=True), yk),
+          "batched ell_spmv: two calls differ")
     print(f"[block] batched ell_spmv ({p} x {n}, w={E.vals.shape[1]}): "
           "bit-equal to plain")
 
@@ -1067,6 +1191,41 @@ def phase_decode_attn():
             entries["decode_attn"] = e
         del q, kbc, vbc, kd, vd, ok, sdpa
         torch.cuda.empty_cache()
+
+    # the serve shape (phase 9's cache: 2120 positions, lengths 2048-2112)
+    S2 = SERVE_PROMPT + 2 * SERVE_NEW + 8
+    lens2 = torch.randint(SERVE_PROMPT, SERVE_PROMPT + 2 * SERVE_NEW + 1, (B,),
+                          generator=gen, device=dev, dtype=torch.int32)
+    q, kbc, vbc = _attn_inputs(gen, B, Hkv, G, S2, D, 16, torch.uint8)
+    _, err2, rel2 = _attn_pair(q, kbc, vbc, lens2)
+    check(rel2 <= ATTN_TOL, f"decode_attn at the serve shape: {rel2:.3e} of "
+                            "the largest output")
+    kd = ops.decompress(kbc, kernel=True).view(B, Hkv, S2, D)
+    vd = ops.decompress(vbc, kernel=True).view(B, Hkv, S2, D)
+    mask2 = (torch.arange(S2, device=dev)[None, :] < lens2[:, None]
+             )[:, None, None, :]
+    valid2 = int(lens2.sum())
+    serve = dict(
+        serve_shape=f"B={B} Hkv={Hkv} G={G} D={D} S={S2}, lengths "
+                    f"{int(lens2.min())}-{int(lens2.max())}, {valid2} valid "
+                    "positions, l=16",
+        serve_ms=timed(lambda: ops.decode_attention(q, kbc, vbc, lens2,
+                                                    kernel=True)),
+        serve_bound_ms=bound_ms(2 * valid2 * Hkv * (D * 2 + 1)
+                                + 2 * B * Hkv * G * D * 4,
+                                4.0 * valid2 * Hkv * G * D, FP32_FLOPS)[0],
+        serve_library_ms=timed(functools.partial(
+            torch.nn.functional.scaled_dot_product_attention,
+            q.view(B, Hkv, G, D), kd, vd, attn_mask=mask2)),
+        serve_rel_err=rel2)
+    entries["decode_attn"].update(serve)
+    print(f"[attn] serve shape {serve['serve_shape']}: kernel "
+          f"{serve['serve_ms'] * 1e3:.1f} us, bound "
+          f"{serve['serve_bound_ms'] * 1e3:.2f} us, SDPA on the decoded K/V "
+          f"{serve['serve_library_ms'] * 1e3:.1f} us; kernel vs plain "
+          f"{rel2:.3e} of the largest output")
+    del q, kbc, vbc, kd, vd
+    torch.cuda.empty_cache()
 
     # spot checks: head width, group sizes, ragged S, bf16 q, int32
     # exponents, a length-1 row

@@ -6,28 +6,45 @@
 // y (nr,) = ELL(vals (nr, w), cols (nr, w) int32) @ x, padding slots holding
 // val 0 and col 0.  The coded operand is FRSZ2 codes (nb * bs,) + one
 // exponent per block; each gathered entry is decoded in registers from its
-// code and its block's exponent (`decode_bits`), so no decoded vector ever
-// reaches device memory.
+// code and its block's exponent, so no decoded vector ever reaches device
+// memory.
 //
-// What bounds it on this card: bytes.  At the paper's atmosmodd size
-// (nr = 1,259,712, w = 7, f64) one call streams 70.5 MB of values and
-// 35.3 MB of int32 columns, reads x (10.1 MB; 5.2 MB as frsz2_32 codes) and
-// writes y (10.1 MB): about 126 MB, 38 us at 3.35 TB/s.  Two flops per
-// slot are nothing beside that.
+// What bounds it on this card: bytes and the latency of dependent loads.
+// At the paper's atmosmodd size (nr = 1,259,712, w = 7, f64) one call
+// streams 70.5 MB of values and 35.3 MB of int32 columns, reads x (10.1 MB;
+// 5.2 MB as frsz2_32 codes) and writes y (10.1 MB): about 126 MB, 38 us at
+// 3.35 TB/s.  Two flops per slot are nothing beside that.  Each product
+// waits on a chain of loads: the row's columns, then the gathered entry
+// (and, coded, its block's exponent), so the card needs many rows in
+// flight.  The first design staged a 32-slot tile per 128 rows in
+// shared memory (33.8 KB a block, at most 24 warps an SM), divided by the
+// slot count per element and decoded each entry with the 64-bit bit
+// decode: 72.9 / 79.6 us (dense / coded, H100 80GB HBM3, 700 W).
 //
-// What the design does about it:
-//  * a block of 128 threads owns 128 consecutive rows.  Their (128, w) tile
-//    of values and columns is contiguous, so the block reads it with
-//    consecutive threads on consecutive slots (coalesced), in passes of
-//    at most 32 slots per row.  Each thread gathers its slot's operand entry
-//    through the read-only path (`__ldg`) and writes the product to shared
-//    memory;
-//  * then each thread sums its own row's products in slot order, starting
-//    from 0, into a register: no atomics, no cross-thread reduction, the
-//    same bits on every run, and the same bits as `kernels/ref.py::
-//    ell_spmv_ref` (the products are rounded before they are added, so no
-//    multiply-add is fused);
-//  * the int32 columns are read as they are: nothing widens them.
+// What the design does about it (46.7 / 50.2 us dense / coded, 330 us for
+// the batch of 8, against cuSPARSE's 61.8 / 61.9 / 609 us on the decoded
+// operand):
+//  * the suite's widths (w = 7, the 7-point stencils, and w = 27) are
+//    compiled in: one warp owns 32 consecutive rows, and its (32, w) tiles
+//    of values and columns, which are contiguous, arrive in shared memory
+//    by 16-byte cp.async copies sized to w (10.75 KB a block of four warps
+//    at w = 7, f64); the warp waits for its own copies only (no block
+//    barrier), so residency is bound by registers, not shared memory;
+//  * each lane then takes one row: its w columns and values from shared
+//    memory (odd strides, no bank conflicts), every gather of a group of
+//    up to 8 slots issued before the first product, no integer division;
+//  * a coded operand decodes with the exact scaled decode
+//    (frsz2_common.cuh: a mask, one DADD or I2F, one multiply by the
+//    block's power of two, the sign), and a slot whose entry shares its
+//    neighbour's codec block reuses that exponent (every exponent load is
+//    issued before any is used, so none waits on another);
+//  * every other width runs one thread per row, its slots read straight
+//    from device memory (the block's rows are contiguous, so L1 serves
+//    the neighbours);
+//  * each row sums its products in slot order from 0, each product rounded
+//    before it is added (_rn intrinsics, nothing fused): the same bits as
+//    kernels/ref.py::ell_spmv_ref and the JAX package's gather sum, and the
+//    same bits on every run;
 //  * the operand's gathers of a banded operator land in a few MB around the
 //    row band, which L2 (50 MB) holds.
 // A block of q dense operands x (q, nc) -> y (q, nr) is one launch with
@@ -41,9 +58,18 @@
 
 namespace ell {
 
-constexpr int kRows = 128;                 // rows (and threads) per block
-constexpr int kSlots = 32;                 // slots per row staged at once
-constexpr int kStride = kSlots + 1;        // padded: no bank conflicts
+constexpr int kWarps = 4;                  // tile kernel: warps per block
+constexpr int kThreads = kWarps * 32;      // threads per block (both kernels)
+constexpr int kGroup = 8;                  // slots gathered before they are summed
+
+template <typename T>
+__device__ __forceinline__ T mul_rn(T a, T b) {
+  if constexpr (sizeof(T) == 8) return __dmul_rn(a, b); else return __fmul_rn(a, b);
+}
+template <typename T>
+__device__ __forceinline__ T add_rn(T a, T b) {
+  if constexpr (sizeof(T) == 8) return __dadd_rn(a, b); else return __fadd_rn(a, b);
+}
 
 // Dense operand, already in the value type: column blockIdx.y of a (q, nc)
 // block.
@@ -51,62 +77,138 @@ template <typename T>
 struct DenseX {
   const T* x;
   long long nc;
-  __device__ __forceinline__ T operator()(int c) const {
-    return __ldg(x + blockIdx.y * nc + c);
+  __device__ __forceinline__ T one(int c) const { return __ldg(x + blockIdx.y * nc + c); }
+  template <int K>
+  __device__ __forceinline__ void gather(const int (&c)[K], T (&v)[K]) const {
+    const T* xc = x + blockIdx.y * nc;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = __ldg(xc + c[k]);
   }
 };
 
-// FRSZ2-coded operand: the code of entry c and its block's exponent.
+// FRSZ2-coded operand: the code of entry c and its block's exponent,
+// decoded by the scaled decode.  A slot whose entry lies in the same codec
+// block as the previous slot's reuses that exponent (a stencil row's
+// neighbours mostly do).
 template <typename T, class L, typename CodeT>
 struct CodedX {
+  static constexpr int LB = 8 * static_cast<int>(sizeof(CodeT));
   const CodeT* codes;
   const int* exps;
   int bs_log2;
-  int l;
-  __device__ __forceinline__ T operator()(int c) const {
-    using U = typename L::U;
-    const U u = frsz2::decode_bits<L>(static_cast<U>(__ldg(codes + c)),
-                                      __ldg(exps + (c >> bs_log2)), l);
-    return static_cast<T>(frsz2::as_value(u));
+  __device__ __forceinline__ T one(int c) const {
+    return static_cast<T>(frsz2::decode_scaled<L, LB>(__ldg(codes + c),
+                                                      __ldg(exps + (c >> bs_log2))));
+  }
+  template <int K>
+  __device__ __forceinline__ void gather(const int (&c)[K], T (&v)[K]) const {
+    unsigned code[K];
+    int e[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) code[k] = __ldg(codes + c[k]);
+    // every load is issued before any is used: a slot that shares its
+    // neighbour's block loads nothing and takes that exponent afterwards
+    bool own[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int b = c[k] >> bs_log2;
+      own[k] = k == 0 || b != (c[k - 1] >> bs_log2);
+      e[k] = own[k] ? __ldg(exps + b) : 0;
+    }
+#pragma unroll
+    for (int k = 1; k < K; ++k) e[k] = own[k] ? e[k] : e[k - 1];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = static_cast<T>(frsz2::decode_scaled<L, LB>(code[k], e[k]));
   }
 };
 
-template <typename T, class Load>
-__global__ void __launch_bounds__(kRows)
-    ell_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cols, Load load,
-                    T* __restrict__ y, long long nr, int w) {
-  __shared__ T prod[kRows * kStride];
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>(min(static_cast<long long>(kRows), nr - row0));
-  const T* vtile = vals + row0 * w;
-  const int* ctile = cols + row0 * w;
+// A warp's tile (n elements of E, contiguous) into shared memory: 16-byte
+// cp.async copies where the source is aligned, element copies for the rest.
+template <typename E>
+__device__ __forceinline__ void stage(const E* __restrict__ src, E* dst, int n, bool aligned,
+                                      int lane) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
+  const int nv = aligned ? n / kPer : 0;
+  for (int i = lane; i < nv; i += 32) frsz2::cp_async16(dst + i * kPer, src + i * kPer);
+  for (int i = nv * kPer + lane; i < n; i += 32) dst[i] = src[i];
+}
+
+// Compile-time width W: one warp per 32 consecutive rows.  The warp's
+// (32, W) tiles of values and columns are contiguous; they arrive in shared
+// memory by cp.async, then each lane takes one row: its W columns and
+// values from shared memory (odd strides: no bank conflicts), its operand
+// entries gathered kGroup slots at a time, all loads in flight before the
+// first product, and the products summed in slot order from 0.
+template <typename T, class Load, int W>
+__global__ void __launch_bounds__(kThreads)
+    ell_tile_kernel(const T* __restrict__ vals, const int* __restrict__ cols, Load load,
+                    T* __restrict__ y, long long nr, bool aligned) {
+  __shared__ __align__(16) T vs[kWarps][32 * W];
+  __shared__ __align__(16) int cs[kWarps][32 * W];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * 32;
+  if (row0 >= nr) return;                    // whole warps leave: no block barrier
+  const int rows = static_cast<int>(min(32LL, nr - row0));
+  stage(vals + row0 * W, vs[warp], rows * W, aligned, lane);
+  stage(cols + row0 * W, cs[warp], rows * W, aligned, lane);
+  frsz2::cp_async_commit();
+  frsz2::cp_async_wait<0>();
+  __syncwarp();
+  if (lane >= rows) return;
+  const T* vr = vs[warp] + lane * W;
+  const int* cr = cs[warp] + lane * W;
   T acc = T(0);
-  for (int k0 = 0; k0 < w; k0 += kSlots) {
-    const int ks = min(kSlots, w - k0);
-    const int cnt = rows * ks;
-    __syncthreads();
-    for (int e = threadIdx.x; e < cnt; e += kRows) {
-      const int r = e / ks;
-      const int k = e - r * ks;
-      const long long idx = static_cast<long long>(r) * w + k0 + k;
-      prod[r * kStride + k] = vtile[idx] * load(ctile[idx]);
-    }
-    __syncthreads();
-    if (threadIdx.x < rows) {
-      const T* p = prod + threadIdx.x * kStride;
-      for (int k = 0; k < ks; ++k) acc += p[k];
-    }
+#pragma unroll
+  for (int k0 = 0; k0 < W; k0 += kGroup) {
+    constexpr int kFull = W < kGroup ? W : kGroup;
+    int c[kFull];
+    T x[kFull];
+#pragma unroll
+    for (int k = 0; k < kFull; ++k) c[k] = k0 + k < W ? cr[k0 + k] : 0;
+    load.template gather<kFull>(c, x);
+#pragma unroll
+    for (int k = 0; k < kFull; ++k)
+      if (k0 + k < W) acc = add_rn(acc, mul_rn(vr[k0 + k], x[k]));
   }
-  if (threadIdx.x < rows) y[blockIdx.y * nr + row0 + threadIdx.x] = acc;
+  y[blockIdx.y * nr + row0 + lane] = acc;
+}
+
+// Any other width: one thread per row, its slots read straight from device
+// memory (the block's rows are contiguous, so L1 serves the neighbours).
+template <typename T, class Load>
+__global__ void __launch_bounds__(kThreads)
+    ell_row_kernel(const T* __restrict__ vals, const int* __restrict__ cols, Load load,
+                   T* __restrict__ y, long long nr, int w) {
+  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= nr) return;
+  const T* vr = vals + row * w;
+  const int* cr = cols + row * w;
+  T acc = T(0);
+  for (int k = 0; k < w; ++k) acc = add_rn(acc, mul_rn(__ldg(vr + k), load.one(__ldg(cr + k))));
+  y[blockIdx.y * nr + row] = acc;
 }
 
 template <typename T, class Load>
 void launch(const void* vals, const int* cols, Load load, void* y, long long nr, int w,
             cudaStream_t s, int q = 1) {
-  const long long blocks = (nr + kRows - 1) / kRows;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(q));
-  ell_spmv_kernel<T, Load><<<grid, kRows, 0, s>>>(
-      static_cast<const T*>(vals), cols, load, static_cast<T*>(y), nr, w);
+  const T* v = static_cast<const T*>(vals);
+  T* out = static_cast<T*>(y);
+  const bool aligned = (reinterpret_cast<uintptr_t>(vals) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(cols) % 16 == 0);
+  const dim3 grid(static_cast<unsigned>((nr + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(q));
+  switch (w) {
+    case 7:
+      ell_tile_kernel<T, Load, 7><<<grid, kThreads, 0, s>>>(v, cols, load, out, nr, aligned);
+      break;
+    case 27:
+      ell_tile_kernel<T, Load, 27><<<grid, kThreads, 0, s>>>(v, cols, load, out, nr, aligned);
+      break;
+    default:
+      ell_row_kernel<T, Load><<<grid, kThreads, 0, s>>>(v, cols, load, out, nr, w);
+  }
 }
 
 template <typename T, class L>
@@ -115,15 +217,15 @@ bool launch_coded(const void* vals, const int* cols, const void* codes, const in
   switch (l) {
     case 8:
       launch<T>(vals, cols, CodedX<T, L, unsigned char>{
-                    static_cast<const unsigned char*>(codes), exps, bs_log2, l}, y, nr, w, s);
+                    static_cast<const unsigned char*>(codes), exps, bs_log2}, y, nr, w, s);
       return true;
     case 16:
       launch<T>(vals, cols, CodedX<T, L, unsigned short>{
-                    static_cast<const unsigned short*>(codes), exps, bs_log2, l}, y, nr, w, s);
+                    static_cast<const unsigned short*>(codes), exps, bs_log2}, y, nr, w, s);
       return true;
     case 32:
       launch<T>(vals, cols, CodedX<T, L, unsigned int>{
-                    static_cast<const unsigned int*>(codes), exps, bs_log2, l}, y, nr, w, s);
+                    static_cast<const unsigned int*>(codes), exps, bs_log2}, y, nr, w, s);
       return true;
     default:
       return false;
@@ -155,7 +257,7 @@ int ell_spmv(const void* vals, const void* cols, const void* x, void* y, long lo
              int w, long long nc, int q, int kind, void* stream) {
   using namespace ell;
   if (nr <= 0 || w <= 0 || nc <= 0 || q <= 0 || q > frsz2::kMaxGridY ||
-      nr > (1LL << 31) * kRows)
+      nr > (1LL << 31) * kThreads)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cols);
@@ -179,7 +281,7 @@ int ell_spmv_frsz2(const void* vals, const void* cols, const void* codes,
                    const void* exps, void* y, long long nr, int w, int bs_log2,
                    int code_kind, int l, int kind, void* stream) {
   using namespace ell;
-  if (nr <= 0 || w <= 0 || nr > (1LL << 31) * kRows || bs_log2 < 0 || bs_log2 > 7)
+  if (nr <= 0 || w <= 0 || nr > (1LL << 31) * kThreads || bs_log2 < 0 || bs_log2 > 7)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cols);

@@ -13,28 +13,37 @@
 //
 // What bounds them on this card: at the main-path block shape (frsz2_32,
 // p = q = 8, n_seg = 1,259,776, 101 block rows = 808 segment rows) one call
-// streams 4.07 GB of codes and 0.13 GB of exponents: 1.26 ms at 3.35 TB/s.
+// streams 4.07 GB of codes and 0.13 GB of exponents: 1.28 ms at 3.35 TB/s.
 // The f64 FMAs (q per decoded value, 8.1 G) take 0.48 ms at 34 TFLOP/s.
-// The decode is integer work, ~25-30 instructions per code (64-bit shifts
-// are pairs of 32-bit ones), about 1.5 ms of INT32 issue for 1 G codes at
-// 64 lanes per SM per clock: issue rate, not bytes, is the first limit of
-// this simple design, and the decode is amortized over q only by doing it
-// once per code.
+// The bit decode (decode_bits) is ~25-30 integer instructions a code
+// (64-bit shifts are pairs of 32-bit ones): with it the first dots kernel
+// was issue-bound at 3.68 ms, slower than torch.mm reading a
+// decoded basis of twice the bytes (2.64 ms; H100 80GB HBM3, 700 W).  The
+// combine still decodes that way.
 //
-// What the design does about it:
-//  * each code is decoded exactly once and multiplied by all q right-hand
-//    sides from registers or a shared-memory broadcast;
-//  * dots: eight lanes share a segment row (four rows per warp) and walk a
-//    chunk of its columns with 16-byte loads, so one load instruction reads
-//    128 contiguous bytes of each of four rows (coalesced; a first design
-//    with one row per thread, 32 scattered rows per load, took 5.3 ms at
-//    101 rows).  W's chunk is staged transposed in shared memory (256
-//    columns x q, padded so that the eight lanes of a row hit distinct
-//    banks); each lane keeps q accumulators per row in registers, and the
-//    eight lanes of a row fold them with a fixed shuffle butterfly once
-//    per chunk.  A block covers 64 rows, so a W chunk staged once serves
-//    64 rows.  Each (row, chunk) writes its q partial sums to a scratch
-//    buffer and a second pass sums a row's chunks in order;
+// What the dots' design does about it (1.96 ms at 101 rows, 1.14 ms at 51;
+// SASS and ablations in PERF.md):
+//  * each code is decoded once, by the exact scaled decode (frsz2_common.cuh:
+//    a mask, one DADD, one multiply by the block's power of two, the sign;
+//    the bit decode only out of line, for blocks outside its range), and
+//    multiplied by all q right-hand sides from registers;
+//  * eight lanes share a segment row (four rows per warp) and walk a chunk
+//    of its columns with 16-byte loads that bypass L1, so one load
+//    instruction reads 128 contiguous bytes of each of four rows; each lane
+//    takes two rows (64 rows a block), so every W value it loads from
+//    shared memory serves two codes;
+//  * two register buffers of code words in turn: a step's words are decoded
+//    into values first, then the buffer is refilled with the words two steps
+//    ahead, so two loads a row are in flight while a step computes;
+//  * W's chunk arrives in 256-column stages by cp.async into a ring of three
+//    (one barrier a stage, no thread copies through registers), laid out as
+//    in device memory with the 16-byte chunks of a row swizzled so that the
+//    eight lanes of a row hit eight bank groups;
+//  * each lane keeps q accumulators per row in registers, and the eight
+//    lanes of a row fold them with a fixed shuffle butterfly once per chunk;
+//    each (row, chunk) writes its q partial sums to a scratch buffer and a
+//    second pass sums a row's chunks, a warp per (row, right-hand side) in
+//    a fixed order;
 //  * combine: a thread owns one column and walks the M segment rows in
 //    order, Y staged in shared memory (256 rows x q, a broadcast), with q
 //    accumulators in registers; loads of one row are coalesced across the
@@ -53,15 +62,23 @@ using namespace frsz2;
 
 constexpr int kDotThreads = 256;   // dots: threads per block
 constexpr int kLanesPerRow = 8;    // dots: lanes sharing one segment row
-constexpr int kPasses = 2;         // dots: rows each lane group walks
-constexpr int kRowsPerBlock = kDotThreads / kLanesPerRow * kPasses;   // 64
-constexpr int kSubCols = 256;      // dots: W columns staged at once
+constexpr int kRowsPerLane = 2;    // dots: rows each lane walks together
+constexpr int kRowSlots = kDotThreads / kLanesPerRow;                 // 32
+constexpr int kRowsPerBlock = kRowSlots * kRowsPerLane;               // 64
+constexpr int kSubCols = 256;      // dots: chunk_cols is a multiple of it
+constexpr int kStages = 3;         // dots: W ring depth in shared memory
 constexpr int kColThreads = 256;   // combine: columns per block
 constexpr int kRowTile = 256;      // combine: rows of Y staged at once
 constexpr int kMaxQ = 16;
 
 template <class L>
-using ValueT = typename std::conditional<(L::W > 32), double, float>::type;
+using ValueT = Value<L>;
+
+// dots: W columns one ring stage holds (16 KB of f64 values at most)
+template <int Q>
+__host__ __device__ constexpr int stage_cols() {
+  return Q > 8 ? 128 : 256;
+}
 
 // the exponent of code `col` of a row whose exponents start at `erow`
 __device__ __forceinline__ int exp_at(const int* __restrict__ erow, long long col,
@@ -69,97 +86,229 @@ __device__ __forceinline__ int exp_at(const int* __restrict__ erow, long long co
   return __ldg(erow + (col >> bs_log2));
 }
 
+// A 16-byte load that does not allocate in L1: the codes are read once.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// The G codes of one 16-byte word, decoded one by one by the guarded
+// decode, each with its own block's exponent where a word spans blocks:
+// the rare path of the dots, out of line.
+template <class L, typename CodeT>
+struct Group {
+  ValueT<L> v[16 / sizeof(CodeT)];
+};
+template <class L, typename CodeT>
+__device__ __noinline__ Group<L, CodeT> decode_group(uint4 word, int e, bool one_exp,
+                                                    const int* __restrict__ erow,
+                                                    long long col, int bs_log2) {
+  constexpr int G = 16 / static_cast<int>(sizeof(CodeT));
+  constexpr int LB = 8 * static_cast<int>(sizeof(CodeT));
+  union {
+    uint4 v;
+    CodeT k[G];
+  } grp;
+  grp.v = word;
+  Group<L, CodeT> out;
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    out.v[i] = decode_scaled<L, LB>(static_cast<unsigned>(grp.k[i]),
+                                    one_exp ? e : exp_at(erow, col + i, bs_log2));
+  return out;
+}
+
 template <class L, typename CodeT, int Q>
-__global__ void __launch_bounds__(kDotThreads)
+__global__ void __launch_bounds__(kDotThreads, 2)
     block_dots_partial(const CodeT* __restrict__ codes, const int* __restrict__ exps,
                        const ValueT<L>* __restrict__ W, ValueT<L>* __restrict__ partial,
                        long long M, long long n_seg, int q, long long chunk_cols,
-                       long long nchunks, int bs_log2, int l) {
-  using U = typename L::U;
+                       long long nchunks, int bs_log2) {
   using T = ValueT<L>;
+  constexpr int LB = 8 * static_cast<int>(sizeof(CodeT));   // code bits
   constexpr int G = 16 / static_cast<int>(sizeof(CodeT));   // codes per 16-byte load
   constexpr int kStep = kLanesPerRow * G;                    // columns per row per step
-  // W's sub-chunk, column c at c*Q + (c/G)*2: one 16-byte pad per G columns
-  // puts the eight lanes of a row (G columns apart) on distinct banks
-  __shared__ __align__(16) T xs[kSubCols * Q + kSubCols / G * 2];
-  const int lane = threadIdx.x & 31;
-  const int sl = lane & (kLanesPerRow - 1);
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRowsPerBlock +
-                         (threadIdx.x >> 3);               // + pass * 32
+  constexpr int S = stage_cols<Q>();                         // columns per W stage
+  constexpr int kSteps = S / kStep;                          // steps per W stage
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));     // W values per copy
+  constexpr int R = kRowsPerLane;
+  constexpr int kSafeExp = LB;    // an in-range exponent for rows past M
+  constexpr int H = G * static_cast<int>(sizeof(T)) / 16;   // W copies per lane-step
+  // W's sub-chunk, row b of W at ws[.][b], in 16-byte chunks; logical chunk
+  // k sits at k ^ ((k >> 3) & (H - 1)), so that the eight lanes of a row,
+  // H chunks apart, hit eight distinct bank groups on every load (the four
+  // rows of a warp read the same chunks)
+  __shared__ __align__(16) T ws[kStages * Q * S];
+  const int tid = threadIdx.x;
+  const int sl = tid & (kLanesPerRow - 1);
+  const long long rbase = static_cast<long long>(blockIdx.x) * kRowsPerBlock +
+                          (tid / kLanesPerRow);
   const long long chunk = blockIdx.y;
   const long long c0 = chunk * chunk_cols;
   const long long c1 = min(c0 + chunk_cols, n_seg);
-  const long long nb = n_seg >> bs_log2;
-  T acc[kPasses][Q];
+  const int nstages = static_cast<int>((c1 - c0 + S - 1) / S);
+  const int nsteps = static_cast<int>((c1 - c0) / kStep);
+  const bool one_exp = (G >> bs_log2) <= 1;     // a lane's G codes share a block
+
+  // this lane's rows, from the chunk's first column; offsets below are ints
+  const uint4* crow[R];
+  const int* erow[R];
+  bool live[R];
 #pragma unroll
-  for (int ps = 0; ps < kPasses; ++ps)
-#pragma unroll
-    for (int b = 0; b < Q; ++b) acc[ps][b] = T(0);
-  for (long long s0 = c0; s0 < c1; s0 += kSubCols) {
-    const int cnt = static_cast<int>(min(static_cast<long long>(kSubCols), c1 - s0));
-    __syncthreads();
-    for (int b = 0; b < Q; ++b)
-      for (int c = threadIdx.x; c < cnt; c += kDotThreads)
-        xs[c * Q + (c / G) * 2 + b] =
-            b < q ? W[static_cast<long long>(b) * n_seg + s0 + c] : T(0);
-    __syncthreads();
-#pragma unroll
-    for (int ps = 0; ps < kPasses; ++ps) {
-      const long long row = row0 + ps * (kDotThreads / kLanesPerRow);
-      if (row >= M) continue;
-      const CodeT* crow = codes + row * n_seg + s0;
-      const int* erow = exps + row * nb;
-      for (int c = sl * G; c < cnt; c += kStep) {
-        // n_seg and every chunk start are multiples of 128 codes: each
-        // lane's G codes are one aligned 16-byte word
-        union {
-          uint4 v;
-          CodeT k[G];
-        } grp;
-        grp.v = __ldg(reinterpret_cast<const uint4*>(crow + c));
-        const int e_grp = exp_at(erow, s0 + c, bs_log2);
-        const T* x = xs + c * Q + (c / G) * 2;
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          const int e = (G >> bs_log2) <= 1 ? e_grp : exp_at(erow, s0 + c + i, bs_log2);
-          const T v = as_value(decode_bits<L>(static_cast<U>(grp.k[i]), e, l));
-#pragma unroll
-          for (int b = 0; b < Q; ++b) acc[ps][b] += v * x[i * Q + b];
-        }
+  for (int j = 0; j < R; ++j) {
+    const long long row = rbase + j * kRowSlots;
+    live[j] = row < M;
+    const long long rr = live[j] ? row : 0;
+    crow[j] = reinterpret_cast<const uint4*>(codes + rr * n_seg + c0 + sl * G);
+    erow[j] = exps + rr * (n_seg >> bs_log2) + (c0 >> bs_log2);
+  }
+  const uint4* wlane = reinterpret_cast<const uint4*>(ws) + sl * H;
+  const int swz = ((sl * H) >> 3) & (H - 1);   // this lane's chunk swizzle
+
+  // the rows b >= q of every stage stay zero (no copy writes them)
+  for (int i = tid; i < kStages * Q * S; i += kDotThreads)
+    if ((i / S) % Q >= q) ws[i] = T(0);
+
+  // stage st of W -> ring slot st % kStages, one commit group per stage
+  auto issue = [&](int st) {
+    if (st < nstages) {
+      const long long s0 = c0 + static_cast<long long>(st) * S;
+      const int cnt = static_cast<int>(min(static_cast<long long>(S), c1 - s0));
+      T* dst = ws + (st % kStages) * Q * S;
+      for (int i = tid; i < q * (S / kVec); i += kDotThreads) {
+        const int b = i / (S / kVec);
+        const int k = i - b * (S / kVec);
+        const int p = k ^ ((k >> 3) & (H - 1));
+        if (k * kVec < cnt) cp_async16(dst + b * S + p * kVec, W + b * n_seg + s0 + k * kVec);
       }
     }
+    cp_async_commit();
+  };
+
+  // code words of step t (read once: they bypass L1) and their block's
+  // exponent, or zeros past the end
+  auto fetch = [&](int t, uint4 (&g)[R], int (&e)[R]) {
+    const bool more = t < nsteps;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const bool ok = live[j] && more;
+      g[j] = ok ? ld_stream(crow[j] + t * (kStep / G)) : make_uint4(0, 0, 0, 0);
+      e[j] = ok && one_exp ? __ldg(erow[j] + ((t * kStep + sl * G) >> bs_log2)) : kSafeExp;
+    }
+  };
+
+  T acc[R][Q];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int b = 0; b < Q; ++b) acc[j][b] = T(0);
+
+  // step t: decode the words in buf, refill buf with step t + 2, contract
+  auto step = [&](int t, uint4 (&buf)[R], int (&ebuf)[R]) {
+    const int u = t % kSteps;
+    const int st = t / kSteps;
+    if (u == 0) {
+      cp_async_wait<1>();     // this thread's copies of stage st have landed
+      __syncthreads();        // everyone's have; everyone is done with st - 1
+      issue(st + 2);          // into the slot stage st - 1 used
+    }
+    T v[R][G];
+    bool fast = one_exp;
+#pragma unroll
+    for (int j = 0; j < R; ++j) fast = fast && scaled_in_range<L, LB>(ebuf[j]);
+    if (fast) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        union {
+          uint4 w;
+          CodeT k[G];
+        } grp;
+        grp.w = buf[j];
+        const unsigned shi = scale_hi<L, LB>(ebuf[j]);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+          v[j][i] = decode_scaled_fast<L, LB>(static_cast<unsigned>(grp.k[i]), shi);
+      }
+    } else {
+      const long long col = c0 + static_cast<long long>(t) * kStep + sl * G;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        // rows past M hold zero words under an in-range exponent
+        const Group<L, CodeT> g = decode_group<L, CodeT>(
+            buf[j], ebuf[j], one_exp || !live[j], erow[j] - (c0 >> bs_log2), col, bs_log2);
+#pragma unroll
+        for (int i = 0; i < G; ++i) v[j][i] = g.v[i];
+      }
+    }
+    fetch(t + 2, buf, ebuf);
+    const uint4* wu = wlane + ((st % kStages) * Q * S + u * kStep) / kVec;
+#pragma unroll
+    for (int b = 0; b < Q; ++b) {
+      union {
+        uint4 u4[H];
+        T w[G];
+      } wv;
+#pragma unroll
+      for (int h = 0; h < H; ++h) wv.u4[h] = wu[b * (S / kVec) + (h ^ swz)];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int i = 0; i < G; ++i) acc[j][b] = fma(v[j][i], wv.w[i], acc[j][b]);
+    }
+  };
+
+  // two buffers in turn: while one step is decoded and contracted, the
+  // loads of the next two are in flight
+  uint4 bufA[R], bufB[R];
+  int eA[R], eB[R];
+  issue(0);
+  issue(1);
+  fetch(0, bufA, eA);
+  fetch(1, bufB, eB);
+  for (int t = 0; t < nsteps; t += 2) {
+    step(t, bufA, eA);
+    if (t + 1 < nsteps) step(t + 1, bufB, eB);
   }
+  cp_async_wait<0>();
   // fold the eight lanes of each row: a fixed butterfly, lane 0's sum kept
 #pragma unroll
-  for (int ps = 0; ps < kPasses; ++ps) {
+  for (int j = 0; j < R; ++j) {
 #pragma unroll
     for (int b = 0; b < Q; ++b)
 #pragma unroll
       for (int off = kLanesPerRow / 2; off > 0; off >>= 1)
-        acc[ps][b] += __shfl_xor_sync(0xffffffffu, acc[ps][b], off);
-    const long long row = row0 + ps * (kDotThreads / kLanesPerRow);
-    if (sl == 0 && row < M) {
+        acc[j][b] += __shfl_xor_sync(0xffffffffu, acc[j][b], off);
+    const long long row = rbase + j * kRowSlots;
+    if (sl == 0 && live[j]) {
       T* out = partial + (row * nchunks + chunk) * q;
 #pragma unroll
       for (int b = 0; b < Q; ++b)
-        if (b < q) out[b] = acc[ps][b];
+        if (b < q) out[b] = acc[j][b];
     }
   }
 }
 
-// Y[r, b] = sum of partial[r, c, b] over the chunks c, in order.
+// Y[r, b] = sum of partial[r, c, b] over the chunks c: one warp per (r, b),
+// lane i summing chunks i, i + 32, ... in order, then a fixed shuffle tree
+// (a thread walking all the chunks alone took ~90 us at the main shape).
+constexpr int kFinishWarps = 8;
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFinishWarps * 32)
     block_dots_finish(const T* __restrict__ partial, T* __restrict__ Y, long long M,
                       long long nchunks, int q) {
-  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  if (idx >= M * q) return;
+  const long long idx = static_cast<long long>(blockIdx.x) * kFinishWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (idx >= M * q) return;     // the whole warp
   const long long row = idx / q;
   const int b = static_cast<int>(idx - row * q);
   const T* src = partial + row * nchunks * q + b;
   T acc = T(0);
-  for (long long c = 0; c < nchunks; ++c) acc += src[c * q];
-  Y[idx] = acc;
+  for (long long c = lane; c < nchunks; c += 32) acc += src[c * q];
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if (lane == 0) Y[idx] = acc;
 }
 
 template <class L, typename CodeT, int Q>
@@ -207,16 +356,17 @@ __global__ void __launch_bounds__(kColThreads)
 template <class L, typename CodeT, int Q>
 void launch_dots(const void* codes, const int* exps, const void* W, void* partial, void* Y,
                  long long M, long long n_seg, int q, long long chunk_cols, int bs_log2,
-                 int l, cudaStream_t s) {
+                 cudaStream_t s) {
   using T = ValueT<L>;
   const long long nchunks = (n_seg + chunk_cols - 1) / chunk_cols;
   const dim3 grid(static_cast<unsigned>((M + kRowsPerBlock - 1) / kRowsPerBlock),
                   static_cast<unsigned>(nchunks));
   block_dots_partial<L, CodeT, Q><<<grid, kDotThreads, 0, s>>>(
       static_cast<const CodeT*>(codes), exps, static_cast<const T*>(W),
-      static_cast<T*>(partial), M, n_seg, q, chunk_cols, nchunks, bs_log2, l);
-  block_dots_finish<T><<<static_cast<unsigned>((M * q + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(partial), static_cast<T*>(Y), M, nchunks, q);
+      static_cast<T*>(partial), M, n_seg, q, chunk_cols, nchunks, bs_log2);
+  block_dots_finish<T><<<static_cast<unsigned>((M * q + kFinishWarps - 1) / kFinishWarps),
+                         kFinishWarps * 32, 0, s>>>(static_cast<const T*>(partial),
+                                                    static_cast<T*>(Y), M, nchunks, q);
 }
 
 template <class L, typename CodeT, int Q>
@@ -234,14 +384,14 @@ void launch_combine(const void* codes, const int* exps, const void* Y, void* out
 // parameter: q is rounded up to 4, 8 or 16 and the extra columns are zero.
 template <class L, typename CodeT>
 bool dots_q(const void* codes, const int* exps, const void* W, void* partial, void* Y,
-            long long M, long long n_seg, int q, long long chunk_cols, int bs_log2, int l,
+            long long M, long long n_seg, int q, long long chunk_cols, int bs_log2,
             cudaStream_t s) {
   if (q <= 4)
-    launch_dots<L, CodeT, 4>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, l, s);
+    launch_dots<L, CodeT, 4>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, s);
   else if (q <= 8)
-    launch_dots<L, CodeT, 8>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, l, s);
+    launch_dots<L, CodeT, 8>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, s);
   else
-    launch_dots<L, CodeT, 16>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, l, s);
+    launch_dots<L, CodeT, 16>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, s);
   return true;
 }
 
@@ -262,9 +412,9 @@ bool dispatch_dots(const void* codes, const int* exps, const void* W, void* part
                    long long M, long long n_seg, int q, long long chunk_cols, int bs_log2,
                    int l, cudaStream_t s) {
   switch (l) {
-    case 8: return dots_q<L, unsigned char>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, l, s);
-    case 16: return dots_q<L, unsigned short>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, l, s);
-    case 32: return dots_q<L, unsigned int>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, l, s);
+    case 8: return dots_q<L, unsigned char>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, s);
+    case 16: return dots_q<L, unsigned short>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, s);
+    case 32: return dots_q<L, unsigned int>(codes, exps, W, partial, Y, M, n_seg, q, chunk_cols, bs_log2, s);
     default: return false;
   }
 }

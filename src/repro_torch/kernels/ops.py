@@ -266,14 +266,15 @@ def _check_block_p(q: int) -> None:
 
 
 def _dots_chunk(M: int, n_seg: int) -> int:
-    """Columns one block-dots block reduces: enough (row group, chunk)
-    blocks to fill the card, at most 8192 columns each, a multiple of the
-    kernel's 256-column staging tile.  A function of the shape only, so a
-    contraction gives the same bits on every call."""
+    """Columns one block-dots block reduces: about 4096 (row group, chunk)
+    blocks, some fifteen waves of the two blocks each SM holds (so the last
+    wave's tail is a few per cent), at most 8192 columns each, a multiple
+    of the kernel's 256-column chunk granule.  A function of the shape
+    only, so a contraction gives the same bits on every call."""
     from repro_torch.kernels import frsz2_block as KB
 
     groups = -(-M // KB.ROWS_PER_BLOCK)
-    want = max(1, -(-2048 // groups))
+    want = max(1, -(-4096 // groups))
     cols = -(-n_seg // want)
     cols = -(-cols // KB.SUB_COLS) * KB.SUB_COLS
     return min(max(cols, KB.SUB_COLS), 32 * KB.SUB_COLS)
@@ -308,6 +309,8 @@ def block_dots(bc: F.BlockCompressed, W: torch.Tensor, *, p: int,
                          "store must start 16-byte aligned")
     dev = bc.codes.device
     Wp = Wp.contiguous()
+    if Wp.data_ptr() % 16:              # the kernel copies W in 16 bytes
+        Wp = Wp.clone()
     _expect(Wp, "W", (q, n_seg), spec.dtype, dev)
     M = rows * p
     Y = torch.empty((M, q), dtype=spec.dtype, device=dev)

@@ -32,6 +32,45 @@ def decompress_ref(codes: torch.Tensor, exps: torch.Tensor, spec: F.FrszSpec,
                                           spec=spec))
 
 
+def decode_scaled_ref(codes: torch.Tensor, exps: torch.Tensor,
+                      spec: F.FrszSpec) -> torch.Tensor:
+    """The scaled decode of ``csrc/frsz2_common.cuh::decode_scaled``: the
+    same values as :func:`decompress_ref`, bit for bit, computed as
+
+        (-1)^s * csig * 2^(emax - bias - (l-2))
+
+    for a block whose exponent lies in ``[l-1, 2*bias]``, and by the bit
+    decode everywhere else (the flush zone below, Inf/NaN patterns above).
+    ``csig`` converts exactly to f64; to f32 it is first cut to 24
+    significant bits (round toward zero, the kernel's ``__uint2float_rz``).
+    The sign is applied last by negation, so a zero field keeps its sign.
+
+    codes: int ``batch + (nb, bs)`` holding l-bit patterns; exps: ``batch +
+    (nb,)``; f32/f64 specs (the kernels' value types).  Used by the tests.
+    """
+    if spec.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError("the scaled decode serves f32/f64 values")
+    ieee, l = spec.ieee, spec.l
+    mant, bias = ieee["mant"], ieee["bias"]
+    c = codes.to(torch.int64) & ((1 << l) - 1)
+    e = exps.to(torch.int64)[..., None]
+    sign = ((c >> (l - 1)) & 1).bool()
+    csig = c & ((1 << (l - 1)) - 1)
+    ok = (e >= l - 1) & (e <= 2 * bias)
+    # the scale's biased exponent, clamped to a normal one outside the guard
+    sbits = ((e - (l - 2)).clamp(1, 2 * bias) << mant).expand_as(c)
+    if spec.dtype == torch.float64:
+        x = csig.to(torch.float64)
+        scale = sbits.contiguous().view(torch.float64)
+    else:
+        cut = (F._bit_length(csig) - (mant + 1)).clamp(min=0)
+        x = ((csig >> cut) << cut).to(torch.float32)
+        scale = sbits.to(torch.int32).view(torch.float32)
+    v = x * scale
+    v = torch.where(sign, -v, v)
+    return torch.where(ok, v, F._decode_block(c, exps, spec))
+
+
 def matvec_ref(codes, exps, x, spec: F.FrszSpec) -> torch.Tensor:
     """y[i] = sum_j decompress(V)[i, j] * x[j].
 

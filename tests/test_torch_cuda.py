@@ -11,6 +11,10 @@ device-driver solve bit-equal to the host driver's.  The block kernels:
 f64 block contractions within 1e-12 relative (f32 1e-5), the batched ELL
 and the block Givens step bit-equal, and the block device driver's solve
 (captured, then replayed) bit-equal to the block host driver's.  The
+scaled FRSZ2 decode inside the ELL kernel bit-equal to decompress (after
+``+ 0.0``) on every l = 16 code, the compiled ELL widths (7, 27) bit-equal
+to plain and to a second call, and the block dots with one-hot rows of W
+equal to the decoded basis and to a second call.  The
 decode attention: with f32 q within 1e-5 of its plain version, relative
 to the largest output (f32 sums in another order, base-2 exponentials);
 with bf16 q within 2^-7 (one bf16 step); a cache written on the card bit-equal to one written on the
@@ -110,6 +114,90 @@ def test_ell_kernels_match_plain_on_card(cuda, vdt, spec):
     assert torch.equal(yk, yp)
     key = "ell_spmv" if spec is None else "ell_spmv_frsz2"
     assert ops.LAUNCHES[key] == 1 and sum(ops.LAUNCHES.values()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt,w,offset", [(torch.float64, 7, 0),
+                                          (torch.float64, 7, 1),
+                                          (torch.float32, 27, 0),
+                                          (torch.float64, 27, 1)])
+def test_ell_compiled_widths_match_plain_on_card(cuda, vdt, w, offset):
+    """The widths compiled in (7, 27): a ragged last warp tile, tiles that
+    do not start 16-byte aligned (``offset`` rows into a larger array),
+    dense, coded and batched operands; bit-equal to plain and to a second
+    call."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    nr, nc = 1001, 1337
+    cols = torch.randint(0, nc, (nr + offset, w), generator=gen, device=cuda,
+                         dtype=torch.int32)[offset:]
+    vals = torch.randn((nr + offset, w), generator=gen, dtype=vdt,
+                       device=cuda)[offset:]
+    x = torch.randn((nc,), generator=gen, dtype=vdt, device=cuda)
+    X = torch.randn((3, nc), generator=gen, dtype=vdt, device=cuda)
+    for op in (x, X, ops.compress(x, F.FrszSpec(bs=32, l=32, dtype=vdt)),
+               ops.compress(x, F.FrszSpec(bs=64, l=16, dtype=vdt))):
+        yk = ops.ell_spmv(vals, cols, op)
+        assert torch.equal(yk, ops.ell_spmv(vals, cols, op, kernel=False))
+        assert torch.equal(yk, ops.ell_spmv(vals, cols, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ibits", [(torch.float64, torch.int64),
+                                         (torch.float32, torch.int32)])
+def test_scaled_decode_through_ell_on_card(cuda, dtype, ibits):
+    """An identity operator on a coded vector of every l = 16 code under
+    exponents in the flush zone, on the guard's edges, inside it and at
+    2*bias+1: the ELL kernel's scaled decode gives the bits of decompress
+    (after ``+ 0.0``, which both sides take alike)."""
+    bias = 1023 if dtype == torch.float64 else 127
+    c = torch.arange(1 << 16, device=cuda)
+    codes = (c - (c >= (1 << 15)).long() * (1 << 16)).to(torch.int16)
+    emax = torch.tensor([0, 1, 14, 15, 16, 40, bias, 2 * bias - 1, 2 * bias,
+                         2 * bias + 1], dtype=torch.int32, device=cuda)
+    bs = 32
+    per = codes.numel() // bs
+    bc = F.BlockCompressed(codes=codes.reshape(per, bs).repeat(emax.numel(), 1),
+                           exps=emax.repeat_interleave(per), n=emax.numel()
+                           * codes.numel(),
+                           spec=F.FrszSpec(bs=bs, l=16, dtype=dtype))
+    want = (ops.decompress(bc) + 0.0).view(ibits)
+    for w in (7, 1):
+        cols = torch.zeros((bc.n, w), dtype=torch.int32, device=cuda)
+        cols[:, 0] = torch.arange(bc.n, dtype=torch.int32, device=cuda)
+        vals = torch.zeros((bc.n, w), dtype=dtype, device=cuda)
+        vals[:, 0] = 1.0
+        got = (ops.ell_spmv(vals, cols, bc) + 0.0).view(ibits)
+        assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.cuda
+def test_block_dots_one_hot_and_repeat_on_card(cuda):
+    """One-hot rows of W pick the decoded basis at their columns; two calls
+    give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    spec = F.FrszSpec(bs=32, l=32, dtype=torch.float64)
+    m, p, n = 5, 8, 9000
+    acc = BlockBasisAccessor(fmt=format_by_name("frsz2_32", bs=32,
+                                                arith_dtype=torch.float64),
+                             m=m, p=p, n=n, arith_dtype=torch.float64,
+                             device=cuda)
+    store = acc.empty()
+    for j in range(m):
+        acc.write_block(store, j, torch.randn((p, n), generator=gen,
+                                              dtype=torch.float64,
+                                              device=cuda))
+    bc = F.BlockCompressed(codes=store["codes"], exps=store["exps"],
+                           n=acc.n_flat, spec=spec)
+    at = [0, 31, 32, 255, 256, 4097, 8191, n - 1]
+    W = torch.zeros((p, n), dtype=torch.float64, device=cuda)
+    W[torch.arange(p), torch.tensor(at)] = 1.0
+    H = ops.block_dots(bc, W, p=p, rows=m)
+    V = ops.decompress(bc).reshape(m, p, -1)[:, :, :n]
+    for b, c in enumerate(at):
+        assert torch.equal(H[:, :, b], V[:, :, c])
+    Wr = torch.randn((p, n), generator=gen, dtype=torch.float64, device=cuda)
+    assert torch.equal(ops.block_dots(bc, Wr, p=p, rows=m),
+                       ops.block_dots(bc, Wr, p=p, rows=m))
 
 
 @pytest.mark.cuda
