@@ -13,6 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel against its plain PyTorch version on the card (codec bit-equal,
    contractions within 1e-12 relative at r = 101 and r = 51 rows), spot
    checks of f32/f16/bf16 values, l = 8/16, bs = 1/8/64/128 and a ragged n;
+   the matvec at 1, 2, 7, 33, 64, 65 and 101 rows, two calls bit-equal,
+   x one-hot equal to the decoded basis, and rows whose exponents cross the scaled decode's
+   guard (flush zone, 2*bias+1) equal to ``decompress``;
    the ELL SpMV on that operator, dense and with a frsz2_32-coded operand,
    bit-equal to its plain version and to a second call, with spot checks of
    f32 values, a ragged column count and bs = 8/64/128; the scaled FRSZ2
@@ -24,7 +27,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA-event times (median of 30) beside the byte bound, the plain version
    and a PyTorch call computing the same function (``torch.mv`` on the
    decoded basis, ``torch.sparse_csr_tensor @ x``);
-4. solve to convergence — ``synth:atmosmod`` n = 8000, m = 100, frsz2_32 and
+4. solve to convergence — a float16 basis write on the card bit-equal to
+   numpy's ``astype(float16)`` (f64 rounded once; PyTorch's own conversion
+   on the card is counted against it), then ``synth:atmosmod`` n = 8000,
+   m = 100, frsz2_32 and
    float64, MGS: the device driver (one CUDA graph replay per restart)
    against the host driver (equal iterations, restarts, ``bytes_read`` and
    ``op_reads``, x within 1e-10), two device solves bit-equal, and the
@@ -40,8 +46,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    p = 8 segments of n_seg = 1,259,776: the fused block dots and block
    combine against their plain versions (within 1e-12 relative) at 101 and
    51 live block rows, with spot checks (f32 values, p = 1 and 3, a ragged
-   n, bs = 8/64/128, l = 8/16); the block dots twice, bit-equal, and with
+   n, bs = 1/8/64/128, l = 8/16); the block dots twice, bit-equal, and with
    one-hot rows of W equal to the decoded basis at those columns; the
+   block combine bit-equal to the row-order plain sum (one fma a segment
+   row, the first combine kernel's sum) at 1, 2, 7, 33, 64, 65 and 101
+   block rows (M = 8..808) and in every spot check, twice bit-equal, with
+   one-hot rows of Y equal to the decoded basis rows, and across the
+   decode guard equal to ``decompress``; the
    batched ELL SpMV (8 operands, one launch) bit-equal to its plain version
    and to a second call; the block Givens step of the
    block cycle bit-equal to its plain version over m = 100 steps at p = 8;
@@ -274,6 +285,59 @@ def _contraction_err(bc, vec, op, r):
     return abs_err, abs_err / float(yp.abs().max()), sub
 
 
+def _matvec_guard_checks(dev):
+    """The matvec on rows whose one codec block exponent crosses the guard
+    (``cardcheck.matvec_across_guard``): equal to ``decompress``."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import cardcheck
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    checked = 0
+    for dtype, bias in cardcheck.GUARD_DTYPES:
+        for l in (32, 16, 8):
+            bad, rows = cardcheck.matvec_across_guard(dtype, bias, l, gen)
+            check(not bad, f"matvec across the guard ({F.dtype_name(dtype)}, "
+                           f"l={l}, columns {bad}) != decompress")
+            checked += rows
+    print(f"[kernels] matvec across the decode guards: {checked} rows (f64/f32,"
+          " l 8/16/32, exponents 0..l+8, a spread, 2*bias+l-55..2*bias+l-53, "
+          "2*bias-1..2*bias+1) equal to decompress")
+
+
+def _matvec_checks(bc, Vdec, w):
+    """The matvec at the main-path shape: within 1e-12 of its plain version
+    at EDGE_ROWS live rows; two calls bit-equal; one-hot x equal to the
+    decoded basis."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cardcheck import EDGE_ROWS, same_values
+
+    for r in EDGE_ROWS:
+        _, rel, _ = _contraction_err(bc, w, "matvec", r)
+        check(rel <= 1e-12, f"matvec r={r} relative error {rel:.3e} > 1e-12")
+    sub = F.BlockCompressed(codes=bc.codes[:R_FULL], exps=bc.exps[:R_FULL],
+                            n=bc.n, spec=bc.spec)
+    y = ops.matvec(sub, w, kernel=True)
+    check(torch.equal(y, ops.matvec(sub, w, kernel=True)),
+          "matvec: two calls differ")
+    n = bc.n
+    at = [0, 1, 3, 4, 1023, 1024, 4097, n // 2 + 5, n - 1]
+    for c in at:
+        x = torch.zeros_like(w)
+        x[c] = 1.0
+        check(same_values(ops.matvec(sub, x, kernel=True),
+                          Vdec[:R_FULL, c].contiguous()),
+              f"matvec with x one-hot at column {c} != the decoded basis")
+    print(f"[kernels] matvec at rows {list(EDGE_ROWS)} within 1e-12; two "
+          f"calls bit-equal; x one-hot at columns {at} equal to the decoded "
+          "basis")
+    _matvec_guard_checks(bc.codes.device)
+
+
 def phase_kernels():
     import torch
 
@@ -324,6 +388,7 @@ def phase_kernels():
                     _, rel, _ = _contraction_err(sbc, vec, op, 5)
                     check(rel <= tol, f"{op} {sp.name} relative error {rel:.3e}")
     print(f"[kernels] spot checks passed: {len(spots) * 2} specs, ragged n=1001")
+    _matvec_checks(bc, Vdec, w)
 
     # times at the main-path shape
     npad = bc.codes.shape[1] * spec.bs
@@ -639,12 +704,58 @@ def _check_drivers_agree(dev_res, host_res, dev_row, host_row, what):
     return rel
 
 
+def _f16_write_check():
+    """A float16 basis write on the card rounds f64 once, as numpy does;
+    returns how many of the same values PyTorch's own ``.to(float16)`` on
+    the card rounds otherwise.  Also times one such write of a main-path
+    row (n = 1,259,712) beside the double-rounding ``copy_``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.accessor import BasisAccessor, NativeFormat
+
+    rng = np.random.default_rng(16)
+    ties = 1.0 + np.arange(1, 1024) * 2.0 ** -10 + 2.0 ** -11
+    x = np.concatenate([rng.standard_normal(1_000_000),
+                        rng.standard_normal(100_000) * 1e-5,
+                        rng.standard_normal(100_000) * 6e4,
+                        ties + 2.0 ** -40, ties - 2.0 ** -40,
+                        [0.0, -0.0, np.inf, -np.inf, 1e300, 1e-300, 65519.99,
+                         65520.0, 2.0 ** -25, 1.5 * 2.0 ** -24]])
+    with np.errstate(over="ignore"):
+        want = x.astype(np.float16).view(np.int16)
+    xt = torch.from_numpy(x).to("cuda")
+    acc = BasisAccessor(fmt=NativeFormat(dtype=torch.float16), m=2,
+                        n=x.size, device="cuda")
+    store = acc.empty()
+    acc.write_row(store, 1, xt)
+    got = store[1].cpu().numpy().view(np.int16)
+    check(np.array_equal(got, want), f"float16 basis write on the card != "
+          f"numpy's astype(float16) in {int((got != want).sum())} values")
+    plain = xt.to(torch.float16).cpu().numpy().view(np.int16)
+    n_diff = int((plain != want).sum())
+    print(f"[solve] float16 basis write on the card: bit-equal to numpy's "
+          f"astype(float16) on {x.size} values; PyTorch's own .to(float16) "
+          f"on the card differs from it in {n_diff}")
+    n = round(N_MAIN ** (1 / 3)) ** 3
+    row = BasisAccessor(fmt=NativeFormat(dtype=torch.float16), m=1, n=n,
+                        device="cuda")
+    rs = row.empty()
+    v = torch.randn((n,), dtype=torch.float64, device="cuda")
+    once = timed(lambda: row.write_row(rs, 0, v))
+    twice = timed(lambda: rs[0].copy_(v))
+    print(f"[solve] float16 basis write of n = {n}: {once * 1e3:.1f} us "
+          f"rounding once, {twice * 1e3:.1f} us as one copy_ (rounding twice)")
+    return n_diff
+
+
 def phase_solve():
     import torch
 
     from repro_torch.core.accessor import format_by_name
     from repro_torch.sparse import make_problem, rhs_for
 
+    _f16_write_check()
     A, target = make_problem("synth:atmosmod", 8000, device="cuda")
     b, x_sol = rhs_for(A, device="cuda")
     rows = {}
@@ -802,6 +913,82 @@ def _one_hot_dots_check(bc, p, n, n_seg, spec):
           "decoded basis")
 
 
+def _combine_rows_equal(bc, p, Y, rows):
+    """The combine kernel bit-equal to the row-order plain sum (one fma a
+    segment row, rows in order: the first combine kernel's sum)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    got = ops.block_combine(bc, Y[:rows], p=p, kernel=True)
+    codes, exps, _ = ops._block_view(bc, p, rows)
+    want = ref.block_combine_rows_ref(codes, exps,
+                                      Y[:rows].reshape(rows * p, -1), bc.spec)
+    return torch.equal(got, want)
+
+
+def _combine_guard_checks(dev):
+    """The combine over one segment row whose codec blocks carry exponents
+    across the guard, Y = 1 (``cardcheck.combine_across_guard``): equal to
+    ``decompress``."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import cardcheck
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    checked = 0
+    for dtype, bias in cardcheck.GUARD_DTYPES:
+        for l in (32, 16, 8):
+            ok, codes = cardcheck.combine_across_guard(dtype, bias, l, gen)
+            check(ok, f"block combine across the guard "
+                      f"({F.dtype_name(dtype)}, l={l}) != decompress")
+            checked += codes
+    print(f"[block] combine across the decode guards: {checked} codes (f64/f32,"
+          " l 8/16/32, exponents 0..l+8, a spread, 2*bias+l-55..2*bias+l-53, "
+          "2*bias-1..2*bias+1) equal to decompress")
+
+
+def _combine_checks(bc, p, Y, n_seg, spec):
+    """The combine at the main-path block shape: bit-equal to the row-order
+    plain sum at EDGE_ROWS block rows (M = 8 ... 808) and to a second call;
+    one-hot Y rows equal to the decoded basis rows, at segment rows on the
+    edges of the ring turns and Y tiles."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cardcheck import EDGE_ROWS, same_values
+
+    for r in EDGE_ROWS:
+        check(_combine_rows_equal(bc, p, Y, r),
+              f"block combine rows={r} != the row-order plain sum")
+    out = ops.block_combine(bc, Y, p=p, kernel=True)
+    check(torch.equal(out, ops.block_combine(bc, Y, p=p, kernel=True)),
+          "block combine: two calls differ")
+    del out
+    q = Y.shape[2]
+    M = R_FULL * p
+    at = [i for i in (0, 7, 8, 127, 128, 129, 511) if i < M - 1][:q - 1] + [M - 1]
+    Y1 = torch.zeros_like(Y)
+    for b, i in enumerate(at):
+        Y1[i // p, i % p, b] = 1.0
+    out = ops.block_combine(bc, Y1, p=p, kernel=True)
+    nbs = n_seg // spec.bs
+    cv = bc.codes[:R_FULL].reshape(M, nbs, spec.bs)
+    ev = bc.exps[:R_FULL].reshape(M, nbs)
+    for b, i in enumerate(at):
+        v = ops.decompress(F.BlockCompressed(codes=cv[i], exps=ev[i], n=n_seg,
+                                             spec=spec), kernel=False)
+        check(same_values(out[b], v), f"block combine with a one-hot Y row "
+                                      f"at segment row {i} != the decoded row")
+    print(f"[block] combine bit-equal to the row-order plain sum at block rows"
+          f" {list(EDGE_ROWS)} (M = {EDGE_ROWS[0] * p}..{M}) and to a second "
+          f"call; one-hot Y rows at segment rows {at} equal to the decoded "
+          "basis")
+    _combine_guard_checks(bc.codes.device)
+
+
 def phase_block_kernels(A):
     """The block kernels at the main-path block shape, and spot checks."""
     import torch
@@ -831,13 +1018,15 @@ def phase_block_kernels(A):
                       ops.block_dots(bc, W, p=p, rows=R_FULL, kernel=True)),
           "block dots: two calls differ")
     _one_hot_dots_check(bc, p, n, n_seg, spec)
+    _combine_checks(bc, p, Y, n_seg, spec)
 
     # spot checks: f32 values, p = 1 and 3, a ragged n, other bs and l
     g2 = torch.Generator(device=dev).manual_seed(8)
     spots = [(torch.float32, 32, 32, 8), (torch.float64, 32, 32, 1),
              (torch.float64, 32, 32, 3), (torch.float64, 32, 8, 4),
              (torch.float64, 32, 64, 3), (torch.float64, 16, 128, 8),
-             (torch.float32, 8, 32, 16), (torch.float64, 32, 32, 13)]
+             (torch.float32, 8, 32, 16), (torch.float64, 32, 32, 13),
+             (torch.float64, 32, 1, 3), (torch.float32, 16, 8, 1)]
     for dtype, l, bs, pp in spots:
         sp = F.FrszSpec(bs=bs, l=l, dtype=dtype)
         _, _, sbc = _block_store(sp, pp, 1001, 7, g2)
@@ -848,8 +1037,12 @@ def phase_block_kernels(A):
             for op, (_, rel) in _block_pair(sbc, pp, Ws, Ys, rows).items():
                 check(rel <= tol, f"block {op} spot {sp.name} p={pp} "
                                   f"rows={rows}: relative error {rel:.3e}")
+            check(_combine_rows_equal(sbc, pp, Ys, rows),
+                  f"block combine spot {sp.name} p={pp} rows={rows} != the "
+                  "row-order plain sum")
     print(f"[block] spot checks passed: {len(spots)} (f32/f64, p 1/3/4/8/13/"
-          "16, n=1001 ragged, bs 8/32/64/128, l 8/16/32)")
+          "16, n=1001 ragged, bs 1/8/32/64/128, l 8/16/32; the combine "
+          "bit-equal to the row-order plain sum)")
 
     # the batched ELL SpMV: one launch for p operands, bit-equal
     E = A.to_ell()

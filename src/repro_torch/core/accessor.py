@@ -62,6 +62,7 @@ __all__ = [
     "BasisAccessor",
     "BlockBasisAccessor",
     "auto_mixed_head",
+    "f64_to_f16",
     "register_format",
     "format_by_name",
     "FORMATS",
@@ -167,6 +168,26 @@ class StorageFormat:
         return Y2.T @ V.reshape(rows * p, n_seg)
 
 
+def f64_to_f16(v: torch.Tensor) -> torch.Tensor:
+    """f64 -> f16 rounded once to nearest even, as numpy and JAX round.
+
+    PyTorch converts f64 -> f16 through f32, rounding twice (on 10^6
+    normals, 50 values land an ulp off).  Rounding to f32 *to odd* first
+    keeps a sticky bit that the second rounding reads, and f32's 24 bits
+    are more than f16's 11 + 2, so the two roundings give the single one
+    (Boldo and Melquiond's round-to-odd).  Tensor ops only: no host read,
+    so it runs inside a captured CUDA graph, on the CPU and on the card.
+    """
+    x32 = v.to(torch.float32)                   # to nearest
+    back = x32.to(torch.float64)
+    # the truncation of v: one step toward zero where nearest rounded away
+    # (sign-magnitude bits: minus one moves toward zero for either sign);
+    # inexact: set the last bit, the odd neighbour of the interval
+    away = (back.abs() > v.abs()).to(torch.int32)
+    bits = (x32.view(torch.int32) - away) | (back != v)
+    return bits.view(torch.float32).to(torch.float16)
+
+
 # ---------------------------------------------------------------------------
 # Concrete formats
 # ---------------------------------------------------------------------------
@@ -198,6 +219,8 @@ class NativeFormat(StorageFormat):
         return store[:rows]
 
     def write_row(self, store, j: int, v) -> None:
+        if self.dtype == torch.float16 and v.dtype == torch.float64:
+            v = f64_to_f16(v)
         store[j].copy_(v)
 
     def read_row(self, store, j: int, arith_dtype, n: int):

@@ -18,11 +18,10 @@
 // The bit decode (decode_bits) is ~25-30 integer instructions a code
 // (64-bit shifts are pairs of 32-bit ones): with it the first dots kernel
 // was issue-bound at 3.68 ms, slower than torch.mm reading a
-// decoded basis of twice the bytes (2.64 ms; H100 80GB HBM3, 700 W).  The
-// combine still decodes that way.
+// decoded basis of twice the bytes (2.64 ms; H100 80GB HBM3, 700 W); the
+// first combine, a thread a column with 4-byte loads, took 2.79 ms.
 //
-// What the dots' design does about it (1.96 ms at 101 rows, 1.14 ms at 51;
-// SASS and ablations in PERF.md):
+// What the designs do about it (SASS and times in PERF.md):
 //  * each code is decoded once, by the exact scaled decode (frsz2_common.cuh:
 //    a mask, one DADD, one multiply by the block's power of two, the sign;
 //    the bit decode only out of line, for blocks outside its range), and
@@ -44,10 +43,19 @@
 //    each (row, chunk) writes its q partial sums to a scratch buffer and a
 //    second pass sums a row's chunks, a warp per (row, right-hand side) in
 //    a fixed order;
-//  * combine: a thread owns one column and walks the M segment rows in
-//    order, Y staged in shared memory (256 rows x q, a broadcast), with q
-//    accumulators in registers; loads of one row are coalesced across the
-//    columns of a warp;
+//  * combine: a thread owns four consecutive columns, one 16-byte word of
+//    codes a row at l = 32 (8 bytes at l = 16, 4 at l = 8) sharing one
+//    exponent, decoded by the scaled decode in one FMA a code (decode_fma:
+//    one range guard a word, the bit decode out of line), and walks the M
+//    segment rows in order, decoding one row ahead of its fmas, with eight
+//    rows' words and exponents in flight, copied by cp.async into a ring in
+//    shared memory (a register ring of four rows left the 4 x q
+//    accumulators too few registers: 128 a thread at two blocks an SM, and
+//    measured slower in development); Y is staged in shared memory (128
+//    rows x q, 64 at q > 8) and read as 16-byte broadcasts, each value
+//    serving four columns; 4 x q accumulators in registers.  Each column's
+//    sum keeps the first combine's order (one fma a row from 0), so it
+//    gives the same bits;
 //  * no float atomics and a fixed order of every sum, so the result is the
 //    same bits on every run;
 //  * the pad columns of each segment are stored as zero codes, which decode
@@ -67,8 +75,15 @@ constexpr int kRowSlots = kDotThreads / kLanesPerRow;                 // 32
 constexpr int kRowsPerBlock = kRowSlots * kRowsPerLane;               // 64
 constexpr int kSubCols = 256;      // dots: chunk_cols is a multiple of it
 constexpr int kStages = 3;         // dots: W ring depth in shared memory
-constexpr int kColThreads = 256;   // combine: columns per block
-constexpr int kRowTile = 256;      // combine: rows of Y staged at once
+constexpr int kColThreads = 256;   // combine: threads per block
+constexpr int kCombineCols = 4;    // combine: consecutive columns a thread owns
+constexpr int kCombineStages = 8;  // combine: rows of code words in flight a thread
+// combine: rows of Y staged at once (the ring, its exponents and the Y tile
+// within the 48 KB of static shared memory at Q = 16)
+template <int Q>
+__host__ __device__ constexpr int row_tile() {
+  return Q > 8 ? 64 : 128;
+}
 constexpr int kMaxQ = 16;
 
 template <class L>
@@ -84,15 +99,6 @@ __host__ __device__ constexpr int stage_cols() {
 __device__ __forceinline__ int exp_at(const int* __restrict__ erow, long long col,
                                       int bs_log2) {
   return __ldg(erow + (col >> bs_log2));
-}
-
-// A 16-byte load that does not allocate in L1: the codes are read once.
-__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
-  uint4 r;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(p));
-  return r;
 }
 
 // The G codes of one 16-byte word, decoded one by one by the guarded
@@ -311,45 +317,141 @@ __global__ void __launch_bounds__(kFinishWarps * 32)
   if (lane == 0) Y[idx] = acc;
 }
 
-template <class L, typename CodeT, int Q>
-__global__ void __launch_bounds__(kColThreads)
+// out (q, n_seg) = Y^T @ decode(V): a thread owns kCombineCols consecutive
+// columns (one word of codes a row: 16 bytes at l = 32, 8 at l = 16, 4 at
+// l = 8) and walks the M rows in order.  Its words and their exponents
+// arrive by cp.async in a ring of kCombineStages rows in shared memory,
+// each thread copying and reading its own slots (no barrier), so that many
+// rows' loads are in flight without holding registers; each row is decoded
+// (decode_fma) one row ahead of its fmas, so that the decode's latency
+// hides behind the previous row's.  Y is staged row_tile<Q>() rows at a
+// time in shared memory and read as 16-byte broadcasts: each Y value serves
+// the thread's four columns.  ONE_EXP: the four columns share a codec
+// block (bs >= 4); else each code takes its own exponent on the out-of-line
+// path.  Every accumulator gets one fma a row, in row order, from 0: the
+// sum of the first combine (a thread a column) bit for bit, since the
+// scaled decode gives the bit decode's values.
+template <class L, typename CodeT, int Q, bool ONE_EXP>
+__global__ void __launch_bounds__(kColThreads, Q > 8 ? 1 : 2)
     block_combine_kernel(const CodeT* __restrict__ codes, const int* __restrict__ exps,
                          const ValueT<L>* __restrict__ Y, ValueT<L>* __restrict__ out,
-                         long long M, long long n_seg, int q, int bs_log2, int l) {
-  using U = typename L::U;
+                         int M, long long n_seg, int q, int bs_log2) {
   using T = ValueT<L>;
+  using W = Word4<CodeT>;
+  constexpr int LB = 8 * static_cast<int>(sizeof(CodeT));   // code bits
+  constexpr int C = kCombineCols;
+  constexpr int S = kCombineStages;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));     // Y values per 16 bytes
+  constexpr int kRowTile = row_tile<Q>();
+  static_assert(kRowTile % S == 0, "a Y tile holds whole ring turns");
   __shared__ __align__(16) T ys[kRowTile][Q];
-  const long long col = static_cast<long long>(blockIdx.x) * kColThreads + threadIdx.x;
-  const bool live = col < n_seg;
+  __shared__ __align__(16) W ring[S][kColThreads];
+  __shared__ int ering[S][kColThreads];
+  const long long col = (static_cast<long long>(blockIdx.x) * kColThreads + threadIdx.x) * C;
+  const bool live = col < n_seg;        // n_seg is a multiple of C: all four or none
   const long long nb = n_seg >> bs_log2;
-  const long long eoff = col >> bs_log2;
-  T acc[Q];
-#pragma unroll
-  for (int b = 0; b < Q; ++b) acc[b] = T(0);
-  for (long long r0 = 0; r0 < M; r0 += kRowTile) {
-    const int cnt = static_cast<int>(min(static_cast<long long>(kRowTile), M - r0));
-    __syncthreads();
-    for (int e = threadIdx.x; e < cnt * Q; e += kColThreads) {
-      const int r = e / Q;
-      const int b = e - r * Q;
-      ys[r][b] = b < q ? Y[(r0 + r) * q + b] : T(0);
+  const W* crow = reinterpret_cast<const W*>(codes + (live ? col : 0));
+  const int* erow = exps + ((live ? col : 0) >> bs_log2);
+  const long long wstride = n_seg / C;  // words a row
+  W* wmine = &ring[0][threadIdx.x];
+  int* emine = &ering[0][threadIdx.x];
+
+  // row r's word (and exponent) into ring slot r % S, one commit group a
+  // row (empty past M)
+  auto issue = [&](int r) {
+    if (live && r < M) {
+      cp_async_word<sizeof(W)>(wmine + (r % S) * kColThreads, crow + r * wstride);
+      if (ONE_EXP) cp_async_word<4>(emine + (r % S) * kColThreads, erow + r * nb);
     }
-    __syncthreads();
-    if (live) {
-#pragma unroll 4
-      for (int i = 0; i < cnt; ++i) {
-        const long long r = r0 + i;
-        const T v = as_value(decode_bits<L>(static_cast<U>(__ldg(codes + r * n_seg + col)),
-                                            __ldg(exps + r * nb + eoff), l));
+    cp_async_commit();
+  };
+
+  // row r's values from ring slot k (its copies have landed)
+  auto decode = [&](int k, int r, T (&v)[C]) {
+    const W w = live ? wmine[k * kColThreads] : W{};
+    const int e = live && ONE_EXP ? emine[k * kColThreads] : LB;
+    if (ONE_EXP && fma_in_range<L, LB>(e)) {
+      const FmaScale<L> sc = fma_scale<L, LB>(e);
 #pragma unroll
-        for (int b = 0; b < Q; ++b) acc[b] += ys[i][b] * v;
+      for (int c = 0; c < C; ++c) v[c] = decode_fma<L, LB>(code_of<CodeT>(w, c), sc);
+    } else {
+      const Quad<L> g = decode_quad<L, CodeT>(w, e, ONE_EXP, erow + r * nb, bs_log2,
+                                              live ? C : 0);
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = g.v[c];
+    }
+  };
+
+  T acc[C][Q];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int b = 0; b < Q; ++b) acc[c][b] = T(0);
+#pragma unroll
+  for (int k = 0; k < S; ++k) issue(k);
+
+  // one row ahead: row r + 1 is decoded (its slot refilled) before row r's
+  // fmas, so the decode's latency hides behind them
+  T v[C];
+  cp_async_wait<S - 1>();
+  decode(0, 0, v);
+  issue(S);
+  for (int r0 = 0; r0 < M; r0 += S) {
+    if (r0 % kRowTile == 0) {           // stage the tile of Y from row r0
+      const int cnt = min(kRowTile, M - r0);
+      __syncthreads();
+      for (int e = threadIdx.x; e < kRowTile * Q; e += kColThreads) {
+        const int r = e / Q;
+        const int b = e - r * Q;
+        ys[r][b] = r < cnt && b < q ? Y[static_cast<long long>(r0 + r) * q + b] : T(0);
       }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int r = r0 + k;
+      if (r >= M) break;                // uniform across the block
+      T vn[C] = {};
+      if (r + 1 < M) {
+        cp_async_wait<S - 1>();         // this thread's copies of row r + 1 have landed
+        decode((k + 1) % S, r + 1, vn);
+        issue(r + 1 + S);               // into the slots just read
+      }
+      const T* yrow = ys[r0 % kRowTile + k];
+#pragma unroll
+      for (int b = 0; b < Q; b += kVec) {
+        union {
+          uint4 u;
+          T t[kVec];
+        } yv;
+        yv.u = *reinterpret_cast<const uint4*>(yrow + b);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c][b + j] = fma(yv.t[j], v[c], acc[c][b + j]);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = vn[c];
     }
   }
+  cp_async_wait<0>();
   if (live) {
 #pragma unroll
-    for (int b = 0; b < Q; ++b)
-      if (b < q) out[static_cast<long long>(b) * n_seg + col] = acc[b];
+    for (int b = 0; b < Q; ++b) {
+      if (b < q) {
+        T* o = out + static_cast<long long>(b) * n_seg + col;
+#pragma unroll
+        for (int c = 0; c < C; c += kVec) {
+          union {
+            uint4 u;
+            T t[kVec];
+          } ov;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) ov.t[j] = acc[c + j][b];
+          *reinterpret_cast<uint4*>(o + c) = ov.u;
+        }
+      }
+    }
   }
 }
 
@@ -371,13 +473,15 @@ void launch_dots(const void* codes, const int* exps, const void* W, void* partia
 
 template <class L, typename CodeT, int Q>
 void launch_combine(const void* codes, const int* exps, const void* Y, void* out,
-                    long long M, long long n_seg, int q, int bs_log2, int l,
-                    cudaStream_t s) {
+                    long long M, long long n_seg, int q, int bs_log2, cudaStream_t s) {
   using T = ValueT<L>;
-  const unsigned gx = static_cast<unsigned>((n_seg + kColThreads - 1) / kColThreads);
-  block_combine_kernel<L, CodeT, Q><<<gx, kColThreads, 0, s>>>(
-      static_cast<const CodeT*>(codes), exps, static_cast<const T*>(Y), static_cast<T*>(out),
-      M, n_seg, q, bs_log2, l);
+  constexpr long long kCols = static_cast<long long>(kColThreads) * kCombineCols;
+  const unsigned gx = static_cast<unsigned>((n_seg + kCols - 1) / kCols);
+  auto k = bs_log2 >= 2 ? &block_combine_kernel<L, CodeT, Q, true>
+                        : &block_combine_kernel<L, CodeT, Q, false>;
+  k<<<gx, kColThreads, 0, s>>>(static_cast<const CodeT*>(codes), exps,
+                               static_cast<const T*>(Y), static_cast<T*>(out),
+                               static_cast<int>(M), n_seg, q, bs_log2);
 }
 
 // The accumulators live in registers, so the block width is a template
@@ -397,13 +501,13 @@ bool dots_q(const void* codes, const int* exps, const void* W, void* partial, vo
 
 template <class L, typename CodeT>
 bool combine_q(const void* codes, const int* exps, const void* Y, void* out, long long M,
-               long long n_seg, int q, int bs_log2, int l, cudaStream_t s) {
+               long long n_seg, int q, int bs_log2, cudaStream_t s) {
   if (q <= 4)
-    launch_combine<L, CodeT, 4>(codes, exps, Y, out, M, n_seg, q, bs_log2, l, s);
+    launch_combine<L, CodeT, 4>(codes, exps, Y, out, M, n_seg, q, bs_log2, s);
   else if (q <= 8)
-    launch_combine<L, CodeT, 8>(codes, exps, Y, out, M, n_seg, q, bs_log2, l, s);
+    launch_combine<L, CodeT, 8>(codes, exps, Y, out, M, n_seg, q, bs_log2, s);
   else
-    launch_combine<L, CodeT, 16>(codes, exps, Y, out, M, n_seg, q, bs_log2, l, s);
+    launch_combine<L, CodeT, 16>(codes, exps, Y, out, M, n_seg, q, bs_log2, s);
   return true;
 }
 
@@ -424,9 +528,9 @@ bool dispatch_combine(const void* codes, const int* exps, const void* Y, void* o
                       long long M, long long n_seg, int q, int bs_log2, int l,
                       cudaStream_t s) {
   switch (l) {
-    case 8: return combine_q<L, unsigned char>(codes, exps, Y, out, M, n_seg, q, bs_log2, l, s);
-    case 16: return combine_q<L, unsigned short>(codes, exps, Y, out, M, n_seg, q, bs_log2, l, s);
-    case 32: return combine_q<L, unsigned int>(codes, exps, Y, out, M, n_seg, q, bs_log2, l, s);
+    case 8: return combine_q<L, unsigned char>(codes, exps, Y, out, M, n_seg, q, bs_log2, s);
+    case 16: return combine_q<L, unsigned short>(codes, exps, Y, out, M, n_seg, q, bs_log2, s);
+    case 32: return combine_q<L, unsigned int>(codes, exps, Y, out, M, n_seg, q, bs_log2, s);
     default: return false;
   }
 }
@@ -459,13 +563,16 @@ int frsz2_block_dots(const void* codes, const void* exps, const void* W, void* p
   return cudaGetLastError();
 }
 
-// out (q, n_seg) = Y^T @ decode(V).  codes/exps as frsz2_block_dots, Y (M, q).
+// out (q, n_seg) = Y^T @ decode(V).  codes/exps as frsz2_block_dots, Y (M, q);
+// codes aligned to four codes (a word), out to 16 bytes.
 int frsz2_block_combine(const void* codes, const void* exps, const void* Y, void* out,
                         long long M, long long n_seg, int q, int bs_log2, int kind, int l,
                         void* stream) {
   using namespace frsz2_block;
-  if (M <= 0 || n_seg <= 0 || n_seg % 128 || q < 1 || q > kMaxQ || bs_log2 < 0 ||
-      bs_log2 > 7 || (n_seg + kColThreads - 1) / kColThreads > (1LL << 31) - 1)
+  if (M <= 0 || M > (1LL << 31) - kCombineStages - 1 || n_seg <= 0 || n_seg % 128 || q < 1 ||
+      q > kMaxQ || bs_log2 < 0 || bs_log2 > 7 || (l != 8 && l != 16 && l != 32) ||
+      reinterpret_cast<unsigned long long>(codes) % (l / 2) ||
+      reinterpret_cast<unsigned long long>(out) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* e = static_cast<const int*>(exps);

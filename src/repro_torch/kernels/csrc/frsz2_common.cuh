@@ -174,6 +174,49 @@ __device__ __forceinline__ Value<L> decode_scaled_fast(unsigned c, unsigned shi)
   }
 }
 
+// The in-range decode with one FMA instead of decode_scaled_fast's DADD and
+// DMUL (f64; two FP64 operations a code were most of what the redesigned
+// combine spent beyond its memory).  x = 2^52 + csig read from bits, then
+//     fma(x, s, -2^52 s) = csig * s
+// exactly: x * s is exact (s a power of two), so is the difference.  -2^52 s
+// must be finite, so the range is narrower than scaled_in_range's: emax in
+// [LB-1, 2*bias + LB - 54]; blocks above take the guarded decode.  f32 keeps
+// decode_scaled_fast (a conversion and one multiply).
+template <class L>
+struct FmaScale {
+  Value<L> s, c;    // the block's scale and -2^52 times it (f64)
+};
+template <class L, int LB>
+__device__ __forceinline__ bool fma_in_range(int emax) {
+  if constexpr (L::W > 32) {
+    constexpr int kBias = (1 << (L::EXPB - 1)) - 1;
+    return static_cast<unsigned>(emax - (LB - 1)) <= static_cast<unsigned>(2 * kBias - 53);
+  } else {
+    return scaled_in_range<L, LB>(emax);
+  }
+}
+template <class L, int LB>
+__device__ __forceinline__ FmaScale<L> fma_scale(int emax) {
+  if constexpr (L::W > 32) {
+    const unsigned es = static_cast<unsigned>(emax - (LB - 2));   // the scale's biased exponent
+    return {__hiloint2double(static_cast<int>(es << 20), 0),
+            __hiloint2double(static_cast<int>(((es + 52) << 20) | 0x80000000u), 0)};
+  } else {
+    return {__uint_as_float(scale_hi<L, LB>(emax)), 0.0f};
+  }
+}
+template <class L, int LB>
+__device__ __forceinline__ Value<L> decode_fma(unsigned c, FmaScale<L> k) {
+  if constexpr (L::W > 32) {
+    const unsigned csig = c & ((1u << (LB - 1)) - 1u);
+    const double v = __fma_rn(__hiloint2double(0x43300000, static_cast<int>(csig)), k.s, k.c);
+    return __hiloint2double(__double2hiint(v) | static_cast<int>(code_sign31<LB>(c)),
+                            __double2loint(v));
+  } else {
+    return decode_scaled_fast<L, LB>(c, __float_as_uint(k.s));
+  }
+}
+
 // decode_bits as a value, out of line: the rare path of the guarded decode
 // stays out of the kernels' hot loops (and their instruction caches)
 template <class L>
@@ -206,6 +249,70 @@ __device__ __forceinline__ T block_sum_256(T v) {
   return v;
 }
 
+// Loads of code words that do not allocate in L1: the codes are read once.
+// 16, 8 and 4 bytes: four codes of 32, 16 and 8 bits.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint2 ld_stream(const uint2* p) {
+  uint2 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+               : "=r"(r.x), "=r"(r.y)
+               : "l"(p));
+  return r;
+}
+__device__ __forceinline__ unsigned ld_stream(const unsigned* p) {
+  unsigned r;
+  asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+
+// Four consecutive codes of type CodeT as one word (16, 8 or 4 bytes), and
+// code i of it, zero-extended.
+template <typename CodeT>
+using Word4 = typename std::conditional<
+    sizeof(CodeT) == 4, uint4,
+    typename std::conditional<sizeof(CodeT) == 2, uint2, unsigned>::type>::type;
+template <typename CodeT>
+__device__ __forceinline__ unsigned code_of(Word4<CodeT> w, int i) {
+  union {
+    Word4<CodeT> w;
+    CodeT k[4];
+  } u;
+  u.w = w;
+  return static_cast<unsigned>(u.k[i]);
+}
+
+// The four values of a word.
+template <class L>
+struct Quad {
+  Value<L> v[4];
+};
+
+// The four codes of a word decoded one by one by the guarded decode, code i
+// with its own block's exponent erow[i >> bs_log2] unless one_exp (then e;
+// erow holds the exponents of the row from the word's first column, a
+// multiple of four); codes at or past `nlive` give zero: the rare path of
+// the contractions, out of line, so that their hot loops hold no copy of
+// the bit decode.
+template <class L, typename CodeT>
+__device__ __noinline__ Quad<L> decode_quad(Word4<CodeT> w, int e, bool one_exp,
+                                           const int* __restrict__ erow, int bs_log2,
+                                           int nlive) {
+  constexpr int LB = 8 * static_cast<int>(sizeof(CodeT));
+  Quad<L> out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out.v[i] = i < nlive ? decode_scaled<L, LB>(code_of<CodeT>(w, i),
+                                                one_exp ? e : __ldg(erow + (i >> bs_log2)))
+                         : Value<L>(0);
+  return out;
+}
+
 // Grids put rows on blockIdx.y, which holds at most 65535.
 constexpr long long kMaxGridY = 65535;
 
@@ -218,6 +325,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// The same for a word of BYTES = 16, 8 or 4 (under 16 bytes the copy goes
+// through L1: cp.async.cg takes 16 bytes only).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_word(void* smem, const void* gmem) {
+  if constexpr (BYTES == 16) {
+    cp_async16(smem, gmem);
+  } else {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(BYTES)
+                 : "memory");
+  }
 }
 // wait until at most N of this thread's committed groups are in flight
 template <int N>

@@ -5,10 +5,10 @@ Arnoldi dots ``h = V w``) and ``::rmatvec_2d`` (the combine ``w -= V^T h``
 and the solution update).  Codes are decoded in registers and never reach
 device memory as values.  The products accumulate in the spec's value dtype
 (the TPU kernels round every tile's dot to f32, ``frsz2_dot.py:66``/``:99``).
-The matvec reduces across blocks through a scratch buffer of partial sums
-and a second pass in a fixed order, so its result does not change from run
-to run.  The source file says what bounds the kernels and how their design
-answers it.
+The matvec reads x once a call and reduces across blocks through a scratch
+buffer of partial sums, summed in a fixed order by a second pass, so its
+result does not change from run to run.  The source file says what bounds
+the kernels and how their design answers it.
 
 These functions launch and nothing else: :mod:`repro_torch.kernels.ops`
 validates, allocates and counts.
@@ -24,8 +24,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.frsz2_kernel import KIND, bs_log2
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# (codes, exps, x|h, [partial,] y, rows, n, npad, bs_log2, kind, l, stream)
+# (codes, exps, x, partial, y, rows, n, npad, bs_log2, kind, l, stream)
 _MATVEC = [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P]
+# (codes, exps, h, y, rows, n, npad, bs_log2, kind, l, stream)
 _RMATVEC = [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P]
 
 

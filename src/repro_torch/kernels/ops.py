@@ -346,6 +346,9 @@ def block_combine(bc: F.BlockCompressed, Y: torch.Tensor, *, p: int,
         return ref.block_combine_ref(codes, exps, Y2, spec)
     _check_block_p(q)
     _check_basis(bc)
+    if bc.codes.data_ptr() % (spec.l // 2):
+        raise ValueError("the block combine reads codes four at a time: "
+                         "the store must start aligned to four codes")
     dev = bc.codes.device
     Y2 = Y2.contiguous()
     _expect(Y2, "Y", (M, q), spec.dtype, dev)

@@ -71,6 +71,29 @@ def decode_scaled_ref(codes: torch.Tensor, exps: torch.Tensor,
     return torch.where(ok, v, F._decode_block(c, exps, spec))
 
 
+def decode_fma_ref(codes: torch.Tensor, exps: torch.Tensor,
+                   spec: F.FrszSpec) -> torch.Tensor:
+    """The f64 one-FMA decode of ``csrc/frsz2_common.cuh::decode_fma`` (the
+    matvec's and the block combine's): ``fma(2^52 + csig, s, -2^52 s)``,
+    sign applied after, for a block exponent in ``[l-1, 2*bias + l - 54]``
+    (where ``-2^52 s`` is finite), the bit decode elsewhere.  The same
+    values as :func:`decompress_ref`, bit for bit; used by the tests."""
+    if spec.dtype != torch.float64:
+        raise NotImplementedError("the one-FMA decode serves f64 values")
+    l, mant, bias = spec.l, spec.ieee["mant"], spec.ieee["bias"]
+    c = codes.to(torch.int64) & ((1 << l) - 1)
+    e = exps.to(torch.int64)[..., None]
+    sign = ((c >> (l - 1)) & 1).bool()
+    csig = c & ((1 << (l - 1)) - 1)
+    ok = (e >= l - 1) & (e <= 2 * bias + l - 54)
+    es = (e - (l - 2)).clamp(1, 2 * bias - 52).expand_as(c).contiguous()
+    s = (es << mant).view(torch.float64)
+    v = fma_ref(csig.to(torch.float64) + 2.0 ** 52, s,
+                -((es + 52) << mant).view(torch.float64))
+    v = torch.where(sign, -v, v)
+    return torch.where(ok, v, F._decode_block(c, exps, spec))
+
+
 def matvec_ref(codes, exps, x, spec: F.FrszSpec) -> torch.Tensor:
     """y[i] = sum_j decompress(V)[i, j] * x[j].
 
@@ -123,6 +146,78 @@ def block_combine_ref(codes, exps, Y, spec: F.FrszSpec) -> torch.Tensor:
         r1 = r0 + _REF_ROWS
         out = out + Y[r0:r1].T @ decompress_ref(codes[r0:r1], exps[r0:r1],
                                                 spec)
+    return out
+
+
+def _two_sum(a, b):
+    """(s, t) with s = a + b rounded and s + t = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """(p, t) with p = a * b rounded and p + t = a * b exactly (Dekker, f64;
+    |a|, |b| below 2^995 so that the Veltkamp split cannot overflow)."""
+    def split(x):
+        t = x * 134217729.0                     # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _add_round_odd(a, b):
+    """a + b rounded to odd: exact sums as they are, inexact ones to the
+    neighbour with an odd last bit (a sticky bit for a later rounding)."""
+    s, t = _two_sum(a, b)
+    bits = s.view(torch.int64)
+    # one step from the nearest toward the exact sum: away from zero where
+    # the error has the sum's sign (sign-magnitude bits)
+    step = torch.where((t > 0) == (s > 0), 1, -1)
+    bits = torch.where((t != 0) & (bits & 1 == 0), bits + step, bits)
+    return bits.view(torch.float64)
+
+
+def fma_ref(a, b, c):
+    """``fma(a, b, c)``: a * b + c rounded once, as the card's DFMA/FFMA, in
+    plain tensor ops (PyTorch has no fused multiply-add of its own).
+
+    f64: a * b = p + e exactly, p + c = s1 + s2 exactly, then s1 + RO(s2 +
+    e) rounded to nearest (RO: rounding to odd).  Either |s2 + e| is a few
+    ulps of s1 at most, so RO keeps some 50 bits below s1's last one and
+    the final rounding sees the exact sum's round and sticky bits; or p and
+    c cancel (within a factor 4), p + c is exact (Sterbenz), s2 = 0 and the
+    last sum adds two doubles.  f32: a * b is exact in f64; the f64 sum
+    rounded to odd, then to f32, rounds once (53 >= 24 + 2 bits; Boldo and
+    Melquiond).  Broadcasts like ``a * b + c``."""
+    if c.dtype == torch.float32:
+        p = a.to(torch.float64) * b.to(torch.float64)
+        return _add_round_odd(p, c.to(torch.float64)).to(torch.float32)
+    p, e = _two_prod(a, b)
+    s1, s2 = _two_sum(p, c)
+    return s1 + _add_round_odd(s2, e)
+
+
+def block_combine_rows_ref(codes, exps, Y, spec: F.FrszSpec) -> torch.Tensor:
+    """:func:`block_combine_ref` summed as the combine kernel sums: each
+    output starts at +0 and takes one fma a segment row, rows in order
+    (``out = fma(Y[r, b], V[r, c], out)``).  Bit for bit what the kernel
+    gives; the tests and ``chip_smoke.py`` hold it to that.
+
+    codes: (M, nb, bs); exps: (M, nb); Y: (M, q)  ->  out: (q, nb*bs).
+    """
+    Y = Y.to(spec.dtype)
+    nb, bs = codes.shape[-2:]
+    out = Y.new_zeros((Y.shape[1], nb * bs))
+    for r0 in range(0, codes.shape[0], _REF_ROWS):
+        V = decompress_ref(codes[r0:r0 + _REF_ROWS], exps[r0:r0 + _REF_ROWS],
+                           spec)
+        for i, v in enumerate(V):
+            out = fma_ref(Y[r0 + i][:, None], v[None, :], out)
     return out
 
 

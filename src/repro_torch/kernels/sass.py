@@ -2,12 +2,13 @@
 
     python -m repro_torch.kernels.sass [--csrc DIR]
 
-Builds ``frsz2_block.cu`` and ``ell_spmv.cu`` from ``--csrc`` (default: this
-package's ``csrc/``; give another checkout's to compare two versions) with
-the flags of :mod:`repro_torch.kernels.build`, disassembles them with
-``cuobjdump -sass`` and prints, for each main-path instantiation (the
-frsz2_32 block dots of f64 values at q = 8 and the f64 ELL SpMV, dense and
-with a frsz2_32 operand): its instruction count, each loop (a backward
+Builds ``frsz2_block.cu``, ``frsz2_dot.cu`` and ``ell_spmv.cu`` from
+``--csrc`` (default: this package's ``csrc/``; give another checkout's to
+compare two versions) with the flags of :mod:`repro_torch.kernels.build`,
+disassembles them with ``cuobjdump -sass`` and prints, for each main-path
+instantiation (the frsz2_32 block dots and block combine of f64 values at
+q = 8, the frsz2_32 f64 matvec, and the f64 ELL SpMV, dense and with a
+frsz2_32 operand): its instruction count, each loop (a backward
 branch and the instructions it jumps over) with its length and a histogram
 of its opcodes, and its hot path (:func:`hot_path`: the instructions one
 pass executes when it takes no rare branch).  Needs ``nvcc`` and
@@ -25,8 +26,16 @@ import tempfile
 
 from repro_torch.kernels import build
 
-SOURCES = ("frsz2_block.cu", "ell_spmv.cu")
+SOURCES = ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu")
+#: the main-path instantiations: the matvec as redesigned (vector loads)
+#: and as first designed (``matvec_partial_kernel``, for ``--csrc`` of an
+#: older checkout)
 MATCH = (r"block_dots_partial<frsz2::Layout<64, 52, 11>, unsigned int, 8>"
+         r"|block_combine_kernel<frsz2::Layout<64, 52, 11>, unsigned int, 8"
+         r"(, (true|1))?>"
+         r"|matvec_(rows_kernel<frsz2::Layout<64, 52, 11>, unsigned int, "
+         r"(true|1)>"
+         r"|partial_kernel<frsz2::Layout<64, 52, 11>, unsigned int>)"
          r"|ell_\w+_kernel<double, ell::(CodedX<double, frsz2::Layout"
          r"<64, 52, 11>, unsigned int>|DenseX<double>)")
 
@@ -120,19 +129,26 @@ def _targets(op: str, args: str) -> tuple[bool, int | None]:
     return True, None
 
 
-def shortest_path(insns, start: int, end: int) -> dict:
+def shortest_path(insns, start: int, end: int, most: tuple = ()) -> dict:
     """The fewest instructions that take control from ``start`` to ``end``
     (both addresses, ``end`` included), backward branches ignored: an
     iteration of a loop (or one pass of straight code) that takes no
     optional branch, e.g. no once-a-stage barrier, and no call (the rare
-    fallback of the scaled decode).
+    fallback of the scaled decode).  With ``most`` (opcodes, e.g. the
+    FMAs), the fewest among the paths that execute the most of those: an
+    early exit past the last row (a uniform ``break`` in an unrolled ring
+    turn) skips work, so it is not the hot path.
     Returns its length and the histogram of its opcodes."""
     body = [x for x in insns if start <= x[0] <= end]
     index = {a: i for i, (a, _, _) in enumerate(body)}
-    inf = float("inf")
+    inf = (float("inf"), float("inf"))
+
+    def gain(op):
+        return -1 if op.split(".")[0] in most else 0
+
     dist = [inf] * len(body)
     prev = [None] * len(body)
-    dist[0] = 1
+    dist[0] = (gain(body[0][1]), 1)
     for i, (a, op, args) in enumerate(body):
         if dist[i] == inf:
             continue
@@ -143,8 +159,9 @@ def shortest_path(insns, start: int, end: int) -> dict:
         for j in succ:
             # a call leaves the hot path (the decode's out-of-line fallback)
             w = _CALL_COST if body[j][1].startswith("CALL") else 1
-            if dist[i] + w < dist[j]:
-                dist[j], prev[j] = dist[i] + w, i
+            cand = (dist[i][0] + gain(body[j][1]), dist[i][1] + w)
+            if cand < dist[j]:
+                dist[j], prev[j] = cand, i
     path, i = [], len(body) - 1
     while i is not None and dist[i] != inf:
         path.append(body[i][1].split(".")[0])
@@ -154,7 +171,8 @@ def shortest_path(insns, start: int, end: int) -> dict:
 
 def hot_path(insns) -> dict | None:
     """The hot path of a kernel: the shortest iteration of its innermost
-    loop holding the contraction's FMAs (the block dots); for a kernel
+    loop holding the contraction's FMAs that executes all of them (the
+    block dots and combine, the matvec); for a kernel
     whose arithmetic is in no loop (the ELL SpMV of a compiled width: one
     row a lane, loops only to copy the tile), the shortest way from its
     entry to its last global store; else None (the shortest way there would
@@ -164,7 +182,8 @@ def hot_path(insns) -> dict | None:
     if fma:
         lp = fma[0]
         return dict(start=lp["start"], end=lp["end"],
-                    **shortest_path(insns, lp["start"], lp["end"]))
+                    **shortest_path(insns, lp["start"], lp["end"],
+                                    most=("DFMA", "FFMA")))
     stores = [a for a, op, _ in insns if op.startswith("STG")]
     if not stores or any(lp["ops"].get(o) for lp in lps for o in _ARITH):
         return None

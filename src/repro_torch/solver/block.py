@@ -48,7 +48,6 @@ from repro_torch.core.accessor import BlockBasisAccessor
 from repro_torch.dist.context import LOCAL
 from repro_torch.kernels import ops, ref
 from repro_torch.solver.gmres import (
-    _TINY,
     GmresResult,
     _apply_rows,
     _block_solve_and_update,
@@ -56,6 +55,7 @@ from repro_torch.solver.gmres import (
     _capture,
     _check_unported,
     _cycle_row_reads,
+    _norm_floor,
     _operator_key,
     _precond_key,
     _replay,
@@ -198,7 +198,7 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
     ad = accs[0].arith_dtype
     p = accs[0].p
     B = B.to(ad)
-    bn_safe = torch.clamp(dist.col_norms(B), min=_TINY)
+    bn_safe = torch.clamp(dist.col_norms(B), min=_norm_floor(ad))
     X = torch.zeros_like(B) if X0 is None else X0.to(ad)
 
     def rel_res(X):

@@ -63,6 +63,13 @@ __all__ = ["GmresResult", "gmres", "gmres_batched", "cb_gmres",
 _TINY = 1e-300
 
 
+def _norm_floor(dtype) -> float:
+    """The least norm divided by, in ``dtype``: ``_TINY`` where it is
+    representable (f64), else the dtype's smallest normal, so that a zero
+    right-hand side never divides by 0 in f32 either."""
+    return max(_TINY, torch.finfo(dtype).tiny)
+
+
 @dataclasses.dataclass
 class GmresResult:
     x: torch.Tensor              # final solution approximation
@@ -423,7 +430,9 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
     """
     arith_dtype = accs[0].arith_dtype
     b = b.to(arith_dtype)
-    b_norm_t = dist.norm(b)
+    # a zero right-hand side divides by a floor, as the block method's
+    # ``bn_safe`` does: its residual 0 converges at the first restart
+    b_norm_t = torch.clamp(dist.norm(b), min=_norm_floor(arith_dtype))
     b_norm = b_norm_t.item()
     x = torch.zeros_like(b) if x0 is None else x0.to(arith_dtype)
 

@@ -85,7 +85,7 @@ def _assert_tree_equal(got, ref):
         assert got.shape == ref.shape and np.array_equal(got, ref)
 
 
-@pytest.mark.parametrize("name", ["float64", "float32", "bfloat16",
+@pytest.mark.parametrize("name", ["float64", "float32", "float16", "bfloat16",
                                   "frsz2_32", "frsz2_16", "frsz2_21",
                                   "mixed:2:frsz2_32"])
 def test_rows_dots_combine_match_reference(name, rng):
@@ -115,6 +115,30 @@ def test_rows_dots_combine_match_reference(name, rng):
     np.testing.assert_allclose(ct, cj, rtol=1e-13,
                                atol=1e-13 * np.abs(cj).max())
     assert at.nbytes() == aj.nbytes()
+
+
+def test_f64_to_f16_rounds_once_like_numpy(rng):
+    """PyTorch's own f64 -> f16 rounds through f32 (twice); the port's store
+    conversion equals numpy's single rounding on normals of every scale,
+    f16 ties with a tail below f32's precision, overflow, underflow,
+    subnormals, signed zeros, infinities and NaN."""
+    ties = 1.0 + np.arange(1, 1024) * 2.0 ** -10 + 2.0 ** -11
+    x = np.concatenate([
+        rng.standard_normal(200_000),
+        rng.standard_normal(20_000) * 1e-5,
+        rng.standard_normal(20_000) * 6e4,
+        ties, ties + 2.0 ** -40, ties - 2.0 ** -40, -(ties + 2.0 ** -40),
+        [0.0, -0.0, np.inf, -np.inf, 1e300, -1e300, 1e-300, 5e-324,
+         65504.0, 65519.99, 65520.0, 2.0 ** -25, 2.0 ** -25 * 1.0000001,
+         1.5 * 2.0 ** -24, 3 * 2.0 ** -26]])
+    with np.errstate(over="ignore"):
+        want = x.astype(np.float16)
+    got = TA.f64_to_f16(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.int16), want.view(np.int16))
+    assert np.isnan(TA.f64_to_f16(torch.tensor([np.nan])).numpy()).all()
+    # the double rounding this replaces: some values land an ulp off
+    plain = torch.from_numpy(x).to(torch.float16).numpy()
+    assert (plain.view(np.int16) != want.view(np.int16)).sum() > 0
 
 
 def test_mixed_routes_head_and_tail_rows(rng):

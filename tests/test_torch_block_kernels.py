@@ -16,8 +16,12 @@ Tolerances, relative to the largest |result|:
   the same f64 products in different orders;
 * f32 values: 1e-5 (f32 sums in different orders);
 * the batched ELL against ``jax.vmap`` of the JAX ELL matvec: 1e-12 (f64),
-  as the single-vector ELL tests: both sum each row in slot order.
+  as the single-vector ELL tests: both sum each row in slot order;
+* ``ref.fma_ref`` (the plain fused multiply-add behind the combine kernel's
+  row-order sum): exactly the rounding of the exact ``a * b + c``.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +36,7 @@ from repro.kernels import ops as jops
 from repro.sparse.csr import ELL as JELL
 from repro_torch.convert import store_from_numpy
 from repro_torch.core import frsz2 as TF
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(2)
 
@@ -178,3 +182,69 @@ def test_batched_ell_matches_jax_vmap(dtype, tol, rng):
         assert torch.equal(got[b], ops.ell_spmv(torch.from_numpy(vals),
                                                 torch.from_numpy(cols),
                                                 torch.from_numpy(X[b])))
+
+
+def _round_exact(fr: Fraction, bits: int) -> float:
+    """The exact rational ``fr`` rounded to ``bits`` significant bits, to
+    nearest even (normal range)."""
+    if fr == 0:
+        return 0.0
+    sign, fr = (-1 if fr < 0 else 1), abs(fr)
+    e = fr.numerator.bit_length() - fr.denominator.bit_length()
+    while Fraction(2) ** e > fr:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= fr:
+        e += 1
+    ulp = Fraction(2) ** (e - bits + 1)
+    scaled = fr / ulp
+    q = scaled.numerator // scaled.denominator
+    rem = scaled - q
+    if rem > Fraction(1, 2) or (rem == Fraction(1, 2) and q % 2):
+        q += 1
+    return sign * float(q * ulp)
+
+
+@pytest.mark.parametrize("dtype,bits", [(torch.float64, 53),
+                                        (torch.float32, 24)], ids=str)
+def test_fma_ref_rounds_once(dtype, bits, rng):
+    """a * b + c rounded once, on products of every scale, sums that
+    cancel to a few bits, exact cancellation and zero addends (a plain
+    multiply then add differs on thousands of these)."""
+    n = 4000
+    a = rng.standard_normal(n) * np.exp2(rng.integers(-30, 30, n))
+    b = rng.standard_normal(n) * np.exp2(rng.integers(-30, 30, n))
+    c = rng.standard_normal(n) * np.exp2(rng.integers(-60, 60, n))
+    k = n // 4
+    c[:k] = -(a[:k] * b[:k]) * (1 + rng.standard_normal(k)
+                                * np.exp2(-rng.integers(1, bits + 8, k)))
+    c[k:k + 50] = -(a[k:k + 50] * b[k:k + 50])
+    c[k + 50:k + 100] = 0.0
+    a, b, c = (v.astype(_NP[dtype]) for v in (a, b, c))
+    got = ref.fma_ref(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([_round_exact(Fraction(float(x)) * Fraction(float(y))
+                                  + Fraction(float(z)), bits)
+                     for x, y, z in zip(a, b, c)], _NP[dtype])
+    assert np.array_equal(got, want)
+    assert (a * b + c != want).sum() > 100       # the test has teeth
+
+
+@pytest.mark.parametrize("p,n,dtype", CASES[:3] + CASES[4:5],
+                         ids=[f"p{p}-n{n}-{str(d)[6:]}"
+                              for p, n, d in CASES[:3] + CASES[4:5]])
+def test_block_combine_rows_ref_matches_jax(p, n, dtype, rng):
+    """The row-order plain combine (the kernel's bits) is the same function
+    as the JAX Pallas block combine, to the same tolerance as the plain
+    matrix-product version."""
+    m = 5
+    jfmt, jacc, store = _jax_block_store(rng, dtype, m, p, n)
+    bc = _port_bc(store, jfmt, dtype)
+    jbc = JF.BlockCompressed(codes=store["codes"], exps=store["exps"],
+                             n=jacc.n_flat, spec=jfmt.spec)
+    Y = rng.standard_normal((m, p, p)).astype(_NP[dtype])
+    codes, exps, _ = ops._block_view(bc, p, m)
+    got = ref.block_combine_rows_ref(codes, exps,
+                                     torch.from_numpy(Y).reshape(m * p, p),
+                                     bc.spec)
+    _close(got, jops.block_combine(jbc, jnp.asarray(Y), p=p, interpret=True),
+           _TOL[dtype])
+    _close(got, ops.block_combine(bc, torch.from_numpy(Y), p=p), _TOL[dtype])

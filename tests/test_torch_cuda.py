@@ -20,13 +20,25 @@ to the largest output (f32 sums in another order, base-2 exponentials);
 with bf16 q within 2^-7 (one bf16 step); a cache written on the card bit-equal to one written on the
 CPU; yi-9b ``reduced()`` decode logits on the card within 1e-3 of the CPU's
 (relative to the largest logit: f32 matrix products in another order).
+The redesigned matvec and block combine: the matvec within 1e-12 (f64) /
+1e-5 (f32) of its plain version at rows 1..101 across its row-ring and
+row-group edges, two calls bit-equal, x one-hot equal
+to the decoded basis; the combine bit-equal to the row-order plain sum
+(``ref.block_combine_rows_ref``: the first combine kernel's sum) at M = 8
+... 808, one-hot rows of Y equal to the decoded basis; both across the
+scaled decode's guard (exponents in the flush zone and past 2*bias) equal
+to ``decompress``, NaN where it is NaN.  A float16 basis write on the card
+bit-equal to numpy's single rounding.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import frsz2 as F
-from repro_torch.core.accessor import BlockBasisAccessor, format_by_name
-from repro_torch.kernels import ops, ref
+from repro_torch.core.accessor import (BasisAccessor, BlockBasisAccessor,
+                                      NativeFormat, format_by_name)
+from repro_torch.kernels import cardcheck, ops, ref
+from repro_torch.kernels.cardcheck import EDGE_ROWS, same_values
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
 from repro_torch.configs import get_arch
@@ -404,3 +416,112 @@ def test_kv_cache_and_decode_on_card_match_cpu(cuda):
         caches.append(c)
     for n in caches[0]:
         assert torch.equal(caches[0][n], caches[1][n].cpu()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,bs,n", [(torch.float64, 32, 32, 20011),
+                                          (torch.float64, 16, 128, 4096),
+                                          (torch.float64, 8, 8, 3001),
+                                          (torch.float64, 32, 1, 3001),
+                                          (torch.float32, 32, 32, 5003),
+                                          (torch.float32, 16, 8, 2048)])
+def test_matvec_rows_and_one_hot_on_card(cuda, dtype, l, bs, n):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+    V = torch.randn((101, n), generator=gen, dtype=dtype, device=cuda)
+    bc = ops.compress(V, spec)
+    x = torch.randn((n,), generator=gen, dtype=dtype, device=cuda)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for r in EDGE_ROWS:
+        sub = F.BlockCompressed(codes=bc.codes[:r], exps=bc.exps[:r], n=n,
+                                spec=spec)
+        ops.reset_launches()
+        yk = ops.matvec(sub, x)
+        assert ops.LAUNCHES["frsz2_matvec"] == 1
+        yp = ops.matvec(sub, x, kernel=False)
+        assert float((yk - yp).abs().max()) <= tol * float(yp.abs().max())
+        assert torch.equal(yk, ops.matvec(sub, x))
+    Vd = ops.decompress(bc)
+    for c in (0, 1, 3, 4, 1023, 1024, n - 1):
+        e = torch.zeros_like(x)
+        e[c] = 1.0
+        assert same_values(ops.matvec(bc, e), Vd[:, c].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bias", cardcheck.GUARD_DTYPES)
+@pytest.mark.parametrize("l", [32, 16, 8])
+def test_matvec_and_combine_across_the_decode_guard_on_card(cuda, dtype,
+                                                            bias, l):
+    """Exponents in the flush zone, on the guard's edges and past 2*bias:
+    the matvec (a code in one column, x one-hot there) and the combine (one
+    segment row, Y = 1) give the decoded values."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    bad, _ = cardcheck.matvec_across_guard(dtype, bias, l, gen)
+    assert not bad
+    ok, _ = cardcheck.combine_across_guard(dtype, bias, l, gen)
+    assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,bs,p,n", [(torch.float64, 32, 32, 8, 9000),
+                                            (torch.float64, 16, 128, 3, 3001),
+                                            (torch.float64, 8, 8, 16, 1001),
+                                            (torch.float64, 32, 1, 1, 2000),
+                                            (torch.float32, 32, 32, 8, 4096),
+                                            (torch.float32, 16, 8, 3, 777)])
+def test_block_combine_row_order_bits_on_card(cuda, dtype, l, bs, p, n):
+    """The combine is the row-order fma sum bit for bit at every row count,
+    repeats its bits, and one-hot rows of Y give the decoded basis rows."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+    m = max(EDGE_ROWS)
+    acc = BlockBasisAccessor(fmt=format_by_name(f"frsz2_{l}", bs=bs,
+                                                arith_dtype=dtype),
+                             m=m, p=p, n=n, arith_dtype=dtype, device=cuda)
+    store = acc.empty()
+    for j in range(m):
+        acc.write_block(store, j, torch.randn((p, n), generator=gen,
+                                              dtype=dtype, device=cuda))
+    bc = F.BlockCompressed(codes=store["codes"], exps=store["exps"],
+                           n=acc.n_flat, spec=spec)
+    Y = torch.randn((m, p, p), generator=gen, dtype=dtype, device=cuda)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for rows in EDGE_ROWS:
+        ops.reset_launches()
+        got = ops.block_combine(bc, Y[:rows], p=p)
+        assert ops.LAUNCHES["frsz2_block_combine"] == 1
+        codes, exps, _ = ops._block_view(bc, p, rows)
+        want = ref.block_combine_rows_ref(codes, exps,
+                                          Y[:rows].reshape(rows * p, p), spec)
+        assert torch.equal(got, want), rows
+        plain = ops.block_combine(bc, Y[:rows], p=p, kernel=False)
+        assert float((got - plain).abs().max()) <= tol * float(
+            plain.abs().max())
+        assert torch.equal(got, ops.block_combine(bc, Y[:rows], p=p))
+    M = m * p
+    at = [i for i in (0, 7, 8, 127, 128, 129, 511) if i < M - 1][:p - 1]
+    at.append(M - 1)
+    Y1 = torch.zeros_like(Y)
+    for b, i in enumerate(at):
+        Y1[i // p, i % p, b] = 1.0
+    out = ops.block_combine(bc, Y1, p=p)
+    V = ops.decompress(bc).reshape(M, acc.n_seg)
+    for b, i in enumerate(at):
+        assert same_values(out[b], V[i])
+
+
+@pytest.mark.cuda
+def test_float16_basis_write_rounds_once_on_card(cuda):
+    rng = np.random.default_rng(15)
+    ties = 1.0 + np.arange(1, 1024) * 2.0 ** -10 + 2.0 ** -11
+    x = np.concatenate([rng.standard_normal(200_000), ties + 2.0 ** -40,
+                        ties - 2.0 ** -40, [65519.99, 65520.0, 1e300,
+                                            2.0 ** -25, 1.5 * 2.0 ** -24]])
+    with np.errstate(over="ignore"):
+        want = x.astype(np.float16).view(np.int16)
+    acc = BasisAccessor(fmt=NativeFormat(dtype=torch.float16), m=1, n=x.size,
+                        device=cuda)
+    store = acc.empty()
+    acc.write_row(store, 0, torch.from_numpy(x).to(cuda))
+    assert np.array_equal(store[0].cpu().numpy().view(np.int16), want)

@@ -9,7 +9,9 @@ l = 8 and l = 16, for 2^16 seeded codes and the edge codes of l = 32, in f32
 and f64 values, at exponents 0..l+8 (the flush zone and the guard's lower
 edge), a seeded spread, 2*bias (the top of the guard) and 2*bias+1 (Inf/NaN
 patterns).  Values are compared as integer bits, so signed zeros and NaN
-payloads count.
+payloads count.  ``ref.decode_fma_ref``, the f64 one-FMA decode of the
+redesigned matvec and block combine (``decode_fma``), is held to the same
+bits, with its narrower guard's top edge 2*bias + l - 54 in the exponents.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -146,3 +148,24 @@ def test_identity_ell_decodes_a_coded_vector(dtype, l):
     assert torch.equal(got.view(ibits), want.view(ibits))
     scaled = ref.decode_scaled_ref(codes, exps, spec).reshape(-1) + 0.0
     assert torch.equal(scaled.view(ibits), want.view(ibits))
+
+
+@pytest.mark.parametrize("l", [8, 16, 32])
+def test_fma_decode_matches_bit_decode(l):
+    """fma(2^52 + csig, s, -2^52 s) is csig * s exactly wherever -2^52 s is
+    finite; above that edge the guard sends the block to the bit decode."""
+    codes = _codes(l, seed=l + 100)
+    bias = _BIAS["float64"]
+    top = 2 * bias + l - 54
+    exps = np.unique(np.concatenate([_exponents(l, "float64", seed=l + 100),
+                                     [top - 1, top, top + 1]])).astype(np.int32)
+    _, bit, _ = _decoders(codes, exps, "float64", l)
+    n = codes.size
+    spec = TF.FrszSpec(bs=n, l=l, dtype=torch.float64)
+    tcodes = torch.from_numpy(np.broadcast_to(codes, (exps.size, n)).copy()
+                              .view(_SINT[l])).reshape(exps.size, 1, n)
+    got = ref.decode_fma_ref(tcodes, torch.from_numpy(exps).reshape(-1, 1),
+                             spec).reshape(exps.size, n)
+    np.testing.assert_array_equal(got.view(torch.int64).numpy(), bit)
+    inside = (exps >= l - 1) & (exps <= top)
+    assert inside.any() and (exps == top + 1).any()

@@ -29,6 +29,7 @@ torch.set_num_threads(2)
 CASES = [
     ("synth:atmosmod", dict(storage="float64")),
     ("synth:atmosmod", dict(storage="float32")),
+    ("synth:atmosmod", dict(storage="float16")),
     ("synth:atmosmod", dict(storage="frsz2_32")),
     ("synth:atmosmod", dict(storage="frsz2_16")),
     ("synth:atmosmod", dict(storage="mixed:2:frsz2_32")),
@@ -85,6 +86,42 @@ def test_budget_and_trivial_rhs_edges():
     rt = gmres(At, torch.from_numpy(b), x0=torch.from_numpy(x0),
                storage="frsz2_32", m=10, target_rrn=1e-10)
     assert rt.converged and rt.iterations == 0 and rt.restarts == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("call", ["host", "device", "vmap-host",
+                                  "vmap-device", "block-host",
+                                  "block-device"])
+def test_zero_rhs_converges_at_first_restart(call, dtype):
+    """b = 0: x = 0, converged in 0 iterations at the first restart, on
+    every driver and batched method (the block method's ``bn_safe``), in
+    f64 and in f32 arithmetic (where 1e-300 would round to 0)."""
+    _, At, b, target = _problem("synth:atmosmod")
+    zero = torch.zeros(b.shape, dtype=dtype)
+    kw = dict(storage="frsz2_32", m=20, target_rrn=target)
+    if "-" in call:
+        method, driver = call.split("-")
+        res = gmres_batched(At, torch.stack([zero, zero, zero]),
+                            method=method, driver=driver, **kw)
+    else:
+        res = [gmres(At, zero, driver=call, **kw)]
+    for r in res:
+        assert r.converged and not r.stagnated
+        assert (r.iterations, r.restarts) == (0, 1)
+        assert r.rrn == 0.0 and r.bytes_read == 0.0
+        assert torch.equal(r.x, torch.zeros_like(zero))
+
+
+@pytest.mark.parametrize("driver", ["host", "device"])
+def test_jax_reference_returns_nan_for_zero_rhs(driver):
+    """The reference divides by ||b|| = 0 (``repro/solver/gmres.py``
+    ``_restart_loop``): it runs to ``max_iters`` and returns x of NaN,
+    unconverged.  The port returns x = 0, converged (the test above)."""
+    A, _, b, target = _problem("synth:atmosmod")
+    rj = jgmres(A, jnp.zeros_like(jnp.asarray(b)), m=20, max_iters=40,
+                target_rrn=target, driver=driver, storage="frsz2_32")
+    assert not bool(rj.converged) and rj.iterations == 40
+    assert np.isnan(np.asarray(rj.x)).all()
 
 
 def test_unported_options_raise_naming_the_roadmap():
