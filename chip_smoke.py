@@ -53,8 +53,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    block rows (M = 8..808) and in every spot check, twice bit-equal, with
    one-hot rows of Y equal to the decoded basis rows, and across the
    decode guard equal to ``decompress``; the
-   batched ELL SpMV (8 operands, one launch) bit-equal to its plain version
-   and to a second call; the block Givens step of the
+   batched ELL SpMV (8 operands, one launch, the matrix read once) bit-equal
+   to its plain version and to a second call, and at 3 and 16 operands; the
+   block Givens step of the
    block cycle bit-equal to its plain version over m = 100 steps at p = 8;
    CUDA-event times beside the bound, the plain version and ``torch.mm``
    on the decoded basis (``torch.sparse_csr_tensor @ X`` for the ELL);
@@ -74,10 +75,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    a seed in [1, S] and one full row, FRSZ2 K/V with uint8 exponents, l = 16
    and l = 8: the kernel against its plain version on the card (within
    1e-5 of the largest output), spot checks (D = 64, G = 1/2/3/4/12, S = 1000, bf16 q, int32
-   exponents, a length-1 row), CUDA-event times beside the bound, the plain
-   version and ``scaled_dot_product_attention`` on the decoded K/V with a
-   length mask, at S = 32768 and at phase 9's serving shape (S = 2120,
-   lengths 2048-2112);
+   exponents, a length-1 row; lengths 0, 1, 63, 64, 65, 128, 129 and 317 in
+   a cache of 319, across the kernel's 64-position tiles and its splits;
+   K/V blocks whose exponents cross the scaled decode's guard, V rows equal
+   to ``decompress``, ``kernels/cardcheck.py``), CUDA-event times beside the
+   bound, the plain version and ``scaled_dot_product_attention`` on the
+   decoded K/V with a length mask, at S = 32768 and at phase 9's serving
+   shape (S = 2120, lengths 2048-2112);
 9. serving yi-9b at full width and depth (48 layers, bf16, random weights
    from a seed): the teacher-forcing check (prefill + one decode step
    against the parallel forward, B = 2, S = 256) for ``bf16`` and
@@ -88,13 +92,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    to 0 just before and read just after: 32 tokens in range per request,
    finite logits, ``decode_attn`` launched 48 times a decode step in the
    FRSZ2 runs and never in the ``bf16`` one, ``frsz2_compress`` twice a
-   layer per prefill and decode step.  After each FRSZ2 run, on what that
-   run served: the last layer's cache codes and exponents bit-equal to the
-   plain compress of the K/V that the prefill (B x Hkv x 2048 rows) and the
-   last decode step wrote there, and the kernel against its plain version
-   on the last decode attention's q, cache and lengths (bf16 q as served,
-   within one bf16 step of the largest output; the same q in f32, within
-   1e-5 of it).
+   layer per prefill and decode step (``serve``'s ``stats`` count the
+   prefill's and the decode steps' launches apart).  After each FRSZ2 run,
+   on what that run served: the last layer's cache codes and exponents
+   bit-equal to the plain compress of the K/V that the prefill (B x Hkv x
+   2048 rows) and the last decode step wrote there, and the kernel against
+   its plain version on the last decode attention's q, cache and lengths
+   (bf16 q as served, within one bf16 step of the largest output; the same
+   q in f32, within 1e-5 of it).  Then the compress kernel (kernel 1) at
+   its two serving shapes, on the K that the ``frsz2_16`` run wrote in its
+   last decode step (32 rows of hd 128) and its prefill (65,536 rows):
+   bit-equal to the plain compress, timed as the cache write calls it
+   (``kvcache.encode_heads``) and alone.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -141,12 +150,12 @@ BLOCK_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_block_dots",
               "frsz2_block_combine", "ell_spmv", "gmres_block_givens")
 P_BLOCK = 8                # right-hand sides of the block solves
 
-#: phase 8: yi-9b's heads at the decode_32k length (``SHAPES``)
+#: phase 8: yi-9b's heads at the decode_32k length (``SHAPES``).  Its
+#: tolerances are ``kernels/cardcheck.py``'s, shared with the card tests:
+#: f32 q within 1e-5 of the largest plain output (f32 sums in another
+#: order, base-2 exponentials), bf16 q within one bf16 step (2^-7 absolute
+#: in the spot checks, 2^-7 of the largest output on the served cache)
 ATTN_B, ATTN_HKV, ATTN_G, ATTN_D, ATTN_S = 8, 4, 8, 128, 32768
-#: f32 q: max |kernel - plain| over max |plain| (f32 sums in another order,
-#: base-2 exponentials); bf16 q: one bf16 step (2^-7 absolute in the spot
-#: checks, 2^-7 of the largest output on the served cache)
-ATTN_TOL, ATTN_TOL_BF16 = 1e-5, 2 ** -7
 #: phase 9: the serving run, and the teacher-forcing check's tolerance
 SERVE_ARCH = "yi-9b"
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 16, 8, 2048, 32
@@ -1052,8 +1061,18 @@ def phase_block_kernels(A):
     check(torch.equal(yk, yp), "batched ell_spmv != plain")
     check(torch.equal(ops.ell_spmv(E.vals, E.cols, X, kernel=True), yk),
           "batched ell_spmv: two calls differ")
-    print(f"[block] batched ell_spmv ({p} x {n}, w={E.vals.shape[1]}): "
-          "bit-equal to plain")
+    g3 = torch.Generator(device=dev).manual_seed(31)
+    for qq in (3, 16):
+        Xq = torch.randn((qq, n), generator=g3, dtype=torch.float64,
+                         device=dev)
+        yq = ops.ell_spmv(E.vals, E.cols, Xq, kernel=True)
+        check(torch.equal(yq, ops.ell_spmv(E.vals, E.cols, Xq, kernel=False)),
+              f"batched ell_spmv q={qq} != plain")
+        check(torch.equal(ops.ell_spmv(E.vals, E.cols, Xq, kernel=True), yq),
+              f"batched ell_spmv q={qq}: two calls differ")
+        del Xq, yq
+    print(f"[block] batched ell_spmv (q = 3, {p}, 16 x {n}, "
+          f"w={E.vals.shape[1]}): bit-equal to plain, two calls bit-equal")
 
     # the block Givens step over a cycle of m = 100 block steps
     m = M
@@ -1313,25 +1332,14 @@ def _attn_inputs(gen, B, Hkv, G, S, D, l, exp_dtype, qdt=None):
     return q if qdt is None else q.to(qdt), bcs[0], bcs[1]
 
 
-def _attn_pair(q, kbc, vbc, lengths, **kw):
-    """Kernel and plain decode attention; returns (kernel out, max abs err,
-    max abs err over the largest |plain output|)."""
-    from repro_torch.kernels import ops
-
-    ok = ops.decode_attention(q, kbc, vbc, lengths, kernel=True, **kw)
-    op = ops.decode_attention(q, kbc, vbc, lengths, kernel=False, **kw)
-    check(ok.dtype == op.dtype == q.dtype and ok.shape == op.shape,
-          "decode attention kernel and plain disagree on type or shape")
-    err = float((ok.float() - op.float()).abs().max())
-    return ok, err, err / float(op.float().abs().max())
-
-
 def phase_decode_attn():
     """Slice 4's kernel at the decode_32k length with yi-9b's heads."""
     import torch
 
     from repro_torch.core import frsz2 as F
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cardcheck, ops
+    from repro_torch.kernels.cardcheck import ATTN_TOL, ATTN_TOL_BF16
+    from repro_torch.kernels.cardcheck import attn_pair as _attn_pair
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4242)
@@ -1438,7 +1446,87 @@ def phase_decode_attn():
                   f"abs error {err:.3e}, {rel:.3e} of the largest output")
     print(f"[attn] spot checks passed: {len(spots)} (D 64/128, G 1/2/3/4/8/"
           "12, S=1000, bf16 q, int32 exponents, a length-1 row)")
+
+    # the kernel's tile and split edges; K/V blocks across the decode guard
+    edge = cardcheck.ATTN_EDGE_LENGTHS
+    lens_e = torch.tensor(edge, dtype=torch.int32, device=dev)
+    S_e = max(edge) + 2
+    for D_, l, G_, edt, qdt in ((128, 16, 8, torch.uint8, torch.float32),
+                                (64, 8, 3, torch.int32, torch.bfloat16),
+                                (128, 8, 12, torch.uint8, torch.float32)):
+        q, kbc, vbc = _attn_inputs(g2, len(edge), 2, G_, S_e, D_, l, edt, qdt)
+        out, err, rel = _attn_pair(q, kbc, vbc, lens_e)
+        ok = rel <= ATTN_TOL if qdt == torch.float32 else err <= ATTN_TOL_BF16
+        check(ok and not out[0].any(),
+              f"decode_attn edge lengths {edge} D={D_} l={l} G={G_} {qdt}: "
+              f"max abs error {err:.3e}, {rel:.3e} of the largest output")
+    rows = 0
+    for l in (16, 8):
+        for edt in (torch.uint8, torch.int32):
+            v_ok, rel, n = cardcheck.attn_across_guard(l, edt, g2)
+            check(v_ok, f"decode_attn l={l} {edt}: V rows across the decode "
+                        "guard differ from decompress")
+            check(rel <= ATTN_TOL, f"decode_attn l={l} {edt}: K across the "
+                                   f"decode guard, {rel:.3e} of the largest "
+                                   "output")
+            rows += n
+    print(f"[attn] tile edges: lengths {list(edge)} in S={S_e} (D 64/128, l "
+          f"8/16, G 3/8/12, bf16 q) within tolerance, the empty row 0; "
+          f"across the decode guard: {rows} sequences, V equal to "
+          "decompress, K within tolerance")
     return entries
+
+
+def _compress_serve_times(writes, fmt):
+    """Kernel 1 at its two serving shapes, on the K that the served run
+    wrote (``writes``: one decode step's, B * Hkv rows, and the prefill's,
+    B * Hkv * prompt rows, as ``kvcache`` passed them): timed as the cache
+    write calls it, ``kvcache.encode_heads`` (its casts to f32 and to
+    contiguous rows, the kernel, and the narrowing of the kernel's int32
+    exponents to the cache's uint8), and the kernel alone beside it, whose
+    codes and exponents must equal the plain compress."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import frsz2_kernel as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import kvcache
+
+    D = writes["step"].shape[-1]
+    spec = fmt.spec(D)
+    out = {}
+    for name, x in writes.items():
+        rows = x.numel() // D
+        x2 = x.to(torch.float32).contiguous().view(rows, D)
+        codes = torch.empty((rows, D), dtype=F.code_dtype(spec.l),
+                            device=x.device)
+        e32 = torch.empty((rows, 1), dtype=torch.int32, device=x.device)
+        K.compress_2d(x2, codes, e32, spec)
+        want = ops.compress(x2, spec, kernel=False)
+        check(torch.equal(codes, want.codes.view(rows, D))
+              and torch.equal(e32, want.exps.to(torch.int32)),
+              f"compress at the serve {name} shape ({rows} rows) != plain")
+        # the write as the cache makes it: x in its dtype read once, codes
+        # and one uint8 exponent a row written once
+        nbytes = rows * D * (x.element_size() + codes.element_size()) + rows
+        out.update({
+            f"serve_{name}_rows": rows,
+            f"serve_{name}_ms": timed(
+                lambda: kvcache.encode_heads(x, fmt, D)),
+            f"serve_{name}_kernel_ms": timed(
+                lambda: K.compress_2d(x2, codes, e32, spec)),
+            f"serve_{name}_plain_ms": timed(
+                lambda: ops.compress(x.to(torch.float32), spec,
+                                     kernel=False), reps=3),
+            f"serve_{name}_bound_ms": bound_ms(nbytes)[0]})
+        print(f"[serve] compress at the {name} write ({rows} x {D} "
+              f"{str(x.dtype)[6:]}, bs {spec.bs}, l {spec.l}): the cache "
+              f"write {out[f'serve_{name}_ms'] * 1e3:.2f} us, the kernel "
+              f"alone {out[f'serve_{name}_kernel_ms'] * 1e3:.2f} us, bound "
+              f"{out[f'serve_{name}_bound_ms'] * 1e3:.4f} us, plain "
+              f"{out[f'serve_{name}_plain_ms'] * 1e3:.1f} us")
+        del x2, codes, e32, want
+    return out
 
 
 def _serve_config(kv_format):
@@ -1520,6 +1608,8 @@ def _check_served_cache(tap, fmt_name):
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cardcheck import ATTN_TOL, ATTN_TOL_BF16
+    from repro_torch.kernels.cardcheck import attn_pair as _attn_pair
 
     check(tap.attn is not None and len(tap.prefill) == len(tap.decode) == 2,
           f"{fmt_name}: the serve run wrote or read no FRSZ2 cache")
@@ -1631,7 +1721,21 @@ def phase_serve(device_line):
         others = {k: v for k, v in got.items() if v and k not in want}
         check(not others, f"{fmt_name}: other kernels launched: {others}")
         served = _check_served_cache(tap, fmt_name) if frsz else {}
+        if fmt_name == "frsz2_16":
+            writes = {"step": tap.decode[-2], "prefill": tap.prefill[-2]}
         del tap
+        # the same counts split between the prefill and the decode steps
+        # (``stats``): a layer's launches in each
+        split = {"prefill": stats["prefill_launches"],
+                 "step": stats["step_launches"]}
+        per_layer = {"prefill": (1, {"decode_attn": 0, "frsz2_compress": 2}),
+                     "step": (steps, {"decode_attn": 1, "frsz2_compress": 2})}
+        for part, (n, per) in per_layer.items():
+            for k, m in per.items():
+                n_want = n * m * cfg.num_layers if frsz else 0
+                check(split[part][k] == n_want,
+                      f"{fmt_name}: {k} launched {split[part][k]} times in "
+                      f"the {part}, the path implies {n_want}")
         per_pos = (cfg.hd * fmt.bits_per_value(cfg.hd) / 8) * 2
         cache_read = (cfg.num_layers * SERVE_SLOTS * cfg.num_kv_heads
                       * mean_len * per_pos)
@@ -1654,18 +1758,25 @@ def phase_serve(device_line):
                        fmt, cfg.num_layers, SERVE_SLOTS, cfg.num_kv_heads,
                        sc.max_ctx, cfg.hd),
                    launches={k: v for k, v in got.items() if v},
+                   prefill_launches={k: v for k, v in
+                                     split["prefill"].items() if v},
+                   step_launches={k: v for k, v in split["step"].items()
+                                  if v},
                    sample=out[0][:8], device=device_line, **served)
         emit(row)
         rows.append(row)
         if fmt_name == "frsz2_16":
-            launches = got
+            launches = dict(got, **{f"{k}_{part}": v
+                                    for part, c in split.items()
+                                    for k, v in c.items()})
     for r in rows:
         print(f"[serve] {r['kv_format']}: prefill {r['prefill_s'][0]:.3f} s, "
               f"decode step median {r['step_ms_median']:.2f} ms (bound "
               f"{r['step_bound_ms']:.2f} ms), {r['decode_tokens_per_s']:.1f} "
               f"tokens/s, peak {r['peak_mem_bytes'] / 2**30:.2f} GiB, cache "
               f"{r['cache_nbytes'] / 1e9:.3f} GB")
-    return launches
+    return launches, _compress_serve_times(writes, kvcache.cache_format(
+        "frsz2_16"))
 
 
 def _leaves(tree):
@@ -1711,7 +1822,14 @@ def main() -> int:
     release()
     entries.update(phase_decode_attn())
     release()
-    serve_launches = phase_serve(device_line)
+    serve_launches, compress_serve = phase_serve(device_line)
+    # kernel 1 on the serving path, counted in the prefill and in the
+    # decode steps of the frsz2_16 run
+    entries["frsz2_compress"].update(
+        compress_serve,
+        serve_launches=serve_launches["frsz2_compress"],
+        serve_step_launches=serve_launches["frsz2_compress_step"],
+        serve_prefill_launches=serve_launches["frsz2_compress_prefill"])
     for name, e in entries.items():
         key = e.get("kernel", name)
         if e.get("path") == "block":

@@ -1,11 +1,13 @@
-"""Shared checks of the redesigned matvec and block combine on the card.
+"""Shared checks of the redesigned kernels on the card.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` both hold the kernels to
-these, so the two cannot drift apart: the row counts that cross the kernels'
-tilings, bit comparison of values, seeded codes, and the two checks across
-the scaled decode's guard.  Each check runs the kernel through ``ops`` (so
-it launches on a CUDA generator's device) and compares with the plain
-``decompress``.
+these, so the two cannot drift apart: the row counts that cross the matvec's
+and the block combine's tilings, the lengths that cross the decode
+attention's tiles and splits, bit comparison of values, seeded codes, and
+the checks across the scaled decode's guard (matvec, block combine, decode
+attention).  Each check runs the kernel through ``ops`` (so it launches on a
+CUDA generator's device) and compares with the plain ``decompress`` or the
+plain version of the kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attn import TILE
 
 #: rows across the matvec's 8-row ring turns and 128-row groups, and block
 #: rows across the combine's ring turns and Y tiles (p = 8: M = 8 ... 808)
@@ -20,6 +23,14 @@ EDGE_ROWS = (1, 2, 7, 33, 64, 65, 101)
 
 #: (value dtype, exponent bias) of the checks across the guard
 GUARD_DTYPES = ((torch.float64, 1023), (torch.float32, 127))
+
+#: decode attention: lengths at and across its tile's edges and a
+#: two-tile split's
+ATTN_EDGE_LENGTHS = (0, 1, TILE - 1, TILE, TILE + 1, 2 * TILE, 2 * TILE + 1,
+                     5 * TILE - 3)
+#: f32 q: max |kernel - plain| over max |plain| (f32 sums in another order,
+#: base-2 exponentials); bf16 q: one bf16 step, absolute
+ATTN_TOL, ATTN_TOL_BF16 = 1e-5, 2 ** -7
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -99,3 +110,72 @@ def combine_across_guard(dtype, bias: int, l: int,
     Y = torch.ones((1, 1, 1), dtype=dtype, device=dev)
     got = ops.block_combine(bc, Y, p=1, kernel=True)[0]
     return same_values(got, ops.decompress(bc, kernel=False)[0]), nb * 32
+
+
+def attn_pair(q, k_bc, v_bc, lengths, **kw):
+    """Decode attention, kernel against plain on the same inputs: (kernel
+    output, max abs error, that over the largest |plain output|)."""
+    ok = ops.decode_attention(q, k_bc, v_bc, lengths, kernel=True, **kw)
+    op = ops.decode_attention(q, k_bc, v_bc, lengths, kernel=False, **kw)
+    if ok.dtype != q.dtype or op.dtype != q.dtype or ok.shape != op.shape:
+        raise AssertionError("decode attention: kernel and plain differ in "
+                             "type or shape")
+    err = float((ok.float() - op.float()).abs().max())
+    return ok, err, err / float(op.float().abs().max())
+
+
+def attn_across_guard(l: int, exp_dtype,
+                      gen: torch.Generator) -> tuple[bool, float, int]:
+    """Decode attention (D = bs = 128, one block a position) over K and V
+    positions whose block exponents cross the scaled decode's guard
+    (:func:`guard_exponents` of f32, one exponent a sequence).
+
+    V: every sequence has length 1, so each output row is its position 0's
+    V row, decoded: it must equal ``decompress`` (``same_values``; NaN and
+    Inf patterns at 2*bias+1 included).  K: length 2; position 0 holds one
+    code (either sign, an integer bit of 0, so finite at every exponent) in
+    column 5, position 1 zeros; q is one-hot in column 5 at 2^(127 - e), so
+    with ``sm_scale`` 8 every logit lies in (-8, 8); V is 1.0 at position 0 and 0 at 1, so each
+    output is position 0's softmax weight: held to the plain version within
+    ``ATTN_TOL`` of the largest output.  Returns (V equal to ``decompress``,
+    the K case's relative error, sequences checked)."""
+    dev = gen.device
+    D, S, G = 128, 3, 2
+    spec = F.FrszSpec(bs=D, l=l, dtype=torch.float32, rounding="nearest",
+                      exp_dtype=exp_dtype)
+    E = guard_exponents(l, 127, gen)
+    B = E.numel()
+    exps = torch.full((B, 1, S, 1), 127, dtype=torch.int32, device=dev)
+    exps[:, 0, 0, 0] = E
+    exps = exps.to(exp_dtype)
+
+    def bc(codes):
+        return F.BlockCompressed(codes=codes, exps=exps, n=D, spec=spec)
+
+    # V across the guard, K random at exponent 127
+    v_bc = bc(rand_codes((B, 1, S, 1, D), l, gen))
+    k_bc = F.BlockCompressed(codes=rand_codes((B, 1, S, 1, D), l, gen),
+                             exps=torch.full_like(exps, 127), n=D, spec=spec)
+    q = torch.randn((B, G, D), generator=gen, device=dev)
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, k_bc, v_bc, ones, kernel=True)
+    want = ops.decompress(v_bc, kernel=False)[:, 0, 0]
+    v_ok = same_values(got, want[:, None].expand(B, G, D))
+
+    # K across the guard
+    kc = torch.zeros((B, 1, S, 1, D), dtype=F.code_dtype(l), device=dev)
+    sig = torch.randint(1, 1 << (l - 2), (B,), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (B,), generator=gen, device=dev)
+    code = sig + sign * (1 << (l - 1))
+    if l > 8:
+        code = code - (code >= (1 << (l - 1))).long() * (1 << l)
+    kc[:, 0, 0, 0, 5] = code.to(kc.dtype)
+    vx = torch.zeros((B, 1, S, D), device=dev)
+    vx[:, :, 0] = 1.0
+    v1 = ops.compress(vx, spec, kernel=False)
+    qk = torch.zeros((B, G, D), device=dev)
+    qk[:, :, 5] = torch.ldexp(torch.ones((B, 1), device=dev),
+                              (127 - E.long())[:, None])
+    _, _, rel = attn_pair(qk, bc(kc), F.BlockCompressed(
+        codes=v1.codes, exps=v1.exps, n=D, spec=spec), ones + 1, sm_scale=8.0)
+    return v_ok, rel, B

@@ -21,9 +21,8 @@
 // slot count per element and decoded each entry with the 64-bit bit
 // decode: 72.9 / 79.6 us (dense / coded, H100 80GB HBM3, 700 W).
 //
-// What the design does about it (46.7 / 50.2 us dense / coded, 330 us for
-// the batch of 8, against cuSPARSE's 61.8 / 61.9 / 609 us on the decoded
-// operand):
+// What the design does about it (46.7 / 50.2 us dense / coded, against
+// cuSPARSE's 61.8 / 61.9 us on the decoded operand):
 //  * the suite's widths (w = 7, the 7-point stencils, and w = 27) are
 //    compiled in: one warp owns 32 consecutive rows, and its (32, w) tiles
 //    of values and columns, which are contiguous, arrive in shared memory
@@ -47,11 +46,21 @@
 //    same bits on every run;
 //  * the operand's gathers of a banded operator land in a few MB around the
 //    row band, which L2 (50 MB) holds.
-// A block of q dense operands x (q, nc) -> y (q, nr) is one launch with
-// grid (row tiles, q), the counterpart of `jax.vmap` over `ell_spmv_2d` in
-// the JAX package's block-GMRES (`repro/solver/block.py:219`).  Each column
-// re-reads vals and cols (q x 106 MB at the main-path size); reading them
-// once for all q columns is later work.
+// A block of q dense operands x (q, nc) -> y (q, nr) is one launch, the
+// counterpart of `jax.vmap` over `ell_spmv_2d` in the JAX package's
+// block-GMRES (`repro/solver/block.py:219`).  The first batched launch ran
+// the single-operand kernel on a grid (row tiles, q), so every column
+// re-read vals and cols: 8 x 126 MB at q = 8, 330 us, already at the card's
+// bandwidth.  Now the grid covers the row tiles only: a warp stages its
+// (32, w) tile once, as above, and each lane walks the q columns of its row
+// kCols at a time, the w * kCols gathers of a group in flight together (28
+// at w = 7, 32 at w = 27), each column summed in slot order from 0 as
+// before, so every output bit is unchanged.  The matrix is read once (267 MB
+// at q = 8 with x and y); the gathers of the columns land in q bands of x,
+// which at q = 8 (81 MB) exceed L2.  117 us at q = 8, against a 79.7 us
+// bound and cuSPARSE's 606 us (H100 80GB HBM3, 700 W).  Other widths loop
+// over the columns the same way, one thread per row.  A single operand
+// (q = 1) and the coded operand keep their kernels.
 #include <algorithm>
 
 #include "frsz2_common.cuh"
@@ -61,6 +70,7 @@ namespace ell {
 constexpr int kWarps = 4;                  // tile kernel: warps per block
 constexpr int kThreads = kWarps * 32;      // threads per block (both kernels)
 constexpr int kGroup = 8;                  // slots gathered before they are summed
+constexpr int kCols = 4;                   // batched: columns of a row walked together
 
 template <typename T>
 __device__ __forceinline__ T mul_rn(T a, T b) {
@@ -71,18 +81,15 @@ __device__ __forceinline__ T add_rn(T a, T b) {
   if constexpr (sizeof(T) == 8) return __dadd_rn(a, b); else return __fadd_rn(a, b);
 }
 
-// Dense operand, already in the value type: column blockIdx.y of a (q, nc)
-// block.
+// Dense operand, already in the value type.
 template <typename T>
 struct DenseX {
   const T* x;
-  long long nc;
-  __device__ __forceinline__ T one(int c) const { return __ldg(x + blockIdx.y * nc + c); }
+  __device__ __forceinline__ T one(int c) const { return __ldg(x + c); }
   template <int K>
   __device__ __forceinline__ void gather(const int (&c)[K], T (&v)[K]) const {
-    const T* xc = x + blockIdx.y * nc;
 #pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = __ldg(xc + c[k]);
+    for (int k = 0; k < K; ++k) v[k] = __ldg(x + c[k]);
   }
 };
 
@@ -172,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kFull; ++k)
       if (k0 + k < W) acc = add_rn(acc, mul_rn(vr[k0 + k], x[k]));
   }
-  y[blockIdx.y * nr + row0 + lane] = acc;
+  y[row0 + lane] = acc;
 }
 
 // Any other width: one thread per row, its slots read straight from device
@@ -187,18 +194,130 @@ __global__ void __launch_bounds__(kThreads)
   const int* cr = cols + row * w;
   T acc = T(0);
   for (int k = 0; k < w; ++k) acc = add_rn(acc, mul_rn(__ldg(vr + k), load.one(__ldg(cr + k))));
-  y[blockIdx.y * nr + row] = acc;
+  y[row] = acc;
+}
+
+// A block of q dense operands, compile-time width W: the warp's (32, W)
+// tiles staged once, as in ell_tile_kernel; then each lane walks the q
+// columns of its row kCols at a time, every gather of a group (W * kCols,
+// in slot groups of kSlots) issued before its first product, each column's
+// products summed in slot order from 0.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+    ell_tile_batched_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
+                            const T* __restrict__ x, T* __restrict__ y, long long nr,
+                            long long nc, int q, bool aligned) {
+  constexpr int kSlots = W < kGroup ? W : kGroup;
+  __shared__ __align__(16) T vs[kWarps][32 * W];
+  __shared__ __align__(16) int cs[kWarps][32 * W];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * 32;
+  if (row0 >= nr) return;                    // whole warps leave: no block barrier
+  const int rows = static_cast<int>(min(32LL, nr - row0));
+  stage(vals + row0 * W, vs[warp], rows * W, aligned, lane);
+  stage(cols + row0 * W, cs[warp], rows * W, aligned, lane);
+  frsz2::cp_async_commit();
+  frsz2::cp_async_wait<0>();
+  __syncwarp();
+  if (lane >= rows) return;
+  const T* vr = vs[warp] + lane * W;
+  const int* cr = cs[warp] + lane * W;
+  const long long row = row0 + lane;
+  for (int c0 = 0; c0 < q; c0 += kCols) {
+    const int nq = min(kCols, q - c0);
+    const T* xc = x + c0 * nc;
+    T acc[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] = T(0);
+#pragma unroll
+    for (int k0 = 0; k0 < W; k0 += kSlots) {
+      int c[kSlots];
+      T xv[kCols][kSlots];
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) c[k] = k0 + k < W ? cr[k0 + k] : 0;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) xv[j][k] = j < nq ? __ldg(xc + j * nc + c[k]) : T(0);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (k0 + k < W) {
+          const T v = vr[k0 + k];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) acc[j] = add_rn(acc[j], mul_rn(v, xv[j][k]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (j < nq) y[(c0 + j) * nr + row] = acc[j];
+  }
+}
+
+// A block of q dense operands, any other width: one thread per row, its
+// slots read straight from device memory once per group of kCols columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ell_row_batched_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
+                           const T* __restrict__ x, T* __restrict__ y, long long nr, int w,
+                           long long nc, int q) {
+  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= nr) return;
+  const T* vr = vals + row * w;
+  const int* cr = cols + row * w;
+  for (int c0 = 0; c0 < q; c0 += kCols) {
+    const int nq = min(kCols, q - c0);
+    const T* xc = x + c0 * nc;
+    T acc[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] = T(0);
+    for (int k = 0; k < w; ++k) {
+      const T v = __ldg(vr + k);
+      const int c = __ldg(cr + k);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (j < nq) acc[j] = add_rn(acc[j], mul_rn(v, __ldg(xc + j * nc + c)));
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (j < nq) y[(c0 + j) * nr + row] = acc[j];
+  }
+}
+
+__host__ inline bool aligned16(const void* a, const void* b) {
+  return reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+template <typename T>
+void launch_batched(const void* vals, const int* cols, const void* x, void* y, long long nr,
+                    int w, long long nc, int q, cudaStream_t s) {
+  const T* v = static_cast<const T*>(vals);
+  const T* xs = static_cast<const T*>(x);
+  T* out = static_cast<T*>(y);
+  const bool aligned = aligned16(vals, cols);
+  const unsigned grid = static_cast<unsigned>((nr + kThreads - 1) / kThreads);
+  switch (w) {
+    case 7:
+      ell_tile_batched_kernel<T, 7><<<grid, kThreads, 0, s>>>(v, cols, xs, out, nr, nc, q,
+                                                              aligned);
+      break;
+    case 27:
+      ell_tile_batched_kernel<T, 27><<<grid, kThreads, 0, s>>>(v, cols, xs, out, nr, nc, q,
+                                                               aligned);
+      break;
+    default:
+      ell_row_batched_kernel<T><<<grid, kThreads, 0, s>>>(v, cols, xs, out, nr, w, nc, q);
+  }
 }
 
 template <typename T, class Load>
 void launch(const void* vals, const int* cols, Load load, void* y, long long nr, int w,
-            cudaStream_t s, int q = 1) {
+            cudaStream_t s) {
   const T* v = static_cast<const T*>(vals);
   T* out = static_cast<T*>(y);
-  const bool aligned = (reinterpret_cast<uintptr_t>(vals) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(cols) % 16 == 0);
-  const dim3 grid(static_cast<unsigned>((nr + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(q));
+  const bool aligned = aligned16(vals, cols);
+  const unsigned grid = static_cast<unsigned>((nr + kThreads - 1) / kThreads);
   switch (w) {
     case 7:
       ell_tile_kernel<T, Load, 7><<<grid, kThreads, 0, s>>>(v, cols, load, out, nr, aligned);
@@ -256,17 +375,23 @@ extern "C" {
 int ell_spmv(const void* vals, const void* cols, const void* x, void* y, long long nr,
              int w, long long nc, int q, int kind, void* stream) {
   using namespace ell;
-  if (nr <= 0 || w <= 0 || nc <= 0 || q <= 0 || q > frsz2::kMaxGridY ||
+  if (nr <= 0 || w <= 0 || nc <= 0 || q <= 0 ||
       nr > (1LL << 31) * kThreads)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cols);
   switch (kind) {
     case frsz2::kF32:
-      launch<float>(vals, c, DenseX<float>{static_cast<const float*>(x), nc}, y, nr, w, s, q);
+      if (q == 1)
+        launch<float>(vals, c, DenseX<float>{static_cast<const float*>(x)}, y, nr, w, s);
+      else
+        launch_batched<float>(vals, c, x, y, nr, w, nc, q, s);
       break;
     case frsz2::kF64:
-      launch<double>(vals, c, DenseX<double>{static_cast<const double*>(x), nc}, y, nr, w, s, q);
+      if (q == 1)
+        launch<double>(vals, c, DenseX<double>{static_cast<const double*>(x)}, y, nr, w, s);
+      else
+        launch_batched<double>(vals, c, x, y, nr, w, nc, q, s);
       break;
     default:
       return cudaErrorInvalidValue;

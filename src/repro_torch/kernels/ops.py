@@ -535,9 +535,9 @@ def decode_attention(q: torch.Tensor, k_bc: F.BlockCompressed,
     cd = F.code_dtype(spec.l)
     for name, t in (("k codes", kcodes), ("v codes", vcodes)):
         _expect(t, name, (B, Hkv, S, D), cd, dev)
-        if t.data_ptr() % (D // 32 * t.element_size()):
-            raise ValueError(f"{name} must be aligned to the kernel's "
-                             f"{D // 32}-code loads")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the "
+                             "kernel stages them by 16-byte cp.async)")
     exps = []
     for name, t in (("k exps", k_bc.exps), ("v exps", v_bc.exps)):
         _expect(t, name, (B, Hkv, S, nbd), spec.exp_dtype, dev)
@@ -547,7 +547,8 @@ def decode_attention(q: torch.Tensor, k_bc: F.BlockCompressed,
         raise ValueError(f"lengths are on {lens.device}, expected {dev}")
     from repro_torch.kernels import decode_attn as KA
 
-    chunk, nsplit = KA.splits(B, Hkv, G, S)
+    chunk, nsplit = KA.splits(
+        B, Hkv, G, S, KA.resident_blocks(G, D, nbd, spec.l, q.dtype, dev.index))
     part_acc = torch.empty((B, Hkv, G, nsplit, D), dtype=torch.float32,
                            device=dev)
     part_ml = torch.empty((B, Hkv, G, nsplit, 2), dtype=torch.float32,

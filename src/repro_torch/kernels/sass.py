@@ -2,17 +2,22 @@
 
     python -m repro_torch.kernels.sass [--csrc DIR]
 
-Builds ``frsz2_block.cu``, ``frsz2_dot.cu`` and ``ell_spmv.cu`` from
-``--csrc`` (default: this package's ``csrc/``; give another checkout's to
-compare two versions) with the flags of :mod:`repro_torch.kernels.build`,
-disassembles them with ``cuobjdump -sass`` and prints, for each main-path
-instantiation (the frsz2_32 block dots and block combine of f64 values at
-q = 8, the frsz2_32 f64 matvec, and the f64 ELL SpMV, dense and with a
-frsz2_32 operand): its instruction count, each loop (a backward
-branch and the instructions it jumps over) with its length and a histogram
-of its opcodes, and its hot path (:func:`hot_path`: the instructions one
-pass executes when it takes no rare branch).  Needs ``nvcc`` and
-``cuobjdump``, so it runs on the card's machine; it launches nothing.
+Builds ``frsz2_block.cu``, ``frsz2_dot.cu``, ``ell_spmv.cu`` and
+``decode_attn.cu`` from ``--csrc`` (default: this package's ``csrc/``; give
+another checkout's to compare two versions) with the flags of
+:mod:`repro_torch.kernels.build`, disassembles them with ``cuobjdump -sass``
+and prints, for each main-path instantiation (the frsz2_32 block dots and
+block combine of f64 values at q = 8, the frsz2_32 f64 matvec, the f64 ELL
+SpMV, dense, batched at w = 7 and with a frsz2_32 operand, and the decode
+attention at yi-9b's heads, l = 16, D = 128, G = 8, f32 and bf16 q): its
+instruction count, each loop (a backward branch and the instructions it
+jumps over) with its length and a histogram of its opcodes, and its hot
+path (:func:`hot_path`: the instructions one pass executes when it takes
+no rare branch).  For the decode attention it prints the warp instructions
+a cache position costs (:func:`attn_per_position`), for the dense ELL the
+instructions a slot of one column (:func:`ell_per_slot`: the batched launch
+at q = 8).  Needs ``nvcc`` and ``cuobjdump``, so it runs on the card's
+machine; it launches nothing.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import tempfile
 
 from repro_torch.kernels import build
 
-SOURCES = ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu")
+SOURCES = ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu", "decode_attn.cu")
 #: the main-path instantiations: the matvec as redesigned (vector loads)
 #: and as first designed (``matvec_partial_kernel``, for ``--csrc`` of an
 #: older checkout)
@@ -37,12 +42,38 @@ MATCH = (r"block_dots_partial<frsz2::Layout<64, 52, 11>, unsigned int, 8>"
          r"(true|1)>"
          r"|partial_kernel<frsz2::Layout<64, 52, 11>, unsigned int>)"
          r"|ell_\w+_kernel<double, ell::(CodedX<double, frsz2::Layout"
-         r"<64, 52, 11>, unsigned int>|DenseX<double>)")
+         r"<64, 52, 11>, unsigned int>|DenseX<double>)"
+         r"|ell_tile_batched_kernel<double, 7>"
+         r"|attn::split_kernel<(float|__nv_bfloat16), unsigned short, "
+         r"(4|128), 8>")
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _FUNC = re.compile(r"Function : (\S+)")
 _CALL_COST = 10 ** 6
 _ARITH = ("DFMA", "DMUL", "DADD", "FFMA", "FMUL", "FADD")
+
+#: the counted shapes (the instantiations :data:`MATCH` selects): the decode
+#: attention's head width and group tile; the batched ELL's compiled width
+#: and the block path's q
+ATTN_D, ATTN_HEADS = 128, 8
+ELL_W, ELL_Q = 7, 8
+#: the kernels' geometry, read from the sources that are counted
+#: (:func:`geometry`): ``decode_attn.cu``'s warps a block, positions a tile
+#: and columns of d a thread owns in P.V; ``ell_spmv.cu``'s columns a pass
+#: of the batched column loop
+GEOMETRY = {"decode_attn.cu": ("kWarps", "kTile", "kPvCols"),
+            "ell_spmv.cu": ("kCols",)}
+_CONST = re.compile(r"^constexpr int (k\w+) = (\d+);", re.M)
+
+
+def geometry(csrc: pathlib.Path) -> dict[str, int]:
+    """The :data:`GEOMETRY` constants that the sources in ``csrc`` define
+    (an older design may lack some)."""
+    geo = {}
+    for src, names in GEOMETRY.items():
+        consts = dict(_CONST.findall((csrc / src).read_text()))
+        geo.update({n: int(consts[n]) for n in names if n in consts})
+    return geo
 
 
 def _tool(name: str) -> str:
@@ -119,11 +150,14 @@ def loops(insns) -> list[dict]:
 
 
 def _targets(op: str, args: str) -> tuple[bool, int | None]:
-    """(falls through, branch target or None) of one instruction."""
+    """(falls through, branch target or None) of one instruction.  A
+    predicated branch falls through when its predicate is false, and
+    ``BRA.DIV`` (taken only by a diverged warp) when the warp is
+    converged."""
     pred = "|" in args
     if op.startswith("BRA"):
         m = re.search(r"0x([0-9a-f]+)", args)
-        return pred, int(m.group(1), 16) if m else None
+        return pred or ".DIV" in op, int(m.group(1), 16) if m else None
     if op.startswith("EXIT"):
         return pred, None
     return True, None
@@ -191,8 +225,79 @@ def hot_path(insns) -> dict | None:
                 **shortest_path(insns, insns[0][0], stores[-1]))
 
 
+def _path(insns, start, end, op):
+    return shortest_path(insns, start, end, most=(op,))
+
+
+def attn_per_position(insns, geo: dict[str, int]) -> dict | None:
+    """Warp instructions a cache position (of one kv head) costs on the
+    decode attention's hot path, at D = 128, G = 8 (``geo``: the source's
+    :func:`geometry`).
+
+    Its main loop is the one whose hot path runs the most FFMAs (a loop
+    the compiler split into overlapping ranges may have no path through
+    it).  The first design walked one position a warp a pass, so a pass of
+    that loop is a position (its
+    FFMAs, (2 * D / 32 + 1) * G a position, say how many positions a pass
+    holds).  The tiled design's main loop is a tile: one pass (the P.V loop
+    inside it counted once) plus the P.V loop's other passes (T / TP
+    positions a thread, TP = 32 * warps / (D / kPvCols) position lanes,
+    kPvCols * G FFMAs each; the P.V loop is the inner loop whose hot path
+    calls nothing: the guarded K decode's loop always does), times the
+    block's warps, over the tile's T positions."""
+    lps = [lp for lp in loops(insns) if lp["ops"].get("FFMA")]
+    paths = [(lp, _path(insns, lp["start"], lp["end"], "FFMA")) for lp in lps]
+    paths = [(lp, p) for lp, p in paths if p["n"]]
+    if not paths:
+        return None
+    main, hot = max(paths, key=lambda c: (c[1]["ops"].get("FFMA", 0), -c[1]["n"]))
+    inner = []
+    for lp in lps:
+        if lp is not main and main["start"] <= lp["start"] <= lp["end"] <= main["end"]:
+            p = _path(insns, lp["start"], lp["end"], "FFMA")
+            if "CALL" not in p["ops"]:
+                inner.append(p)
+    if not inner:
+        u = hot["ops"].get("FFMA", 0) / ((2 * ATTN_D // 32 + 1) * ATTN_HEADS)
+        return dict(design="a warp a position", pass_n=hot["n"],
+                    positions_a_pass=u, per_position=hot["n"] / u)
+    pv = max(inner, key=lambda p: p["ops"].get("FFMA", 0))
+    warps, tile, cols = geo["kWarps"], geo["kTile"], geo["kPvCols"]
+    lanes = 32 * warps // (ATTN_D // cols)
+    u = pv["ops"]["FFMA"] / (cols * ATTN_HEADS)
+    per_tile = hot["n"] + (tile / lanes / u - 1) * pv["n"]
+    return dict(design="tiled", pass_n=hot["n"], pv_n=pv["n"],
+                positions_a_pv_pass=u, per_tile_warp=per_tile,
+                per_position=per_tile * warps / tile)
+
+
+def ell_per_slot(insns, batched: bool,
+                 geo: dict[str, int] | None = None) -> dict | None:
+    """Instructions a slot of one column costs the dense ELL SpMV at
+    w = 7 (the way from the entry to the last store that runs every DMUL).
+    The single-operand kernel ran once per column of a batch, so its way
+    over w slots is a column.  The batched kernel's way passes its column
+    loop once (``geo["kCols"]`` columns, from :func:`geometry`); at q = 8
+    the loop runs ``ELL_Q / kCols - 1`` more times."""
+    stores = [a for a, op, _ in insns if op.startswith("STG")]
+    if not stores:
+        return None
+    way = _path(insns, insns[0][0], stores[-1], "DMUL")
+    if not batched:
+        return dict(way_n=way["n"], per_slot=way["n"] / ELL_W)
+    lps = [lp for lp in loops(insns) if lp["ops"].get("DMUL")]
+    if not lps:
+        return None
+    lp = max(lps, key=lambda d: d["ops"]["DMUL"])
+    body = _path(insns, lp["start"], lp["end"], "DMUL")
+    n = way["n"] + (ELL_Q // geo["kCols"] - 1) * body["n"]
+    return dict(way_n=way["n"], loop_n=body["n"], q8_n=n,
+                per_slot=n / (ELL_W * ELL_Q))
+
+
 def report(csrc: pathlib.Path) -> list[dict]:
     pat = re.compile(MATCH)
+    geo = geometry(csrc)
     with tempfile.TemporaryDirectory(dir=build.BUILD.parent) as d:
         libs = compile_sources(csrc, pathlib.Path(d))
         rows = []
@@ -206,9 +311,15 @@ def report(csrc: pathlib.Path) -> list[dict]:
                 if not pat.search(name):
                     continue
                 hist = collections.Counter(o.split(".")[0] for _, o, _ in insns)
+                unit = None
+                if "split_kernel" in name:
+                    unit = attn_per_position(insns, geo)
+                elif "DenseX" in name or "batched" in name:
+                    unit = ell_per_slot(insns, "batched" in name, geo)
                 rows.append(dict(source=lib.name, kernel=name, n=len(insns),
                                  ops=dict(hist.most_common()),
-                                 loops=loops(insns), hot=hot_path(insns)))
+                                 loops=loops(insns), hot=hot_path(insns),
+                                 unit=unit))
     return rows
 
 
@@ -229,6 +340,10 @@ def main(argv=None) -> int:
             top = ", ".join(f"{k} {v}" for k, v in hot["ops"].items())
             print(f"[sass]   hot path {hot['start']:#06x}-{hot['end']:#06x}: "
                   f"{hot['n']} instructions ({top})")
+        if r["unit"]:
+            unit = ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else
+                             f"{k} {v}" for k, v in r["unit"].items())
+            print(f"[sass]   {unit}")
     return 0
 
 

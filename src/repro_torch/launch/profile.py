@@ -137,6 +137,8 @@ def main(argv=None):
     ap.add_argument("--arch", default=None,
                     help="profile this model's decode steps instead of a "
                          "solve; --formats then names KV formats")
+    ap.add_argument("--top", type=int, default=10,
+                    help="kernels listed, the most device time first")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     if args.arch:
@@ -146,7 +148,8 @@ def main(argv=None):
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
         for fmt in args.formats.split(","):
             print(json.dumps(profile_decode(
-                dataclasses.replace(cfg, kv_format=fmt), params)), flush=True)
+                dataclasses.replace(cfg, kv_format=fmt), params,
+                top=args.top)), flush=True)
         return
     A, target = make_problem(args.problem, args.n, device=dev)
     b, _ = rhs_for(A, device=dev)
@@ -157,7 +160,7 @@ def main(argv=None):
                 print(json.dumps(profile_solve(
                     A, b, fmt, m=args.m, max_iters=args.max_iters,
                     target=target, driver=driver, batch=args.batch,
-                    method=method)), flush=True)
+                    method=method, top=args.top)), flush=True)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ drops the writes past its end).
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
 
@@ -30,6 +31,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.config import ArchConfig
 
@@ -63,8 +65,10 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
     ``params`` (the weights, on ``device``) defaults to random ones drawn
     from ``sc.seed``.  ``stats``, if given, receives the wall of each
     prefill (``prefill_s``) and of each decode step including its host
-    read of the new tokens (``step_s``), in seconds, and the count of
-    logits that were not finite (``nonfinite_logits``).
+    read of the new tokens (``step_s``), in seconds, the kernel launches
+    (``ops.LAUNCHES``) of the prefills (``prefill_launches``) and of the
+    decode steps (``step_launches``), and the count of logits that were
+    not finite (``nonfinite_logits``).
     """
     dev = resolve_device(device)
     need = sc.prompt_len + decode_steps(len(requests), sc)
@@ -77,7 +81,14 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
     B = sc.slots
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     if stats is not None:
-        stats.update(prefill_s=[], step_s=[])
+        stats.update(prefill_s=[], step_s=[],
+                     prefill_launches=collections.Counter(),
+                     step_launches=collections.Counter())
+
+    def count(key, before):
+        if stats is not None:
+            stats[key].update({k: v - before.get(k, 0)
+                               for k, v in ops.LAUNCHES.items()})
 
     queue = list(enumerate(requests))
     active = [None] * B            # request id per slot
@@ -92,8 +103,10 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
             prompt[slot, :] = toks[:sc.prompt_len]
             active[slot] = rid
         t = time.perf_counter()
+        before = dict(ops.LAUNCHES)
         logits, cache = prefill(params, cfg, torch.from_numpy(prompt).to(dev),
                                 cache_len=sc.max_ctx)
+        count("prefill_launches", before)
         tokens = logits.argmax(-1)
         if stats is not None:
             bad.add_((~torch.isfinite(logits)).sum())
@@ -108,7 +121,9 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
         for slot, rid in enumerate(active):
             if rid is not None:
                 out[rid].append(host[slot])
+        before = dict(ops.LAUNCHES)
         logits, cache = decode_step(params, cfg, cache, tokens)
+        count("step_launches", before)
         tokens = logits.argmax(-1)
         steps += 1
         for slot, rid in enumerate(active):

@@ -28,7 +28,14 @@ to the decoded basis; the combine bit-equal to the row-order plain sum
 ... 808, one-hot rows of Y equal to the decoded basis; both across the
 scaled decode's guard (exponents in the flush zone and past 2*bias) equal
 to ``decompress``, NaN where it is NaN.  A float16 basis write on the card
-bit-equal to numpy's single rounding.
+bit-equal to numpy's single rounding.  The redesigned batched ELL (the
+matrix read once for all q columns) bit-equal to plain and to a second call
+at q 1..16, w 5/7/27, f32/f64, aligned or not.  The redesigned decode
+attention at lengths across its 64-position tiles and its splits (with an
+empty row, S not a multiple of the tile), a cache of more than one block a
+row, and K/V blocks across the scaled decode's guard: V rows equal to
+``decompress``, K within 1e-5 of plain; its split rule's wave from the
+kernel's occupancy query.
 """
 import numpy as np
 import pytest
@@ -525,3 +532,112 @@ def test_float16_basis_write_rounds_once_on_card(cuda):
     store = acc.empty()
     acc.write_row(store, 0, torch.from_numpy(x).to(cuda))
     assert np.array_equal(store[0].cpu().numpy().view(np.int16), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("w", [5, 7, 27])
+def test_batched_ell_bits_at_every_q_on_card(cuda, dtype, w):
+    """The batched launch reads vals/cols once for all q columns and sums
+    each column in slot order: bit-equal to plain and to a second call, also
+    where vals/cols do not start 16-byte aligned (one row into a larger
+    array)."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    nr, nc = 1001, 1337
+    for offset in (0, 1):
+        cols = torch.randint(0, nc, (nr + offset, w), generator=gen,
+                             device=cuda, dtype=torch.int32)[offset:]
+        vals = torch.randn((nr + offset, w), generator=gen, dtype=dtype,
+                           device=cuda)[offset:]
+        cols[::5, w // 2:] = 0                 # padding slots: val 0, col 0
+        vals[::5, w // 2:] = 0.0
+        for q in (1, 2, 3, 8, 9, 16):
+            X = torch.randn((q, nc), generator=gen, dtype=dtype, device=cuda)
+            ops.reset_launches()
+            Y = ops.ell_spmv(vals, cols, X)
+            assert ops.LAUNCHES["ell_spmv"] == 1
+            assert torch.equal(Y, ops.ell_spmv(vals, cols, X, kernel=False)), \
+                (offset, q)
+            assert torch.equal(Y, ops.ell_spmv(vals, cols, X)), (offset, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,l,G,exp_dtype,qdt", [
+    (128, 16, 8, torch.uint8, torch.float32),
+    (128, 8, 8, torch.int32, torch.bfloat16),
+    (64, 16, 2, torch.int32, torch.float32),
+    (64, 8, 1, torch.uint8, torch.float32),
+    (128, 16, 3, torch.uint8, torch.float32),
+    (128, 8, 12, torch.uint8, torch.float32),
+    (64, 16, 12, torch.int32, torch.bfloat16)])
+def test_decode_attention_tile_edges_on_card(cuda, D, l, G, exp_dtype, qdt):
+    """Lengths 0, 1, T-1, T, T+1 and across a 128-position split
+    (``cardcheck.ATTN_EDGE_LENGTHS``, T = 64) in a cache of S = 319, not a
+    multiple of the tile: within 1e-5 of the largest plain output (f32 q)
+    or 2^-7 (bf16 q), an empty row 0, two calls bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    lens = cardcheck.ATTN_EDGE_LENGTHS
+    S, Hkv = max(lens) + 2, 2
+    kbc, vbc = _coded_kv(gen, len(lens), Hkv, S, D, l, exp_dtype, cuda)
+    q = torch.randn((len(lens), Hkv * G, D), generator=gen,
+                    device=cuda).to(qdt)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _, err, rel = cardcheck.attn_pair(q, kbc, vbc, lengths)
+    if qdt == torch.float32:
+        assert rel <= cardcheck.ATTN_TOL, (err, rel)
+    else:
+        assert err <= cardcheck.ATTN_TOL_BF16, err
+    out = ops.decode_attention(q, kbc, vbc, lengths)
+    assert not out[0].any()
+    assert torch.equal(out, ops.decode_attention(q, kbc, vbc, lengths))
+
+
+@pytest.mark.cuda
+def test_decode_attention_several_blocks_a_row_on_card(cuda):
+    """A cache coded with bs = 32 < D = 128 (four exponents a position):
+    every position takes the guarded decode, within 1e-5 of plain."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    B, Hkv, G, S, D = 3, 2, 8, 200, 128
+    spec = F.FrszSpec(bs=32, l=16, dtype=torch.float32, rounding="nearest",
+                      exp_dtype=torch.uint8)
+    kv = [ops.compress(torch.randn((B, Hkv, S, D), generator=gen,
+                                   device=cuda), spec) for _ in range(2)]
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda)
+    lengths = torch.tensor([5, 77, S], dtype=torch.int32, device=cuda)
+    _, _, rel = cardcheck.attn_pair(q, *kv, lengths)
+    assert rel <= cardcheck.ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,l", [(128, 16), (64, 8)])
+def test_decode_attention_resident_blocks_on_card(cuda, D, l):
+    """The split rule's wave is the kernel's own occupancy: a positive
+    number of split blocks an SM (at most 2048 threads / 128), the same for
+    f32 and bf16 q of one group tile, and splits that put the grid of the
+    serving shape into one wave of them."""
+    from repro_torch.kernels import decode_attn as KA
+
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for G in (1, 2, 3, 8, 12):
+        n = {KA.resident_blocks(G, D, 1, l, qd, dev)
+             for qd in (torch.float32, torch.bfloat16)}
+        assert len(n) == 1
+        per_sm, rem = divmod(n.pop(), sms)
+        assert rem == 0 and 1 <= per_sm <= 16
+    resident = KA.resident_blocks(8, D, 1, l, torch.float32, dev)
+    chunk, nsplit = KA.splits(8, 4, 8, 2120, resident)
+    assert 8 * 4 * nsplit <= resident
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("l", [16, 8])
+def test_decode_attention_across_the_decode_guard_on_card(cuda, l, exp_dtype):
+    """K and V blocks with exponents in the flush zone, on the guard's
+    edges, inside it and at 2*bias+1: V rows equal to ``decompress``, the
+    K case within 1e-5 of plain (``cardcheck.attn_across_guard``)."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    v_ok, rel, _ = cardcheck.attn_across_guard(l, exp_dtype, gen)
+    assert v_ok
+    assert rel <= cardcheck.ATTN_TOL

@@ -23,7 +23,8 @@ from repro.kernels import ref as jref
 from repro.models import kvcache as jkv
 from repro_torch.convert import kv_cache_from_numpy, store_from_numpy
 from repro_torch.core import frsz2 as TF
-from repro_torch.kernels import ops
+from repro_torch.kernels import cardcheck, ops
+from repro_torch.kernels import decode_attn as KA
 
 torch.set_num_threads(2)
 
@@ -165,3 +166,67 @@ def test_wrapper_validates_and_never_launches_on_cpu(rng):
         ops.decode_attention(qt[:, :3], kb, vb, lt)          # H % Hkv
     with pytest.raises(ValueError):
         ops.decode_attention(qt[..., :32], kb, vb, lt)       # D != nbd * bs
+
+
+@pytest.mark.parametrize("resident", [3 * 132, 8 * 132])
+@pytest.mark.parametrize("B,Hkv,G,S", [(8, 4, 8, 2120), (8, 4, 8, 32768),
+                                       (3, 2, 12, 1000), (1, 1, 1, 1),
+                                       (8, 2, 3, 319), (64, 8, 4, 131072)])
+def test_splits_cover_the_cache_in_whole_tiles(B, Hkv, G, S, resident):
+    """The kernel's splits come from the shapes alone (no lengths, so the
+    launch reads nothing back from the card): a chunk of whole 64-position
+    tiles, two to eight, the smallest that fits the grid into one wave of
+    ``resident`` blocks (the card's occupancy of the instantiation: three or
+    eight blocks on each of 132 SMs here), and splits that cover S with none
+    wholly past it."""
+    chunk, nsplit = KA.splits(B, Hkv, G, S, resident)
+    assert chunk % KA.TILE == 0 and KA.MIN_CHUNK <= chunk <= KA.MAX_CHUNK
+    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+    tiles = B * Hkv * -(-G // KA.GROUP_TILE)
+    if chunk > KA.MIN_CHUNK and chunk < KA.MAX_CHUNK:
+        # one wave of resident blocks, which one tile less would overfill
+        assert tiles * nsplit <= resident
+        assert tiles * -(-S // (chunk - KA.TILE)) > resident
+    assert nsplit <= 8192                  # the entry point's limit
+    assert KA.splits(B, Hkv, G, S, resident) == (chunk, nsplit)
+
+
+def test_card_edge_lengths_cross_the_tiles_and_a_split():
+    """The card checks' lengths (``cardcheck.ATTN_EDGE_LENGTHS``) sit on and
+    beside the kernel's tile and cross a split of the cache they use."""
+    T = KA.TILE
+    lens = cardcheck.ATTN_EDGE_LENGTHS
+    assert {0, 1, T - 1, T, T + 1} <= set(lens)
+    S = max(lens) + 2
+    assert S % T
+    # whatever the card's occupancy (1 to 16 blocks on each of 132 SMs)
+    for resident in range(132, 16 * 132 + 1, 132):
+        chunk, nsplit = KA.splits(len(lens), 2, 1, S, resident)
+        assert nsplit > 1 and any(chunk < n < S for n in lens)
+        assert any(n % chunk == 0 and n for n in lens)
+
+
+@pytest.mark.parametrize("D,l", [(128, 16), (64, 8)])
+def test_wrapper_rejects_caches_not_16_byte_aligned(rng, monkeypatch, D, l):
+    """The kernel stages K/V codes by 16-byte cp.async, so the wrapper's
+    kernel route refuses codes that start elsewhere (one code into a larger
+    buffer) before anything is built or launched; the route is forced here
+    on CPU tensors, which the check reads no further than their address."""
+    spec, q, lengths, kbc, vbc = _case(rng, 2, 2, 2, 40, D, l)
+    qt, lt = torch.from_numpy(q), torch.from_numpy(lengths)
+    kb, vb = _port_bc(kbc, l, D), _port_bc(vbc, l, D)
+
+    def shifted(bc):
+        buf = torch.empty(bc.codes.numel() + 1, dtype=bc.codes.dtype)
+        codes = buf[1:].view(bc.codes.shape)
+        codes.copy_(bc.codes)
+        return TF.BlockCompressed(codes=codes, exps=bc.exps, n=D,
+                                  spec=bc.spec)
+
+    monkeypatch.setattr(ops, "_use_kernel", lambda *a: True)
+    ops.reset_launches()
+    for name, k, v in (("k", shifted(kb), vb), ("v", kb, shifted(vb))):
+        with pytest.raises(ValueError, match=f"{name} codes must start "
+                                             "16-byte aligned"):
+            ops.decode_attention(qt, k, v, lt)
+    assert ops.LAUNCHES["decode_attn"] == 0

@@ -59,6 +59,36 @@ def test_completions_equal_jax_serve(kv_format):
         slots=3, max_new=8)) == 16
 
 
+def test_serve_counts_launches_by_phase(monkeypatch):
+    """``stats`` splits the kernel launches between the prefill and the
+    decode steps: with every cache write counted as a compress launch (on
+    the CPU the wrapper launches nothing), two a layer for the prefill and
+    two a layer for each decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import kvcache
+
+    cfg = dataclasses.replace(get_arch("yi-9b").reduced(),
+                              kv_format="frsz2_16", **TINY)
+    encode = kvcache.encode_heads
+
+    def counted(x, fmt, head_dim):
+        ops.LAUNCHES["frsz2_compress"] += 1
+        return encode(x, fmt, head_dim)
+
+    monkeypatch.setattr(kvcache, "encode_heads", counted)
+    sc = ServeConfig(slots=3, prompt_len=16, max_new=8, max_ctx=32)
+    stats = {}
+    ops.reset_launches()
+    serve(cfg, sc, _requests(cfg.vocab_size), device="cpu", verbose=False,
+          stats=stats)
+    steps = len(stats["step_s"])
+    L = cfg.num_layers
+    assert stats["prefill_launches"]["frsz2_compress"] == 2 * L
+    assert stats["step_launches"]["frsz2_compress"] == 2 * L * steps
+    assert ops.LAUNCHES["frsz2_compress"] == 2 * L * (1 + steps)
+    assert not stats["step_launches"]["decode_attn"]
+
+
 def test_serve_refuses_a_cache_too_short():
     cfg = dataclasses.replace(get_arch("yi-9b").reduced(), **TINY)
     reqs = _requests(cfg.vocab_size)
