@@ -13,6 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel against its plain PyTorch version on the card (codec bit-equal,
    contractions within 1e-12 relative at r = 101 and r = 51 rows), spot
    checks of f32/f16/bf16 values, l = 8/16, bs = 1/8/64/128 and a ragged n;
+   the row codec at 65,536 and 70,000 rows (one launch each, past the first
+   design's grid limit) and on views at an offset (``cardcheck.codec_edges``);
    the matvec at 1, 2, 7, 33, 64, 65 and 101 rows, two calls bit-equal,
    x one-hot equal to the decoded basis, and rows whose exponents cross the scaled decode's
    guard (flush zone, 2*bias+1) equal to ``decompress``;
@@ -91,19 +93,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``frsz2_16``, ``frsz2_8`` and ``bf16``, each with the launch counts set
    to 0 just before and read just after: 32 tokens in range per request,
    finite logits, ``decode_attn`` launched 48 times a decode step in the
-   FRSZ2 runs and never in the ``bf16`` one, ``frsz2_compress`` twice a
-   layer per prefill and decode step (``serve``'s ``stats`` count the
-   prefill's and the decode steps' launches apart).  After each FRSZ2 run,
-   on what that run served: the last layer's cache codes and exponents
-   bit-equal to the plain compress of the K/V that the prefill (B x Hkv x
-   2048 rows) and the last decode step wrote there, and the kernel against
-   its plain version on the last decode attention's q, cache and lengths
-   (bf16 q as served, within one bf16 step of the largest output; the same
-   q in f32, within 1e-5 of it).  Then the compress kernel (kernel 1) at
-   its two serving shapes, on the K that the ``frsz2_16`` run wrote in its
-   last decode step (32 rows of hd 128) and its prefill (65,536 rows):
-   bit-equal to the plain compress, timed as the cache write calls it
-   (``kvcache.encode_heads``) and alone.
+   FRSZ2 runs and never in the ``bf16`` one, ``frsz2_cache_write`` (K and V
+   of a layer in one launch) once a layer per prefill and decode step and
+   ``frsz2_compress`` never (``serve``'s ``stats`` count the prefill's and
+   the decode steps' launches apart).  After each FRSZ2 run, on what that
+   run served: the last layer's cache codes and exponents bit-equal to the
+   plain compress of the K/V that the prefill (B x Hkv x 2048 rows) and the
+   last decode step wrote there, and the kernel against its plain version
+   on the last decode attention's q, cache and lengths (bf16 q as served,
+   within one bf16 step of the largest output; the same q in f32, within
+   1e-5 of it).  Then the cache write of one layer at its two serving
+   shapes, on the K/V that the ``frsz2_16`` run wrote in its last decode
+   step (B 8, T 1) and its prefill (T 2048): ``kvcache.append`` and
+   ``kvcache.build_cache`` timed by CUDA events and by the host clock, the
+   fused kernel alone and its plain version beside them, all caches equal.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -351,7 +354,7 @@ def phase_kernels():
     import torch
 
     from repro_torch.core import frsz2 as F
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cardcheck, ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -375,11 +378,7 @@ def phase_kernels():
 
     # spot checks: other value types, code widths, block sizes, ragged n
     g2 = torch.Generator(device=dev).manual_seed(7)
-    spots = [(torch.float32, 32, 32), (torch.float32, 16, 128),
-             (torch.float32, 8, 64), (torch.float64, 16, 128),
-             (torch.float64, 32, 1), (torch.float64, 8, 8),
-             (torch.float16, 16, 32), (torch.float16, 8, 128),
-             (torch.bfloat16, 16, 8), (torch.bfloat16, 8, 32)]
+    spots = cardcheck.CODEC_SPOTS
     for dtype, l, bs in spots:
         for rounding in ("truncate", "nearest"):
             sp = F.FrszSpec(bs=bs, l=l, dtype=dtype, rounding=rounding)
@@ -397,6 +396,11 @@ def phase_kernels():
                     _, rel, _ = _contraction_err(sbc, vec, op, 5)
                     check(rel <= tol, f"{op} {sp.name} relative error {rel:.3e}")
     print(f"[kernels] spot checks passed: {len(spots) * 2} specs, ragged n=1001")
+    faults = cardcheck.codec_edges(g2)
+    check(not faults, f"row codec edge cases: {faults}")
+    print(f"[kernels] row codec: rows {[c[0] for c in cardcheck.CODEC_MANY_ROWS]}"
+          " (past the first design's grid limit), every spot at n=1001, views "
+          "at an offset: bit-equal to plain, one launch each")
     _matvec_checks(bc, Vdec, w)
 
     # times at the main-path shape
@@ -1477,55 +1481,88 @@ def phase_decode_attn():
     return entries
 
 
-def _compress_serve_times(writes, fmt):
-    """Kernel 1 at its two serving shapes, on the K that the served run
-    wrote (``writes``: one decode step's, B * Hkv rows, and the prefill's,
-    B * Hkv * prompt rows, as ``kvcache`` passed them): timed as the cache
-    write calls it, ``kvcache.encode_heads`` (its casts to f32 and to
-    contiguous rows, the kernel, and the narrowing of the kernel's int32
-    exponents to the cache's uint8), and the kernel alone beside it, whose
-    codes and exponents must equal the plain compress."""
+def _cache_write_times(writes, fmt):
+    """The serving cache write of one layer at its two shapes (``writes``:
+    the K and V of a decode step, ``(B, 1, Hkv, D)``, and of the prefill,
+    ``(B, prompt, Hkv, D)``, as the model hands them to the cache): timed
+    as the model calls it, ``kvcache.append`` into a layer of the served
+    cache's length at lengths ``prompt`` and ``kvcache.build_cache`` of the
+    prefill, by CUDA events (device time) and by the host clock over
+    back-to-back calls (what a host-bound step pays), and the fused kernel
+    alone and its plain version, whose caches must be equal."""
     import torch
 
-    from repro_torch.core import frsz2 as F
     from repro_torch.kernels import frsz2_kernel as K
     from repro_torch.kernels import ops
     from repro_torch.models import kvcache
 
-    D = writes["step"].shape[-1]
+    k1, v1 = writes["step"]
+    kp, vp = writes["prefill"]
+    B, prompt, Hkv, D = kp.shape
+    S = SERVE_PROMPT + 72
     spec = fmt.spec(D)
-    out = {}
-    for name, x in writes.items():
-        rows = x.numel() // D
-        x2 = x.to(torch.float32).contiguous().view(rows, D)
-        codes = torch.empty((rows, D), dtype=F.code_dtype(spec.l),
-                            device=x.device)
-        e32 = torch.empty((rows, 1), dtype=torch.int32, device=x.device)
-        K.compress_2d(x2, codes, e32, spec)
-        want = ops.compress(x2, spec, kernel=False)
-        check(torch.equal(codes, want.codes.view(rows, D))
-              and torch.equal(e32, want.exps.to(torch.int32)),
-              f"compress at the serve {name} shape ({rows} rows) != plain")
-        # the write as the cache makes it: x in its dtype read once, codes
-        # and one uint8 exponent a row written once
-        nbytes = rows * D * (x.element_size() + codes.element_size()) + rows
-        out.update({
-            f"serve_{name}_rows": rows,
-            f"serve_{name}_ms": timed(
-                lambda: kvcache.encode_heads(x, fmt, D)),
-            f"serve_{name}_kernel_ms": timed(
-                lambda: K.compress_2d(x2, codes, e32, spec)),
-            f"serve_{name}_plain_ms": timed(
-                lambda: ops.compress(x.to(torch.float32), spec,
-                                     kernel=False), reps=3),
-            f"serve_{name}_bound_ms": bound_ms(nbytes)[0]})
-        print(f"[serve] compress at the {name} write ({rows} x {D} "
-              f"{str(x.dtype)[6:]}, bs {spec.bs}, l {spec.l}): the cache "
-              f"write {out[f'serve_{name}_ms'] * 1e3:.2f} us, the kernel "
-              f"alone {out[f'serve_{name}_kernel_ms'] * 1e3:.2f} us, bound "
-              f"{out[f'serve_{name}_bound_ms'] * 1e3:.4f} us, plain "
-              f"{out[f'serve_{name}_plain_ms'] * 1e3:.1f} us")
-        del x2, codes, e32, want
+    lengths = torch.full((B,), prompt, dtype=torch.int32, device=k1.device)
+
+    def layer():
+        return {n: t[0] for n, t in kvcache.init_cache(
+            fmt, 1, B, Hkv, S, D, device=k1.device).items()}
+
+    # the floor of the CUDA-event timing: one launch that does nothing
+    # worth timing (a one-element fill)
+    tiny = torch.zeros(1, device=k1.device)
+    out = {"floor_ms": timed(lambda: tiny.zero_())}
+    for name, (k, v) in (("step", (k1, v1)), ("prefill", (kp, vp))):
+        lc = layer()
+        if name == "step":
+            def write(lc=lc, k=k, v=v):
+                kvcache.append(lc, k, v, lengths, fmt)
+        else:
+            def write(lc=lc, k=k, v=v):
+                kvcache.build_cache(k, v, fmt, cache_len=S, out=lc)
+        rows = 2 * k.numel() // D
+        cd = torch.empty((), dtype=fmt.code_dtype()).element_size()
+        # K and V in their dtype read once, codes and a uint8 exponent a
+        # row written once, the lengths read
+        nbytes = rows * D * (k.element_size() + cd) + rows + 4 * B
+        for _ in range(3):             # first calls load and query
+            write()
+        torch.cuda.synchronize()
+        reps = 200 if name == "step" else 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            write()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        out.update({f"{name}_rows": rows, f"{name}_shape": list(k.shape),
+                    f"{name}_ms": timed(write), f"{name}_host_ms": host_ms,
+                    f"{name}_bytes": nbytes,
+                    f"{name}_bound_ms": bound_ms(nbytes)[0]})
+        kl = layer()
+        pl = layer()
+        # as append and build_cache call it: the prefill from position 0,
+        # its padding cleared
+        lens, clear = (None, prompt) if name == "prefill" else (lengths, S)
+        args = (k, v, lens, kl["k_codes"], kl["k_exps"], kl["v_codes"],
+                kl["v_exps"], 0, clear, spec)
+        K.cache_write(*args)
+        ops.cache_write(k, v, lens, pl["k_codes"], pl["k_exps"],
+                        pl["v_codes"], pl["v_exps"], spec, clear_from=clear,
+                        kernel=False)
+        for n in kl:
+            check(torch.equal(kl[n], pl[n]) and torch.equal(kl[n], lc[n]),
+                  f"cache write at the serve {name} shape: {n} != plain")
+        out[f"{name}_kernel_ms"] = timed(lambda a=args: K.cache_write(*a))
+        out[f"{name}_plain_ms"] = timed(lambda: ops.cache_write(
+            k, v, lens, pl["k_codes"], pl["k_exps"], pl["v_codes"],
+            pl["v_exps"], spec, clear_from=clear, kernel=False), reps=3)
+        print(f"[serve] cache write, one layer's {name} ({tuple(k.shape)} "
+              f"{str(k.dtype)[6:]} K and V, l {spec.l}): "
+              f"{'append' if name == 'step' else 'build_cache'} "
+              f"{out[f'{name}_ms'] * 1e3:.2f} us by events, "
+              f"{out[f'{name}_host_ms'] * 1e3:.2f} us of host a call, the "
+              f"kernel alone {out[f'{name}_kernel_ms'] * 1e3:.2f} us, plain "
+              f"{out[f'{name}_plain_ms'] * 1e3:.1f} us, bound {out[f'{name}_bound_ms'] * 1e3:.4f} us (the "
+              f"events' floor {out['floor_ms'] * 1e3:.2f} us)")
     return out
 
 
@@ -1567,33 +1604,34 @@ def _teacher_forcing(params, kv_format):
 
 class _ServeTap:
     """For one serve run, keeps the inputs of the last decode attention and
-    the K/V of the last two cache writes of each kind (prefill, decode):
-    the last layer's K and V.  ``kvcache.encode_heads`` and
-    ``ops.decode_attention`` are wrapped for the run and run unchanged."""
+    the K/V of the last cache write of each kind (prefill, decode step):
+    the last layer's.  ``ops.cache_write`` and ``ops.decode_attention`` are
+    wrapped for the run and run unchanged."""
 
-    def __init__(self, prompt: int):
+    def __init__(self):
         from repro_torch.kernels import ops
-        from repro_torch.models import kvcache
 
-        self.prompt = prompt
-        self.prefill, self.decode, self.attn = [], [], None
-        self._slots = ((kvcache, "encode_heads"), (ops, "decode_attention"))
+        self.prefill = self.decode = self.attn = None
+        self._slots = ((ops, "cache_write"), (ops, "decode_attention"))
         self._orig = [getattr(m, n) for m, n in self._slots]
 
     def __enter__(self):
-        encode, attend = self._orig
+        write, attend = self._orig
 
-        def encode_heads(x, fmt, head_dim):
-            keep = self.prefill if x.shape[-2] == self.prompt else self.decode
-            keep.append(x)
-            del keep[:-2]
-            return encode(x, fmt, head_dim)
+        def cache_write(k, v, lengths, *args, **kw):
+            # the prefill writes from position 0 (lengths None), a decode
+            # step one position a row
+            if lengths is None:
+                self.prefill = (k, v)
+            elif k.shape[1] == 1:
+                self.decode = (k, v)
+            return write(k, v, lengths, *args, **kw)
 
         def decode_attention(q, k_bc, v_bc, lengths, **kw):
             self.attn = (q, k_bc, v_bc, lengths, kw)
             return attend(q, k_bc, v_bc, lengths, **kw)
 
-        for (m, n), f in zip(self._slots, (encode_heads, decode_attention)):
+        for (m, n), f in zip(self._slots, (cache_write, decode_attention)):
             setattr(m, n, f)
         return self
 
@@ -1611,7 +1649,7 @@ def _check_served_cache(tap, fmt_name):
     from repro_torch.kernels.cardcheck import ATTN_TOL, ATTN_TOL_BF16
     from repro_torch.kernels.cardcheck import attn_pair as _attn_pair
 
-    check(tap.attn is not None and len(tap.prefill) == len(tap.decode) == 2,
+    check(None not in (tap.attn, tap.prefill, tap.decode),
           f"{fmt_name}: the serve run wrote or read no FRSZ2 cache")
     q, kbc, vbc, lengths, kw = tap.attn
     B, Hkv, S = kbc.exps.shape[:3]
@@ -1621,8 +1659,9 @@ def _check_served_cache(tap, fmt_name):
     for bc, xp, xd in zip((kbc, vbc), tap.prefill, tap.decode):
         # prefill: positions [0, prompt); decode: position lengths - 1
         for x, codes, exps in (
-                (xp, bc.codes[:, :, :SERVE_PROMPT], bc.exps[:, :, :SERVE_PROMPT]),
-                (xd[:, :, 0], bc.codes[bi, :, pos], bc.exps[bi, :, pos])):
+                (xp.transpose(1, 2), bc.codes[:, :, :SERVE_PROMPT],
+                 bc.exps[:, :, :SERVE_PROMPT]),
+                (xd[:, 0], bc.codes[bi, :, pos], bc.exps[bi, :, pos])):
             want = ops.compress(x.float(), bc.spec, kernel=False)
             check(torch.equal(codes.reshape(want.codes.shape), want.codes)
                   and torch.equal(exps.reshape(want.exps.shape),
@@ -1693,7 +1732,7 @@ def phase_serve(device_line):
         fmt = kvcache.cache_format(fmt_name)
         torch.cuda.reset_peak_memory_stats()
         stats = {}
-        with _ServeTap(SERVE_PROMPT) as tap:
+        with _ServeTap() as tap:
             ops.reset_launches()
             t = time.perf_counter()
             out = serve(cfg_f, sc, reqs, params=params, device="cuda",
@@ -1713,8 +1752,8 @@ def phase_serve(device_line):
               f"{len(stats['prefill_s'])} prefills")
         frsz = fmt.kind == "frsz2"
         want = {"decode_attn": cfg.num_layers * steps if frsz else 0,
-                "frsz2_compress": 2 * cfg.num_layers * (1 + steps)
-                if frsz else 0}
+                "frsz2_cache_write": cfg.num_layers * (1 + steps)
+                if frsz else 0, "frsz2_compress": 0}
         for k, n in want.items():
             check(got[k] == n, f"{fmt_name}: {k} launched {got[k]} times, "
                                f"the path implies {n}")
@@ -1722,14 +1761,16 @@ def phase_serve(device_line):
         check(not others, f"{fmt_name}: other kernels launched: {others}")
         served = _check_served_cache(tap, fmt_name) if frsz else {}
         if fmt_name == "frsz2_16":
-            writes = {"step": tap.decode[-2], "prefill": tap.prefill[-2]}
+            writes = {"step": tap.decode, "prefill": tap.prefill}
         del tap
         # the same counts split between the prefill and the decode steps
         # (``stats``): a layer's launches in each
         split = {"prefill": stats["prefill_launches"],
                  "step": stats["step_launches"]}
-        per_layer = {"prefill": (1, {"decode_attn": 0, "frsz2_compress": 2}),
-                     "step": (steps, {"decode_attn": 1, "frsz2_compress": 2})}
+        per_layer = {"prefill": (1, {"decode_attn": 0, "frsz2_cache_write": 1,
+                                     "frsz2_compress": 0}),
+                     "step": (steps, {"decode_attn": 1, "frsz2_cache_write": 1,
+                                      "frsz2_compress": 0})}
         for part, (n, per) in per_layer.items():
             for k, m in per.items():
                 n_want = n * m * cfg.num_layers if frsz else 0
@@ -1775,7 +1816,7 @@ def phase_serve(device_line):
               f"{r['step_bound_ms']:.2f} ms), {r['decode_tokens_per_s']:.1f} "
               f"tokens/s, peak {r['peak_mem_bytes'] / 2**30:.2f} GiB, cache "
               f"{r['cache_nbytes'] / 1e9:.3f} GB")
-    return launches, _compress_serve_times(writes, kvcache.cache_format(
+    return launches, _cache_write_times(writes, kvcache.cache_format(
         "frsz2_16"))
 
 
@@ -1822,14 +1863,22 @@ def main() -> int:
     release()
     entries.update(phase_decode_attn())
     release()
-    serve_launches, compress_serve = phase_serve(device_line)
-    # kernel 1 on the serving path, counted in the prefill and in the
-    # decode steps of the frsz2_16 run
-    entries["frsz2_compress"].update(
-        compress_serve,
-        serve_launches=serve_launches["frsz2_compress"],
-        serve_step_launches=serve_launches["frsz2_compress_step"],
-        serve_prefill_launches=serve_launches["frsz2_compress_prefill"])
+    serve_launches, writes = phase_serve(device_line)
+    # kernel 1 as the serving cache writes with it, counted in the prefill
+    # and in the decode steps of the frsz2_16 run; timed at the prefill's
+    # shape, where the kernel does work worth timing, a decode step's (at
+    # the CUDA events' floor, ``floor_ms``) beside it
+    entries["frsz2_cache_write"] = entry(
+        "frsz2_cache_write", "src/repro_torch/kernels/csrc/frsz2_codec.cu",
+        "src/repro/kernels/frsz2_kernel.py:113", writes["prefill_kernel_ms"],
+        writes["prefill_plain_ms"], writes["prefill_bytes"], 0.0, 0.0,
+        path="serve",
+        shape=f"K and V {writes['prefill_shape']} bf16, bs 128, l 16",
+        err_unit="code", **writes,
+        serve_step_launches=serve_launches["frsz2_cache_write_step"],
+        serve_prefill_launches=serve_launches["frsz2_cache_write_prefill"])
+    entries["frsz2_compress"]["serve_launches"] = serve_launches[
+        "frsz2_compress"]
     for name, e in entries.items():
         key = e.get("kernel", name)
         if e.get("path") == "block":

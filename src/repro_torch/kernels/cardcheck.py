@@ -3,11 +3,13 @@
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` both hold the kernels to
 these, so the two cannot drift apart: the row counts that cross the matvec's
 and the block combine's tilings, the lengths that cross the decode
-attention's tiles and splits, bit comparison of values, seeded codes, and
-the checks across the scaled decode's guard (matvec, block combine, decode
-attention).  Each check runs the kernel through ``ops`` (so it launches on a
-CUDA generator's device) and compares with the plain ``decompress`` or the
-plain version of the kernel.
+attention's tiles and splits, bit comparison of values, seeded codes, the
+checks across the scaled decode's guard (matvec, block combine, decode
+attention), and the row codec's spot list and edge cases (rows past the old
+grid limit, a ragged n, views at an offset), each launching once.  Each
+check runs the kernel through ``ops`` (so it launches on a CUDA generator's
+device) and compares with the plain ``decompress`` or the plain version of
+the kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +30,18 @@ GUARD_DTYPES = ((torch.float64, 1023), (torch.float32, 127))
 #: two-tile split's
 ATTN_EDGE_LENGTHS = (0, 1, TILE - 1, TILE, TILE + 1, 2 * TILE, 2 * TILE + 1,
                      5 * TILE - 3)
+#: the row codec's spot checks: (value dtype, l, bs), each in both
+#: roundings, at a ragged n
+CODEC_SPOTS = ((torch.float32, 32, 32), (torch.float32, 16, 128),
+               (torch.float32, 8, 64), (torch.float64, 16, 128),
+               (torch.float64, 32, 1), (torch.float64, 8, 8),
+               (torch.float16, 16, 32), (torch.float16, 8, 128),
+               (torch.bfloat16, 16, 8), (torch.bfloat16, 8, 32))
+#: rows at and past 65,535, the first codec's grid limit: (rows, n, value
+#: dtype, l, bs, rounding); the first is the serving prefill's K write
+CODEC_MANY_ROWS = ((65536, 128, torch.float32, 16, 128, "nearest"),
+                   (70000, 96, torch.float64, 32, 32, "truncate"))
+
 #: f32 q: max |kernel - plain| over max |plain| (f32 sums in another order,
 #: base-2 exponentials); bf16 q: one bf16 step, absolute
 ATTN_TOL, ATTN_TOL_BF16 = 1e-5, 2 ** -7
@@ -179,3 +193,61 @@ def attn_across_guard(l: int, exp_dtype,
     _, _, rel = attn_pair(qk, bc(kc), F.BlockCompressed(
         codes=v1.codes, exps=v1.exps, n=D, spec=spec), ones + 1, sm_scale=8.0)
     return v_ok, rel, B
+
+
+def spread_values(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """Seeded values over 2^-8..2^8 of every sign, a zero every 7th."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float64, device=gen.device)
+    x = x * torch.exp2(torch.randint(-8, 8, shape, generator=gen,
+                                     device=gen.device).double())
+    x = x.to(dtype)
+    x.view(-1)[::7] = 0.0
+    return x
+
+
+def codec_check(x: torch.Tensor, spec: F.FrszSpec, out=None) -> str | None:
+    """The row codec on ``x`` (into ``out``, if given) against the plain
+    codec: codes, exponents and decoded values bit-equal, and one launch
+    each of compress and decompress.  Returns what differed, or None."""
+    before = dict(ops.LAUNCHES)
+    bk = ops.compress(x, spec, out=out, kernel=True)
+    vk = ops.decompress(bk, kernel=True)
+    launches = {k: ops.LAUNCHES[k] - before[k]
+                for k in ("frsz2_compress", "frsz2_decompress")}
+    bp = ops.compress(x, spec, kernel=False)
+    vp = ops.decompress(bp, kernel=False)
+    what = f"{spec.name} {spec.rounding} {tuple(x.shape)}"
+    if not (torch.equal(bk.codes, bp.codes) and torch.equal(bk.exps, bp.exps)):
+        return f"compress != plain for {what}"
+    if not torch.equal(bits(vk), bits(vp)):
+        return f"decompress != plain for {what}"
+    if any(v != 1 for v in launches.values()):
+        return f"{what}: launches {launches}, one each expected"
+    return None
+
+
+def codec_edges(gen: torch.Generator) -> list[str]:
+    """The row codec past the old grid limit (:data:`CODEC_MANY_ROWS`), at
+    a ragged n = 1001 for every spot of :data:`CODEC_SPOTS` in both
+    roundings, and on views at an offset (values, codes and exponents that
+    start off their vector alignment, n odd): what differed, if anything."""
+    faults = []
+    for rows, n, dtype, l, bs, rounding in CODEC_MANY_ROWS:
+        spec = F.FrszSpec(bs=bs, l=l, dtype=dtype, rounding=rounding)
+        faults.append(codec_check(spread_values((rows, n), dtype, gen), spec))
+    for dtype, l, bs in CODEC_SPOTS:
+        for rounding in ("truncate", "nearest"):
+            spec = F.FrszSpec(bs=bs, l=l, dtype=dtype, rounding=rounding)
+            faults.append(codec_check(spread_values((5, 1001), dtype, gen),
+                                      spec))
+    for dtype, l, bs in ((torch.float64, 32, 32), (torch.float32, 16, 128),
+                         (torch.bfloat16, 8, 8)):
+        spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+        n = 4099
+        nb = -(-n // bs)
+        x = spread_values((n + 3,), dtype, gen)[3:]
+        codes = torch.empty(nb * bs + 1, dtype=F.code_dtype(l),
+                            device=gen.device)[1:].view(nb, bs)
+        exps = torch.empty(nb + 1, dtype=torch.int32, device=gen.device)[1:]
+        faults.append(codec_check(x, spec, out=(codes, exps)))
+    return [f for f in faults if f]

@@ -8,16 +8,19 @@ the same answer as ``repro/kernels/ops.py:60``):
 * a CPU tensor goes to the plain PyTorch version in :mod:`.ref`;
 * outside the contract (unaligned ``l`` such as 21, ``bs`` not dividing
   128) the plain codec runs on whatever device the tensor is, exactly where
-  the JAX package runs its jnp codec.
+  the JAX package runs its jnp codec.  The KV-cache write is the exception:
+  it routes by device alone, and a CUDA write its kernel does not take
+  raises.
 
 ``kernel=False`` forces the plain version on the card too, so that
 ``chip_smoke.py`` can compare the two routes there; ``kernel=True`` on a CPU
 tensor raises.  The ELL SpMV and the Givens step of the GMRES cycle route
 the same way, by the device of their tensors, and so do the block
 contractions and the block Givens step of block-GMRES, and the decode
-attention over an FRSZ2-coded KV cache.  Each wrapper adds
-one to ``LAUNCHES[<kernel>]`` where it launches its kernel, and nowhere
-else, so a run can show which kernels its main path went through.
+attention over an FRSZ2-coded KV cache and the cache's write.  Each
+wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its kernel,
+and nowhere else, so a run can show which kernels its main path went
+through.
 
 Outputs are allocated with ``torch.empty`` and launched on the current
 stream.  ``compress`` can write into caller-given code/exponent rows (a basis
@@ -31,12 +34,13 @@ from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "kernel_supported", "compress",
-           "decompress", "matvec", "rmatvec", "block_dots", "block_combine",
-           "ell_spmv", "givens_step", "block_givens_step",
+           "decompress", "cache_write", "matvec", "rmatvec", "block_dots",
+           "block_combine", "ell_spmv", "givens_step", "block_givens_step",
            "decode_attention"]
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"frsz2_compress": 0, "frsz2_decompress": 0, "frsz2_matvec": 0,
+LAUNCHES = {"frsz2_compress": 0, "frsz2_decompress": 0,
+            "frsz2_cache_write": 0, "frsz2_matvec": 0,
             "frsz2_rmatvec": 0, "frsz2_block_dots": 0,
             "frsz2_block_combine": 0, "ell_spmv": 0, "ell_spmv_frsz2": 0,
             "gmres_givens": 0, "gmres_block_givens": 0, "decode_attn": 0}
@@ -171,6 +175,67 @@ def decompress(bc: F.BlockCompressed, *, kernel: bool | None = None
                         out.view(rows, bc.n), spec)
         LAUNCHES["frsz2_decompress"] += 1
     return out
+
+
+#: value types of the K/V that the cache-write kernel reads
+_CACHE_IN = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def cache_write(k: torch.Tensor, v: torch.Tensor, lengths, k_codes, k_exps,
+                v_codes, v_exps, spec: F.FrszSpec, *, ring: int = 0,
+                clear_from: int | None = None,
+                kernel: bool | None = None) -> None:
+    """Write K and V ``(B, T, Hkv, D)`` of one layer into its coded cache,
+    in place: codes ``(B, Hkv, S, D)`` and uint8 exponents ``(B, Hkv, S,
+    1)``, one block of ``bs = D`` a row, at positions ``lengths[b] + t``
+    (``lengths`` ``(B,)``, or None for 0), modulo ``ring`` when it is
+    positive.  Positions outside the cache are dropped, as are rows that a
+    later row of the same write overwrites in the ring
+    (:func:`repro_torch.kernels.ref.cache_write_slots`).  The codes are
+    those of the plain compress of the K/V cast to the spec's f32.
+    ``clear_from`` zeroes positions ``[clear_from, S)`` of both caches (the
+    prefill's padding).  One launch for K and V; K/V may be any strided
+    view (f32, f16 or bf16).  Only the device routes: a CUDA write that the
+    kernel does not take raises, whatever ``kernel_supported`` says."""
+    B, T, Hkv, D = k.shape
+    S = k_codes.shape[2]
+    if clear_from is not None and not 0 <= clear_from <= S:
+        raise ValueError(f"clear_from={clear_from} outside [0, {S}]")
+    if not _use_kernel(k, None, kernel):
+        ref.cache_write_ref(k, v, lengths, k_codes, k_exps, v_codes, v_exps,
+                            spec, ring, clear_from)
+        return
+    dev = k.device
+    if (spec.dtype != torch.float32 or spec.exp_dtype != torch.uint8
+            or spec.bs != D or not 0 < D <= 128 or spec.l not in (8, 16, 32)
+            or spec.rounding != "nearest" or k.dtype not in _CACHE_IN):
+        raise NotImplementedError(
+            f"the cache write has no kernel for {spec.name} "
+            f"({spec.rounding}, {spec.exp_dtype} exponents) over {k.dtype} "
+            f"K/V of D = {D}: it takes f32 specs with bs = D <= 128, l 8, 16 "
+            "or 32, nearest rounding and uint8 exponents, over f32/f16/bf16 "
+            "K/V")
+    if v.shape != k.shape or v.dtype != k.dtype or v.device != dev:
+        raise ValueError(f"v {tuple(v.shape)} {v.dtype} on {v.device} does "
+                         f"not match k {tuple(k.shape)} {k.dtype} on {dev}")
+    cd = F.code_dtype(spec.l)
+    for name, t in (("k codes", k_codes), ("v codes", v_codes)):
+        _expect(t, name, (B, Hkv, S, D), cd, dev)
+    for name, t in (("k exps", k_exps), ("v exps", v_exps)):
+        _expect(t, name, (B, Hkv, S, 1), torch.uint8, dev)
+    if lengths is not None:
+        if lengths.dtype != torch.int32:
+            lengths = lengths.to(torch.int32)
+        _expect(lengths, "lengths", (B,), torch.int32, dev)
+    if ring < 0:
+        raise ValueError(f"ring={ring} must be >= 0")
+    if B * Hkv == 0 or S == 0 or (T == 0 and clear_from in (None, S)):
+        return
+    from repro_torch.kernels import frsz2_kernel as K
+
+    K.cache_write(k, v, lengths, k_codes, k_exps, v_codes, v_exps, ring,
+                  S if clear_from is None else clear_from, spec)
+    LAUNCHES["frsz2_cache_write"] += 1
 
 
 # ---------------------------------------------------------------------------

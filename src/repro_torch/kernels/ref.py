@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the Hopper kernels: what each kernel computes.
 
-The kernels in ``frsz2_kernel.py`` / ``frsz2_dot.py`` / ``frsz2_block.py`` /
+The kernels in ``frsz2_kernel.py`` (the codec and the KV-cache write) /
+``frsz2_dot.py`` / ``frsz2_block.py`` /
 ``ell_spmv.py`` / ``gmres_step.py`` / ``decode_attn.py`` must match these:
 bit for bit on the codec, the ELL SpMV and the two Givens steps, to float
 tolerance on the basis contractions and the decode attention.  The
@@ -510,3 +511,49 @@ def decode_attn_ref(q, kcodes, kexps, vcodes, vexps, lengths,
     if not out:
         return q.new_zeros((0, H, D))
     return torch.stack(out).reshape(B, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The KV-cache write (csrc/frsz2_codec.cu, frsz2_cache_write)
+# ---------------------------------------------------------------------------
+
+
+def cache_write_slots(B: int, T: int, S: int, lengths, ring: int, device):
+    """``(pos (B, T) int64, keep (B, T) bool)``: the cache position of row
+    ``(b, t)`` of a write, ``lengths[b] + t`` (0 + t for ``lengths=None``),
+    taken modulo ``ring`` when ``ring > 0``, and whether it is written.  A
+    position outside ``[0, S)`` is dropped, as the JAX package's scatter
+    drops it; with a ring, so is a row that a later row of the same write
+    overwrites (``t < T - ring``), which leaves the last ``ring`` positions
+    at their modular slots, as the prefill's roll does."""
+    t = torch.arange(T, device=device)
+    start = (torch.zeros((B, 1), dtype=torch.int64, device=device)
+             if lengths is None else lengths.reshape(B, 1).to(torch.int64))
+    pos = start + t
+    keep = torch.ones((B, T), dtype=torch.bool, device=device)
+    if ring:
+        keep &= t >= T - ring
+        pos = pos % ring
+    return pos, keep & (pos >= 0) & (pos < S)
+
+
+def cache_write_ref(k: torch.Tensor, v: torch.Tensor, lengths, k_codes,
+                    k_exps, v_codes, v_exps, spec: F.FrszSpec, ring: int = 0,
+                    clear_from: int | None = None) -> None:
+    """What ``frsz2_cache_write`` computes: K/V ``(B, T, Hkv, D)`` cast to
+    the spec's value type (f32), coded in blocks of ``bs = D``, and written
+    in place into codes ``(B, Hkv, S, D)`` and exponents ``(B, Hkv, S, 1)``
+    at the slots of :func:`cache_write_slots`; positions ``[clear_from,
+    S)`` of both caches are zeroed (the prefill's padding)."""
+    B, T, Hkv, D = k.shape
+    S = k_codes.shape[2]
+    if clear_from is not None:
+        for t in (k_codes, k_exps, v_codes, v_exps):
+            t[:, :, clear_from:] = 0
+    pos, keep = cache_write_slots(B, T, S, lengths, ring, k.device)
+    bi, ti = keep.nonzero(as_tuple=True)
+    pi = pos[bi, ti]
+    for x, codes, exps in ((k, k_codes, k_exps), (v, v_codes, v_exps)):
+        bc = F.compress(x[bi, ti].to(spec.dtype), spec)     # (N, Hkv, 1, D)
+        codes[bi, :, pi] = bc.codes.reshape(-1, Hkv, D).to(codes.dtype)
+        exps[bi, :, pi] = bc.exps.reshape(-1, Hkv, 1).to(exps.dtype)

@@ -2,22 +2,26 @@
 
     python -m repro_torch.kernels.sass [--csrc DIR]
 
-Builds ``frsz2_block.cu``, ``frsz2_dot.cu``, ``ell_spmv.cu`` and
-``decode_attn.cu`` from ``--csrc`` (default: this package's ``csrc/``; give
-another checkout's to compare two versions) with the flags of
-:mod:`repro_torch.kernels.build`, disassembles them with ``cuobjdump -sass``
-and prints, for each main-path instantiation (the frsz2_32 block dots and
-block combine of f64 values at q = 8, the frsz2_32 f64 matvec, the f64 ELL
-SpMV, dense, batched at w = 7 and with a frsz2_32 operand, and the decode
-attention at yi-9b's heads, l = 16, D = 128, G = 8, f32 and bf16 q): its
-instruction count, each loop (a backward branch and the instructions it
-jumps over) with its length and a histogram of its opcodes, and its hot
-path (:func:`hot_path`: the instructions one pass executes when it takes
-no rare branch).  For the decode attention it prints the warp instructions
-a cache position costs (:func:`attn_per_position`), for the dense ELL the
-instructions a slot of one column (:func:`ell_per_slot`: the batched launch
-at q = 8).  Needs ``nvcc`` and ``cuobjdump``, so it runs on the card's
-machine; it launches nothing.
+Builds ``frsz2_block.cu``, ``frsz2_dot.cu``, ``ell_spmv.cu``,
+``decode_attn.cu`` and ``frsz2_codec.cu`` from ``--csrc`` (default: this
+package's ``csrc/``; give another checkout's to compare two versions) with
+the flags of :mod:`repro_torch.kernels.build`, disassembles them with
+``cuobjdump -sass`` and prints, for each main-path instantiation (the
+frsz2_32 block dots and block combine of f64 values at q = 8, the frsz2_32
+f64 matvec, the f64 ELL SpMV, dense, batched at w = 7 and with a frsz2_32
+operand, and the decode attention at yi-9b's heads, l = 16, D = 128, G = 8,
+f32 and bf16 q, the frsz2_32 f64 row compress (bs 32, truncate) and
+decompress, and the serving cache write of bf16 K/V at l = 16, D = 128 (16
+lanes a row), or, in an older checkout, the row compress of f32 values at
+l = 16 that the cache write called): its instruction count, each loop (a
+backward branch and the instructions it jumps over) with its length and a
+histogram of its opcodes, and its hot path (:func:`hot_path`: the
+instructions one pass executes when it takes no rare branch). For the
+decode attention it prints the warp instructions a cache position costs
+(:func:`attn_per_position`), for the dense ELL the instructions a slot of
+one column (:func:`ell_per_slot`: the batched launch at q = 8), for the
+codec the instructions a value (:func:`codec_per_value`). Needs ``nvcc``
+and ``cuobjdump``, so it runs on the card's machine; it launches nothing.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import tempfile
 
 from repro_torch.kernels import build
 
-SOURCES = ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu", "decode_attn.cu")
+SOURCES = ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu", "decode_attn.cu",
+           "frsz2_codec.cu")
 #: the main-path instantiations: the matvec as redesigned (vector loads)
 #: and as first designed (``matvec_partial_kernel``, for ``--csrc`` of an
 #: older checkout)
@@ -45,7 +50,13 @@ MATCH = (r"block_dots_partial<frsz2::Layout<64, 52, 11>, unsigned int, 8>"
          r"<64, 52, 11>, unsigned int>|DenseX<double>)"
          r"|ell_tile_batched_kernel<double, 7>"
          r"|attn::split_kernel<(float|__nv_bfloat16), unsigned short, "
-         r"(4|128), 8>")
+         r"(4|128), 8>"
+         r"|(?<!de)compress_kernel<frsz2::Layout<64, 52, 11>, unsigned int, "
+         r"(false|0)(, 4)?>"
+         r"|decompress_kernel<frsz2::Layout<64, 52, 11>, unsigned int(, 2)?>"
+         r"|compress_kernel<frsz2::Layout<32, 23, 8>, unsigned short, "
+         r"(true|1)>"
+         r"|cache_write_kernel<3, unsigned short, 16>")
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _FUNC = re.compile(r"Function : (\S+)")
@@ -178,7 +189,7 @@ def shortest_path(insns, start: int, end: int, most: tuple = ()) -> dict:
     inf = (float("inf"), float("inf"))
 
     def gain(op):
-        return -1 if op.split(".")[0] in most else 0
+        return -1 if op.split(".")[0] in most or op in most else 0
 
     dist = [inf] * len(body)
     prev = [None] * len(body)
@@ -295,6 +306,61 @@ def ell_per_slot(insns, batched: bool,
                 per_slot=n / (ELL_W * ELL_Q))
 
 
+def _width(op: str) -> int:
+    m = re.search(r"\.(64|128)\b", op)
+    return int(m.group(1)) if m else 32
+
+
+def codec_per_value(insns, values: int) -> dict | None:
+    """Instructions a value on a codec kernel's hot path.  The redesigned
+    kernels: one pass of the grid-stride loop (the outermost loop holding a
+    global store) that takes the widest load and the widest store (the
+    vector accesses, not the element fallback) and no optional branch (an
+    exponent store once a block is skipped; an inner shuffle loop counts
+    once), over the ``values`` a thread codes in a pass.  The first design
+    (a value a thread, no loop): the way from the entry to its last global
+    store, which passes the code store."""
+    mem = [op for _, op, _ in insns if op.startswith(("LDG", "STG"))]
+    wide = set()
+    for kind in ("LDG", "STG"):
+        ops_k = [op for op in mem if op.startswith(kind)]
+        if ops_k:
+            w = max(_width(op) for op in ops_k)
+            wide |= {op for op in ops_k if _width(op) == w}
+    lps = [lp for lp in loops(insns) if lp["ops"].get("STG")]
+    if lps:
+        lp = max(lps, key=lambda d: d["n"])
+        start, end = lp["start"], lp["end"]
+    else:
+        stores = [a for a, op, _ in insns if op.startswith("STG")]
+        if not stores:
+            return None
+        start, end = insns[0][0], stores[-1]
+    p = shortest_path(insns, start, end, most=tuple(sorted(wide)))
+    return dict(design="grid-stride" if lps else "a value a thread",
+                pass_n=p["n"], values_a_pass=values,
+                per_value=p["n"] / values)
+
+
+#: the values a thread of the row codec codes: its template argument after
+#: the layout, the code type and, for compress, the rounding
+_CODEC_V = re.compile(r"(?:(?<!de)compress_kernel<frsz2::Layout<[^>]*>, unsigned "
+                      r"\w+, (?:true|false|0|1)|decompress_kernel<frsz2::Layout"
+                      r"<[^>]*>, unsigned \w+), (\d+)>")
+
+
+def codec_values(name: str) -> int:
+    """Values a thread codes in a pass of a codec kernel, from its template
+    arguments: the row codec's last one (1 for the first design, which has
+    none); the cache write's 16 bytes of K/V values a lane (4 f32, value
+    kind 0, or 8 f16/bf16)."""
+    m = re.search(r"cache_write_kernel<(\d+),", name)
+    if m:
+        return 4 if m.group(1) == "0" else 8
+    m = _CODEC_V.search(name)
+    return int(m.group(1)) if m else 1
+
+
 def report(csrc: pathlib.Path) -> list[dict]:
     pat = re.compile(MATCH)
     geo = geometry(csrc)
@@ -316,6 +382,8 @@ def report(csrc: pathlib.Path) -> list[dict]:
                     unit = attn_per_position(insns, geo)
                 elif "DenseX" in name or "batched" in name:
                     unit = ell_per_slot(insns, "batched" in name, geo)
+                elif "compress_kernel" in name or "cache_write" in name:
+                    unit = codec_per_value(insns, codec_values(name))
                 rows.append(dict(source=lib.name, kernel=name, n=len(insns),
                                  ops=dict(hist.most_common()),
                                  loops=loops(insns), hot=hot_path(insns),

@@ -14,15 +14,23 @@ profiles a solve of k right-hand sides (``_batch_rhs``) through
 
 ``--arch yi-9b`` profiles LM decode steps instead, at ``chip_smoke.py``'s
 serving shape (8 slots, prompt 2048, random weights from seed 0), once per
-KV format in ``--formats`` (e.g. ``frsz2_16,bf16``): a prefill, two warm-up
-steps, then four steps under the profiler, each starting with the host read
-of the previous step's tokens, as in ``serve``.  Besides the busy share it reports the
-kernel launches per step.  Needs a CUDA card.
+KV format in ``--formats`` (e.g. ``frsz2_16,bf16``): a warm-up prefill, one
+prefill under the profiler, two warm-up steps, then four steps under the
+profiler, each starting with the host read of the previous step's tokens, as
+in ``serve``.  Besides the busy share it reports the kernel launches per
+step and the prefill's wall, device time and launches.  For an FRSZ2 format
+it also times one layer's KV-cache write (``time_cache_write``).  Needs a
+CUDA card.
+
+The module uses only the port's public entry points (the model, the
+profiler, ``kvcache``), so a copy of it placed in an older checkout's
+``src/repro_torch/launch`` times that port alike.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 
 import torch
@@ -30,7 +38,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.solve import _batch_rhs
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import decode_step, init_params, kvcache, prefill
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
 
@@ -82,14 +90,86 @@ def _device_kernels(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
+def _event_ms(fn, reps: int = 30) -> float:
+    """Median device time of ``fn`` by CUDA events, after one warm call.
+    The card first sleeps ~1 ms, so that the host has queued all of
+    ``fn``'s launches before the first event fires: the events then time
+    the card's work, not the host's launching."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Host time a call over ``reps`` back-to-back calls (what a host-bound
+    step pays), after three warm calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def time_cache_write(cfg) -> dict:
+    """One layer's KV-cache write at the serving shape, on seeded bf16 K/V:
+    ``kvcache.append`` of a decode step (B, 1, Hkv, D) at lengths
+    ``SERVE_PROMPT`` and ``kvcache.build_cache`` of the prefill (B,
+    SERVE_PROMPT, Hkv, D), by CUDA events and by the host clock."""
+    fmt = kvcache.cache_format(cfg.kv_format)
+    B, Hkv, D, S = SERVE_SLOTS, cfg.num_kv_heads, cfg.hd, SERVE_PROMPT + 72
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def kv(T):
+        return [torch.randn((B, T, Hkv, D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2)]
+
+    (k1, v1), (kp, vp) = kv(1), kv(SERVE_PROMPT)
+    lengths = torch.full((B,), SERVE_PROMPT, dtype=torch.int32, device="cuda")
+    lc = {n: t[0] for n, t in kvcache.init_cache(fmt, 1, B, Hkv, S, D,
+                                                 device="cuda").items()}
+
+    def step():
+        kvcache.append(lc, k1, v1, lengths, fmt)
+
+    def build():
+        kvcache.build_cache(kp, vp, fmt, cache_len=S, out=lc)
+
+    tiny = torch.zeros(1, device="cuda")
+    return dict(floor_ms=_event_ms(tiny.zero_), step_ms=_event_ms(step),
+                step_host_ms=_host_ms(step, 200), prefill_ms=_event_ms(build),
+                prefill_host_ms=_host_ms(build, 20))
+
+
 def profile_decode(cfg, params, *, top: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT),
                            generator=gen, device="cuda")
-    logits, cache = prefill(params, cfg, prompt,
-                            cache_len=SERVE_PROMPT + SERVE_STEPS + 2)
+    cache_len = SERVE_PROMPT + SERVE_STEPS + 2
+    prefill(params, cfg, prompt, cache_len=cache_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, prompt, cache_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_wall = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    pre = dict(prefill_wall_ms=prefill_wall * 1e3,
+               prefill_device_ms=sum(e.self_device_time_total
+                                     for e in kernels) * 1e-3,
+               prefill_launches=sum(e.count for e in kernels))
 
     def step(tokens, cache):                        # as serve's loop
         tokens.tolist()
@@ -118,7 +198,7 @@ def profile_decode(cfg, params, *, top: int = 10) -> dict:
                 / n,
                 top=[dict(name=e.key[:100], calls_per_step=e.count / n,
                           device_ms_per_step=e.self_device_time_total
-                          * 1e-3 / n) for e in kernels])
+                          * 1e-3 / n) for e in kernels], **pre)
 
 
 def main(argv=None):
@@ -147,9 +227,11 @@ def main(argv=None):
         cfg = get_arch(args.arch)
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
         for fmt in args.formats.split(","):
-            print(json.dumps(profile_decode(
-                dataclasses.replace(cfg, kv_format=fmt), params,
-                top=args.top)), flush=True)
+            cfg_f = dataclasses.replace(cfg, kv_format=fmt)
+            row = profile_decode(cfg_f, params, top=args.top)
+            if kvcache.cache_format(fmt).kind == "frsz2":
+                row["cache_write"] = time_cache_write(cfg_f)
+            print(json.dumps(row), flush=True)
         return
     A, target = make_problem(args.problem, args.n, device=dev)
     b, _ = rhs_for(A, device=dev)

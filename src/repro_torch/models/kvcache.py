@@ -21,10 +21,12 @@ copy of the cache per layer and step).  Codes are held as the codec's
 signed containers (``int16`` for l = 16, ``uint8`` for l = 8) with the JAX
 package's bit patterns.
 
-On the card, an FRSZ2 cache is written by the FRSZ2 compress kernel, and
-:func:`attend` over it with neither ``window`` nor ``ring`` runs the
-hand-written flash-decode kernel (``ops.decode_attention``), and on the
-CPU by that kernel's plain version through the same call.  The raw formats
+On the card, an FRSZ2 cache is written by the cache-write kernel
+(``ops.cache_write``: K and V of a layer in one launch, in a decode step
+and in the prefill), and :func:`attend` over it with neither ``window`` nor
+``ring`` runs the hand-written flash-decode kernel
+(``ops.decode_attention``); on the CPU both run their plain versions
+through the same calls.  The raw formats
 and the windowed or ring cases run the plain masked softmax, which is where
 the JAX package runs jnp for them too.
 """
@@ -127,29 +129,30 @@ def append(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     place into ``layer_cache`` (one layer's tensors), and return it.
 
     ``ring`` > 0 wraps positions modulo ``ring`` (sliding-window cache).
-    Works for T == 1 (decode) and T == S (prefill bulk write).  Positions
-    must lie inside the cache (the JAX package drops writes past its end;
-    ``launch.serve`` sizes the cache so that there are none).
+    Works for T == 1 (decode) and T == S (prefill bulk write).  An FRSZ2
+    cache is written by ``ops.cache_write``, one launch for K and V on the
+    card, which drops positions outside the cache as the JAX package's
+    scatter does.  A raw cache's positions must lie inside it
+    (``launch.serve`` sizes the cache so that there are none).
     """
     B, T, Hkv, D = k_new.shape
+    if fmt.kind == "frsz2":
+        ops.cache_write(k_new, v_new, lengths, layer_cache["k_codes"],
+                        layer_cache["k_exps"], layer_cache["v_codes"],
+                        layer_cache["v_exps"], fmt.spec(D), ring=ring)
+        return layer_cache
     dev = k_new.device
-    buf0 = layer_cache["k"] if fmt.kind == "raw" else layer_cache["k_codes"]
-    S = buf0.shape[2]
+    S = layer_cache["k"].shape[2]
     pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=dev)
     if ring:
         pos = pos % ring
-    # one flat row index per (b, h, t) into the (B * Hkv * S, width) views
+    # one flat row index per (b, h, t) into the (B * Hkv * S, D) views
     rows = (torch.arange(B * Hkv, device=dev).view(B, Hkv, 1) * S
             + pos[:, None, :]).reshape(-1)
-    parts = {"k": k_new.transpose(1, 2), "v": v_new.transpose(1, 2)}
-    if fmt.kind == "frsz2":
-        parts = {f"{n}_{w}": x for n, t in parts.items()
-                 for w, x in zip(("codes", "exps"), encode_heads(t, fmt, D))}
-    for name, x in parts.items():
+    for name, x in (("k", k_new), ("v", v_new)):
         buf = layer_cache[name]
-        width = buf.shape[-1]
-        buf.view(-1, width).index_copy_(
-            0, rows, x.reshape(-1, width).to(buf.dtype))
+        buf.view(-1, D).index_copy_(
+            0, rows, x.transpose(1, 2).reshape(-1, D).to(buf.dtype))
     return layer_cache
 
 
@@ -221,30 +224,33 @@ def build_cache(k_all: torch.Tensor, v_all: torch.Tensor, fmt: CacheFormat, *,
     whole buffer is produced at once — the paper's whole-block-write
     discipline at maximum scale.  ``out`` (one layer's preallocated
     tensors of that length) is written in place and returned; the padding
-    past the prompt is zeroed.
+    past the prompt is zeroed.  An FRSZ2 cache is written by
+    ``ops.cache_write`` at positions ``[0, S)``, its padding cleared by the
+    same launch, one for K and V on the card; with a ring, position
+    ``p >= S - ring`` goes to slot ``p mod ring``, where the roll of the
+    raw formats puts it.
     """
     B, S, Hkv, D = k_all.shape
+    stored = min(S, ring) if ring else S
+    target = max(cache_len or stored, stored)
+    if out is None:
+        out = {n: t[0] for n, t in init_cache(fmt, 1, B, Hkv, target, D,
+                                              device=k_all.device).items()}
+    if fmt.kind == "frsz2":
+        ops.cache_write(k_all, v_all, None, out["k_codes"], out["k_exps"],
+                        out["v_codes"], out["v_exps"], fmt.spec(D), ring=ring,
+                        clear_from=stored)
+        return out
     k_bhsd = k_all.transpose(1, 2)
     v_bhsd = v_all.transpose(1, 2)
     if ring and S > ring:
         shift = (S - ring) % ring
         k_bhsd = torch.roll(k_bhsd[:, :, S - ring:], shift, dims=2)
         v_bhsd = torch.roll(v_bhsd[:, :, S - ring:], shift, dims=2)
-        S = ring
-    target = max(cache_len or S, S)
-    if out is None:
-        out = {n: t[0] for n, t in init_cache(fmt, 1, B, Hkv, target, D,
-                                              device=k_all.device).items()}
-    if fmt.kind == "raw":
-        parts = {"k": k_bhsd, "v": v_bhsd}
-    else:
-        parts = {}
-        for n, x in (("k", k_bhsd), ("v", v_bhsd)):
-            parts[f"{n}_codes"], parts[f"{n}_exps"] = encode_heads(x, fmt, D)
-    for name, x in parts.items():
+    for name, x in (("k", k_bhsd), ("v", v_bhsd)):
         buf = out[name]
-        buf[:, :, :S].copy_(x)
-        buf[:, :, S:].zero_()
+        buf[:, :, :stored].copy_(x)
+        buf[:, :, stored:].zero_()
     return out
 
 

@@ -35,7 +35,13 @@ attention at lengths across its 64-position tiles and its splits (with an
 empty row, S not a multiple of the tile), a cache of more than one block a
 row, and K/V blocks across the scaled decode's guard: V rows equal to
 ``decompress``, K within 1e-5 of plain; its split rule's wave from the
-kernel's occupancy query.
+kernel's occupancy query.  The redesigned row codec bit-equal to the
+plain codec at 65,536 and 70,000 rows (one launch each), at a ragged n for
+every spot of ``cardcheck.CODEC_SPOTS`` in both roundings and on views at
+an offset; the fused KV-cache write bit-equal to its plain version (one
+launch for K and V) on K/V as the model hands them and on strided views,
+f32/f16/bf16, l 8/16, D 64/128, decode and prefill writes, a ring, and
+positions past the cache, which are dropped.
 """
 import numpy as np
 import pytest
@@ -407,9 +413,11 @@ def test_kv_cache_and_decode_on_card_match_cpu(cuda):
     dc, cc = decode_step(params, cfg, cc, tokens[:, 24])
     dg, cg = decode_step(on_card, cfg, cg, tokens[:, 24].to(cuda))
     assert ops.LAUNCHES["decode_attn"] == cfg.num_layers
-    assert ops.LAUNCHES["frsz2_compress"] == 2 * cfg.num_layers
+    # one fused cache write a layer, K and V together; no row compress
+    assert ops.LAUNCHES["frsz2_cache_write"] == cfg.num_layers
+    assert ops.LAUNCHES["frsz2_compress"] == 0
     assert float((dg.cpu() - dc).abs().max()) <= 1e-3 * float(dc.abs().max())
-    # the compress kernel writes the plain codec's bits: the same K/V
+    # the cache-write kernel writes the plain codec's bits: the same K/V
     # written on the card and on the CPU give the same cache
     fmt = kvcache.cache_format(cfg.kv_format)
     x = torch.randn((2, 5, 2, cfg.hd), generator=torch.Generator()
@@ -641,3 +649,98 @@ def test_decode_attention_across_the_decode_guard_on_card(cuda, l, exp_dtype):
     v_ok, rel, _ = cardcheck.attn_across_guard(l, exp_dtype, gen)
     assert v_ok
     assert rel <= cardcheck.ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_row_codec_edges_on_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    assert cardcheck.codec_edges(gen) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("l,D", [(16, 128), (8, 64), (16, 64), (8, 128),
+                                 (16, 112)])
+@pytest.mark.parametrize("case", ["decode", "prefill", "ring", "strided",
+                                  "unaligned"])
+def test_cache_write_matches_plain_on_card(cuda, dtype, l, D, case):
+    """One launch writes K and V; every cache buffer equals the plain
+    version's (D = 112: bs outside ``kernel_supported``, still the kernel's
+    route on the card).  decode: T = 1 at lengths 0, 5, S - 1 and S (dropped);
+    prefill: T = S at lengths 3 (the tail dropped), then T = S - 8 from 0
+    (lengths None), clearing the 8 positions past it, as ``build_cache``
+    does; ring: a prefill of 3 * ring
+    positions and a decode step past the ring;
+    strided / unaligned: K/V sliced from a wider tensor at an offset of 8
+    or 3 values, T = 4."""
+    B, Hkv, S = 4, 2, 40
+    gen = torch.Generator(device=cuda).manual_seed(D + l)
+    fmt = kvcache.cache_format(f"frsz2_{l}")
+    spec = fmt.spec(D)
+
+    def kv(T, width=D):
+        return [(torch.randn((B, T, Hkv, width), generator=gen, device=cuda)
+                 * 4.0).to(dtype) for _ in range(2)]
+
+    ring = 16 if case == "ring" else 0
+    S_cache = ring or S
+    if case == "decode":
+        writes = [(kv(1), torch.tensor([0, 5, S - 1, S], dtype=torch.int32,
+                                       device=cuda))]
+    elif case == "prefill":
+        writes = [(kv(S), torch.full((B,), 3, dtype=torch.int32,
+                                     device=cuda)), (kv(S - 8), None)]
+    elif case == "ring":
+        writes = [(kv(3 * ring), None), (kv(1), torch.tensor(
+            [3 * ring, 17, 0, 5], dtype=torch.int32, device=cuda))]
+    else:                       # aligned for vector loads, or off by 3
+        off = 8 if case == "strided" else 3
+        wide = kv(4, 2 * D + 8)
+        writes = [([w[..., off:D + off] for w in wide],
+                   torch.tensor([0, 1, 20, 36], dtype=torch.int32, device=cuda))]
+    caches = []
+    for kernel in (True, False):
+        c = {n: t[0] for n, t in kvcache.init_cache(fmt, 1, B, Hkv, S_cache, D,
+                                                    device=cuda).items()}
+        for t in c.values():
+            t.fill_(7)                   # what is not written or cleared stays
+        ops.reset_launches()
+        for (k, v), lengths in writes:
+            # a write from position 0 clears the rest, as build_cache's
+            clear = k.shape[1] if lengths is None and not ring else None
+            ops.cache_write(k, v, lengths, c["k_codes"], c["k_exps"],
+                            c["v_codes"], c["v_exps"], spec, ring=ring,
+                            clear_from=clear, kernel=kernel)
+        assert ops.LAUNCHES["frsz2_cache_write"] == (len(writes) if kernel
+                                                     else 0)
+        caches.append(c)
+    for n in caches[0]:
+        assert torch.equal(caches[0][n], caches[1][n]), n
+    # and through kvcache as the model calls it
+    (k, v), lengths = writes[-1]
+    c = {n: t[0] for n, t in kvcache.init_cache(fmt, 1, B, Hkv, S_cache, D,
+                                                device=cuda).items()}
+    ops.reset_launches()
+    if lengths is None:
+        kvcache.build_cache(k, v, fmt, cache_len=S_cache, ring=ring, out=c)
+    else:
+        kvcache.append(c, k, v, lengths, fmt, ring=ring)
+    assert ops.LAUNCHES["frsz2_cache_write"] == 1
+    assert ops.LAUNCHES["frsz2_compress"] == 0
+
+
+@pytest.mark.cuda
+def test_cache_write_raises_on_card_outside_kernel(cuda):
+    """A CUDA write the kernel does not take (D = 256) raises: the plain
+    version does not run on the card in its place."""
+    D = 256
+    fmt = kvcache.cache_format("frsz2_16")
+    c = {n: t[0] for n, t in kvcache.init_cache(fmt, 1, 2, 2, 8, D,
+                                                device=cuda).items()}
+    x = torch.zeros((2, 1, 2, D), dtype=torch.bfloat16, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        kvcache.append(c, x, x, torch.zeros(2, dtype=torch.int32,
+                                             device=cuda), fmt)
+    assert ops.LAUNCHES["frsz2_cache_write"] == 0

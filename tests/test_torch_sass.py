@@ -74,8 +74,8 @@ def test_match_selects_the_main_path_instantiations():
     shared-exponent path), the vector-load matvec (and the first matvec and
     combine, for an older checkout), the f64 ELL SpMVs (the batched one at
     w = 7), the decode attention at l = 16, D = 128, G = 8 (the tiled kernel
-    and, for an older checkout, the first one); nothing else of the four
-    sources."""
+    and, for an older checkout, the first one); nothing else of those four
+    sources (the codec's: ``test_codec_kernels_and_their_values_a_thread``)."""
     pat = re.compile(sass.MATCH)
     lay = "frsz2::Layout<64, 52, 11>"
     picked = [
@@ -113,7 +113,7 @@ def test_match_selects_the_main_path_instantiations():
     assert all(pat.search(n) for n in picked)
     assert not any(pat.search(n) for n in skipped)
     assert sass.SOURCES == ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu",
-                            "decode_attn.cu")
+                            "decode_attn.cu", "frsz2_codec.cu")
 
 
 def test_hot_path_of_a_ring_turn_takes_no_remainder_branch():
@@ -272,3 +272,69 @@ def test_geometry_is_read_from_the_counted_sources(tmp_path):
     for src in sass.GEOMETRY:
         (tmp_path / src).write_text("constexpr int kOther = 3;\n")
     assert sass.geometry(tmp_path) == {}
+
+
+# a grid-stride codec loop 0x10-0x90: a vector load, or element loads when
+# the chunk is not whole (0x20 -> 0x50); a vector store; an exponent store
+# once a block (0x70 skips it)
+CODEC = [
+    (0x00, "S2R", "R0, SR_TID.X"),
+    (0x10, "ISETP.GE.AND", "P0, PT, R2, R3, PT"),
+    (0x20, "BRA", "@P0 | 0x50"),
+    (0x30, "LDG.E.128", "R4, desc[UR4][R8.64]"),
+    (0x40, "BRA", "0x60"),
+    (0x50, "LDG.E.64", "R4, desc[UR4][R8.64]"),
+    (0x58, "LDG.E.64", "R6, desc[UR4][R8.64+0x8]"),
+    (0x60, "STG.E.64", "desc[UR4][R10.64], R4"),
+    (0x70, "BRA", "@P1 | 0x88"),
+    (0x80, "STG.E", "desc[UR4][R12.64], R5"),
+    (0x88, "IADD3", "R2, R2, R1, RZ"),
+    (0x90, "BRA", "@P2 | 0x10"),
+    (0xa0, "EXIT", ""),
+]
+
+
+def test_codec_per_value_takes_the_vector_pass():
+    u = sass.codec_per_value(CODEC, 2)
+    # 0x10 0x20 0x30 0x40 0x60 0x70 0x88 0x90: the vector load and store,
+    # no element loads, no exponent store
+    assert u["design"] == "grid-stride" and u["pass_n"] == 8
+    assert u["per_value"] == 4.0
+
+
+def test_codec_per_value_of_a_kernel_without_a_loop():
+    code = [(0x00, "LDG.E.64", "R2, desc[UR4][R4.64]"),
+            (0x10, "FLO.U32", "R6, R3"),
+            (0x20, "STG.E", "desc[UR4][R8.64], R6"),
+            (0x30, "BRA", "@P0 | 0x50"),
+            (0x40, "STG.E", "desc[UR4][R10.64], R7"),
+            (0x50, "EXIT", "")]
+    u = sass.codec_per_value(code, 1)
+    assert u["design"] == "a value a thread" and u["pass_n"] == 5
+
+
+def test_codec_kernels_and_their_values_a_thread():
+    pat = re.compile(sass.MATCH)
+    f64 = "frsz2::Layout<64, 52, 11>, unsigned int"
+    cases = {  # demangled name -> values a thread (1: the first design)
+        f"void frsz2::compress_kernel<{f64}, false, 4>(x)": 4,
+        f"void frsz2::compress_kernel<{f64}, 0, 4>(x)": 4,
+        f"void frsz2::decompress_kernel<{f64}, 2>(x)": 2,
+        f"void frsz2::compress_kernel<{f64}, false>(x)": 1,
+        f"void frsz2::compress_kernel<{f64}, 0>(x)": 1,
+        f"void frsz2::decompress_kernel<{f64}>(x)": 1,
+        "void frsz2::cachew::cache_write_kernel<3, unsigned short, 16>(a)": 8,
+        "void frsz2::compress_kernel<frsz2::Layout<32, 23, 8>, unsigned "
+        "short, true>(x)": 1}
+    for name, v in cases.items():
+        assert pat.search(name), name
+        assert sass.codec_values(name) == v, name
+    assert sass.codec_values("void frsz2::cachew::cache_write_kernel<0, "
+                             "unsigned short, 32>(a)") == 4
+    # other instantiations are not counted
+    for name in (f"void frsz2::compress_kernel<{f64}, false, 2>(x)",
+                 f"void frsz2::compress_kernel<{f64}, true, 4>(x)",
+                 f"void frsz2::decompress_kernel<{f64}, 4>(x)",
+                 "void frsz2::cachew::cache_write_kernel<3, unsigned short, 8>(a)",
+                 "void frsz2::cachew::cache_write_kernel<0, unsigned char, 8>(a)"):
+        assert not pat.search(name), name

@@ -61,21 +61,21 @@ def test_completions_equal_jax_serve(kv_format):
 
 def test_serve_counts_launches_by_phase(monkeypatch):
     """``stats`` splits the kernel launches between the prefill and the
-    decode steps: with every cache write counted as a compress launch (on
-    the CPU the wrapper launches nothing), two a layer for the prefill and
-    two a layer for each decode step."""
+    decode steps: with every cache write counted as a launch of the fused
+    cache-write kernel (on the CPU the wrapper launches nothing), one a
+    layer (K and V together) for the prefill and one a layer for each
+    decode step, and no row compress."""
     from repro_torch.kernels import ops
-    from repro_torch.models import kvcache
 
     cfg = dataclasses.replace(get_arch("yi-9b").reduced(),
                               kv_format="frsz2_16", **TINY)
-    encode = kvcache.encode_heads
+    write = ops.cache_write
 
-    def counted(x, fmt, head_dim):
-        ops.LAUNCHES["frsz2_compress"] += 1
-        return encode(x, fmt, head_dim)
+    def counted(*args, **kw):
+        ops.LAUNCHES["frsz2_cache_write"] += 1
+        return write(*args, **kw)
 
-    monkeypatch.setattr(kvcache, "encode_heads", counted)
+    monkeypatch.setattr(ops, "cache_write", counted)
     sc = ServeConfig(slots=3, prompt_len=16, max_new=8, max_ctx=32)
     stats = {}
     ops.reset_launches()
@@ -83,9 +83,10 @@ def test_serve_counts_launches_by_phase(monkeypatch):
           stats=stats)
     steps = len(stats["step_s"])
     L = cfg.num_layers
-    assert stats["prefill_launches"]["frsz2_compress"] == 2 * L
-    assert stats["step_launches"]["frsz2_compress"] == 2 * L * steps
-    assert ops.LAUNCHES["frsz2_compress"] == 2 * L * (1 + steps)
+    assert stats["prefill_launches"]["frsz2_cache_write"] == L
+    assert stats["step_launches"]["frsz2_cache_write"] == L * steps
+    assert ops.LAUNCHES["frsz2_cache_write"] == L * (1 + steps)
+    assert ops.LAUNCHES["frsz2_compress"] == 0
     assert not stats["step_launches"]["decode_attn"]
 
 
