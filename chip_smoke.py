@@ -71,6 +71,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch counts set to 0 just before and read just after: every column
    converges, the drivers agree, every kernel of the block path launches in
    the frsz2_32 block solve and no FRSZ2 kernel in the float64 one.
+7b. operator planning (slice 5) — ``synth:unstructured`` at n = 1,259,712
+   (w = 27, the paper's atmosmodd row count): ``plan_operator(A, 1,
+   reorder="rcm")`` on the host, timed, with the raw and RCM bandwidths,
+   and a second call that must hit the plan cache (the same object, under
+   a second); kernels 5 and 6 (a frsz2_32 operand) on the raw and the
+   permuted operator, bit-equal to their plain versions, CUDA-event times
+   beside the byte bound (added to the ``ell_spmv`` / ``ell_spmv_frsz2``
+   entries as ``unstructured_raw_ms``, ``unstructured_rcm_ms``,
+   ``unstructured_bound_ms``); float64 and frsz2_32 device solves, m =
+   100, ``reorder="none"`` against ``"rcm"``, each twice: equal restarts,
+   iterations within one, x within 1e-9 relative after ``unpermute``,
+   equal ``bytes_read``/``op_reads`` and replayed launches when the
+   iterations agree, the float64 RRNs within 1e-5 relative and 1e-16
+   absolute (``tests/test_reorder.py``'s tolerance; frsz2_32's
+   both under the target: FRSZ2's blocks span consecutive entries, which
+   the permutation regroups), and the repeated solve capturing no new
+   graph; the RCM block solve (p = 8, frsz2_32) with the iterations of
+   ``"none"``'s, X within 1e-9; the ``emul:sz_abs:1e-10``,
+   ``emul:sz_pwrel:1e-6`` and ``emul:zfp_fr:32`` formats at n = 8000 on
+   the device driver (captured, replayed) against the host driver, and
+   their roundtrip of a full-width row on the card against the CPU's
+   (bit-equal for ``sz_abs`` and ``zfp_fr``; ``sz_pwrel``'s differing
+   entries counted), timed beside its byte bound.
 
 8. decode attention (slice 4's kernel) at the ``decode_32k`` length with
    yi-9b's heads — B = 8, Hkv = 4, G = 8, D = 128, S = 32768, lengths from
@@ -152,6 +175,15 @@ DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
 BLOCK_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_block_dots",
               "frsz2_block_combine", "ell_spmv", "gmres_block_givens")
 P_BLOCK = 8                # right-hand sides of the block solves
+
+#: phase 7b: operator planning on the paper's atmosmodd row count
+#: (``synth:unstructured``, 8·54³ rows, w = 27); the solves converge in
+#: about 70-90 iterations (CPU runs at 1/8 of the width), the caps bound a
+#: failure's card time
+PLAN_N = 1259712
+PLAN_MAX_ITERS = 2000
+PLAN_BLOCK_MAX_ITERS = 1000
+EMUL_FORMATS = ("emul:sz_abs:1e-10", "emul:sz_pwrel:1e-6", "emul:zfp_fr:32")
 
 #: phase 8: yi-9b's heads at the decode_32k length (``SHAPES``).  Its
 #: tolerances are ``kernels/cardcheck.py``'s, shared with the card tests:
@@ -666,7 +698,8 @@ def phase_givens():
         helper=True)}
 
 
-def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver):
+def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver,
+               reorder="auto"):
     import torch
 
     from repro_torch.kernels import ops
@@ -677,7 +710,7 @@ def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = gmres(A, b, storage=fmt, m=M, max_iters=max_iters, target_rrn=target,
-                driver=driver)
+                driver=driver, reorder=reorder)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -691,6 +724,8 @@ def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver):
                bytes_read_per_s=res.bytes_read / wall, op_reads=res.op_reads,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=launches)
+    if reorder != "auto":
+        row["reorder"] = reorder
     emit(row)
     return res, row
 
@@ -1180,7 +1215,8 @@ def phase_block_kernels(A):
     return entries
 
 
-def _block_row(label, A, B, x_sol, fmt, target, max_iters, method, driver):
+def _block_row(label, A, B, x_sol, fmt, target, max_iters, method, driver,
+               reorder="auto"):
     import torch
 
     from repro_torch.kernels import ops
@@ -1191,7 +1227,8 @@ def _block_row(label, A, B, x_sol, fmt, target, max_iters, method, driver):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = gmres_batched(A, B, storage=fmt, m=M, max_iters=max_iters,
-                        target_rrn=target, method=method, driver=driver)
+                        target_rrn=target, method=method, driver=driver,
+                        reorder=reorder)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -1212,6 +1249,8 @@ def _block_row(label, A, B, x_sol, fmt, target, max_iters, method, driver):
                op_reads=[r.op_reads for r in res],
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=launches)
+    if reorder != "auto":
+        row["reorder"] = reorder
     emit(row)
     return res, X, row
 
@@ -1313,6 +1352,238 @@ def phase_block_full_width(A, target):
             _check_launches(rd2, BLOCK_PATH, "frsz2_32 block solve (slice 3)")
             launches = {k: rd2["launches"][k] for k in BLOCK_PATH}
     return launches
+
+
+def _plan_ell_times(A, plan, entries):
+    """Kernels 5 and 6 on the raw and the RCM-permuted operator (w = 27):
+    bit-equal to their plain versions on both, CUDA-event times beside the
+    byte bound, added to the ``ell_spmv``/``ell_spmv_frsz2`` entries."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    n = A.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((n,), generator=gen, dtype=torch.float64, device="cuda")
+    v = x / torch.linalg.vector_norm(x)
+    bc = ops.compress(v, F.FrszSpec(bs=32, l=32, dtype=torch.float64))
+    times = {}
+    for which, op in (("raw", A), ("rcm", plan.operator)):
+        E = op._ell()
+        w = E.vals.shape[1]
+        check(w == 27, f"{which} unstructured operator has ELL width {w}")
+        mat_bytes = E.vals.numel() * 8 + E.cols.numel() * 4
+        for name, operand, x_bytes in (
+                ("ell_spmv", x, n * 8),
+                ("ell_spmv_frsz2", bc,
+                 bc.codes.numel() * 4 + bc.exps.numel() * 4)):
+            yk = ops.ell_spmv(E.vals, E.cols, operand, kernel=True)
+            yp = ops.ell_spmv(E.vals, E.cols, operand, kernel=False)
+            check(torch.equal(yk, yp), f"{name} on the {which} unstructured "
+                                       "operator != plain")
+            ms = timed(lambda E=E, op=operand: ops.ell_spmv(
+                E.vals, E.cols, op, kernel=True))
+            bound, _ = bound_ms(mat_bytes + x_bytes + n * 8, 2.0 * n * w)
+            times[name, which] = (ms, bound)
+            print(f"[plan] {name} {which}: n={n} w={w} bit-equal to plain; "
+                  f"{ms * 1e3:.1f} us, bound {bound * 1e3:.1f} us")
+    for name in ("ell_spmv", "ell_spmv_frsz2"):
+        raw, rcm = times[name, "raw"], times[name, "rcm"]
+        entries[name].update(unstructured_raw_ms=raw[0],
+                             unstructured_rcm_ms=rcm[0],
+                             unstructured_bound_ms=rcm[1])
+        print(f"[plan] {name}: raw / rcm {raw[0] / rcm[0]:.3f}, rcm / bound "
+              f"{rcm[0] / rcm[1]:.3f}")
+
+
+def _plan_solves(A, target):
+    """Full-width device solves of the unstructured operator, ``none``
+    against ``rcm``: the agreement the permutation owes, and the replay of
+    a repeated RCM solve."""
+    import torch
+
+    from repro_torch.solver.gmres import _GRAPHS
+    from repro_torch.sparse import rhs_for
+
+    b, x_sol = rhs_for(A, device="cuda")
+    for fmt in ("float64", "frsz2_32"):
+        rows = {}
+        for reorder in ("none", "rcm"):
+            first = _solve_row("plan-capture", A, b, x_sol, fmt, target,
+                               PLAN_MAX_ITERS, "device", reorder)
+            keys = set(_GRAPHS)
+            rows[reorder] = _solve_row("plan", A, b, x_sol, fmt, target,
+                                       PLAN_MAX_ITERS, "device", reorder)
+            check(set(_GRAPHS) == keys, f"{fmt} {reorder}: the repeated "
+                                        "solve captured a new graph")
+            check(rows[reorder][0].iterations == first[0].iterations
+                  and torch.equal(rows[reorder][0].x, first[0].x),
+                  f"{fmt} {reorder}: a repeated solve differs")
+        (rn, wn), (rr, wr) = rows["none"], rows["rcm"]
+        for res, what in ((rn, "none"), (rr, "rcm")):
+            check(res.converged and bool(torch.isfinite(res.x).all()),
+                  f"full-width unstructured {fmt} {what} did not converge "
+                  f"within {PLAN_MAX_ITERS} iterations")
+        d_it = rr.iterations - rn.iterations
+        check(abs(d_it) <= 1 and rr.restarts == rn.restarts,
+              f"{fmt}: rcm {rr.iterations} it / {rr.restarts} restarts, none "
+              f"{rn.iterations} / {rn.restarts}")
+        if d_it == 0:
+            for key in ("bytes_read", "op_reads"):
+                check(wr[key] == wn[key], f"{fmt}: rcm {key} {wr[key]} != "
+                                          f"none {wn[key]}")
+            check(wr["launches"] == wn["launches"],
+                  f"{fmt}: replayed launches differ: rcm {wr['launches']}, "
+                  f"none {wn['launches']}")
+        x_rel = float(torch.linalg.vector_norm(rr.x - rn.x)
+                      / torch.linalg.vector_norm(rn.x))
+        check(x_rel <= 1e-9, f"{fmt}: rcm x vs none x relative {x_rel:.3e}")
+        rrn_rel = abs(rr.rrn - rn.rrn) / rn.rrn
+        if fmt == "float64":
+            # tests/test_reorder.py's tolerance: 1e-5 relative, 1e-16
+            # absolute (an RRN near 1e-13 is resolved to ~1e-18)
+            check(abs(rr.rrn - rn.rrn) <= 1e-16 + 1e-5 * rn.rrn,
+                  f"{fmt}: rcm RRN {rr.rrn:.6e} vs none {rn.rrn:.6e}")
+        else:
+            # FRSZ2's block exponents span 32 consecutive entries, which
+            # the permutation regroups: another compressed basis, whose
+            # final RRN differs below the target
+            check(max(rr.rrn, rn.rrn) <= target,
+                  f"{fmt}: RRN rcm {rr.rrn:.3e} none {rn.rrn:.3e} over the "
+                  f"target {target:.1e}")
+        print(f"[plan] {fmt}: iterations none {rn.iterations} rcm "
+              f"{rr.iterations} ({d_it:+d}), restarts {rn.restarts}; RRN "
+              f"none {rn.rrn:.6e} rcm {rr.rrn:.6e} (relative {rrn_rel:.3e}); "
+              f"x relative {x_rel:.3e}; wall none {wn['wall_s']:.4f} s "
+              f"({wn['wall_per_iter_ms']:.4f} ms/it), rcm {wr['wall_s']:.4f} "
+              f"s ({wr['wall_per_iter_ms']:.4f} ms/it), ratio "
+              f"{wr['wall_per_iter_ms'] / wn['wall_per_iter_ms']:.3f}; "
+              "repeated solves replayed (no recapture)")
+
+
+def _plan_block_solve(A, target):
+    """The RCM block solve (p = 8, frsz2_32) against the unreordered one."""
+    import torch
+
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.sparse import rhs_for
+
+    b, x_sol = rhs_for(A, device="cuda")
+    B = _batch_rhs(b, P_BLOCK)
+    out = {}
+    for reorder in ("none", "rcm"):
+        _, X, row = _block_row("plan-block", A, B, x_sol, "frsz2_32", target,
+                               PLAN_BLOCK_MAX_ITERS, "block", "device",
+                               reorder)
+        out[reorder] = (X, row)
+        release()
+    (Xn, rn), (Xr, rr) = out["none"], out["rcm"]
+    check(rr["iters"] == rn["iters"], f"block rcm iterations {rr['iters']} "
+                                      f"!= none {rn['iters']}")
+    check(bool(torch.isfinite(Xr).all()), "block rcm X not finite")
+    x_rel = float(torch.linalg.vector_norm(Xr - Xn)
+                  / torch.linalg.vector_norm(Xn))
+    check(x_rel <= 1e-9, f"block rcm X vs none relative {x_rel:.3e}")
+    _check_launches(rr, BLOCK_PATH, "full-width rcm block solve")
+    print(f"[plan] block p={P_BLOCK} frsz2_32: iterations {rr['iters']} "
+          f"(none {rn['iters']}), converged {rr['converged']}/"
+          f"{rn['converged']}, X relative {x_rel:.3e}; walls none "
+          f"{rn['wall_s']:.4f} s, rcm {rr['wall_s']:.4f} s")
+
+
+def _plan_emulators(n_row):
+    """The emulator formats: device driver (one captured graph a cycle)
+    against the host driver at n = 8000, and the roundtrip of a
+    full-width row on the card against the CPU's, timed."""
+    import torch
+
+    from repro_torch.core.accessor import format_by_name
+    from repro_torch.sparse import make_problem, rhs_for
+
+    A, target = make_problem("synth:atmosmod", 8000, device="cuda")
+    b, x_sol = rhs_for(A, device="cuda")
+    for name in EMUL_FORMATS:
+        h, rh = _solve_row("emul", A, b, x_sol, name, target, 20000, "host")
+        d1, rd1 = _solve_row("emul-capture", A, b, x_sol, name, target,
+                             20000, "device")
+        d2, rd2 = _solve_row("emul", A, b, x_sol, name, target, 20000,
+                             "device")
+        check(h.converged and d1.converged, f"{name} did not converge")
+        _check_drivers_agree(d1, h, rd1, rh, name)
+        _check_drivers_agree(d2, h, rd2, rh, f"{name} replay")
+        check(torch.equal(d1.x, d2.x), f"{name}: two device solves differ")
+        print(f"[plan] {name}: device {d2.iterations} it = host "
+              f"{h.iterations} it, bytes_read {rd2['bytes_read']:.0f}")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    v = torch.randn((n_row,), generator=gen, dtype=torch.float64,
+                    device="cuda")
+    v = v / torch.linalg.vector_norm(v)
+    vc = v.cpu()
+    for name in EMUL_FORMATS:
+        fmt = format_by_name(name)
+        got = fmt.roundtrip(v).cpu()
+        want = fmt.roundtrip(vc)
+        n_diff = int((got.view(torch.int64) != want.view(torch.int64)).sum())
+        ulps = int((got.view(torch.int64) - want.view(torch.int64)).abs()
+                   .max())
+        if "pwrel" not in name:
+            check(n_diff == 0, f"{name} roundtrip on the card != CPU in "
+                               f"{n_diff} of {n_row} entries")
+        ms = timed(lambda f=fmt: f.roundtrip(v))
+        bound, _ = bound_ms(16.0 * n_row)
+        emit(dict(phase="plan-emul", format=name, n=n_row, card_vs_cpu_diff=
+                  n_diff, max_ulps=ulps, ms=ms, bound_ms=bound))
+        print(f"[plan] {name} roundtrip n={n_row}: card vs CPU {n_diff} "
+              f"entries differ (max {ulps} ulp); {ms * 1e3:.1f} us, bound "
+              f"{bound * 1e3:.2f} us")
+
+
+def phase_plan(entries):
+    """Operator planning at full width (slice 5): the RCM plan of
+    ``synth:unstructured`` (n = 1,259,712, w = 27) built on the host and
+    fetched again from the plan cache, kernels 5 and 6 on the raw and the
+    permuted operator, ``none`` against ``rcm`` solves, the RCM block
+    solve, and the emulator formats."""
+    import torch
+
+    from repro_torch.sparse import make_problem, plan_operator
+    from repro_torch.sparse.reorder import rcm_permutation
+
+    t0 = time.perf_counter()
+    A, target = make_problem("synth:unstructured", PLAN_N, device="cuda")
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    check(A.shape[0] == PLAN_N, f"unstructured n = {A.shape[0]}")
+    t0 = time.perf_counter()
+    plan = plan_operator(A, 1, reorder="rcm")
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = plan_operator(A, 1, reorder="rcm")
+    t_hit = time.perf_counter() - t0
+    check(again is plan, "a second plan_operator call missed the cache")
+    check(t_hit < 1.0, f"the plan-cache hit took {t_hit:.3f} s")
+    t0 = time.perf_counter()
+    perm = rcm_permutation(A)
+    t_rcm = time.perf_counter() - t0
+    check(bool((perm == plan.perm).all()), "rcm_permutation not repeatable")
+    check(plan.reorder == "rcm" and plan.probe.bandwidth < plan.raw_bandwidth,
+          f"RCM did not narrow the band: {plan.describe()}")
+    emit(dict(phase="plan-build", n=A.shape[0], nnz=A.nnz,
+              make_problem_s=t_make, plan_s=t_plan, plan_hit_s=t_hit,
+              rcm_permutation_s=t_rcm, raw_bandwidth=plan.raw_bandwidth,
+              rcm_bandwidth=plan.probe.bandwidth))
+    print(f"[plan] {plan.describe()}; nnz {A.nnz}; host: make_problem "
+          f"{t_make:.2f} s, plan_operator {t_plan:.2f} s (rcm_permutation "
+          f"alone {t_rcm:.2f} s), cache hit {t_hit * 1e3:.3f} ms")
+    _plan_ell_times(A, plan, entries)
+    _plan_solves(A, target)
+    release()
+    _plan_block_solve(A, target)
+    del A, plan, again
+    release()
+    _plan_emulators(PLAN_N)
 
 
 def _attn_inputs(gen, B, Hkv, G, S, D, l, exp_dtype, qdt=None):
@@ -1860,6 +2131,8 @@ def main() -> int:
     release()
     block_launches = phase_block_full_width(A, target)
     del A
+    release()
+    phase_plan(entries)
     release()
     entries.update(phase_decode_attn())
     release()

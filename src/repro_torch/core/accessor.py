@@ -668,9 +668,10 @@ def _build_sharded(name, **ctx):
 
 @register_format("emul")
 def _build_emul(name, **ctx):
-    raise NotImplementedError(
-        f"{name!r}: the SZ/SZ3/ZFP emulator formats are not ported yet "
-        "(ROADMAP.md, open item 1: slice 5, core/emulators.py)")
+    # "emul:sz_abs:<eb>" | "emul:sz_pwrel:<eb>" | "emul:zfp_fr:<rate>"
+    from repro_torch.core.emulators import emulator_by_name
+
+    return emulator_by_name(name.partition(":")[2])
 
 
 def format_by_name(name: str, *, arith_dtype=torch.float64, bs: int = 32,
@@ -679,7 +680,8 @@ def format_by_name(name: str, *, arith_dtype=torch.float64, bs: int = 32,
     """Resolve a storage format from the :data:`FORMATS` table.
 
     Exact names first ('float64', …), then family prefixes: 'frsz2_XX',
-    'mixed[:k|auto[:tail]]'.  ``target_rrn``/``m`` size ``mixed:auto``.
+    'mixed[:k|auto[:tail]]', 'emul:…'.  ``target_rrn``/``m`` size
+    ``mixed:auto``.
     """
     ctx = dict(arith_dtype=arith_dtype, bs=bs, use_kernels=use_kernels,
                rounding=rounding, target_rrn=target_rrn, m=m)

@@ -17,7 +17,10 @@ block`` solves them in one shared block Krylov space (block-GMRES), the
 default ``vmap`` one after another.  Pipeline flags:
 ``--precond jacobi``, ``--ortho cgs2``, ``--policy
 adaptive[:auto|:<ladder>]`` (appends one run whose storage format is
-chosen per restart cycle; its row names the policy).
+chosen per restart cycle; its row names the policy), ``--reorder rcm``
+(solve in RCM-permuted coordinates; the plan's summary is printed first:
+drive it on ``--problem synth:unstructured``, where the iterations must
+equal ``--reorder none``'s).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.solver import gmres, gmres_batched
-from repro_torch.sparse import make_problem, rhs_for
+from repro_torch.sparse import make_problem, plan_operator, rhs_for
 
 
 def _batch_rhs(b: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,12 +54,16 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
                 driver: str = "device", batch: int = 1,
                 method: str = "vmap", precond: str | None = None,
                 ortho: str = "mgs", policy: str | None = None,
-                device: str = "cuda", verbose: bool = True):
+                reorder: str = "auto", device: str = "cuda",
+                verbose: bool = True):
     dev = resolve_device(device)
     A, rrn = make_problem(problem, n, device=dev)
     if target_rrn is not None:
         rrn = target_rrn
     b, x_sol = rhs_for(A, device=dev)
+    if reorder == "rcm" and verbose:
+        # the solves below fetch this plan from the plan cache
+        print(plan_operator(A, 1, reorder=reorder).describe())
     rows = []
     runs = [dict(label=fmt, storage=fmt, policy=None) for fmt in formats]
     if policy:
@@ -64,7 +71,7 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
     for run in runs:
         kw = dict(storage=run["storage"], policy=run["policy"],
                   precond=precond, ortho=ortho, m=m, max_iters=max_iters,
-                  target_rrn=rrn, driver=driver)
+                  target_rrn=rrn, driver=driver, reorder=reorder)
         _sync(dev)
         t0 = time.perf_counter()
         if batch > 1:
@@ -82,7 +89,7 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
                          method=method if batch > 1 else None,
                          precond=precond or "identity", ortho=ortho, shard=1,
                          shard_transport=None, shard_matvec=None,
-                         shard_grid=None, reorder="auto",
+                         shard_grid=None, reorder=reorder,
                          iters=sum(r.iterations for r in results),
                          rrn=res.rrn,
                          converged=all(r.converged for r in results),
@@ -124,6 +131,12 @@ def main(argv=None):
                     help="per-cycle precision policy run to append, e.g. "
                          "'adaptive', 'adaptive:auto' or "
                          "'adaptive:float64,frsz2_32@1e-2,frsz2_16@1e-6'")
+    ap.add_argument("--reorder", default="auto",
+                    choices=["auto", "rcm", "none"],
+                    help="RCM bandwidth-reduction reordering at setup: "
+                         "auto permutes only when it unlocks the sharded "
+                         "halo matvec for an unstructured operator "
+                         "(repro_torch.sparse.plan)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the solve runs (cuda: the Hopper kernels)")
     ap.add_argument("--json", default=None)
@@ -133,7 +146,7 @@ def main(argv=None):
                        driver=args.driver, batch=args.batch,
                        method=args.method, precond=args.precond,
                        ortho=args.ortho, policy=args.policy,
-                       device=args.device)
+                       reorder=args.reorder, device=args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)

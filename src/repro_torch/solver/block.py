@@ -49,6 +49,7 @@ from repro_torch.dist.context import LOCAL
 from repro_torch.kernels import ops, ref
 from repro_torch.solver.gmres import (
     GmresResult,
+    _apply_plan,
     _apply_rows,
     _block_solve_and_update,
     _cached_graph,
@@ -57,6 +58,7 @@ from repro_torch.solver.gmres import (
     _cycle_row_reads,
     _norm_floor,
     _operator_key,
+    _plan_unsharded,
     _precond_key,
     _replay,
 )
@@ -302,7 +304,9 @@ def gmres_block(
     if driver not in ("device", "host"):
         raise ValueError(f"unknown driver {driver!r}; "
                          "expected one of ('device', 'host')")
-    _check_unported(shard, reorder)
+    _check_unported(shard)
+    plan = _plan_unsharded(A, reorder, matvec)
+    A, precond, (B, X0) = _apply_plan(plan, A, precond, (B, X0))
     if arith_dtype is None:
         arith_dtype = B.dtype
     policy = resolve_policy(policy, storage, arith_dtype, target_rrn, m)
@@ -326,7 +330,7 @@ def gmres_block(
         if cyc is None:
             acc = accs[lvl]
             if branch_free and torch.device(acc.device).type == "cuda":
-                op_key, op_pins = _operator_key(A, matvec)
+                op_key, op_pins = _operator_key(A, matvec, plan)
                 pc_key, pc_pins = _precond_key(precond)
                 key = ("block", op_key, pc_key, acc.fmt, acc.m, acc.p, acc.n,
                        acc.arith_dtype, str(torch.device(acc.device)),
@@ -337,6 +341,10 @@ def gmres_block(
             cycles[lvl] = cyc
         return cyc.store, cyc
 
-    return _block_restart_loop(_block_matvec(A, matvec), accs, policy, B, m,
-                               max_iters, target_rrn, ortho, precond,
-                               cycle_for, X0=X0)
+    results = _block_restart_loop(_block_matvec(A, matvec), accs, policy, B,
+                                  m, max_iters, target_rrn, ortho, precond,
+                                  cycle_for, X0=X0)
+    if plan is not None:
+        for r in results:
+            r.x = plan.unpermute(r.x)
+    return results

@@ -316,13 +316,21 @@ def _cached_graph(key, build):
     return cyc
 
 
-def _operator_key(A, user_matvec):
-    """What the captured cycle reads through the operator: key and pins."""
+def _operator_key(A, user_matvec, plan=None):
+    """What the captured cycle reads through the operator: key and pins.
+
+    A plan with a content fingerprint contributes its ``key`` (content,
+    executed reorder, matvec mode); the identity of the tensors the graph
+    reads stays in the key beside it, since a replay reads them by address.
+    A plan-cache hit hands back the same operator, hence the same graph."""
     if user_matvec is not None:
         return ("matvec", id(user_matvec)), (user_matvec,)
     ell = A._ell() if isinstance(A, CSR) else A
     if isinstance(ell, ELL):
-        return ("ell", id(ell.vals), id(ell.cols)), (A, ell.vals, ell.cols)
+        key = ("ell", id(ell.vals), id(ell.cols))
+        if plan is not None and plan.key[0] is not None:
+            key = ("plan", plan.key) + key
+        return key, (A, ell.vals, ell.cols)
     return ("obj", id(A)), (A,)
 
 
@@ -337,12 +345,12 @@ def _precond_key(p):
 
 
 def _device_cycle_for(A, user_matvec, matvec, acc, eta, target, ortho,
-                      precond, fused) -> _DeviceCycle:
+                      precond, fused, plan=None) -> _DeviceCycle:
     """The level's cycle: on CUDA from the cache (captured on first use),
     on the CPU a fresh one."""
     if torch.device(acc.device).type != "cuda":
         return _DeviceCycle(matvec, acc, eta, target, ortho, precond, fused)
-    op_key, op_pins = _operator_key(A, user_matvec)
+    op_key, op_pins = _operator_key(A, user_matvec, plan)
     pc_key, pc_pins = _precond_key(precond)
     key = (op_key, pc_key, acc.fmt, acc.m, acc.n, acc.arith_dtype,
            str(torch.device(acc.device)), type(ortho), ortho.name,
@@ -522,7 +530,8 @@ def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
 
 
 def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
-                  target_rrn, eta, ortho, precond, x0=None) -> GmresResult:
+                  target_rrn, eta, ortho, precond, x0=None,
+                  plan=None) -> GmresResult:
     fused = (user_matvec is None
              and isinstance(precond, IdentityPreconditioner))
     cycles: dict[int, _DeviceCycle] = {}
@@ -532,7 +541,7 @@ def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
         if cyc is None:
             cyc = cycles[lvl] = _device_cycle_for(
                 A, user_matvec, matvec, accs[lvl], eta, target_rrn, ortho,
-                precond, fused)
+                precond, fused, plan)
         return cyc.store, lambda r, beta, b_norm, _: cyc(r, beta, b_norm)
 
     return _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn,
@@ -543,24 +552,62 @@ def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
 # Public API
 # ---------------------------------------------------------------------------
 
-_REORDERS = ("auto", "rcm", "none")
-
-
-def _check_unported(shard, reorder: str) -> None:
-    """Raise for the options of the reference that this port has not yet:
-    ``shard`` and ``reorder="rcm"``; ``reorder="auto"`` is a no-op off the
-    sharded path, as in the reference."""
+def _check_unported(shard) -> None:
+    """Raise for ``shard``, the option of the reference that this port has
+    not yet."""
     if shard is not None:
         raise NotImplementedError(
             "shard= (the multi-GPU solve) is not ported yet "
             "(ROADMAP.md, open item 1: slice 6, multi-GPU)")
-    if reorder not in _REORDERS:
+
+
+def _plan_unsharded(A, reorder: str, user_matvec):
+    """Resolve ``reorder`` for a single-device solve; a plan or ``None``.
+
+    ``"auto"`` is a no-op off the sharded path (the permutation only buys
+    wire bytes, and an unsharded solve has no wire).  ``"rcm"`` forces the
+    permutation: the solve then runs on ``plan.operator`` in permuted
+    coordinates, and callers map ``b``/``x0`` in and ``x`` back out through
+    the plan.  Plans are content-cached, so repeated solves of the same
+    problem reuse the permutation and the permuted operator.
+    """
+    from repro_torch.sparse.plan import REORDERS, plan_operator
+
+    if reorder not in REORDERS:
         raise ValueError(f"unknown reorder mode {reorder!r}; "
-                         f"expected one of {_REORDERS}")
-    if reorder == "rcm":
-        raise NotImplementedError(
-            "reorder='rcm' (operator planning) is not ported yet "
-            "(ROADMAP.md, open item 1: slice 5, operator planning)")
+                         f"expected one of {REORDERS}")
+    if reorder != "rcm":
+        return None
+    if user_matvec is not None or A is None:
+        raise ValueError(
+            "reorder='rcm' needs an operator with an inspectable sparsity "
+            "pattern (CSR/ELL); a bare matvec callable cannot be reordered")
+    return plan_operator(A, 1, reorder="rcm")
+
+
+def _permuted_precond(precond, plan):
+    """Map a user-supplied preconditioner into the plan's coordinates."""
+    from repro_torch.solver.pipeline import Preconditioner
+
+    if plan is None or plan.perm is None or precond is None:
+        return precond
+    if isinstance(precond, Preconditioner):
+        return precond.permuted(plan.perm)
+    if callable(precond):
+        raise ValueError(
+            "cannot reorder with a bare callable preconditioner hook: its "
+            "coordinate convention is unknown; wrap it in a Preconditioner "
+            "with permuted() or pass reorder='none'")
+    return precond               # names resolve against plan.operator
+
+
+def _apply_plan(plan, A, precond, vectors):
+    """The operator, preconditioner and ``vectors`` (each a tensor or
+    ``None``) in the plan's coordinates; unchanged without a plan."""
+    if plan is None:
+        return A, precond, vectors
+    return (plan.operator, _permuted_precond(precond, plan),
+            [None if v is None else plan.permute(v) for v in vectors])
 
 
 def gmres(
@@ -597,17 +644,24 @@ def gmres(
     device with no host read, replayed as one CUDA graph per policy level on
     the card, one host read per restart) or ``"host"`` (the host-looped
     parity oracle, one host read per Arnoldi step).  Both give the same
-    iterations, ``bytes_read`` and ``op_reads``.  ``shard`` and
-    ``reorder="rcm"`` are not ported yet; ``reorder="auto"`` is a no-op off
-    the sharded path, as in the reference.
+    iterations, ``bytes_read`` and ``op_reads``.
+
+    ``reorder`` applies an RCM bandwidth-reduction permutation at setup
+    (:mod:`repro_torch.sparse.plan`): ``"rcm"`` forces it (the solve runs
+    in permuted coordinates; ``b``/``x0`` are mapped in and ``x`` back out
+    transparently), ``"auto"`` (default) and ``"none"`` leave the operator
+    as it is (``auto`` permutes only for the sharded matvec, as in the
+    reference).  ``shard`` is not ported yet.
     """
     if driver not in ("device", "host"):
         raise ValueError(f"unknown driver {driver!r}; "
                          "expected one of ('device', 'host')")
-    _check_unported(shard, reorder)
+    _check_unported(shard)
+    user_matvec = matvec
+    plan = _plan_unsharded(A, reorder, user_matvec)
+    A, precond, (b, x0) = _apply_plan(plan, A, precond, (b, x0))
     if arith_dtype is None:
         arith_dtype = b.dtype
-    user_matvec = matvec
     if matvec is None:
         matvec = A.matvec
     policy = resolve_policy(policy, storage, arith_dtype, target_rrn, m)
@@ -619,10 +673,15 @@ def gmres(
     ortho = orthogonalizer_by_name(ortho)
     b = b.to(arith_dtype)
     if driver == "host":
-        return _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn,
-                           eta, ortho, precond, x0=x0)
-    return _gmres_device(A, user_matvec, matvec, accs, policy, b, m,
-                         max_iters, target_rrn, eta, ortho, precond, x0=x0)
+        res = _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn,
+                          eta, ortho, precond, x0=x0)
+    else:
+        res = _gmres_device(A, user_matvec, matvec, accs, policy, b, m,
+                            max_iters, target_rrn, eta, ortho, precond,
+                            x0=x0, plan=plan)
+    if plan is not None:
+        res.x = plan.unpermute(res.x)
+    return res
 
 
 def gmres_batched(

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.accessor import NativeFormat, StorageFormat, format_by_name
@@ -307,12 +308,31 @@ class Preconditioner:
     def apply(self, x):  # pragma: no cover - overridden
         raise NotImplementedError
 
+    def permuted(self, perm) -> Preconditioner:
+        """Equivalent preconditioner in RCM-permuted coordinates.
+
+        When an :class:`~repro_torch.sparse.plan.OperatorPlan` reorders the
+        operator (``P A Pᵀ``), a preconditioner built for the *original*
+        coordinates must be conjugated the same way (``P M⁻¹ Pᵀ``).
+        Name-resolved preconditioners never hit this (they are built from
+        the already-reordered operator); only user-passed instances with
+        positional state do.  ``perm`` maps new indices to old
+        (``perm[new] = old``).
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot be permuted into reordered "
+            "coordinates; build it for the reordered operator (see "
+            "repro_torch.sparse.plan) or pass reorder='none'")
+
 
 class IdentityPreconditioner(Preconditioner):
     """No-op: ``apply`` returns its input unchanged."""
 
     def apply(self, x):
         return x
+
+    def permuted(self, perm):
+        return self
 
 
 class JacobiPreconditioner(Preconditioner):
@@ -342,6 +362,28 @@ class JacobiPreconditioner(Preconditioner):
 
     def apply(self, x):
         return x * self.inv_diag.to(x.dtype)
+
+    def permuted(self, perm) -> JacobiPreconditioner:
+        """``inv_diag`` gathered by ``perm``; a padded-space permutation
+        (longer than the diagonal: pad slots map to ids >= n) sees the
+        diagonal identity-extended, so padded entries stay exact zeros.
+
+        Memoized per permutation object, so that repeated solves under one
+        plan hand the device driver the same ``inv_diag`` tensor (its
+        captured cycle reads it by address)."""
+        memo = self.__dict__.setdefault("_permuted", {})
+        hit = memo.get(id(perm))
+        if hit is not None and hit[0] is perm:
+            return hit[1]
+        idx = torch.as_tensor(np.asarray(perm), dtype=torch.int64)
+        inv_diag = self.inv_diag
+        if idx.shape[0] > inv_diag.shape[0]:
+            inv_diag = torch.nn.functional.pad(
+                inv_diag, (0, idx.shape[0] - inv_diag.shape[0]), value=1.0)
+        new = object.__new__(JacobiPreconditioner)
+        new.inv_diag = inv_diag[idx.to(inv_diag.device)]
+        memo[id(perm)] = (perm, new)
+        return new
 
 
 class CallablePreconditioner(Preconditioner):

@@ -63,6 +63,32 @@ class ELL:
                            torch.zeros((), dtype=self.vals.dtype,
                                        device=self.vals.device)).sum(dim=1)
 
+    def fingerprint(self) -> str:
+        """Content hash of (shape, columns, values) — the same string as the
+        JAX package's ``ELL.fingerprint`` for the same arrays."""
+        fp = getattr(self, "_fingerprint", None)
+        if fp is None:
+            h = hashlib.sha1(repr(self.shape).encode())
+            for a in (self.cols, self.vals):
+                h.update(np.ascontiguousarray(a.cpu().numpy()).tobytes())
+            fp = self._fingerprint = h.hexdigest()
+        return fp
+
+    def bandwidth(self) -> int:
+        """max |col - row| over nonzero entries (host-side, cached).
+
+        Padding slots carry val 0 / col 0, so masking on the values keeps a
+        high row's padding from faking an (n-ish) bandwidth.
+        """
+        bw = getattr(self, "_bandwidth", None)
+        if bw is None:
+            live = self.vals.cpu().numpy() != 0
+            rows = np.arange(self.shape[0])[:, None]
+            off = np.abs(self.cols.cpu().numpy().astype(np.int64)
+                         - rows)[live]
+            bw = self._bandwidth = int(off.max()) if off.size else 0
+        return bw
+
     def nbytes(self) -> int:
         """Bytes one full SpMV streams: padded values + column indices."""
         return int(self.vals.numel() * self.vals.element_size()

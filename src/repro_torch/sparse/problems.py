@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.sparse.csr import CSR, csr_from_coo
+from repro_torch.sparse.reorder import permute_csr
 
 __all__ = ["make_problem", "rhs_for", "PROBLEMS", "problem_suite"]
 
@@ -193,41 +194,13 @@ def _problem_stencil27(n_target: int, dtype=np.float64) -> CSR:
     return A
 
 
-def _permute_csr(A: CSR, perm: np.ndarray) -> CSR:
-    """Symmetric permutation ``P A Pᵀ`` (host-side): row ``i`` of the result
-    is row ``perm[i]`` of ``A`` with columns relabelled by the inverse
-    permutation and re-sorted within each row."""
-    perm = np.asarray(perm, np.int64)
-    n = A.shape[0]
-    iperm = np.empty_like(perm)
-    iperm[perm] = np.arange(n, dtype=np.int64)
-    indptr = A.indptr.numpy().astype(np.int64)
-    indices = A.indices.numpy().astype(np.int64)
-    data = A.data.numpy()
-    counts = np.diff(indptr)[perm]
-    new_indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(counts, out=new_indptr[1:])
-    offs = np.arange(int(new_indptr[-1])) - np.repeat(new_indptr[:-1], counts)
-    src = np.repeat(indptr[perm], counts) + offs
-    new_indices = iperm[indices[src]]
-    new_data = data[src]
-    row_ids = np.repeat(np.arange(n), counts)
-    order = np.lexsort((new_indices, row_ids))
-    return CSR(
-        indptr=torch.as_tensor(new_indptr.astype(np.int32)),
-        indices=torch.as_tensor(new_indices[order].astype(np.int32)),
-        data=torch.as_tensor(new_data[order]),
-        shape=tuple(A.shape),
-    )
-
-
 def _problem_unstructured(n_target: int, dtype=np.float64) -> CSR:
     """Randomly row/col-permuted 27-point stencil on an (8s)×s×s grid: same
     spectrum as the banded original, raw column bandwidth ~n."""
     s = max(4, round((n_target / 8) ** (1 / 3)))
     base = _stencil27_box(8 * s, s, s, dtype=dtype)
     scramble = np.random.default_rng(5).permutation(base.shape[0])
-    return _permute_csr(base, scramble)
+    return permute_csr(base, scramble)
 
 
 def _problem_stretched(n_target: int, dtype=np.float64) -> CSR:

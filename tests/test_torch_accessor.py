@@ -49,7 +49,7 @@ def test_malformed_names_raise_alike(name):
 
 
 def test_unported_families_say_so():
-    for name in ("sharded:float64", "emul:sz_abs:1e-6"):
+    for name in ("sharded:float64",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TA.format_by_name(name)
 

@@ -279,7 +279,5 @@ def test_batched_arguments_are_validated():
         gmres_batched(At, B, method="block", driver="nope")
     with pytest.raises(ValueError, match="batch"):
         gmres_batched(At, B[0], method="block")
-    with pytest.raises(NotImplementedError, match="slice 5, operator"):
-        gmres_batched(At, B, method="block", reorder="rcm")
     with pytest.raises(NotImplementedError, match="slice 6, multi-GPU"):
         gmres_batched(At, B, method="block", shard=2)

@@ -41,7 +41,14 @@ every spot of ``cardcheck.CODEC_SPOTS`` in both roundings and on views at
 an offset; the fused KV-cache write bit-equal to its plain version (one
 launch for K and V) on K/V as the model hands them and on strided views,
 f32/f16/bf16, l 8/16, D 64/128, decode and prefill writes, a ring, and
-positions past the cache, which are dropped.
+positions past the cache, which are dropped.  Operator planning: an RCM
+solve on the card with the CPU port's iterations, restarts and
+``bytes_read``, x within 1e-9 relative, and a repeated one replaying its
+captured cycle (no new graph, equal launches, equal bits); each emulator's
+roundtrip on the card bit-equal to the CPU's for ``sz_abs`` and
+``zfp_fr`` (power-of-two block maxima included), within an ulp but for one
+entry in 10^4 for ``sz_pwrel``; an ``emul:`` basis in the captured device
+cycle bit-equal to the host driver's.
 """
 import numpy as np
 import pytest
@@ -744,3 +751,107 @@ def test_cache_write_raises_on_card_outside_kernel(cuda):
         kvcache.append(c, x, x, torch.zeros(2, dtype=torch.int32,
                                              device=cuda), fmt)
     assert ops.LAUNCHES["frsz2_cache_write"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float64", "frsz2_32"])
+def test_rcm_solve_on_card_matches_cpu_and_replays(cuda, storage):
+    """``reorder="rcm"`` on the card (device driver, captured cycles)
+    against the port on the CPU: iterations, restarts and ``bytes_read``
+    equal, x within 1e-9 relative; a repeated RCM solve fetches the plan
+    from its cache and replays the captured cycle (no new graph, the same
+    launches, the same bits)."""
+    from repro_torch.solver.gmres import _GRAPHS
+
+    Ac, target = make_problem("synth:unstructured", 4096, device="cpu")
+    A = Ac.to(cuda)
+    bc, _ = rhs_for(Ac, device="cpu")
+    kw = dict(storage=storage, m=40, target_rrn=target, reorder="rcm")
+    rc = gmres(Ac, bc, driver="host", **kw)
+    r1 = gmres(A, bc.to(cuda), **kw)
+    keys = set(_GRAPHS)
+    ops.reset_launches()
+    r2 = gmres(A, bc.to(cuda), **kw)
+    launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    r3 = gmres(A, bc.to(cuda), **kw)
+    assert set(_GRAPHS) == keys and dict(ops.LAUNCHES) == launches
+    for r in (r1, r2, r3):
+        assert r.converged and r.iterations == rc.iterations
+        assert r.restarts == rc.restarts and r.bytes_read == rc.bytes_read
+        rel = float(torch.linalg.vector_norm(r.x.cpu() - rc.x)
+                    / torch.linalg.vector_norm(rc.x))
+        assert rel <= 1e-9, rel
+    assert torch.equal(r2.x, r3.x) and torch.equal(r1.x, r2.x)
+    rn = gmres(A, bc.to(cuda), storage=storage, m=40, target_rrn=target,
+               reorder="none")
+    assert rn.iterations == r1.iterations
+
+
+EMUL_NAMES = ["emul:sz_abs:1e-10", "emul:sz_abs:1e-6", "emul:sz_pwrel:1e-6",
+              "emul:sz_pwrel:1e-4", "emul:zfp_fr:32", "emul:zfp_fr:16",
+              "emul:zfp_fr:8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EMUL_NAMES)
+def test_emulator_roundtrip_on_card_matches_cpu(cuda, name):
+    """Each emulator's roundtrip on the card against the same roundtrip on
+    the CPU: bit-equal for ``sz_abs`` and ``zfp_fr`` (rows of Krylov-like
+    values, and for ``zfp_fr`` blocks whose maxima sit on powers of two
+    and a few ulps off them); ``sz_pwrel``, whose ``log``/``exp`` are the
+    device's, within one ulp but for at most one entry in 10^4, inside its
+    relative bound."""
+    from repro_torch.core import emulators as TE
+
+    fmt = format_by_name(name)
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((8, 4099))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    rows = [x, x * 1e-7]
+    if "zfp" in name:
+        ks = np.arange(-200, 201)
+        for ulps in (-2, 0, 1, 3):
+            t = np.zeros((ks.size, 4))
+            t[:, 0] = np.ldexp(1.0 + ulps * 2.0 ** -52, ks)
+            t[:, 2] = np.ldexp(-0.45, ks)
+            rows.append(TE._zfp_inv_lift(torch.from_numpy(t)).numpy()
+                        .reshape(1, -1))
+    for v in rows:
+        vc = torch.from_numpy(np.ascontiguousarray(v))
+        want = fmt.roundtrip(vc)
+        got = fmt.roundtrip(vc.to(cuda)).cpu()
+        ulps = (got.view(torch.int64) - want.view(torch.int64)).abs()
+        if "pwrel" in name:
+            assert int((ulps > 1).sum()) <= v.size // 10_000
+            eb = float(name.rsplit(":", 1)[1])
+            nz = vc != 0
+            assert bool(((got - vc).abs()[nz]
+                         <= eb * vc.abs()[nz] * (1 + 1e-9)).all())
+        else:
+            assert torch.equal(got.view(torch.int64),
+                               want.view(torch.int64)), int((ulps > 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["emul:sz_abs:1e-10", "emul:sz_pwrel:1e-6",
+                                  "emul:zfp_fr:32"])
+def test_emulated_device_cycle_matches_host_driver_on_card(cuda, name):
+    """An ``emul:`` basis in the captured device cycle (the roundtrip runs
+    inside the CUDA graph) against the host driver on the card: equal
+    iterations, restarts, ``bytes_read`` and ``op_reads``, the same bits;
+    the second solve replays."""
+    from repro_torch.solver.gmres import _GRAPHS
+
+    A, target = make_problem("synth:atmosmod", 4096, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    rh = gmres(A, b, storage=name, m=40, target_rrn=target, driver="host")
+    r1 = gmres(A, b, storage=name, m=40, target_rrn=target)
+    keys = set(_GRAPHS)
+    r2 = gmres(A, b, storage=name, m=40, target_rrn=target)
+    assert set(_GRAPHS) == keys
+    assert rh.converged
+    for rd in (r1, r2):
+        assert (rd.iterations, rd.restarts) == (rh.iterations, rh.restarts)
+        assert rd.bytes_read == rh.bytes_read and rd.op_reads == rh.op_reads
+        assert torch.equal(rd.x, rh.x)

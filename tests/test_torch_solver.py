@@ -127,10 +127,10 @@ def test_jax_reference_returns_nan_for_zero_rhs(driver):
 def test_unported_options_raise_naming_the_roadmap():
     _, At, b, _ = _problem("synth:atmosmod", 64)
     bt = torch.from_numpy(b)
-    for kw in (dict(shard=2), dict(reorder="rcm")):
+    for kw in (dict(shard=2),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gmres(At, bt, **kw)
-    for kw in (dict(shard=2), dict(reorder="rcm")):
+    for kw in (dict(shard=2),):
         for method in ("vmap", "block"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 gmres_batched(At, bt[None], method=method, **kw)
