@@ -30,8 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and a PyTorch call computing the same function (``torch.mv`` on the
    decoded basis, ``torch.sparse_csr_tensor @ x``);
 4. solve to convergence — a float16 basis write on the card bit-equal to
-   numpy's ``astype(float16)`` (f64 rounded once; PyTorch's own conversion
-   on the card is counted against it), then ``synth:atmosmod`` n = 8000,
+   numpy's ``astype(float32).astype(float16)`` (f64 rounded through f32,
+   as the JAX reference rounds; numpy's single rounding is counted against
+   it), then ``synth:atmosmod`` n = 8000,
    m = 100, frsz2_32 and
    float64, MGS: the device driver (one CUDA graph replay per restart)
    against the host driver (equal iterations, restarts, ``bytes_read`` and
@@ -93,7 +94,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device driver (captured, replayed) against the host driver, and
    their roundtrip of a full-width row on the card against the CPU's
    (bit-equal for ``sz_abs`` and ``zfp_fr``; ``sz_pwrel``'s differing
-   entries counted), timed beside its byte bound.
+   entries counted), timed beside its byte bound; kernels 5 and 6 on the
+   raw and RCM operator are also timed as their plain versions and as
+   cuSPARSE (``torch.sparse_csr_tensor @ x``).  With the NCCL group of
+   phase 7c, a ``gmres(..., shard=1, reorder="auto")`` frsz2_32 solve of
+   the same operator prints the plan's executed mode and must take the
+   iterations of the RCM solve.
+7c. the sharded solve (slice 6) — a NCCL group of one rank (``file://``
+   rendezvous, initialized eagerly on the card before phase 3), and
+   ``gmres(..., shard=1, shard_matvec="halo")`` on the full-width
+   atmosmodd operator, m = 100, MGS, frsz2_32 and float64, with
+   ``shard_transport`` ``plain``, ``compressed`` and ``compressed+norms``,
+   each twice (capture, then replay: no new graph, equal bits), the launch
+   counts set to 0 just before and read just after: the plain solves equal
+   phase 5's unsharded device solves in iterations, restarts,
+   ``bytes_read`` and ``op_reads`` with x within 1e-12 relative, the coded
+   ones converge to the target within 2 iterations of plain; wall per
+   iteration beside the unsharded one.  Before them, kernels 1 and 2 at
+   the wire specs (the dots' 101 partials at bs 128, l 16, f32; the halo
+   strip of 11,664 values at bs 128, l 32, f64) bit-equal to their plain
+   versions and kernel 5 on the halo-localized ELL of the chunk (x with
+   its zero halos) bit-equal to its plain version, timed beside their byte
+   bounds; then the sharded block solve (p = 8, frsz2_32, plain) against
+   phase 7's unsharded one.  With more than one card the same solves
+   (and a frsz2_32 coded solve on the plan's own matvec, block3d at P = 4)
+   run again on ``device_count()`` spawned NCCL ranks (one a card), each
+   captured and replayed with equal bits, converged; plain within an
+   iteration of phase 5's solve (NCCL sums in another order), x within
+   1e-9; coded within 2 iterations of plain, but for float64, whose 32-bit
+   coded halo strips are lossier than its basis (the reference takes the
+   same extra iterations: ``tests/test_torch_sharded.py::
+   test_coded_halo_costs_float64_iterations_as_in_the_reference``); the
+   block solve's columns within an iteration of phase 7's.  Their modelled
+   wire bytes and every rank's timeline (start, problem, each plan,
+   capture and replay, teardown) are printed; one card skips that by
+   count.
 
 8. decode attention (slice 4's kernel) at the ``decode_32k`` length with
    yi-9b's heads — B = 8, Hkv = 4, G = 8, D = 128, S = 32768, lengths from
@@ -133,6 +168,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
+The sharded path's entries (``frsz2_compress_wire``, ...) carry
+``kernel`` (the counter they read) and ``path: "sharded"``.
 """
 from __future__ import annotations
 
@@ -140,9 +177,11 @@ import functools
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -175,6 +214,13 @@ DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
 BLOCK_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_block_dots",
               "frsz2_block_combine", "ell_spmv", "gmres_block_givens")
 P_BLOCK = 8                # right-hand sides of the block solves
+#: slice 6's path on one rank: the basis written and read back through the
+#: codec (the sharded matvec exchanges decoded rows, so no coded-operand
+#: ELL), the wire codec of the coded reductions and halo strips, the local
+#: contractions and the ELL on localized columns, the Givens step
+SHARDED_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
+                "frsz2_rmatvec", "ell_spmv", "gmres_givens")
+TRANSPORTS = ("plain", "compressed", "compressed+norms")
 
 #: phase 7b: operator planning on the paper's atmosmodd row count
 #: (``synth:unstructured``, 8·54³ rows, w = 27); the solves converge in
@@ -753,10 +799,10 @@ def _check_drivers_agree(dev_res, host_res, dev_row, host_row, what):
 
 
 def _f16_write_check():
-    """A float16 basis write on the card rounds f64 once, as numpy does;
-    returns how many of the same values PyTorch's own ``.to(float16)`` on
-    the card rounds otherwise.  Also times one such write of a main-path
-    row (n = 1,259,712) beside the double-rounding ``copy_``."""
+    """A float16 basis write on the card rounds f64 through f32, as the JAX
+    reference does; returns how many of the same values numpy's single
+    rounding gives otherwise.  Also times one such write of a main-path
+    row (n = 1,259,712) beside a plain ``copy_``."""
     import numpy as np
     import torch
 
@@ -771,7 +817,8 @@ def _f16_write_check():
                         [0.0, -0.0, np.inf, -np.inf, 1e300, 1e-300, 65519.99,
                          65520.0, 2.0 ** -25, 1.5 * 2.0 ** -24]])
     with np.errstate(over="ignore"):
-        want = x.astype(np.float16).view(np.int16)
+        want = x.astype(np.float32).astype(np.float16).view(np.int16)
+        once = x.astype(np.float16).view(np.int16)
     xt = torch.from_numpy(x).to("cuda")
     acc = BasisAccessor(fmt=NativeFormat(dtype=torch.float16), m=2,
                         n=x.size, device="cuda")
@@ -779,12 +826,11 @@ def _f16_write_check():
     acc.write_row(store, 1, xt)
     got = store[1].cpu().numpy().view(np.int16)
     check(np.array_equal(got, want), f"float16 basis write on the card != "
-          f"numpy's astype(float16) in {int((got != want).sum())} values")
-    plain = xt.to(torch.float16).cpu().numpy().view(np.int16)
-    n_diff = int((plain != want).sum())
-    print(f"[solve] float16 basis write on the card: bit-equal to numpy's "
-          f"astype(float16) on {x.size} values; PyTorch's own .to(float16) "
-          f"on the card differs from it in {n_diff}")
+          f"f64 -> f32 -> f16 in {int((got != want).sum())} values")
+    n_diff = int((once != want).sum())
+    print(f"[solve] float16 basis write on the card: bit-equal to f64 -> "
+          f"f32 -> f16 (the JAX reference's rounding) on {x.size} values; "
+          f"numpy's single rounding differs from it in {n_diff}")
     n = round(N_MAIN ** (1 / 3)) ** 3
     row = BasisAccessor(fmt=NativeFormat(dtype=torch.float16), m=1, n=n,
                         device="cuda")
@@ -792,8 +838,8 @@ def _f16_write_check():
     v = torch.randn((n,), dtype=torch.float64, device="cuda")
     once = timed(lambda: row.write_row(rs, 0, v))
     twice = timed(lambda: rs[0].copy_(v))
-    print(f"[solve] float16 basis write of n = {n}: {once * 1e3:.1f} us "
-          f"rounding once, {twice * 1e3:.1f} us as one copy_ (rounding twice)")
+    print(f"[solve] float16 basis write of n = {n}: {once * 1e3:.1f} us, "
+          f"{twice * 1e3:.1f} us as one copy_")
     return n_diff
 
 
@@ -843,13 +889,15 @@ def phase_solve():
 
 def phase_full_width(A, target):
     """Each path's full-width frsz2_32 solve, counts read just after it:
-    returns the launches per kernel from the path that runs it."""
+    returns the launches per kernel from the path that runs it, and each
+    format's replayed device solve (phase 7c compares against it)."""
     import torch
 
     from repro_torch.sparse import rhs_for
 
     b, x_sol = rhs_for(A, device="cuda")
     launches = {}
+    device_runs = {}
     for fmt in ("float64", "frsz2_32"):
         h, rh = _solve_row("full", A, b, x_sol, fmt, target, FULL_MAX_ITERS,
                            "host")
@@ -863,6 +911,7 @@ def phase_full_width(A, target):
         rel = _check_drivers_agree(d2, h, rd2, rh, f"full-width {fmt}")
         check(torch.equal(d1.x, d2.x), f"full-width {fmt}: two device "
                                        "solves differ")
+        device_runs[fmt] = (d2, rd2)
         print(f"[full] {fmt}: device {d2.iterations} it = host "
               f"{h.iterations} it, x rel diff {rel:.3e}; walls host "
               f"{rh['wall_s']:.4f} s, device first {rd1['wall_s']:.4f} s, "
@@ -879,7 +928,7 @@ def phase_full_width(A, target):
             launches.update({k: rd2["launches"][k] for k in DEVICE_PATH})
             paths = {k: "host" for k in HOST_PATH}
             paths.update({k: "device" for k in DEVICE_PATH})
-    return launches, paths
+    return launches, paths, device_runs
 
 
 def release():
@@ -1313,7 +1362,8 @@ def phase_block_solve():
 
 def phase_block_full_width(A, target):
     """Slice 3's path at full width: returns its launches per kernel, read
-    from the frsz2_32 block device-driver solve (the replay)."""
+    from the frsz2_32 block device-driver solve (the replay), and that
+    solve's X and row (phase 7c compares against them)."""
     from repro_torch.launch.solve import _batch_rhs
     from repro_torch.sparse import rhs_for
 
@@ -1351,7 +1401,8 @@ def phase_block_full_width(A, target):
         else:
             _check_launches(rd2, BLOCK_PATH, "frsz2_32 block solve (slice 3)")
             launches = {k: rd2["launches"][k] for k in BLOCK_PATH}
-    return launches
+            replay = (Xd2, rd2)
+    return launches, replay
 
 
 def _plan_ell_times(A, plan, entries):
@@ -1369,11 +1420,14 @@ def _plan_ell_times(A, plan, entries):
     v = x / torch.linalg.vector_norm(x)
     bc = ops.compress(v, F.FrszSpec(bs=32, l=32, dtype=torch.float64))
     times = {}
+    xd = ops.decompress(bc)
     for which, op in (("raw", A), ("rcm", plan.operator)):
         E = op._ell()
         w = E.vals.shape[1]
         check(w == 27, f"{which} unstructured operator has ELL width {w}")
         mat_bytes = E.vals.numel() * 8 + E.cols.numel() * 4
+        csr = torch.sparse_csr_tensor(op.indptr, op.indices, op.data,
+                                      size=op.shape)
         for name, operand, x_bytes in (
                 ("ell_spmv", x, n * 8),
                 ("ell_spmv_frsz2", bc,
@@ -1384,15 +1438,24 @@ def _plan_ell_times(A, plan, entries):
                                        "operator != plain")
             ms = timed(lambda E=E, op=operand: ops.ell_spmv(
                 E.vals, E.cols, op, kernel=True))
+            plain = timed(lambda E=E, op=operand: ops.ell_spmv(
+                E.vals, E.cols, op, kernel=False))
+            lib_x = x if name == "ell_spmv" else xd
+            lib = timed(lambda csr=csr, lx=lib_x: csr @ lx)
             bound, _ = bound_ms(mat_bytes + x_bytes + n * 8, 2.0 * n * w)
-            times[name, which] = (ms, bound)
+            times[name, which] = (ms, bound, plain, lib)
             print(f"[plan] {name} {which}: n={n} w={w} bit-equal to plain; "
-                  f"{ms * 1e3:.1f} us, bound {bound * 1e3:.1f} us")
+                  f"{ms * 1e3:.1f} us, bound {bound * 1e3:.1f} us, plain "
+                  f"{plain * 1e3:.1f} us, cuSPARSE {lib * 1e3:.1f} us")
     for name in ("ell_spmv", "ell_spmv_frsz2"):
         raw, rcm = times[name, "raw"], times[name, "rcm"]
         entries[name].update(unstructured_raw_ms=raw[0],
                              unstructured_rcm_ms=rcm[0],
-                             unstructured_bound_ms=rcm[1])
+                             unstructured_bound_ms=rcm[1],
+                             unstructured_raw_plain_ms=raw[2],
+                             unstructured_rcm_plain_ms=rcm[2],
+                             unstructured_raw_library_ms=raw[3],
+                             unstructured_rcm_library_ms=rcm[3])
         print(f"[plan] {name}: raw / rcm {raw[0] / rcm[0]:.3f}, rcm / bound "
               f"{rcm[0] / rcm[1]:.3f}")
 
@@ -1407,6 +1470,7 @@ def _plan_solves(A, target):
     from repro_torch.sparse import rhs_for
 
     b, x_sol = rhs_for(A, device="cuda")
+    rcm_iters = {}
     for fmt in ("float64", "frsz2_32"):
         rows = {}
         for reorder in ("none", "rcm"):
@@ -1421,6 +1485,7 @@ def _plan_solves(A, target):
                   and torch.equal(rows[reorder][0].x, first[0].x),
                   f"{fmt} {reorder}: a repeated solve differs")
         (rn, wn), (rr, wr) = rows["none"], rows["rcm"]
+        rcm_iters[fmt] = rr.iterations
         for res, what in ((rn, "none"), (rr, "rcm")):
             check(res.converged and bool(torch.isfinite(res.x).all()),
                   f"full-width unstructured {fmt} {what} did not converge "
@@ -1460,6 +1525,7 @@ def _plan_solves(A, target):
               f"s ({wr['wall_per_iter_ms']:.4f} ms/it), ratio "
               f"{wr['wall_per_iter_ms'] / wn['wall_per_iter_ms']:.3f}; "
               "repeated solves replayed (no recapture)")
+    return rcm_iters
 
 
 def _plan_block_solve(A, target):
@@ -1578,12 +1644,433 @@ def phase_plan(entries):
           f"{t_make:.2f} s, plan_operator {t_plan:.2f} s (rcm_permutation "
           f"alone {t_rcm:.2f} s), cache hit {t_hit * 1e3:.3f} ms")
     _plan_ell_times(A, plan, entries)
-    _plan_solves(A, target)
+    rcm_iters = _plan_solves(A, target)
+    release()
+    _plan_sharded_solve(A, target, rcm_iters["frsz2_32"])
     release()
     _plan_block_solve(A, target)
     del A, plan, again
     release()
     _plan_emulators(PLAN_N)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: the sharded solve (slice 6)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_row(label, A, b, x_sol, fmt, target, max_iters, transport,
+                 matvec="halo", reorder="auto"):
+    """One ``gmres(..., shard=P)`` solve on this process's rank, as
+    :func:`_solve_row` records it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.solver import gmres
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gmres(A, b, storage=fmt, m=M, max_iters=max_iters,
+                target_rrn=target, shard=dist.get_world_size(),
+                shard_transport=transport, shard_matvec=matvec,
+                reorder=reorder)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = float(torch.linalg.vector_norm(res.x - x_sol)
+                / torch.linalg.vector_norm(x_sol))
+    row = dict(phase=label, n=A.shape[0], format=fmt,
+               shard=dist.get_world_size(), transport=transport,
+               matvec=matvec, reorder=reorder, iters=res.iterations,
+               restarts=res.restarts, rrn=res.rrn,
+               converged=bool(res.converged), x_err=err, wall_s=wall,
+               wall_per_iter_ms=wall * 1e3 / max(res.iterations, 1),
+               bytes_read=res.bytes_read, op_reads=res.op_reads,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=dict(ops.LAUNCHES))
+    emit(row)
+    return res, row
+
+
+def _sharded_kernels(A):
+    """Kernels 1 and 2 at the two wire specs on the main path's payloads,
+    and kernel 5 on the halo-localized ELL of this rank's chunk: bit-equal
+    to their plain versions, timed beside their byte bounds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import partition_matvec, plan_operator
+
+    P, rank = dist.get_world_size(), dist.get_rank()
+    plan = plan_operator(A, P, matvec_mode="halo")
+    check(plan.matvec_mode == "halo", f"atmosmodd plan: {plan.describe()}")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    codec_src = "src/repro_torch/kernels/csrc/frsz2_codec.cu"
+    entries = {}
+    # the dots' wire: the m + 1 partials of one reduction, as f32
+    h = torch.randn((M + 1,), generator=gen, dtype=torch.float64,
+                    device="cuda")
+    strip = torch.randn((plan.probe.strips[0],), generator=gen,
+                        dtype=torch.float64, device="cuda")
+    for tag, x, spec in (
+            ("wire", h.to(torch.float32), collectives.WIRE_SPEC),
+            ("halo", strip, collectives.halo_wire_spec(torch.float64))):
+        bc, _, code_err, value_err = _codec_pair(x, spec)
+        code_bytes = bc.codes.numel() * bc.codes.element_size() \
+            + bc.exps.numel() * 4
+        x_bytes = x.numel() * x.element_size()
+        what = f"{x.numel()} x {F.dtype_name(spec.dtype)}, bs {spec.bs}, " \
+               f"l {spec.l}"
+        entries[f"frsz2_compress_{tag}"] = entry(
+            f"frsz2_compress_{tag}", codec_src,
+            "src/repro/kernels/frsz2_kernel.py:113",
+            timed(lambda x=x, spec=spec: ops.compress(x, spec, kernel=True)),
+            timed(lambda x=x, spec=spec: ops.compress(x, spec,
+                                                      kernel=False)),
+            x_bytes + code_bytes, 0.0, code_err, kernel="frsz2_compress",
+            path="sharded", shape=what, err_unit="code")
+        entries[f"frsz2_decompress_{tag}"] = entry(
+            f"frsz2_decompress_{tag}", codec_src,
+            "src/repro/kernels/frsz2_kernel.py:75",
+            timed(lambda bc=bc: ops.decompress(bc, kernel=True)),
+            timed(lambda bc=bc: ops.decompress(bc, kernel=False)),
+            code_bytes + x_bytes, 0.0, value_err, kernel="frsz2_decompress",
+            path="sharded", shape=what)
+        print(f"[sharded] codec at {what}: bit-equal to plain")
+    # kernel 5 on the localized columns, against the halo-extended chunk
+    mv = partition_matvec(plan=plan, rank=rank, device="cuda")
+    part = mv.partition
+    x = torch.randn((plan.n_local,), generator=gen, dtype=torch.float64,
+                    device="cuda")
+    x_ext = collectives.halo_exchange(x, plan.probe.strips, P)
+    yk = ops.ell_spmv(part.vals, part.cols, x_ext, kernel=True)
+    yp = ops.ell_spmv(part.vals, part.cols, x_ext, kernel=False)
+    check(torch.equal(yk, yp), "kernel 5 on the halo-localized ELL != plain")
+    check(torch.equal(mv(x), yk), "the halo matvec != kernel 5 on x_ext")
+    nr, w = part.vals.shape
+    nbytes = part.vals.numel() * 8 + part.cols.numel() * 4 \
+        + x_ext.numel() * 8 + nr * 8
+    csr = torch.sparse_csr_tensor(A.indptr, A.indices, A.data, size=A.shape)
+    lib = timed(lambda: csr @ x) if P == 1 else None
+    entries["ell_spmv_halo"] = entry(
+        "ell_spmv_halo", "src/repro_torch/kernels/csrc/ell_spmv.cu",
+        "src/repro/kernels/ell_spmv.py:49",
+        timed(lambda: ops.ell_spmv(part.vals, part.cols, x_ext,
+                                   kernel=True)),
+        timed(lambda: ops.ell_spmv(part.vals, part.cols, x_ext,
+                                   kernel=False)),
+        nbytes, 2.0 * nr * w, 0.0, library_ms=lib, kernel="ell_spmv",
+        path="sharded",
+        shape=f"{nr} x {w} rows of rank {rank}, x_ext {x_ext.numel()}",
+        library="torch.sparse_csr_tensor @ x (the whole operator, one rank)")
+    print(f"[sharded] kernel 5 on the halo-localized ELL ({nr} x {w}, "
+          f"x_ext {x_ext.numel()}): bit-equal to plain and to the matvec")
+    return entries
+
+
+def phase_sharded(A, target, unsharded, block_unsharded):
+    """Slice 6's path on this process's NCCL rank at full width: returns
+    the kernel entries and the launches per kernel, read from the
+    frsz2_32 compressed-transport replay (every kernel of the path)."""
+    import torch
+
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.solver.gmres import _GRAPHS
+    from repro_torch.sparse import rhs_for
+
+    entries = _sharded_kernels(A)
+    b, x_sol = rhs_for(A, device="cuda")
+    launches = None
+    for fmt in ("frsz2_32", "float64"):
+        d, rd = unsharded[fmt]
+        runs = {}
+        for transport in TRANSPORTS:
+            first, _ = _sharded_row("sharded-capture", A, b, x_sol, fmt,
+                                    target, FULL_MAX_ITERS, transport)
+            keys = set(_GRAPHS)
+            res, row = _sharded_row("sharded", A, b, x_sol, fmt, target,
+                                    FULL_MAX_ITERS, transport)
+            check(set(_GRAPHS) == keys, f"sharded {fmt} {transport}: the "
+                                        "repeated solve captured a new graph")
+            check(torch.equal(res.x, first.x) and
+                  res.iterations == first.iterations,
+                  f"sharded {fmt} {transport}: a replayed solve differs")
+            check(res.converged and res.rrn <= target,
+                  f"sharded {fmt} {transport} did not converge: "
+                  f"{res.iterations} it, RRN {res.rrn:.3e}")
+            runs[transport] = (res, row)
+            if transport == "compressed" and fmt == "frsz2_32":
+                _check_launches(row, SHARDED_PATH,
+                                "sharded frsz2_32 solve (slice 6)")
+                check(row["launches"]["ell_spmv_frsz2"] == 0,
+                      "the sharded solve launched the coded-operand ELL")
+                launches = {k: row["launches"][k] for k in SHARDED_PATH}
+            release()
+        res, row = runs["plain"]
+        for key in ("iters", "restarts", "bytes_read", "op_reads"):
+            check(row[key] == rd[key], f"sharded plain {fmt}: {key} "
+                                       f"{row[key]} != unsharded {rd[key]}")
+        x_rel = float(torch.linalg.vector_norm(res.x - d.x)
+                      / torch.linalg.vector_norm(d.x))
+        check(x_rel <= 1e-12, f"sharded plain {fmt}: x relative {x_rel:.3e}")
+        for transport in TRANSPORTS[1:]:
+            it = runs[transport][1]["iters"]
+            check(abs(it - row["iters"]) <= 2,
+                  f"sharded {fmt} {transport}: {it} it vs plain "
+                  f"{row['iters']}")
+        print(f"[sharded] {fmt}: iterations unsharded {rd['iters']}, "
+              + ", ".join(f"{t} {runs[t][1]['iters']}" for t in TRANSPORTS)
+              + f"; plain x relative {x_rel:.3e}; wall per iteration "
+              f"unsharded {rd['wall_per_iter_ms']:.4f} ms, "
+              + ", ".join(f"{t} {runs[t][1]['wall_per_iter_ms']:.4f} ms"
+                          for t in TRANSPORTS))
+    # the sharded block solve against phase 7's unsharded one
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.solver import gmres_batched
+
+    Xu, ru = block_unsharded
+    B = _batch_rhs(b, P_BLOCK)
+    out = []
+    for label in ("sharded-block-capture", "sharded-block"):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = gmres_batched(A, B, storage="frsz2_32", m=M,
+                           max_iters=FULL_MAX_ITERS, target_rrn=target,
+                           method="block", shard=dist.get_world_size(),
+                           shard_transport="plain", shard_matvec="halo")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        X = torch.stack([r.x for r in rs])
+        row = dict(phase=label, n=A.shape[0], p=P_BLOCK, format="frsz2_32",
+                   transport="plain", iters=[r.iterations for r in rs],
+                   restarts=[r.restarts for r in rs],
+                   converged=all(r.converged for r in rs), wall_s=wall,
+                   launches=dict(ops.LAUNCHES))
+        emit(row)
+        out.append((X, row))
+    (X1, r1), (X2, r2) = out
+    check(r2["converged"] and torch.equal(X1, X2),
+          "sharded block solve: not converged or the replay differs")
+    check(r2["iters"] == ru["iters"], f"sharded block iterations "
+                                      f"{r2['iters']} != unsharded "
+                                      f"{ru['iters']}")
+    x_rel = float(torch.linalg.vector_norm(X2 - Xu)
+                  / torch.linalg.vector_norm(Xu))
+    check(x_rel <= 1e-12, f"sharded block X relative {x_rel:.3e}")
+    _check_launches(r2, BLOCK_PATH, "sharded block solve")
+    print(f"[sharded] block p={P_BLOCK} frsz2_32 plain: iterations "
+          f"{r2['iters']} (unsharded {ru['iters']}), X relative "
+          f"{x_rel:.3e}; walls capture {r1['wall_s']:.4f} s, replay "
+          f"{r2['wall_s']:.4f} s (unsharded replay {ru['wall_s']:.4f} s)")
+    return entries, launches
+
+
+def _plan_sharded_solve(A, target, rcm_iters):
+    """``reorder="auto"`` on the unstructured operator through the sharded
+    solve on this rank: the plan's executed mode, one frsz2_32 solve with
+    the RCM solve's iterations, run twice (the second replays)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.solver.sharded import _plan_and_precond
+    from repro_torch.sparse import rhs_for
+
+    P = dist.get_world_size()
+    plan, _ = _plan_and_precond(A, P, "auto", "auto", None)
+    print(f"[plan] sharded over {P}: {plan.describe()}")
+    b, x_sol = rhs_for(A, device="cuda")
+    first, r1 = _sharded_row("plan-sharded-capture", A, b, x_sol, "frsz2_32",
+                             target, PLAN_MAX_ITERS, "plain", matvec="auto")
+    res, row = _sharded_row("plan-sharded", A, b, x_sol, "frsz2_32", target,
+                            PLAN_MAX_ITERS, "plain", matvec="auto")
+    check(res.converged, "sharded unstructured solve did not converge")
+    check(torch.equal(res.x, first.x), "sharded unstructured: the replayed "
+                                       "solve differs")
+    check(res.iterations == rcm_iters, f"sharded unstructured {plan.reorder}"
+          f"/{plan.matvec_mode} solve: {res.iterations} it != RCM solve "
+          f"{rcm_iters}")
+    print(f"[plan] sharded frsz2_32 (executed reorder {plan.reorder}, matvec "
+          f"{plan.matvec_mode}): {res.iterations} it = RCM solve; wall "
+          f"first (plan, partition, capture) {r1['wall_s']:.4f} s, replay "
+          f"{row['wall_s']:.4f} s ({row['wall_per_iter_ms']:.4f} ms/it)")
+
+
+#: seconds the multi-card world may take: five times its 58.6 s on four
+#: H100s (35.7 s of it before the ranks' first step)
+MULTI_DEADLINE_S = 300.0
+
+
+def _sharded_rank(rank, dev, target, ref, block_ref):
+    """One rank of the multi-card run at P = ``device_count()``: phase
+    7c's full-width atmosmodd solves (halo, every transport, frsz2_32 and
+    float64; the frsz2_32 coded solve also on the plan's own matvec; the
+    p = 8 block solve), each captured and then replayed.  Rank 0 returns
+    the rows, with the modelled wire bytes a cycle, and every rank's
+    timeline: seconds from its start to the end of each step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.solver import clear_graph_cache, gmres, gmres_batched
+    from repro_torch.solver.sharded import _plan_and_precond, wire_bytes
+    from repro_torch.sparse import make_problem, rhs_for
+
+    t_start = time.time()
+    marks = []
+
+    def mark(what):
+        torch.cuda.synchronize()
+        marks.append((what, time.time() - t_start))
+        if rank == 0:                  # as it goes: a world cut short shows
+            print(f"[sharded] rank 0: {what} at {marks[-1][1]:.1f} s",
+                  flush=True)
+
+    def twice(label, fn):
+        """Capture, then replay: the replay's result and wall, the
+        capture's wall, and whether the two agree bit for bit."""
+        outs = []
+        for step in ("capture", "replay"):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            outs.append((out, time.perf_counter() - t0))
+            mark(f"{label} {step}")
+        (first, capture_s), (res, wall) = outs
+        pairs = zip(*(r if isinstance(r, list) else [r]
+                      for r in (first, res)))
+        same = all(torch.equal(u.x, v.x) and u.iterations == v.iterations
+                   for u, v in pairs)
+        return res, wall, capture_s, same
+
+    A, _ = make_problem("synth:atmosmod", N_MAIN, device=dev)
+    b, _ = rhs_for(A, device=dev)
+    P = dist.get_world_size()
+    mark("problem")
+    rows = []
+    try:
+        for fmt in ("frsz2_32", "float64"):
+            cases = [("halo", t) for t in TRANSPORTS]
+            if fmt == "frsz2_32":
+                cases.append(("auto", "compressed"))
+            x_ref = torch.from_numpy(ref[fmt]["x"]).to(dev)
+            for matvec, transport in cases:
+                label = f"{fmt} {transport} {matvec}"
+                plan, _ = _plan_and_precond(A, P, "auto", matvec, None)
+                mark(f"{label} plan")
+                res, wall, capture_s, same = twice(
+                    label, lambda fmt=fmt, mv=matvec, t=transport: gmres(
+                        A, b, storage=fmt, m=M, max_iters=FULL_MAX_ITERS,
+                        target_rrn=target, shard=P, shard_transport=t,
+                        shard_matvec=mv))
+                rows.append(dict(
+                    phase="sharded-multi", shard=P, format=fmt,
+                    transport=transport, matvec=plan.matvec_mode,
+                    iters=res.iterations, restarts=res.restarts,
+                    rrn=res.rrn, converged=bool(res.converged),
+                    replay_equal=same, capture_s=capture_s, wall_s=wall,
+                    wall_per_iter_ms=wall * 1e3 / max(res.iterations, 1),
+                    unsharded_iters=ref[fmt]["iters"],
+                    unsharded_wall_per_iter_ms=ref[fmt]["wall_per_iter_ms"],
+                    x_rel_to_unsharded=float(
+                        torch.linalg.vector_norm(res.x - x_ref)
+                        / torch.linalg.vector_norm(x_ref)),
+                    modelled_wire_bytes_per_cycle=wire_bytes(
+                        res, plan, storage=fmt, m=M, transport=transport),
+                    plan=plan.describe()))
+            del x_ref
+            clear_graph_cache()
+        B = _batch_rhs(b, P_BLOCK)
+        rb, wall, capture_s, same = twice("block", lambda: gmres_batched(
+            A, B, storage="frsz2_32", m=M, max_iters=FULL_MAX_ITERS,
+            target_rrn=target, method="block", shard=P,
+            shard_transport="plain", shard_matvec="halo"))
+        rows.append(dict(phase="sharded-multi-block", shard=P,
+                         format="frsz2_32", transport="plain", p=P_BLOCK,
+                         iters=[r.iterations for r in rb],
+                         unsharded_iters=block_ref,
+                         converged=all(r.converged for r in rb),
+                         replay_equal=same, capture_s=capture_s,
+                         wall_s=wall))
+    finally:
+        clear_graph_cache()
+        mark("end")
+    timelines = [None] * P
+    dist.all_gather_object(timelines, dict(rank=rank, start=t_start,
+                                           marks=marks))
+    return dict(rows=rows, timelines=timelines) if rank == 0 else None
+
+
+def phase_sharded_multi(target, unsharded, block_unsharded):
+    """With more than one card: :func:`_sharded_rank` on one spawned NCCL
+    rank a card, held against phase 5's and phase 7's unsharded solves
+    (``unsharded``, ``block_unsharded``); prints the rows and where the
+    world's time went."""
+    import torch
+
+    from repro_torch.dist import spawn
+
+    P = torch.cuda.device_count()
+    if P < 2:
+        print(f"[sharded] {P} card: the multi-card run is skipped by count")
+        return
+    ref = {fmt: dict(iters=rd["iters"], wall_per_iter_ms=rd[
+        "wall_per_iter_ms"], x=d.x.cpu().numpy())
+        for fmt, (d, rd) in unsharded.items()}
+    t0 = time.time()
+    out = spawn(_sharded_rank, P, target, ref, block_unsharded[1]["iters"],
+                device="cuda", timeout_s=MULTI_DEADLINE_S)
+    total = time.time() - t0
+    rows, timelines = out["rows"], out["timelines"]
+    plain = {r["format"]: r["iters"] for r in rows
+             if r.get("transport") == "plain" and r.get("matvec") == "halo"}
+    for row in rows:
+        emit(row)
+        what = (f"sharded over {P}: {row['format']} {row['transport']} "
+                f"{row.get('matvec', 'block')}")
+        check(row["converged"], f"{what} did not converge")
+        check(row["replay_equal"], f"{what}: the replay differs from its "
+                                   "capture")
+        if row["phase"] == "sharded-multi-block":
+            check(all(abs(i - j) <= 1 for i, j in
+                      zip(row["iters"], row["unsharded_iters"])),
+                  f"{what}: iterations {row['iters']} vs unsharded "
+                  f"{row['unsharded_iters']}")
+        elif row["transport"] == "plain":
+            check(abs(row["iters"] - row["unsharded_iters"]) <= 1,
+                  f"{what}: {row['iters']} it vs unsharded "
+                  f"{row['unsharded_iters']}")
+            check(row["x_rel_to_unsharded"] <= 1e-9,
+                  f"{what}: x relative {row['x_rel_to_unsharded']:.3e}")
+        elif row["format"] != "float64":
+            # float64's coded halo strips (l = 32) are lossier than its
+            # basis and cost it iterations, as in the reference
+            check(abs(row["iters"] - plain[row["format"]]) <= 2,
+                  f"{what}: {row['iters']} it vs plain "
+                  f"{plain[row['format']]}")
+    print(f"[sharded] over {P} cards: " + "; ".join(
+        f"{r['format']} {r['transport']} {r.get('matvec', 'block')}: "
+        f"{r['iters']} it" for r in rows))
+    starts = [tl["start"] - t0 for tl in timelines]
+    ends = [tl["start"] + tl["marks"][-1][1] - t0 for tl in timelines]
+    print(f"[sharded] multi-card world {total:.1f} s: ranks started "
+          f"{min(starts):.1f}-{max(starts):.1f} s after the spawn, worked "
+          f"until {min(ends):.1f}-{max(ends):.1f} s, teardown and join "
+          f"{total - max(ends):.1f} s")
+    for tl in timelines:
+        steps, last = [], 0.0
+        for what, t in tl["marks"]:
+            steps.append(f"{what} {t - last:.2f}")
+            last = t
+        print(f"[sharded] rank {tl['rank']} timeline (s): "
+              + "; ".join(steps))
 
 
 def _attn_inputs(gen, B, Hkv, G, S, D, l, exp_dtype, qdt=None):
@@ -2107,13 +2594,32 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    import torch.distributed as dist
+
+    from repro_torch.dist import init_rank
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.sparse import make_problem
 
     t_start = time.perf_counter()
     phase_build()
     device_line = phase_device()
+    # phase 7c's group: this process, one rank on cuda:0, NCCL initialized
+    # eagerly so that a captured cycle can hold its collectives
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    init_rank(0, 1, "file://" + str(pathlib.Path(rdv) / "rendezvous"))
+    try:
+        return _run(t_start, device_line)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def _run(t_start, device_line) -> int:
+    import torch
+
+    from repro_torch.sparse import make_problem
+
     t0 = time.perf_counter()
     A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
     torch.cuda.synchronize()
@@ -2123,14 +2629,20 @@ def main() -> int:
     entries.update(phase_ell(A))
     entries.update(phase_givens())
     phase_solve()
-    launches, paths = phase_full_width(A, target)
+    launches, paths, unsharded = phase_full_width(A, target)
     release()
     entries.update(phase_block_kernels(A))
     release()
     phase_block_solve()
     release()
-    block_launches = phase_block_full_width(A, target)
-    del A
+    block_launches, block_unsharded = phase_block_full_width(A, target)
+    release()
+    sharded_entries, sharded_launches = phase_sharded(A, target, unsharded,
+                                                      block_unsharded)
+    entries.update(sharded_entries)
+    release()
+    phase_sharded_multi(target, unsharded, block_unsharded)
+    del A, unsharded, block_unsharded
     release()
     phase_plan(entries)
     release()
@@ -2156,6 +2668,8 @@ def main() -> int:
         key = e.get("kernel", name)
         if e.get("path") == "block":
             e["launches"] = block_launches[key]
+        elif e.get("path") == "sharded":
+            e["launches"] = sharded_launches[key]
         elif e.get("path") == "serve":
             e["launches"] = serve_launches[key]
         else:

@@ -59,6 +59,7 @@ __all__ = [
     "NativeFormat",
     "FrszFormat",
     "MixedFormat",
+    "ShardedFormat",
     "BasisAccessor",
     "BlockBasisAccessor",
     "auto_mixed_head",
@@ -169,23 +170,16 @@ class StorageFormat:
 
 
 def f64_to_f16(v: torch.Tensor) -> torch.Tensor:
-    """f64 -> f16 rounded once to nearest even, as numpy and JAX round.
+    """f64 -> f16 through f32, rounding to nearest even at each step, as the
+    JAX reference converts (its CPU backend narrows f64 to f32 first).
 
-    PyTorch converts f64 -> f16 through f32, rounding twice (on 10^6
-    normals, 50 values land an ulp off).  Rounding to f32 *to odd* first
-    keeps a sticky bit that the second rounding reads, and f32's 24 bits
-    are more than f16's 11 + 2, so the two roundings give the single one
-    (Boldo and Melquiond's round-to-odd).  Tensor ops only: no host read,
-    so it runs inside a captured CUDA graph, on the CPU and on the card.
+    The two roundings differ from numpy's single one where the bits that
+    the first rounding drops would have broken an f16 tie.
+    Spelled out as two casts so that the card and the CPU give the same
+    bits whatever a direct conversion does there; tensor ops only, so it
+    runs inside a captured CUDA graph.
     """
-    x32 = v.to(torch.float32)                   # to nearest
-    back = x32.to(torch.float64)
-    # the truncation of v: one step toward zero where nearest rounded away
-    # (sign-magnitude bits: minus one moves toward zero for either sign);
-    # inexact: set the last bit, the odd neighbour of the interval
-    away = (back.abs() > v.abs()).to(torch.int32)
-    bits = (x32.view(torch.int32) - away) | (back != v)
-    return bits.view(torch.float32).to(torch.float16)
+    return v.to(torch.float32).to(torch.float16)
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +451,101 @@ class MixedFormat(StorageFormat):
         return self.head.nbytes(kh, n) + self.tail.nbytes(kt, n)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedFormat(StorageFormat):
+    """Basis rows split across the ranks of a process group along the
+    vector (n) dimension.
+
+    Each rank holds its chunk of every Krylov vector in ``inner`` storage;
+    the accessor's ``n`` is the *local* chunk length.  Every rank of
+    ``group`` (``None``: the default group) runs the same operations:
+
+      * ``dots`` — each rank contracts its chunk, then the partials are
+        summed over the group.  With ``compressed_transport`` (default)
+        they travel as FRSZ2 codes
+        (:func:`repro_torch.dist.collectives.compressed_psum`, bit-equal to
+        the reference's): the partials of *every* stored row are coded,
+        the stale rows of an earlier cycle included, because the wire
+        block's exponent is the largest of its 128 values, as the
+        reference's unmasked dots give it.  With the plain transport only
+        the live rows are contracted and all-reduced;
+      * ``combine``, ``write_row``, ``read_row`` — local, on the chunk;
+      * ``operand`` — the row read: the sharded matvec exchanges decoded
+        values, so the coded-operand ELL kernel is not on this path.
+
+    ``nbytes`` is per rank.
+    """
+
+    inner: StorageFormat = NativeFormat(torch.float32)
+    group: Any = None
+    compressed_transport: bool = True
+
+    @property
+    def name(self) -> str:
+        return f"sharded:{self.inner.name}"
+
+    def bits_per_value(self) -> float:
+        return self.inner.bits_per_value()
+
+    def eps(self) -> float:
+        return self.inner.eps()
+
+    def empty(self, m: int, n: int, device):
+        return self.inner.empty(m, n, device)
+
+    def rows(self, store) -> int:
+        return self.inner.rows(store)
+
+    def take(self, store, rows: int):
+        return self.inner.take(store, rows)
+
+    def write_row(self, store, j: int, v) -> None:
+        self.inner.write_row(store, j, v)
+
+    def read_row(self, store, j: int, arith_dtype, n: int):
+        return self.inner.read_row(store, j, arith_dtype, n)
+
+    def read_all(self, store, arith_dtype, n: int):
+        return self.inner.read_all(store, arith_dtype, n)
+
+    def reduce_partials(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum locally computed partials over the group, on the transport
+        of :attr:`compressed_transport`."""
+        from repro_torch.dist import collectives
+
+        if self.compressed_transport:
+            return collectives.compressed_psum(x, self.group)
+        return collectives.psum(x, self.group)
+
+    def _wire_rows(self, store, rows: int) -> int:
+        return self.inner.rows(store) if self.compressed_transport else rows
+
+    def dots(self, store, w, arith_dtype, n: int, rows: int):
+        local = self.inner.dots(store, w, arith_dtype, n,
+                                self._wire_rows(store, rows))
+        return self.reduce_partials(local)[:rows].to(arith_dtype)
+
+    def combine(self, store, h, arith_dtype, n: int):
+        return self.inner.combine(store, h, arith_dtype, n)
+
+    def block_align(self) -> int:
+        return self.inner.block_align()
+
+    def block_dots(self, store, W, arith_dtype, n: int, p: int, n_seg: int,
+                   rows: int):
+        local = self.inner.block_dots(store, W, arith_dtype, n, p, n_seg,
+                                      self._wire_rows(store, rows))
+        return self.reduce_partials(local)[:rows].to(arith_dtype)
+
+    def block_combine(self, store, Y, arith_dtype, n: int, p: int,
+                      n_seg: int):
+        # local, like the scalar combine: the result is this rank's chunk
+        return self.inner.block_combine(store, Y, arith_dtype, n, p, n_seg)
+
+    def nbytes(self, m: int, n: int) -> int:
+        return self.inner.nbytes(m, n)
+
+
 # ---------------------------------------------------------------------------
 # Basis accessor: the Krylov-buffer contract
 # ---------------------------------------------------------------------------
@@ -576,8 +665,8 @@ class BlockBasisAccessor:
 # Registry (benchmarks / CLI select formats by name)
 # ---------------------------------------------------------------------------
 
-#: One table: exact names ("float64") and family prefixes ("frsz2", "mixed")
-#: map to builders ``(name, *, arith_dtype, bs, use_kernels, rounding) ->
+#: One table: exact names ("float64") and family prefixes ("frsz2", "mixed",
+#: "sharded", "emul") map to builders ``(name, *, arith_dtype, bs, use_kernels, rounding) ->
 #: StorageFormat``.  ``format_by_name`` consults nothing else.
 FORMATS: dict[str, Callable[..., StorageFormat]] = {}
 
@@ -660,10 +749,19 @@ def _build_mixed(name, *, arith_dtype=torch.float64, target_rrn=None, m=None,
 
 
 @register_format("sharded")
-def _build_sharded(name, **ctx):
-    raise NotImplementedError(
-        f"{name!r}: sharded basis storage is not ported yet "
-        "(ROADMAP.md, open item 1: slice 6, multi-GPU)")
+def _build_sharded(name, *, group=None, compressed_transport=True, **ctx):
+    # "sharded:<inner-format-name>"
+    inner_name = name.partition(":")[2]
+    if not inner_name:
+        raise ValueError("sharded format needs an inner format: "
+                         "'sharded:<fmt>'")
+    if inner_name.split(":", 1)[0] == "sharded":
+        raise ValueError(
+            f"nested sharded format {name!r} is not supported: the basis "
+            "splits over exactly one mesh axis ('sharded:<fmt>')")
+    inner = format_by_name(inner_name, **ctx)
+    return ShardedFormat(inner=inner, group=group,
+                         compressed_transport=compressed_transport)
 
 
 @register_format("emul")

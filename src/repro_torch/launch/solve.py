@@ -21,11 +21,24 @@ chosen per restart cycle; its row names the policy), ``--reorder rcm``
 (solve in RCM-permuted coordinates; the plan's summary is printed first:
 drive it on ``--problem synth:unstructured``, where the iterations must
 equal ``--reorder none``'s).
+
+``--shard P`` runs every solve on P ranks of a ``torch.distributed``
+group, one process per GPU (``repro_torch.solver.sharded``): under
+``torchrun --nproc-per-node P -m repro_torch.launch.solve --shard P`` each
+process joins the group torchrun describes; run plainly, the CLI spawns
+the P ranks itself (NCCL on ``cuda:0..P-1``, gloo with ``--device cpu``)
+and prints rank 0's rows.  ``--shard-transport`` picks plain or
+FRSZ2-coded reductions, ``--shard-matvec`` the partitioned SpMV (``auto``
+probes the bandwidth: the neighbour halo exchange for banded operators,
+the gathered operand otherwise, the 3-D block partition when the problem
+carries its cell grid and the faces cost less), ``--shard-grid 2x2x2``
+the block partition's process grid.  The plan's summary is printed first.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -54,6 +67,8 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
                 driver: str = "device", batch: int = 1,
                 method: str = "vmap", precond: str | None = None,
                 ortho: str = "mgs", policy: str | None = None,
+                shard: int | None = None, shard_transport: str = "plain",
+                shard_matvec: str = "auto", shard_grid=None,
                 reorder: str = "auto", device: str = "cuda",
                 verbose: bool = True):
     dev = resolve_device(device)
@@ -61,9 +76,13 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
     if target_rrn is not None:
         rrn = target_rrn
     b, x_sol = rhs_for(A, device=dev)
-    if reorder == "rcm" and verbose:
-        # the solves below fetch this plan from the plan cache
-        print(plan_operator(A, 1, reorder=reorder).describe())
+    if (reorder == "rcm" or shard) and verbose:
+        # the solves below fetch this plan from the plan cache (the sharded
+        # solve re-plans without a permutation that its preconditioner
+        # cannot follow)
+        print(plan_operator(A, shard or 1, reorder=reorder,
+                            matvec_mode=shard_matvec if shard else "auto",
+                            pgrid=shard_grid).describe())
     rows = []
     runs = [dict(label=fmt, storage=fmt, policy=None) for fmt in formats]
     if policy:
@@ -71,7 +90,10 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
     for run in runs:
         kw = dict(storage=run["storage"], policy=run["policy"],
                   precond=precond, ortho=ortho, m=m, max_iters=max_iters,
-                  target_rrn=rrn, driver=driver, reorder=reorder)
+                  target_rrn=rrn, driver=driver, shard=shard,
+                  shard_transport=shard_transport,
+                  shard_matvec=shard_matvec, shard_grid=shard_grid,
+                  reorder=reorder)
         _sync(dev)
         t0 = time.perf_counter()
         if batch > 1:
@@ -87,9 +109,13 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
         rows.append(dict(problem=problem, n=A.shape[0], format=run["label"],
                          driver=driver, batch=batch,
                          method=method if batch > 1 else None,
-                         precond=precond or "identity", ortho=ortho, shard=1,
-                         shard_transport=None, shard_matvec=None,
-                         shard_grid=None, reorder=reorder,
+                         precond=precond or "identity", ortho=ortho,
+                         shard=shard or 1,
+                         shard_transport=shard_transport if shard else None,
+                         shard_matvec=shard_matvec if shard else None,
+                         shard_grid=("x".join(map(str, shard_grid))
+                                     if shard and shard_grid else None),
+                         reorder=reorder,
                          iters=sum(r.iterations for r in results),
                          rrn=res.rrn,
                          converged=all(r.converged for r in results),
@@ -104,6 +130,32 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
                   f"rrn={r['rrn']:.3e} conv={r['converged']} "
                   f"t={r['wall_s']:.1f}s{extra}")
     return rows
+
+
+def _rank_suite(rank, device, suite_kw):
+    """One rank of a spawned sharded run: its rows (rank 0 prints them)."""
+    return solve_suite(device=str(device), verbose=rank == 0, **suite_kw)
+
+
+def _run_sharded(suite_kw: dict, shard: int, device: str):
+    """The suite on ``shard`` ranks: in the group torchrun describes, or on
+    ranks spawned here; rank 0's rows (``None`` on other torchrun ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.device import rank_device
+    from repro_torch.dist import init_rank, spawn
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:     # torchrun
+        dev = (rank_device(device) if dist.is_initialized()
+               else init_rank(device=device))
+        try:
+            rank = dist.get_rank()
+            rows = solve_suite(device=str(dev), verbose=rank == 0,
+                               **suite_kw)
+        finally:
+            dist.destroy_process_group()
+        return rows if rank == 0 else None
+    return spawn(_rank_suite, shard, suite_kw, device=device, timeout_s=None)
 
 
 def main(argv=None):
@@ -131,6 +183,25 @@ def main(argv=None):
                     help="per-cycle precision policy run to append, e.g. "
                          "'adaptive', 'adaptive:auto' or "
                          "'adaptive:float64,frsz2_32@1e-2,frsz2_16@1e-6'")
+    ap.add_argument("--shard", type=int, default=None,
+                    help="run every solve on this many ranks of a "
+                         "torch.distributed group, one process per GPU "
+                         "(spawned here unless run under torchrun)")
+    ap.add_argument("--shard-transport", default="plain",
+                    choices=["plain", "compressed", "compressed+norms"],
+                    help="wire format for the sharded solve's reductions")
+    ap.add_argument("--shard-matvec", default="auto",
+                    choices=["auto", "halo", "rows", "replicated",
+                             "block3d"],
+                    help="row-partitioned SpMV: auto probes the operator "
+                         "bandwidth (neighbour halo exchange for banded "
+                         "operators, gathered operand otherwise; 3-D block "
+                         "partition when the problem carries cell geometry "
+                         "and its face wire wins)")
+    ap.add_argument("--shard-grid", default=None,
+                    help="force the block partition's (Px,Py,Pz) process "
+                         "grid, e.g. '2x2x2' ('auto'/omitted: factor the "
+                         "group to minimize modelled face wire)")
     ap.add_argument("--reorder", default="auto",
                     choices=["auto", "rcm", "none"],
                     help="RCM bandwidth-reduction reordering at setup: "
@@ -138,16 +209,34 @@ def main(argv=None):
                          "halo matvec for an unstructured operator "
                          "(repro_torch.sparse.plan)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where the solve runs (cuda: the Hopper kernels)")
+                    help="where the solve runs (cuda: the Hopper kernels; "
+                         "with --shard, cuda:<rank> under NCCL, cpu under "
+                         "gloo)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
-    rows = solve_suite(args.problem, args.n, args.formats.split(","),
-                       m=args.m, target_rrn=args.target_rrn,
-                       driver=args.driver, batch=args.batch,
-                       method=args.method, precond=args.precond,
-                       ortho=args.ortho, policy=args.policy,
-                       reorder=args.reorder, device=args.device)
-    if args.json:
+    shard_grid = None
+    if args.shard_grid and args.shard_grid != "auto":
+        try:
+            shard_grid = tuple(int(p) for p in args.shard_grid.split("x"))
+            if len(shard_grid) != 3:
+                raise ValueError
+        except ValueError:
+            ap.error(f"--shard-grid must be 'PxPyPz' (e.g. 2x2x2) or "
+                     f"'auto', got {args.shard_grid!r}")
+    suite_kw = dict(problem=args.problem, n=args.n,
+                    formats=args.formats.split(","), m=args.m,
+                    target_rrn=args.target_rrn, driver=args.driver,
+                    batch=args.batch, method=args.method,
+                    precond=args.precond, ortho=args.ortho,
+                    policy=args.policy, shard=args.shard,
+                    shard_transport=args.shard_transport,
+                    shard_matvec=args.shard_matvec, shard_grid=shard_grid,
+                    reorder=args.reorder)
+    if args.shard:
+        rows = _run_sharded(suite_kw, args.shard, args.device)
+    else:
+        rows = solve_suite(device=args.device, **suite_kw)
+    if args.json and rows is not None:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)
 

@@ -54,13 +54,13 @@ from repro_torch.solver.gmres import (
     _block_solve_and_update,
     _cached_graph,
     _capture,
-    _check_unported,
     _cycle_row_reads,
     _norm_floor,
     _operator_key,
     _plan_unsharded,
     _precond_key,
     _replay,
+    _zero_store,
 )
 from repro_torch.solver.pipeline import (
     block_orthogonalizer_by_name,
@@ -113,7 +113,8 @@ class _BlockCycle:
     them).  Otherwise the cycle runs eagerly on every call."""
 
     def __init__(self, bmv, acc: BlockBasisAccessor, eta: float,
-                 target: float, ortho, branch_free: bool, pins=()):
+                 target: float, ortho, branch_free: bool, pins=(),
+                 dist=LOCAL):
         self.acc = acc
         self.store = acc.empty()
         self.init = ref.block_givens_init_ref(acc.m - 1, acc.p, acc.device)
@@ -122,23 +123,27 @@ class _BlockCycle:
         self.W0 = torch.empty((acc.p, acc.n), dtype=acc.arith_dtype,
                               device=dev)
         self.bn = torch.empty((acc.p,), dtype=acc.arith_dtype, device=dev)
-        self._args = (bmv, eta, target, ortho, branch_free)
+        self._args = (bmv, eta, target, ortho, branch_free, dist)
         self.capture = branch_free and self.state.is_cuda
         self.pins = pins            # keeps the tensors the graph reads alive
         self.graph = None
         self.launches: dict[str, int] = {}
+        self.fresh = False          # zero the store before the next cycle
 
     def _run(self) -> None:
-        bmv, eta, target, ortho, branch_free = self._args
+        bmv, eta, target, ortho, branch_free, dist = self._args
         _block_cycle(bmv, self.acc, self.store, self.state, self.init,
-                     self.W0, self.bn, eta, target, ortho, branch_free)
+                     self.W0, self.bn, eta, target, ortho, branch_free, dist)
 
     def __call__(self, W0, bn_safe):
         self.W0.copy_(W0)
         self.bn.copy_(bn_safe)
+        if self.capture and self.graph is None:
+            self.graph, self.launches = _capture(self._run)
+        if self.fresh:              # after a capture's warm-up wrote it
+            _zero_store(self.store)
+            self.fresh = False
         if self.capture:
-            if self.graph is None:
-                self.graph, self.launches = _capture(self._run)
             _replay(self.graph, self.launches)
         else:
             self._run()
@@ -257,6 +262,42 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
                           nbytes, op_reads, stagnated)
 
 
+def _block_drive(bmv, bmv_r, accs, policy, B, m, max_iters, target_rrn,
+                 eta, ortho, precond, X0, branch_free: bool, key: tuple,
+                 pins: tuple, dist=LOCAL) -> list[GmresResult]:
+    """Run the block restart loop with one cycle a policy level: on CUDA
+    with ``branch_free`` (the device driver) from the graph cache under
+    ``key`` (what the graph reads, which ``pins`` keeps alive), else a
+    fresh eager one.  ``bmv`` serves the cycles, ``bmv_r`` the explicit
+    residuals; a sharded ``dist`` zeroes each store before its first cycle
+    of the solve, as the reference starts from empty stores."""
+    cycles: dict[int, _BlockCycle] = {}
+
+    def build(lvl, pins=()):
+        return _BlockCycle(bmv, accs[lvl], eta, target_rrn, ortho,
+                           branch_free, pins, dist)
+
+    def cycle_for(lvl):
+        cyc = cycles.get(lvl)
+        if cyc is None:
+            acc = accs[lvl]
+            if branch_free and torch.device(acc.device).type == "cuda":
+                k = ("block",) + key + (
+                    acc.fmt, acc.m, acc.p, acc.n, acc.arith_dtype,
+                    str(torch.device(acc.device)), type(ortho), ortho.name,
+                    float(eta), float(target_rrn), dist.spec())
+                cyc = _cached_graph(k, lambda: build(lvl, pins))
+            else:
+                cyc = build(lvl)
+            cyc.fresh = dist.sharded
+            cycles[lvl] = cyc
+        return cyc.store, cyc
+
+    return _block_restart_loop(bmv_r, accs, policy, B, m, max_iters,
+                               target_rrn, ortho, precond, cycle_for, X0=X0,
+                               dist=dist)
+
+
 def _block_matvec(A, user_matvec, precond=None) -> Callable:
     """``X (p, n) -> A M^{-1} X`` row by row: a CSR/ELL operator takes the
     block in one launch, a user matvec runs per row."""
@@ -288,7 +329,6 @@ def gmres_block(
     eta: float = 0.7071067811865475,
     matvec: Callable | None = None,
     driver: str = "device",
-    shard: int | None = None,
     reorder: str = "auto",
 ) -> list[GmresResult]:
     """Solve A X[b] = B[b] for all p right-hand sides with block-GMRES, on
@@ -304,7 +344,6 @@ def gmres_block(
     if driver not in ("device", "host"):
         raise ValueError(f"unknown driver {driver!r}; "
                          "expected one of ('device', 'host')")
-    _check_unported(shard)
     plan = _plan_unsharded(A, reorder, matvec)
     A, precond, (B, X0) = _apply_plan(plan, A, precond, (B, X0))
     if arith_dtype is None:
@@ -317,33 +356,12 @@ def gmres_block(
         for f in policy.formats())
     precond = resolve_preconditioner(precond, A)
     ortho = block_orthogonalizer_by_name(ortho)
-    bmv = _block_matvec(A, matvec, precond)
-    branch_free = driver == "device"
-    cycles: dict[int, _BlockCycle] = {}
-
-    def build(lvl, pins=()):
-        return _BlockCycle(bmv, accs[lvl], eta, target_rrn, ortho,
-                           branch_free, pins)
-
-    def cycle_for(lvl):
-        cyc = cycles.get(lvl)
-        if cyc is None:
-            acc = accs[lvl]
-            if branch_free and torch.device(acc.device).type == "cuda":
-                op_key, op_pins = _operator_key(A, matvec, plan)
-                pc_key, pc_pins = _precond_key(precond)
-                key = ("block", op_key, pc_key, acc.fmt, acc.m, acc.p, acc.n,
-                       acc.arith_dtype, str(torch.device(acc.device)),
-                       type(ortho), ortho.name, float(eta), float(target_rrn))
-                cyc = _cached_graph(key, lambda: build(lvl, op_pins + pc_pins))
-            else:
-                cyc = build(lvl)
-            cycles[lvl] = cyc
-        return cyc.store, cyc
-
-    results = _block_restart_loop(_block_matvec(A, matvec), accs, policy, B,
-                                  m, max_iters, target_rrn, ortho, precond,
-                                  cycle_for, X0=X0)
+    op_key, op_pins = _operator_key(A, matvec, plan)
+    pc_key, pc_pins = _precond_key(precond)
+    results = _block_drive(
+        _block_matvec(A, matvec, precond), _block_matvec(A, matvec), accs,
+        policy, B, m, max_iters, target_rrn, eta, ortho, precond, X0,
+        driver == "device", (op_key, pc_key), op_pins + pc_pins)
     if plan is not None:
         for r in results:
             r.x = plan.unpermute(r.x)

@@ -245,11 +245,12 @@ class _DeviceCycle:
     counted; every call then copies its inputs into the static ones,
     replays the graph and adds those launches to ``ops.LAUNCHES`` (a replay
     runs no Python, so it would count nothing).  A failed capture or replay
-    raises.  On the CPU every call runs the cycle eagerly.
+    raises.  On the CPU every call runs the cycle eagerly.  A sharded
+    ``dist`` puts its collectives (NCCL on the card) inside the graph.
     """
 
     def __init__(self, matvec, acc: BasisAccessor, eta: float, target: float,
-                 ortho, precond, fused: bool, pins=()):
+                 ortho, precond, fused: bool, pins=(), dist=LOCAL):
         m = acc.m - 1
         self.acc = acc
         self.store = acc.empty()
@@ -259,24 +260,28 @@ class _DeviceCycle:
         self.r = torch.empty((acc.n,), dtype=ad, device=dev)
         self.beta = torch.empty((), dtype=ad, device=dev)
         self.b_norm = torch.empty((), dtype=ad, device=dev)
-        self._args = (matvec, eta, target, ortho, precond, fused)
+        self._args = (matvec, eta, target, ortho, precond, fused, dist)
         self.pins = pins            # keeps the tensors the graph reads alive
         self.graph = None
         self.launches: dict[str, int] = {}
+        self.fresh = False          # zero the store before the next cycle
 
     def _run(self) -> None:
-        matvec, eta, target, ortho, precond, fused = self._args
+        matvec, eta, target, ortho, precond, fused, dist = self._args
         _device_cycle(matvec, self.acc, self.store, self.state, self.init,
                       self.r, self.beta, self.b_norm, eta, target, ortho,
-                      precond, fused)
+                      precond, fused, dist)
 
     def __call__(self, r, beta, b_norm):
         self.r.copy_(r)
         self.beta.copy_(beta)
         self.b_norm.copy_(b_norm)
+        if self.state.is_cuda and self.graph is None:
+            self.graph, self.launches = _capture(self._run)
+        if self.fresh:              # after a capture's warm-up wrote it
+            _zero_store(self.store)
+            self.fresh = False
         if self.state.is_cuda:
-            if self.graph is None:
-                self.graph, self.launches = _capture(self._run)
             _replay(self.graph, self.launches)
         else:
             self._run()
@@ -345,18 +350,29 @@ def _precond_key(p):
 
 
 def _device_cycle_for(A, user_matvec, matvec, acc, eta, target, ortho,
-                      precond, fused, plan=None) -> _DeviceCycle:
+                      precond, fused, plan=None, dist=LOCAL) -> _DeviceCycle:
     """The level's cycle: on CUDA from the cache (captured on first use),
     on the CPU a fresh one."""
     if torch.device(acc.device).type != "cuda":
-        return _DeviceCycle(matvec, acc, eta, target, ortho, precond, fused)
+        return _DeviceCycle(matvec, acc, eta, target, ortho, precond, fused,
+                            dist=dist)
     op_key, op_pins = _operator_key(A, user_matvec, plan)
     pc_key, pc_pins = _precond_key(precond)
     key = (op_key, pc_key, acc.fmt, acc.m, acc.n, acc.arith_dtype,
            str(torch.device(acc.device)), type(ortho), ortho.name,
-           float(eta), float(target), fused)
+           float(eta), float(target), fused, dist.spec())
     return _cached_graph(key, lambda: _DeviceCycle(
-        matvec, acc, eta, target, ortho, precond, fused, op_pins + pc_pins))
+        matvec, acc, eta, target, ortho, precond, fused, op_pins + pc_pins,
+        dist))
+
+
+def _zero_store(store) -> None:
+    """Zero a basis store in place (a tensor or a dict of them)."""
+    if isinstance(store, dict):
+        for v in store.values():
+            _zero_store(v)
+    else:
+        store.zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -428,14 +444,20 @@ def _cycle_row_reads(j_stop: int, passes: int, extra_rows: int = 0) -> int:
 
 
 def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
-                  precond, cycle_for, x0=None, dist=LOCAL) -> GmresResult:
+                  precond, cycle_for, x0=None, dist=LOCAL,
+                  residual_matvec=None) -> GmresResult:
     """Restart until converged, stagnated or out of iterations.
 
     ``cycle_for(lvl)`` returns ``(store, run)`` for a policy level:
     ``run(r, beta, b_norm, b_norm_f)`` runs one cycle (``beta``, ``b_norm``
     0-d tensors, ``b_norm_f`` the same as a float) and returns ``(R, g,
-    est, extra_rows)`` on the host.
+    est, extra_rows)`` on the host.  The explicit residuals apply
+    ``residual_matvec`` (default: ``matvec``, which serves the cycles).
+    Every value read on the host here is reduced by ``dist``, so the ranks
+    of a sharded solve take the same decisions.
     """
+    if residual_matvec is not None:
+        matvec = residual_matvec
     arith_dtype = accs[0].arith_dtype
     b = b.to(arith_dtype)
     # a zero right-hand side divides by a floor, as the block method's
@@ -530,8 +552,14 @@ def _gmres_host(matvec, accs, policy, b, m, max_iters, target_rrn, eta,
 
 
 def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
-                  target_rrn, eta, ortho, precond, x0=None,
-                  plan=None) -> GmresResult:
+                  target_rrn, eta, ortho, precond, x0=None, plan=None,
+                  dist=LOCAL, residual_matvec=None) -> GmresResult:
+    """The device driver.  A sharded ``dist`` runs each rank's chunk:
+    ``matvec`` is the rank's partitioned matvec, ``residual_matvec`` its
+    lossless twin for the explicit residuals, and each level's store is
+    zeroed before its first cycle of the solve (after a capture's warm-up),
+    as the reference starts every solve from empty stores: the coded dots'
+    wire blocks span the stale rows too."""
     fused = (user_matvec is None
              and isinstance(precond, IdentityPreconditioner))
     cycles: dict[int, _DeviceCycle] = {}
@@ -541,25 +569,18 @@ def _gmres_device(A, user_matvec, matvec, accs, policy, b, m, max_iters,
         if cyc is None:
             cyc = cycles[lvl] = _device_cycle_for(
                 A, user_matvec, matvec, accs[lvl], eta, target_rrn, ortho,
-                precond, fused, plan)
+                precond, fused, plan, dist)
+            cyc.fresh = dist.sharded
         return cyc.store, lambda r, beta, b_norm, _: cyc(r, beta, b_norm)
 
     return _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn,
-                         ortho, precond, cycle_for, x0=x0)
+                         ortho, precond, cycle_for, x0=x0, dist=dist,
+                         residual_matvec=residual_matvec)
 
 
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
-
-def _check_unported(shard) -> None:
-    """Raise for ``shard``, the option of the reference that this port has
-    not yet."""
-    if shard is not None:
-        raise NotImplementedError(
-            "shard= (the multi-GPU solve) is not ported yet "
-            "(ROADMAP.md, open item 1: slice 6, multi-GPU)")
-
 
 def _plan_unsharded(A, reorder: str, user_matvec):
     """Resolve ``reorder`` for a single-device solve; a plan or ``None``.
@@ -627,6 +648,9 @@ def gmres(
     matvec: Callable | None = None,
     driver: str = "device",
     shard: int | None = None,
+    shard_transport: str = "plain",
+    shard_matvec: str = "auto",
+    shard_grid: Any = None,
     reorder: str = "auto",
 ) -> GmresResult:
     """Solve A x = b with restarted (CB-)GMRES on the device of ``b``.
@@ -646,17 +670,38 @@ def gmres(
     parity oracle, one host read per Arnoldi step).  Both give the same
     iterations, ``bytes_read`` and ``op_reads``.
 
+    ``shard=P`` runs the device driver on P ranks of a live
+    ``torch.distributed`` process group of P ranks (one process per GPU;
+    :mod:`repro_torch.solver.sharded`): every rank calls ``gmres`` with the
+    whole ``A`` and ``b``, keeps its chunk of every vector and of the basis,
+    and returns the whole result.  ``shard_transport`` is the wire format
+    of the reductions: ``"plain"`` (all-reduce), ``"compressed"`` (the
+    basis' partial dots as FRSZ2 codes) or ``"compressed+norms"`` (the
+    norms too).  ``shard_matvec`` picks the partitioned SpMV (``"auto"``,
+    ``"halo"``, ``"rows"``, ``"replicated"``, ``"block3d"``;
+    :func:`repro_torch.sparse.shard.partition_matvec`), ``shard_grid`` the
+    block partition's ``(Px, Py, Pz)``.
+
     ``reorder`` applies an RCM bandwidth-reduction permutation at setup
     (:mod:`repro_torch.sparse.plan`): ``"rcm"`` forces it (the solve runs
     in permuted coordinates; ``b``/``x0`` are mapped in and ``x`` back out
-    transparently), ``"auto"`` (default) and ``"none"`` leave the operator
-    as it is (``auto`` permutes only for the sharded matvec, as in the
-    reference).  ``shard`` is not ported yet.
+    transparently), ``"auto"`` (default) permutes only where it unlocks
+    the sharded halo matvec, ``"none"`` never.
     """
     if driver not in ("device", "host"):
         raise ValueError(f"unknown driver {driver!r}; "
                          "expected one of ('device', 'host')")
-    _check_unported(shard)
+    if shard is not None:
+        if driver != "device":
+            raise ValueError("shard= requires the device driver")
+        from repro_torch.solver.sharded import sharded_gmres
+
+        return sharded_gmres(
+            A, b, x0=x0, storage=storage, policy=policy, precond=precond,
+            ortho=ortho, m=m, max_iters=max_iters, target_rrn=target_rrn,
+            arith_dtype=arith_dtype, eta=eta, matvec=matvec, shard=shard,
+            transport=shard_transport, partition_mode=shard_matvec,
+            reorder=reorder, pgrid=shard_grid)
     user_matvec = matvec
     plan = _plan_unsharded(A, reorder, user_matvec)
     A, precond, (b, x0) = _apply_plan(plan, A, precond, (b, x0))
@@ -702,6 +747,9 @@ def gmres_batched(
     method: str = "vmap",
     driver: str = "device",
     shard: int | None = None,
+    shard_transport: str = "plain",
+    shard_matvec: str = "auto",
+    shard_grid: Any = None,
     reorder: str = "auto",
 ) -> list[GmresResult]:
     """Solve A X[i] = B[i] for a batch of right-hand sides ``B (k, n)``.
@@ -715,6 +763,8 @@ def gmres_batched(
     Krylov space (:func:`repro_torch.solver.block.gmres_block`): every
     Arnoldi sweep reads the operator and the shared basis once for the
     whole batch.  Returns one :class:`GmresResult` per right-hand side.
+    ``shard`` and its options are :func:`gmres`'s: every rank solves its
+    chunks of all k systems (one exchange a block matvec for ``block``).
     """
     if B.ndim != 2:
         raise ValueError(f"B must be (batch, n), got {tuple(B.shape)}")
@@ -724,10 +774,22 @@ def gmres_batched(
     if driver not in ("device", "host"):
         raise ValueError(f"unknown driver {driver!r}; "
                          "expected one of ('device', 'host')")
+    if shard is not None:
+        if driver != "device":
+            raise ValueError("shard= requires the device driver")
+        from repro_torch.solver.sharded import sharded_gmres
+
+        return sharded_gmres(
+            A, B, batched=True, x0=X0, storage=storage, policy=policy,
+            precond=precond, ortho=ortho, m=m, max_iters=max_iters,
+            target_rrn=target_rrn, arith_dtype=arith_dtype, eta=eta,
+            matvec=matvec, shard=shard, transport=shard_transport,
+            partition_mode=shard_matvec, reorder=reorder, method=method,
+            pgrid=shard_grid)
     kw = dict(storage=storage, policy=policy, precond=precond, ortho=ortho,
               m=m, max_iters=max_iters, target_rrn=target_rrn,
               arith_dtype=arith_dtype, eta=eta, matvec=matvec, driver=driver,
-              shard=shard, reorder=reorder)
+              reorder=reorder)
     if method == "block":
         from repro_torch.solver.block import gmres_block
 

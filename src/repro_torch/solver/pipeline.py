@@ -324,6 +324,23 @@ class Preconditioner:
             "coordinates; build it for the reordered operator (see "
             "repro_torch.sparse.plan) or pass reorder='none'")
 
+    def shard_local(self, rank: int, n_local: int,
+                    n_pad: int | None = None) -> Preconditioner:
+        """Equivalent preconditioner over rank ``rank``'s vector chunk.
+
+        Called once by the sharded driver: ``apply`` then receives
+        ``(n_local,)`` chunks of the row-partitioned vectors (or ``(p,
+        n_local)`` blocks).  Preconditioners holding full-length state
+        (Jacobi's diagonal) return one that holds the rank's slice;
+        elementwise-stateless ones return ``self``.  ``n_pad`` is the
+        zero-padded vector length when the problem dim does not divide the
+        group: state is identity-extended so that padded entries stay
+        exact zeros.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support sharded application; "
+            "implement shard_local() to run it under gmres(..., shard=...)")
+
 
 class IdentityPreconditioner(Preconditioner):
     """No-op: ``apply`` returns its input unchanged."""
@@ -332,6 +349,9 @@ class IdentityPreconditioner(Preconditioner):
         return x
 
     def permuted(self, perm):
+        return self
+
+    def shard_local(self, rank, n_local, n_pad=None):
         return self
 
 
@@ -385,6 +405,45 @@ class JacobiPreconditioner(Preconditioner):
         memo[id(perm)] = (perm, new)
         return new
 
+    def shard_local(self, rank, n_local, n_pad=None):
+        """Rank ``rank``'s slice of ``inv_diag`` (identity-extended past the
+        diagonal when padded: 1.0 * 0 keeps a padded entry zero, a zero
+        scale would make it 0/0).  Memoized per chunk, so that repeated
+        solves hand the captured cycle the same tensor."""
+        key = (int(rank), int(n_local), n_pad)
+        memo = self.__dict__.setdefault("_local", {})
+        hit = memo.get(key)
+        if hit is None:
+            inv_diag = self.inv_diag
+            if n_pad is not None and n_pad > inv_diag.shape[0]:
+                inv_diag = torch.nn.functional.pad(
+                    inv_diag, (0, n_pad - inv_diag.shape[0]), value=1.0)
+            chunk = inv_diag[rank * n_local:(rank + 1) * n_local].clone()
+            hit = memo[key] = _LocalJacobiPreconditioner(chunk, rank,
+                                                         n_local)
+        return hit
+
+
+class _LocalJacobiPreconditioner(JacobiPreconditioner):
+    """Jacobi over one rank's chunk: ``inv_diag`` holds the rank's slice
+    (the reference keeps the whole diagonal and slices it by
+    ``axis_index`` inside ``shard_map``)."""
+
+    def __init__(self, inv_diag: torch.Tensor, rank: int, n_local: int):
+        self.inv_diag = inv_diag
+        self.rank = rank
+        self.n_local = n_local
+
+    def permuted(self, perm):
+        raise NotImplementedError(
+            "a sharded Jacobi preconditioner cannot be permuted; permute the "
+            "full one, then shard it")
+
+    def shard_local(self, rank, n_local, n_pad=None):
+        if rank != self.rank or n_local != self.n_local:
+            raise ValueError("preconditioner already sharded differently")
+        return self
+
 
 class CallablePreconditioner(Preconditioner):
     """User hook: any ``fn(x) -> M^{-1} x`` on tensors."""
@@ -395,6 +454,12 @@ class CallablePreconditioner(Preconditioner):
 
     def apply(self, x):
         return self.fn(x)
+
+    def shard_local(self, rank, n_local, n_pad=None):
+        # the hook will see (n_local,) chunks: an elementwise hook is right
+        # as it is only when its state is chunk-shaped; anything holding
+        # full-length arrays must be written shard-aware by the caller
+        return self
 
 
 def resolve_preconditioner(precond, A) -> Preconditioner:

@@ -1,5 +1,6 @@
 """Sparse formats (CSR/ELL), operator planning (reordering, padding, halo
-probing, 3-D block partitioning) and the synthetic CFD problem suite."""
+probing, 3-D block partitioning), the row-partitioned matvec of the sharded
+solve and the synthetic CFD problem suite."""
 from repro_torch.sparse.csr import CSR, ELL, csr_from_coo
 from repro_torch.sparse.halo_probe import (
     BlockPartition,
@@ -17,6 +18,7 @@ from repro_torch.sparse.problems import (
     rhs_for,
 )
 from repro_torch.sparse.reorder import permute_csr, rcm_permutation
+from repro_torch.sparse.shard import partition_matvec
 
 __all__ = [
     "CSR", "ELL", "csr_from_coo",
@@ -24,5 +26,5 @@ __all__ = [
     "grid_of", "halo_probe",
     "OperatorPlan", "plan_operator",
     "PROBLEMS", "make_problem", "problem_suite", "rhs_for",
-    "permute_csr", "rcm_permutation",
+    "permute_csr", "rcm_permutation", "partition_matvec",
 ]

@@ -1,0 +1,336 @@
+"""The multi-rank halves of ``tests/test_torch_sharded.py`` and
+``tests/test_torch_collectives.py``: the cases both packages run, and the
+port's rank functions (gloo on the CPU, no JAX).
+
+A test runs ``python -c "import _torch_dist_cases as c; c.main()" <which>
+<out.pkl>`` with ``src`` and ``tests`` on ``PYTHONPATH``: one world of
+:data:`WORLD` ranks a test module, spawned by ``repro_torch.dist.spawn``
+under a deadline, every case inside it; rank 0's results are pickled to
+``out.pkl``.  The JAX halves import only the case lists from here.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import signal
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+#: ranks of the spawned world (the reference tests emulate 8 devices)
+WORLD = 8
+#: seconds each subprocess of a test module may take (a test run has a
+#: hard clock)
+SUBPROCESS_S = 120
+#: seconds a world may take before the test fails
+DEADLINE_S = 100.0
+
+#: sharded solves at P = 8, m = 20 (``synth:atmosmod`` n = 512 as in
+#: ``tests/test_sharded_driver.py``; ``mode`` is ``shard_matvec``)
+SOLVE_CASES = [
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport=t, mode="auto") for t in
+    ("plain", "compressed", "compressed+norms")
+] + [
+    dict(problem="synth:atmosmod", n=512, storage="float64",
+         transport="plain", mode="auto"),
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="compressed", mode="halo"),
+    dict(problem="synth:atmosmod", n=512, storage="float64",
+         transport="plain", mode="rows"),
+    dict(problem="synth:atmosmod", n=512, storage="float64",
+         transport="plain", mode="replicated"),
+    dict(problem="synth:atmosmod", n=512, storage="mixed:2:frsz2_32",
+         transport="compressed", mode="auto"),
+    # padding: 1001 rows over 8 ranks (halo), and a 9^3 grid in 5^3 boxes
+    # (block3d: pad slots inside the chunks)
+    dict(problem="synth:lung", n=1001, storage="frsz2_32",
+         transport="compressed", mode="auto"),
+    dict(problem="synth:atmosmod", n=729, storage="frsz2_32",
+         transport="compressed", mode="auto"),
+    # batched: right-hand sides one by one (vmap) or in one block space
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="compressed", mode="auto", method="vmap", k=2),
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="plain", mode="auto", method="block", k=3),
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="compressed", mode="halo", method="block", k=3),
+    # operator planning: RCM unlocks the halo matvec of an unstructured
+    # operator (reorder="auto"); Jacobi's shard_local
+    dict(problem="synth:unstructured", n=512, storage="frsz2_32",
+         transport="plain", mode="auto", reorder="auto"),
+    dict(problem="synth:varcoef", n=512, storage="frsz2_32",
+         transport="compressed", mode="halo", precond="jacobi"),
+]
+M = 20
+MAX_ITERS = 2000
+
+#: the coded transport's two halves switched one at a time (coded dots,
+#: coded halo strips), float64 at P = 8 on ``synth:atmosmod`` n = 8000,
+#: m = 100, halo matvec: the size at which a float64 solve pays for its
+#: coded halo strips in both packages
+SWITCHES = {"plain": (False, False), "dots": (True, False),
+            "halo": (False, True), "both": (True, True)}
+SWITCH_N, SWITCH_M = 8000, 100
+
+
+def case_id(c: dict) -> str:
+    parts = [c["problem"].split(":")[1], str(c["n"]), c["storage"],
+             c["transport"], c["mode"]]
+    for k in ("method", "reorder", "precond"):
+        if k in c:
+            parts.append(str(c[k]))
+    return "-".join(parts)
+
+
+def rhs(n: int) -> np.ndarray:
+    """The right-hand side both packages solve: seeded numpy normals."""
+    return np.random.default_rng(n).standard_normal(n)
+
+
+def batch_rhs(b: np.ndarray, k: int) -> np.ndarray:
+    """k right-hand sides: ``b`` and k-1 variants (the CLIs' ``_batch_rhs``)."""
+    t = np.arange(b.shape[0], dtype=b.dtype)
+    return np.stack([b] + [b * (1.0 + 0.1 * i) + 0.05 * i * np.sin(t * (i + 1))
+                           for i in range(1, k)])
+
+
+#: collectives: group sizes and halo strip schedules (n_local = 64: hop 1
+#: only, and two hops, the first a whole chunk)
+GROUPS = (2, 4, 8)
+N_LOCAL = 64
+STRIPS = ((5,), (64, 17))
+PSUM_SIZES = (1, 101, 300)
+MATVEC_MODES = ("halo", "rows", "replicated", "block3d")
+
+
+def collective_inputs(P: int, n_pad3: int) -> dict:
+    """The seeded inputs of the collectives' cases for a group of ``P``
+    (``n_pad3``: the padded length of the block layout at ``P``)."""
+    rng = np.random.default_rng(P)
+    inp = dict(x=rng.standard_normal(P * N_LOCAL),
+               X=rng.standard_normal((3, P * N_LOCAL)),
+               xm=rng.standard_normal(512))
+    for k in PSUM_SIZES:
+        # a spread of scales, so the wire blocks' exponents differ
+        inp[("v", k)] = (rng.standard_normal((P, k))
+                         * 2.0 ** rng.integers(-20, 20, size=(P, k)))
+    inp["tree"] = {"a": rng.standard_normal((P, 7)),
+                   "b": rng.standard_normal((P, 2, 65))}
+    inp["x3"] = rng.standard_normal(n_pad3)      # last: the rest ignore it
+    return inp
+
+
+def result_row(r) -> dict:
+    """A GmresResult of either package as plain numbers and arrays."""
+    return dict(iterations=int(r.iterations), restarts=int(r.restarts),
+                rrn=float(r.rrn), converged=bool(r.converged),
+                stagnated=bool(r.stagnated), bytes_read=float(r.bytes_read),
+                op_reads=float(r.op_reads),
+                restart_rrns=np.asarray(r.restart_rrns, dtype=np.float64),
+                x=np.asarray(r.x, dtype=np.float64))
+
+
+# ---------------------------------------------------------------------------
+# The test modules' side: the worlds' subprocesses
+# ---------------------------------------------------------------------------
+
+
+def start(args, env_extra=None):
+    """``python <args>`` from the repo root with ``src`` and ``tests``
+    importable, in a session of its own (so that :func:`finish` can stop
+    it with every rank it spawned)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"), HERE,
+                                         ROOT])
+    env.update(env_extra or {})
+    return subprocess.Popen([sys.executable, *args], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+
+
+def finish(proc, what):
+    """Wait for ``proc`` under :data:`SUBPROCESS_S`; kill its whole session
+    and fail the test if it expires or fails."""
+    import pytest
+
+    try:
+        _, err = proc.communicate(timeout=SUBPROCESS_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"{what} did not finish within {SUBPROCESS_S} s")
+    if proc.returncode != 0:
+        pytest.fail(f"{what} failed:\n{err[-4000:]}")
+
+
+def worlds_dir(tmp_path_factory, name: str):
+    """Where a test module's worlds write their results: under pytest-xdist
+    a directory that every worker of the run shares, so that a worker that
+    replaces a crashed one reads the results its predecessor finished (a
+    ``done`` file marks them) instead of spawning the worlds again."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    d = base / f"torch_worlds_{name}"
+    d.mkdir(exist_ok=True)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# The port's ranks
+# ---------------------------------------------------------------------------
+
+
+def _same_on_every_rank(t) -> bool:
+    from repro_torch.dist.collectives import _all_gather
+
+    g = _all_gather(t, None)
+    return bool((g == g[0]).all())
+
+
+def solve_rank(rank, dev, cases):
+    import torch
+
+    from repro_torch.solver import gmres, gmres_batched
+    from repro_torch.solver.sharded import _plan_and_precond, wire_bytes
+    from repro_torch.sparse import make_problem
+
+    out = []
+    for c in cases:
+        A, target = make_problem(c["problem"], c["n"], device=dev)
+        b = torch.from_numpy(rhs(A.shape[0]))
+        kw = dict(storage=c["storage"], m=M, max_iters=MAX_ITERS,
+                  target_rrn=target, shard=WORLD,
+                  shard_transport=c["transport"], shard_matvec=c["mode"],
+                  reorder=c.get("reorder", "auto"),
+                  precond=c.get("precond"))
+        if "method" in c:
+            B = torch.from_numpy(batch_rhs(b.numpy(), c["k"]))
+            res = gmres_batched(A, B, method=c["method"], **kw)
+        else:
+            res = [gmres(A, b, **kw)]
+        plan, _ = _plan_and_precond(A, WORLD, kw["reorder"], c["mode"],
+                                    kw["precond"])
+        same = all(_same_on_every_rank(r.x) for r in res) and \
+            _same_on_every_rank(torch.tensor(
+                [[r.iterations, r.restarts, r.rrn] for r in res],
+                dtype=torch.float64))
+        out.append(dict(
+            b=b.numpy(), mode=plan.matvec_mode, reorder=plan.reorder,
+            results=[result_row(r) for r in res], same_on_every_rank=same,
+            wire=(wire_bytes(res[0], plan, storage=c["storage"], m=M,
+                             transport=c["transport"])
+                  if "method" not in c else None)))
+    return dict(cases=out, switches=_switched_solves(dev))
+
+
+def _switched_solves(dev):
+    """The float64 solves of :data:`SWITCHES`, each half switched through
+    the port's own seam: ``_wrap_policy`` codes the dots,
+    ``_partition_for`` the halo strips."""
+    import torch
+
+    import repro_torch.solver.sharded as S
+    from repro_torch.solver import gmres
+    from repro_torch.sparse import make_problem
+
+    A, target = make_problem("synth:atmosmod", SWITCH_N, device=dev)
+    b = torch.from_numpy(rhs(A.shape[0]))
+    wrap, part = S._wrap_policy, S._partition_for
+    out = {}
+    try:
+        for name, (dots, halo) in SWITCHES.items():
+            S._wrap_policy = lambda pol, g, _c, d=dots: wrap(pol, g, d)
+            S._partition_for = (lambda plan, r, g, dv, _c, h=halo:
+                                part(plan, r, g, dv, h))
+            out[name] = result_row(gmres(
+                A, b, storage="float64", m=SWITCH_M, max_iters=MAX_ITERS,
+                target_rrn=target, shard=WORLD, shard_matvec="halo"))
+    finally:
+        S._wrap_policy, S._partition_for = wrap, part
+    return out
+
+
+def collectives_rank(rank, dev, _):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.sparse import make_problem, partition_matvec
+    from repro_torch.sparse.plan import plan_operator
+
+    def gather(t, group):
+        return C._all_gather(t, group).numpy()
+
+    out = {}
+    A, _ = make_problem("synth:atmosmod", 512, device=dev)
+    for P in GROUPS:
+        group = dist.new_group(list(range(P)))
+        if rank >= P:
+            continue
+        blk = plan_operator(A, P, matvec_mode="block3d").block
+        inp = collective_inputs(P, blk.n_pad)
+
+        def mine(a, n_local=N_LOCAL):
+            """This rank's chunk of the last axis of ``a``."""
+            return torch.from_numpy(
+                a[..., rank * n_local:(rank + 1) * n_local].copy())
+
+        for strips in STRIPS:
+            for comp in (False, True):
+                y = C.halo_exchange(mine(inp["x"]), strips, P, group,
+                                    compressed=comp)
+                out[("halo", P, strips, comp)] = gather(y, group)
+            Y = C.halo_exchange(mine(inp["X"]), strips, P, group,
+                                compressed=True)
+            out[("halo_batched", P, strips)] = gather(Y, group)
+        # the 3-D face exchange of the plan's block layout
+        idx = [torch.as_tensor(ix[rank], dtype=torch.int64)
+               for ix in blk.send_idx]
+        for comp in (False, True):
+            y = C.halo_exchange_3d(mine(inp["x3"], blk.n_local), idx,
+                                   blk.rounds, group, compressed=comp)
+            out[("halo3d", P, comp)] = gather(y, group)
+        # reductions: each rank contributes its row of a (P, ...) array
+        for k in PSUM_SIZES:
+            v = torch.from_numpy(inp[("v", k)][rank].copy())
+            out[("cpsum", P, k)] = gather(C.compressed_psum(v, group), group)
+            out[("cpmean", P, k)] = gather(C.compressed_pmean(v, group),
+                                           group)
+            out[("psum", P, k)] = gather(C.psum(v, group), group)
+        tree = {key: torch.from_numpy(inp["tree"][key][rank].copy())
+                for key in inp["tree"]}
+        got = C.compressed_psum(tree, group)
+        out[("cpsum_tree", P)] = {k: gather(v, group) for k, v in got.items()}
+        out[("gather", P)] = gather(C.gather_operand(mine(inp["x"]), group),
+                                    group)
+        # every partition of the atmosmod operator, plain and coded halo
+        for mode in MATVEC_MODES:
+            plan = plan_operator(A, P, reorder="none", matvec_mode=mode)
+            for comp in (False, True):
+                mv = partition_matvec(plan=plan, rank=rank, group=group,
+                                      compressed_halo=comp)
+                xe = plan.embed(torch.from_numpy(inp["xm"]))
+                y = C.gather_operand(mv(mine(xe.numpy(), plan.n_local)),
+                                     group)
+                out[("matvec", P, mode, comp)] = (
+                    plan.extract(y).numpy(), mv.mode)
+    return out
+
+
+def main():
+    from repro_torch.dist import spawn
+
+    which, path = sys.argv[1], sys.argv[2]
+    if which == "solve":
+        res = spawn(solve_rank, WORLD, SOLVE_CASES, device="cpu",
+                    timeout_s=DEADLINE_S)
+    else:
+        res = spawn(collectives_rank, WORLD, None, device="cpu",
+                    timeout_s=DEADLINE_S)
+    with open(path, "wb") as f:
+        pickle.dump(res, f)

@@ -28,7 +28,7 @@ to the decoded basis; the combine bit-equal to the row-order plain sum
 ... 808, one-hot rows of Y equal to the decoded basis; both across the
 scaled decode's guard (exponents in the flush zone and past 2*bias) equal
 to ``decompress``, NaN where it is NaN.  A float16 basis write on the card
-bit-equal to numpy's single rounding.  The redesigned batched ELL (the
+bit-equal to numpy's f64 -> f32 -> f16 (the JAX reference's rounding).  The redesigned batched ELL (the
 matrix read once for all q columns) bit-equal to plain and to a second call
 at q 1..16, w 5/7/27, f32/f64, aligned or not.  The redesigned decode
 attention at lengths across its 64-position tiles and its splits (with an
@@ -48,7 +48,12 @@ captured cycle (no new graph, equal launches, equal bits); each emulator's
 roundtrip on the card bit-equal to the CPU's for ``sz_abs`` and
 ``zfp_fr`` (power-of-two block maxima included), within an ulp but for one
 entry in 10^4 for ``sz_pwrel``; an ``emul:`` basis in the captured device
-cycle bit-equal to the host driver's.
+cycle bit-equal to the host driver's.  The sharded solve on a NCCL group of
+one rank: the coded dots' wire (kernels 1 and 2 at ``WIRE_SPEC``)
+bit-equal to the plain codec on the CPU; a captured sharded cycle (its
+collectives inside the graph) replayed with equal bits, and with the plain
+transport the unsharded solve's iterations, restarts and ``bytes_read``, x
+within 1e-12 relative.
 """
 import numpy as np
 import pytest
@@ -535,13 +540,15 @@ def test_block_combine_row_order_bits_on_card(cuda, dtype, l, bs, p, n):
 
 @pytest.mark.cuda
 def test_float16_basis_write_rounds_once_on_card(cuda):
+    """The card's float16 basis write rounds f64 -> f32 -> f16, as the JAX
+    reference and the CPU route do (the name predates that rule)."""
     rng = np.random.default_rng(15)
     ties = 1.0 + np.arange(1, 1024) * 2.0 ** -10 + 2.0 ** -11
     x = np.concatenate([rng.standard_normal(200_000), ties + 2.0 ** -40,
                         ties - 2.0 ** -40, [65519.99, 65520.0, 1e300,
                                             2.0 ** -25, 1.5 * 2.0 ** -24]])
     with np.errstate(over="ignore"):
-        want = x.astype(np.float16).view(np.int16)
+        want = x.astype(np.float32).astype(np.float16).view(np.int16)
     acc = BasisAccessor(fmt=NativeFormat(dtype=torch.float16), m=1, n=x.size,
                         device=cuda)
     store = acc.empty()
@@ -855,3 +862,94 @@ def test_emulated_device_cycle_matches_host_driver_on_card(cuda, name):
         assert (rd.iterations, rd.restarts) == (rh.iterations, rh.restarts)
         assert rd.bytes_read == rh.bytes_read and rd.op_reads == rh.op_reads
         assert torch.equal(rd.x, rh.x)
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the sharded solve on a NCCL group of one rank
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl(tmp_path_factory):
+    """A NCCL group of world size 1 on cuda:0 (initialized eagerly, as a
+    captured cycle needs), with a gloo group of the same rank beside it for
+    the plain route on the CPU; torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from repro_torch.dist import init_rank
+
+    rdv = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    init_rank(0, 1, f"file://{rdv}")
+    try:
+        yield dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_dots_wire_codec_bit_equal_to_plain_route(nccl):
+    """``ShardedFormat`` dots on the coded transport: the wire runs kernels
+    1 and 2 at ``WIRE_SPEC`` (one launch each) and gives the bits of the
+    plain codec on the CPU (the gloo group), for every stored row's
+    partial and for the live prefix."""
+    from repro_torch.core.accessor import ShardedFormat
+    from repro_torch.dist import collectives
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    inner = format_by_name("frsz2_32")
+    acc = BasisAccessor(fmt=ShardedFormat(inner=inner), m=101, n=20_000,
+                        device=cuda)
+    store = acc.empty()
+    for j in range(101):
+        v = torch.randn((20_000,), generator=gen, dtype=torch.float64,
+                        device=cuda)
+        acc.write_row(store, j, v / torch.linalg.vector_norm(v)
+                      * 2.0 ** (j % 9 - 4))
+    w = torch.randn((20_000,), generator=gen, dtype=torch.float64,
+                    device=cuda)
+    partials = inner.dots(store, w, torch.float64, 20_000, 101)
+    ops.reset_launches()
+    got = acc.dots(store, w, 37)
+    assert ops.LAUNCHES["frsz2_compress"] == 1
+    assert ops.LAUNCHES["frsz2_decompress"] == 1
+    want = collectives.compressed_psum(partials.cpu(), nccl)
+    assert torch.equal(got.cpu(), want[:37])
+    full = collectives.compressed_psum(partials, None)
+    assert torch.equal(full.cpu(), want)
+    assert torch.equal(collectives.compressed_pmean(partials, None).cpu(),
+                       collectives.compressed_pmean(partials.cpu(), nccl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["plain", "compressed",
+                                       "compressed+norms"])
+def test_captured_sharded_cycle_replays_with_equal_bits(nccl, transport):
+    """``gmres(..., shard=1)`` on the card: the cycle is captured once with
+    its NCCL collectives inside and replayed; a second solve captures
+    nothing new and gives the same bits.  The plain transport takes the
+    unsharded device solve's iterations, restarts and ``bytes_read``."""
+    from repro_torch.solver.gmres import _GRAPHS
+
+    cuda = torch.device("cuda")
+    A, target = make_problem("synth:atmosmod", 8000, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    kw = dict(storage="frsz2_32", m=40, target_rrn=target, shard=1,
+              shard_transport=transport, shard_matvec="halo")
+    r1 = gmres(A, b, **kw)
+    keys = set(_GRAPHS)
+    ops.reset_launches()
+    r2 = gmres(A, b, **kw)
+    assert set(_GRAPHS) == keys
+    assert r1.converged and r1.iterations == r2.iterations
+    assert torch.equal(r1.x, r2.x)
+    assert ops.LAUNCHES["ell_spmv"] > 0 and ops.LAUNCHES["gmres_givens"] > 0
+    assert ops.LAUNCHES["ell_spmv_frsz2"] == 0
+    if transport == "plain":
+        ru = gmres(A, b, storage="frsz2_32", m=40, target_rrn=target)
+        assert (r2.iterations, r2.restarts) == (ru.iterations, ru.restarts)
+        assert r2.bytes_read == ru.bytes_read
+        assert (torch.linalg.vector_norm(r2.x - ru.x)
+                <= 1e-12 * torch.linalg.vector_norm(ru.x))

@@ -125,15 +125,19 @@ def test_jax_reference_returns_nan_for_zero_rhs(driver):
 
 
 def test_unported_options_raise_naming_the_roadmap():
+    """Every option of the reference is ported (the name is older than
+    slice 6); ``shard=`` without a live process group of that many ranks
+    raises, as the reference raises when fewer devices are visible, and it
+    needs the device driver, as there."""
     _, At, b, _ = _problem("synth:atmosmod", 64)
     bt = torch.from_numpy(b)
-    for kw in (dict(shard=2),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gmres(At, bt, **kw)
-    for kw in (dict(shard=2),):
-        for method in ("vmap", "block"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                gmres_batched(At, bt[None], method=method, **kw)
+    with pytest.raises(RuntimeError, match="process group"):
+        gmres(At, bt, shard=2)
+    for method in ("vmap", "block"):
+        with pytest.raises(RuntimeError, match="process group"):
+            gmres_batched(At, bt[None], method=method, shard=2)
+    with pytest.raises(ValueError, match="device driver"):
+        gmres(At, bt, shard=2, driver="host")
     with pytest.raises(ValueError):
         gmres(At, bt, reorder="sideways")
     with pytest.raises(ValueError):
