@@ -134,7 +134,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    yi-9b's heads — B = 8, Hkv = 4, G = 8, D = 128, S = 32768, lengths from
    a seed in [1, S] and one full row, FRSZ2 K/V with uint8 exponents, l = 16
    and l = 8: the kernel against its plain version on the card (within
-   1e-5 of the largest output), spot checks (D = 64, G = 1/2/3/4/12, S = 1000, bf16 q, int32
+   1e-5 of the largest output), spot checks (D = 64, G = 1/2/3/4/5/6/12
+   (5 and 6: llama4's and mixtral's groups), S = 1000, bf16 q, int32
    exponents, a length-1 row; lengths 0, 1, 63, 64, 65, 128, 129 and 317 in
    a cache of 319, across the kernel's 64-position tiles and its splits;
    K/V blocks whose exponents cross the scaled decode's guard, V rows equal
@@ -165,6 +166,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    step (B 8, T 1) and its prefill (T 2048): ``kvcache.append`` and
    ``kvcache.build_cache`` timed by CUDA events and by the host clock, the
    fused kernel alone and its plain version beside them, all caches equal.
+10. serving the MoE family at full width and a cut depth (8 layers of
+   each, bf16, random weights from a seed; the depth cut is printed):
+   mixtral-8x22b (d 6144, 48/8 heads, 8 experts, top-2, a sliding window
+   of 4096, so its cache is a ring of 4096 slots) and then, with
+   mixtral's weights released, llama4-scout-17b-a16e (d 5120, 40/8 heads,
+   16 experts, top-1).  Each: the teacher-forcing check (prefill of
+   S = 5120 tokens, past mixtral's window, and one decode step against
+   the parallel forward over 6144 tokens, B = 2, a capacity factor of
+   E / k so that no token is dropped) for ``bf16`` and ``frsz2_16``,
+   within 5e-2 of the largest logit; ``serve`` as a user calls it, 8
+   requests over 8 slots, prompt 4096, 32 new tokens (every mixtral
+   decode step writes into the wrapped ring): ``frsz2_16``, ``frsz2_8``
+   and ``bf16`` for mixtral, ``frsz2_16`` for llama4, with the launch
+   checks of phase 9 (``decode_attn`` 8 times a decode step in the FRSZ2
+   runs) and the peak memory; on mixtral's last decode step's q, ring
+   cache and lengths, the kernel against the reference's masked softmax
+   over the ring (f32 q within 1e-5 of the largest output, bf16 q within
+   one bf16 step), timed beside its bound and SDPA on the decoded K/V;
+   the cache write into the ring against its plain version: the last
+   layer's served cache equal to the plain writes replayed (its prefill
+   into the ring and every decode write past it), and the kernel equal
+   to plain and timed at the prefill, a prefill rolled into the ring and
+   a decode write past it; each decode step's byte bound on the experts
+   its kept choices reach, beside the bound with all of them; and
+   mixtral's decode steps profiled (``launch.profile``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -242,6 +268,18 @@ SERVE_ARCH = "yi-9b"
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 16, 8, 2048, 32
 SERVE_FORMATS = ("frsz2_16", "frsz2_8", "bf16")
 TF_B, TF_S, TF_TOL = 2, 256, 5e-2
+#: phase 10: the MoE family at full width, 8 layers each (mixtral's 56
+#: would take ~280 GB of bf16 weights).  The teacher-forcing prompt is past
+#: mixtral's window of 4096; it and the forward's length are multiples of
+#: the blocked attention's chunk of 1024, so the prompt's positions see the
+#: same chunks in both (other chunks give other bf16 roundings, which move
+#: the routing of a few tokens)
+MOE_ARCHS = ("mixtral-8x22b", "llama4-scout-17b-a16e")
+MOE_LAYERS = 8
+MOE_REQUESTS, MOE_SLOTS, MOE_PROMPT, MOE_NEW = 8, 8, 4096, 32
+MOE_FORMATS = {"mixtral-8x22b": ("frsz2_16", "frsz2_8", "bf16"),
+               "llama4-scout-17b-a16e": ("frsz2_16",)}
+MOE_TF_S, MOE_TF_FORWARD = 5120, 6144
 
 
 def check(ok: bool, what: str) -> None:
@@ -2198,7 +2236,12 @@ def phase_decode_attn():
              (128, 16, 4, torch.uint8, torch.bfloat16),
              (128, 8, 3, torch.uint8, torch.float32),
              (128, 16, 12, torch.int32, torch.float32),
-             (64, 16, 8, torch.uint8, torch.bfloat16)]
+             (64, 16, 8, torch.uint8, torch.bfloat16),
+             # mixtral's and llama4's query groups (48/8, 40/8 heads)
+             (128, 16, 6, torch.uint8, torch.float32),
+             (128, 16, 6, torch.uint8, torch.bfloat16),
+             (128, 8, 5, torch.uint8, torch.float32),
+             (128, 16, 5, torch.uint8, torch.bfloat16)]
     lens = torch.tensor([1, 517, 1000], dtype=torch.int32, device=dev)
     for D_, l, G_, edt, qdt in spots:
         q, kbc, vbc = _attn_inputs(g2, 3, 2, G_, 1000, D_, l, edt, qdt)
@@ -2206,8 +2249,8 @@ def phase_decode_attn():
         ok = rel <= ATTN_TOL if qdt == torch.float32 else err <= ATTN_TOL_BF16
         check(ok, f"decode_attn spot D={D_} l={l} G={G_} {edt} {qdt}: max "
                   f"abs error {err:.3e}, {rel:.3e} of the largest output")
-    print(f"[attn] spot checks passed: {len(spots)} (D 64/128, G 1/2/3/4/8/"
-          "12, S=1000, bf16 q, int32 exponents, a length-1 row)")
+    print(f"[attn] spot checks passed: {len(spots)} (D 64/128, G 1/2/3/4/5/"
+          "6/8/12, S=1000, bf16 q, int32 exponents, a length-1 row)")
 
     # the kernel's tile and split edges; K/V blocks across the decode guard
     edge = cardcheck.ATTN_EDGE_LENGTHS
@@ -2578,6 +2621,451 @@ def phase_serve(device_line):
         "frsz2_16"))
 
 
+def _moe_config(arch, kv_format, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch), num_layers=MOE_LAYERS,
+                               kv_format=kv_format, **kw)
+
+
+def _moe_teacher_forcing(params, arch, kv_format):
+    """Relative errors of a prefill of ``MOE_TF_S`` tokens and of one decode
+    step against the parallel forward over ``MOE_TF_FORWARD`` tokens, and
+    the cache's slots.  The forward is causal and, at a capacity factor of
+    E / k, drops no token (the forward groups its tokens otherwise than the
+    prefill and the step), so its positions past S change nothing before
+    them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import decode_step, prefill, trunk
+    from repro_torch.models.layers import rms_norm
+
+    base = _moe_config(arch, kv_format)
+    cfg = dataclasses.replace(
+        base, capacity_factor=base.num_experts / base.top_k)
+    S = MOE_TF_S
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_B, MOE_TF_FORWARD),
+                           generator=gen, device="cuda")
+    h, _ = trunk(params, cfg, tokens)
+
+    def head(x):
+        return (rms_norm(x, params["final_ln"]) @ params["unembed"]).float()
+
+    want, want2 = head(h[:, S - 1]), head(h[:, S])
+    del h
+    torch.cuda.empty_cache()
+    got, cache = prefill(params, cfg, tokens[:, :S], cache_len=S + 4)
+    slots = next(iter(cache["self"].values())).shape[3]
+    got2, _ = decode_step(params, cfg, cache, tokens[:, S])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return rel(got, want), rel(got2, want2), slots
+
+
+class _MoeServeTap:
+    """For one serve run of an ``L``-layer model: the arguments of the last
+    ``kvcache.attend`` (the last layer's, in the last decode step); the
+    last layer's cache writes in order (``writes``: its prefill, then one
+    a decode step, each ``(k, v, lengths, kw)``); and the routing of each
+    decode step's MoE layers (``routes``: ``(gidx, keep)`` of every
+    ``_top_k_dispatch`` over the ``slots`` tokens of a step).  Everything
+    runs unchanged; the tap only keeps references."""
+
+    def __init__(self, L, slots):
+        from repro_torch.kernels import ops
+        from repro_torch.models import kvcache, layers
+
+        self.L, self.slots = L, slots
+        self.last, self.writes, self.routes, self._n = None, [], [], 0
+        self._slots = ((kvcache, "attend"), (ops, "cache_write"),
+                       (layers, "_top_k_dispatch"))
+        self._orig = [getattr(m, n) for m, n in self._slots]
+
+    def __enter__(self):
+        attend0, write0, dispatch0 = self._orig
+
+        def attend(q, layer_cache, lengths, fmt, **kw):
+            self.last = (q, layer_cache, lengths, fmt, kw)
+            return attend0(q, layer_cache, lengths, fmt, **kw)
+
+        def cache_write(k, v, lengths, *args, **kw):
+            # a prefill writes every layer once, a decode step every layer
+            # once: the last layer's is every L-th call
+            self._n += 1
+            if self._n % self.L == 0:
+                self.writes.append((k, v, lengths, kw))
+            return write0(k, v, lengths, *args, **kw)
+
+        def dispatch(gates, *args, **kw):
+            out = dispatch0(gates, *args, **kw)
+            if gates.shape[0] * gates.shape[1] == self.slots:
+                self.routes.append((out[0], out[2]))
+            return out
+
+        for (m, n), f in zip(self._slots, (attend, cache_write, dispatch)):
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self._slots, self._orig):
+            setattr(m, n, f)
+
+
+def _ring_cache_writes(tap, fmt):
+    """The cache write (kernel 1) on the served ring.  The last layer's
+    served cache, as the kernel left it after the prefill into the ring and
+    every decode write past it (slot = position mod ring), against the
+    plain version (``ops.cache_write(..., kernel=False)``) replayed from the
+    same K/V and lengths: every code and exponent equal.  Then, on fresh
+    layers, the kernel through the model's calls against the plain version
+    at three writes: the prefill as served, a prefill of ring + 1024
+    positions (the roll: the last ring positions at their modular slots,
+    its first 1024 dropped) and the last decode write; each equal, and
+    timed beside its byte bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import kvcache
+
+    q, lc, lengths, _, kw = tap.last
+    ring = kw["ring"]
+    D = q.shape[-1]
+    spec = fmt.spec(D)
+    names = ("k_codes", "k_exps", "v_codes", "v_exps")
+    B, Hkv, S, _ = lc["k_codes"].shape
+    check(len(tap.writes) >= 2 and tap.writes[0][2] is None
+          and all(w[2] is not None for w in tap.writes[1:]),
+          f"the last layer's cache writes are not a prefill and decode "
+          f"steps: {[None if w[2] is None else tuple(w[0].shape) for w in tap.writes]}")
+    check(all(w[3].get("ring") == ring for w in tap.writes),
+          "a cache write of the served ring passed another ring")
+
+    def fresh():
+        return {n: torch.zeros_like(lc[n]) for n in names}
+
+    def plain(layer, k, v, lens, clear):
+        ops.cache_write(k, v, lens, *(layer[n] for n in names), spec,
+                        ring=ring, clear_from=clear, kernel=False)
+
+    replay = fresh()
+    for k, v, lens, wkw in tap.writes:
+        plain(replay, k, v, lens, wkw.get("clear_from"))
+    for n in names:
+        check(torch.equal(replay[n], lc[n]),
+              f"the served ring cache's {n} differ from the plain writes "
+              f"replayed (a prefill of {tap.writes[0][0].shape[1]} and "
+              f"{len(tap.writes) - 1} decode writes, ring {ring}, lengths "
+              f"{lengths.tolist()})")
+    kp, vp = tap.writes[0][:2]
+    kd, vd, ld = tap.writes[-1][:3]
+    roll = 1024
+    kr, vr = (torch.cat([x, x[:, :roll]], 1) for x in (kp, vp))
+    cases = {"prefill": (kp, vp, None), "rolled_prefill": (kr, vr, None),
+             "step": (kd, vd, ld)}
+    out = dict(ring_write_ring=ring, ring_write_replayed=len(tap.writes))
+    cd = torch.empty((), dtype=fmt.code_dtype()).element_size()
+    for name, (k, v, lens) in cases.items():
+        T = k.shape[1]
+        kl = fresh()
+        if lens is None:
+            def write(kl=kl, k=k, v=v):
+                kvcache.build_cache(k, v, fmt, cache_len=S, ring=ring, out=kl)
+        else:
+            def write(kl=kl, k=k, v=v, lens=lens):
+                kvcache.append(kl, k, v, lens, fmt, ring=ring)
+        clear = min(T, ring) if lens is None else None
+        write()
+        pl = fresh()
+        plain(pl, k, v, lens, clear)
+        for n in names:
+            check(torch.equal(kl[n], pl[n]),
+                  f"cache write into the ring, {name} ({tuple(k.shape)}, "
+                  f"ring {ring}): {n} != plain")
+        # K and V read once and their codes and a uint8 exponent a row
+        # written once, for the rows that land (a roll drops the rest)
+        rows = 2 * B * Hkv * min(T, ring)
+        nbytes = rows * D * (k.element_size() + cd) + rows + (
+            4 * B if lens is not None else 0)
+        out.update({
+            f"ring_write_{name}_shape": list(k.shape),
+            f"ring_write_{name}_ms": timed(write),
+            f"ring_write_{name}_plain_ms": timed(
+                lambda k=k, v=v, lens=lens, clear=clear: plain(
+                    fresh(), k, v, lens, clear), reps=3),
+            f"ring_write_{name}_bound_ms": bound_ms(nbytes)[0]})
+        print(f"[moe] cache write into the ring of {ring}, {name} "
+              f"({tuple(k.shape)} {str(k.dtype)[6:]} K and V, l {spec.l}"
+              + (f", lengths {int(lens.min())}-{int(lens.max())}"
+                 if lens is not None else "") + "): equal to plain, "
+              f"{out[f'ring_write_{name}_ms'] * 1e3:.2f} us, plain "
+              f"{out[f'ring_write_{name}_plain_ms'] * 1e3:.1f} us, bound "
+              f"{out[f'ring_write_{name}_bound_ms'] * 1e3:.3f} us")
+    print(f"[moe] the served ring cache of the last layer ({B}x{Hkv}x{S} "
+          f"slots, lengths {int(lengths.min())}-{int(lengths.max())}) equals "
+          f"the plain version replayed over its {len(tap.writes)} writes")
+    return out
+
+
+def _ring_attention_check(tap):
+    """Kernel 9 on the served ring cache (the last decode step's q, the last
+    layer's cache, its lengths clamped to the slots as ``attend`` clamps
+    them) against the reference's masked softmax over the ring
+    (``kvcache.masked_attend``, unclamped lengths); then timed beside its
+    bound, the masked softmax and SDPA on the decoded K/V."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cardcheck import ATTN_TOL, ATTN_TOL_BF16
+    from repro_torch.models import kvcache
+
+    check(tap.last is not None, "the MoE serve run attended no cache")
+    q, lc, lengths, fmt, kw = tap.last
+    ring = kw.get("ring", 0)
+    B, H, D = q.shape
+    _, Hkv, S, _ = lc["k_codes"].shape
+    G = H // Hkv
+    check(ring == S and int(lengths.min()) > ring,
+          f"the last attention is not on a wrapped ring: ring {ring}, "
+          f"{S} slots, lengths {lengths.tolist()}")
+    spec = fmt.spec(D)
+    kbc, vbc = (F.BlockCompressed(codes=lc[f"{n}_codes"].view(B, Hkv, S, 1, D),
+                                  exps=lc[f"{n}_exps"], n=D, spec=spec)
+                for n in "kv")
+    clamped = lengths.clamp(max=S)
+    out = {}
+    for label, qq, tol in (("served", q, ATTN_TOL_BF16),
+                           ("f32", q.float(), ATTN_TOL)):
+        got = ops.decode_attention(qq, kbc, vbc, clamped, kernel=True)
+        want = kvcache.masked_attend(qq, lc, lengths, fmt, ring=ring)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        check(rel <= tol, f"decode_attn on the ring cache, {qq.dtype} q: max "
+                          f"abs error {err:.3e}, {rel:.3e} of the largest "
+                          "output of the masked softmax")
+        out[f"ring_rel_err_{label}_q"] = rel
+        out[f"ring_err_{label}_q"] = err
+    valid = int(clamped.sum())
+    kd = ops.decompress(kbc, kernel=True).view(B, Hkv, S, D)
+    vd = ops.decompress(vbc, kernel=True).view(B, Hkv, S, D)
+    mask = (torch.arange(S, device=q.device)[None, :] < clamped[:, None]
+            )[:, None, None, :]
+    sdpa = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention,
+        q.float().view(B, Hkv, G, D), kd, vd, attn_mask=mask)
+    code_bytes = F.code_dtype(spec.l).itemsize
+    nbytes = 2 * valid * Hkv * (D * code_bytes + 1) + 2 * B * H * D * q.element_size()
+    b, by = bound_ms(nbytes, 4.0 * valid * Hkv * G * D, FP32_FLOPS)
+    out.update(
+        ring_shape=f"B={B} Hkv={Hkv} G={G} D={D} S={S} (a ring of {ring}), "
+                   f"lengths {int(lengths.min())}-{int(lengths.max())} "
+                   f"clamped to {S}, l={spec.l}, {q.dtype} q",
+        ring_ms=timed(lambda: ops.decode_attention(q, kbc, vbc, clamped,
+                                                   kernel=True)),
+        ring_plain_ms=timed(lambda: kvcache.masked_attend(
+            q, lc, lengths, fmt, ring=ring), reps=3),
+        ring_bound_ms=b, ring_bound_by=by,
+        ring_library_ms=timed(sdpa))
+    print(f"[moe] kernel 9 on the ring cache ({out['ring_shape']}): "
+          f"{out['ring_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us, masked "
+          f"softmax {out['ring_plain_ms'] * 1e3:.1f} us, SDPA on the decoded "
+          f"K/V {out['ring_library_ms'] * 1e3:.1f} us; against the masked "
+          f"softmax: served q {out['ring_rel_err_served_q']:.3e}, f32 q "
+          f"{out['ring_rel_err_f32_q']:.3e} of the largest output")
+    return out
+
+
+def _moe_serve(arch, params, fmt_name, device_line):
+    """One ``serve`` run of the MoE model with the launch checks of phase 9;
+    returns its row and, for a FRSZ2 ring cache, the kernel's check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeConfig, decode_steps, serve
+    from repro_torch.models import kvcache
+
+    cfg = _moe_config(arch, fmt_name)
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, MOE_PROMPT).astype(np.int32)
+            for _ in range(MOE_REQUESTS)]
+    sc = ServeConfig(slots=MOE_SLOTS, prompt_len=MOE_PROMPT, max_new=MOE_NEW)
+    steps = decode_steps(len(reqs), sc)
+    sc.max_ctx = MOE_PROMPT + steps + 8
+    fmt = kvcache.cache_format(fmt_name)
+    frsz = fmt.kind == "frsz2"
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    with _MoeServeTap(cfg.num_layers, MOE_SLOTS) as tap:
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = serve(cfg, sc, reqs, params=params, device="cuda",
+                    verbose=False, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(out) == list(range(len(reqs))), f"{arch}: serve lost a "
+                                                 "request")
+    check(all(len(v) == MOE_NEW and all(0 <= x < cfg.vocab_size for x in v)
+              for v in out.values()),
+          f"{arch} {fmt_name}: a completion is not {MOE_NEW} tokens in range")
+    check(stats["nonfinite_logits"] == 0,
+          f"{arch} {fmt_name}: {stats['nonfinite_logits']} logits not finite")
+    L = cfg.num_layers
+    split = {"prefill": stats["prefill_launches"],
+             "step": stats["step_launches"]}
+    per_layer = {"prefill": (1, {"decode_attn": 0, "frsz2_cache_write": 1,
+                                 "frsz2_compress": 0}),
+                 "step": (steps, {"decode_attn": 1, "frsz2_cache_write": 1,
+                                  "frsz2_compress": 0})}
+    for part, (n, per) in per_layer.items():
+        for k, m in per.items():
+            want = n * m * L if frsz else 0
+            check(split[part][k] == want,
+                  f"{arch} {fmt_name}: {k} launched {split[part][k]} times "
+                  f"in the {part}, the path implies {want}")
+    others = {k: v for k, v in got.items() if v and k not in
+              per_layer["step"][1]}
+    check(not others, f"{arch} {fmt_name}: other kernels launched: {others}")
+    window = cfg.window
+    slots = next(iter(tap.last[1].values())).shape[2] if tap.last else None
+    if window:
+        check(slots == window, f"{arch}: the cache holds {slots} slots, not "
+                               f"the window's {window}")
+    ring = {}
+    if frsz and window:
+        ring = _ring_attention_check(tap)
+        ring.update(_ring_cache_writes(tap, fmt))
+    # the byte bound of a decode step, as phase 9's: the weights it needs,
+    # every one but the embedding table and the experts that none of the
+    # step's kept choices reach (the distinct experts of each layer's
+    # routing, averaged over the steps), and the cache positions it reads
+    # (a ring: all its slots; otherwise the mean length over the run's
+    # steps); beside it the bound with every expert read, as moe_block
+    # reads them
+    check(len(tap.routes) == steps * L,
+          f"{arch} {fmt_name}: {len(tap.routes)} decode routings, the path "
+          f"implies {steps * L}")
+    touched = torch.tensor([int(torch.unique(g[k]).numel())
+                            for g, k in tap.routes], dtype=torch.float64)
+    del tap
+    moe = params["layers"]["moe"]
+    expert_bytes = sum(moe[n].numel() * moe[n].element_size()
+                       for n in ("wg", "wi", "wo"))
+    per_expert = expert_bytes / (L * cfg.num_experts)
+    step_w_all = sum(t.numel() * t.element_size() for t in _leaves(params)
+                     ) - params["embed"].numel() * params["embed"].element_size()
+    step_w = (step_w_all - expert_bytes
+              + per_expert * float(touched.sum()) / steps)
+    mean_len = MOE_PROMPT + (steps + 1) / 2
+    if window:
+        mean_len = min(mean_len, window)
+    cache_read = (L * MOE_SLOTS * cfg.num_kv_heads * mean_len
+                  * cfg.hd * fmt.bits_per_value(cfg.hd) / 8 * 2)
+    step_bound = (step_w + cache_read) / HBM_BYTES_PER_S * 1e3
+    step_bound_all = (step_w_all + cache_read) / HBM_BYTES_PER_S * 1e3
+    row = dict(phase="moe-serve", arch=arch, layers=L, kv_format=fmt_name,
+               requests=len(reqs), slots=MOE_SLOTS, prompt=MOE_PROMPT,
+               max_new=MOE_NEW, decode_steps=steps, cache_slots=slots,
+               prefill_s=stats["prefill_s"],
+               step_ms_median=statistics.median(stats["step_s"]) * 1e3,
+               step_ms_min=min(stats["step_s"]) * 1e3,
+               decode_tokens_per_s=MOE_SLOTS * steps / sum(stats["step_s"]),
+               step_bound_ms=step_bound, step_weight_bytes=step_w,
+               step_all_experts_bound_ms=step_bound_all,
+               step_all_experts_weight_bytes=step_w_all,
+               experts_touched_mean=float(touched.mean()),
+               experts_touched_min=int(touched.min()),
+               experts_touched_max=int(touched.max()),
+               step_cache_bytes=cache_read, wall_s=wall, peak_mem_bytes=peak,
+               launches={k: v for k, v in got.items() if v},
+               step_launches={k: v for k, v in split["step"].items() if v},
+               sample=out[0][:8], device=device_line, **ring)
+    emit(row)
+    print(f"[moe] {arch} {fmt_name}: prefill {row['prefill_s'][0]:.3f} s, "
+          f"decode step median {row['step_ms_median']:.2f} ms (bound "
+          f"{step_bound:.2f} ms on the {row['experts_touched_mean']:.2f} of "
+          f"{cfg.num_experts} experts a layer that the step routes to, "
+          f"{step_bound_all:.2f} ms with all), "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB, decode_attn "
+          f"{split['step']['decode_attn']} in {steps} steps")
+    return row, split["step"]["decode_attn"]
+
+
+def phase_moe(device_line):
+    """Slice 7a's path: the MoE family served at full width, 8 layers."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.profile import profile_decode
+    from repro_torch.models import init_params
+
+    attn = write = None
+    for arch in MOE_ARCHS:
+        full = get_arch(arch)
+        cfg = _moe_config(arch, "frsz2_16")
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"[moe] {arch}: depth cut to {cfg.num_layers} of "
+              f"{full.num_layers} layers at full width (d={cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd={cfg.hd}, "
+              f"{cfg.num_experts} experts, top-{cfg.top_k}, "
+              f"d_ff={cfg.d_ff}, window={cfg.window}, vocab="
+              f"{cfg.vocab_size}, {cfg.dtype}): {n / 1e9:.2f} B parameters, "
+              f"{w_bytes / 1e9:.2f} GB drawn in {time.perf_counter() - t0:.1f}"
+              f" s; all {full.num_layers} layers would hold "
+              f"{full.param_count() * 2 / 1e9:.0f} GB")
+        for fmt in ("bf16", "frsz2_16"):
+            e1, e2, slots = _moe_teacher_forcing(params, arch, fmt)
+            print(f"[moe] {arch} teacher forcing {fmt} (B={TF_B}, "
+                  f"S={MOE_TF_S}, {slots} cache slots): prefill {e1:.3e}, "
+                  f"decode {e2:.3e} (relative to the largest logit, "
+                  f"tolerance {TF_TOL})")
+            check(e1 <= TF_TOL and e2 <= TF_TOL,
+                  f"{arch} teacher forcing {fmt}: {e1:.3e}, {e2:.3e} > "
+                  f"{TF_TOL}")
+            emit(dict(phase="moe-teacher-forcing", arch=arch, kv_format=fmt,
+                      prefill_rel_err=e1, decode_rel_err=e2,
+                      cache_slots=slots))
+            torch.cuda.empty_cache()
+        rows = {}
+        for fmt in MOE_FORMATS[arch]:
+            rows[fmt] = _moe_serve(arch, params, fmt, device_line)
+            torch.cuda.empty_cache()
+        if arch == MOE_ARCHS[0]:
+            prof = profile_decode(_moe_config(arch, "frsz2_16"), params,
+                                  slots=MOE_SLOTS, prompt_len=MOE_PROMPT)
+            prof.pop("top", None)
+            emit(dict(phase="moe-profile", device=device_line, **prof))
+            print(f"[moe] {arch} frsz2_16 profiled: "
+                  f"{prof['wall_per_step_ms']:.2f} ms wall and "
+                  f"{prof['device_per_step_ms']:.2f} ms of device time a "
+                  f"decode step, busy {prof['device_busy_share']:.3f}, "
+                  f"{prof['launches_per_step']:.0f} launches a step")
+            row, launches = rows["frsz2_16"]
+            attn = {k: v for k, v in row.items() if k.startswith("ring_")
+                    and not k.startswith("ring_write_")}
+            attn.update(ring_serve_launches=launches, ring_profile=prof)
+            write = {k: v for k, v in row.items()
+                     if k.startswith("ring_write_")}
+        del params, rows
+        torch.cuda.empty_cache()
+    return attn, write
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2649,6 +3137,9 @@ def _run(t_start, device_line) -> int:
     entries.update(phase_decode_attn())
     release()
     serve_launches, writes = phase_serve(device_line)
+    release()
+    ring_attn, ring_write = phase_moe(device_line)
+    entries["decode_attn"].update(ring_attn)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at
@@ -2661,7 +3152,8 @@ def _run(t_start, device_line) -> int:
         shape=f"K and V {writes['prefill_shape']} bf16, bs 128, l 16",
         err_unit="code", **writes,
         serve_step_launches=serve_launches["frsz2_cache_write_step"],
-        serve_prefill_launches=serve_launches["frsz2_cache_write_prefill"])
+        serve_prefill_launches=serve_launches["frsz2_cache_write_prefill"],
+        **ring_write)
     entries["frsz2_compress"]["serve_launches"] = serve_launches[
         "frsz2_compress"]
     for name, e in entries.items():

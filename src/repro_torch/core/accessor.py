@@ -170,14 +170,16 @@ class StorageFormat:
 
 
 def f64_to_f16(v: torch.Tensor) -> torch.Tensor:
-    """f64 -> f16 through f32, rounding to nearest even at each step, as the
-    JAX reference converts (its CPU backend narrows f64 to f32 first).
+    """f64 -> f16 through f32, rounding to nearest even at each step: what
+    PyTorch's own conversion does on the CPU and on the card, and what the
+    JAX reference does on a host whose XLA narrows f64 to f32 first.
 
-    The two roundings differ from numpy's single one where the bits that
-    the first rounding drops would have broken an f16 tie.
-    Spelled out as two casts so that the card and the CPU give the same
-    bits whatever a direct conversion does there; tensor ops only, so it
-    runs inside a captured CUDA graph.
+    The two roundings differ from a single one (numpy's, and the reference's
+    on a host whose XLA converts directly) where the bits that the first
+    rounding drops would have broken an f16 tie.  Spelled out as two casts so that the card and the CPU give the
+    same bits whatever a direct conversion does there; tensor ops only, so
+    it runs inside a captured CUDA graph.  ``NativeFormat`` stores float16
+    rows through this module-level name.
     """
     return v.to(torch.float32).to(torch.float16)
 

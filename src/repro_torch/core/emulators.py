@@ -166,19 +166,26 @@ _WINDOW = 1 << 13
 _TABLES: dict = {}
 
 
+def _exp2_ref(c: torch.Tensor) -> torch.Tensor:
+    """The reference backend's ``exp2`` on the CPU: ``exp(c · ln 2)``."""
+    return torch.exp(c * _LN2)
+
+
 def _log2_ref(x: torch.Tensor) -> torch.Tensor:
     """The reference backend's ``log2`` on the CPU: ``log(x) · (1/ln 2)``."""
     return torch.log(x) * _INV_LN2
 
 
-def _log2_thresholds() -> torch.Tensor:
-    """``lo[k + _EMAX]``: the least double ``x > 0`` with ``_log2_ref(x) >
-    k``, for ``k`` in ``[-_EMAX, _EMAX]`` (``inf`` where none is finite).
+def _log2_thresholds(log2=_log2_ref, kmin: int = -_EMAX,
+                     kmax: int = _EMAX) -> torch.Tensor:
+    """``lo[k - kmin]``: the least double ``x > 0`` with ``log2(x) > k``,
+    for ``k`` in ``[kmin, kmax]`` (``inf`` where none is finite).
 
     A binary search over the doubles within ``_WINDOW`` ulps of ``2^k``,
-    for all ``k`` at once, on their bit patterns; ``log`` is monotone,
-    which is checked on 64 doubles either side of every threshold found."""
-    ks = torch.arange(-_EMAX, _EMAX + 1, dtype=torch.int64)
+    for all ``k`` at once, on their bit patterns; ``log2`` (a function of
+    a float64 tensor) is monotone, which is checked on 64 doubles either
+    side of every threshold found."""
+    ks = torch.arange(kmin, kmax + 1, dtype=torch.int64)
     inf_bits = 0x7FF << 52
     # the bits of 2^k: normal, subnormal, past the largest double, below 0
     base = torch.where(
@@ -189,7 +196,7 @@ def _log2_thresholds() -> torch.Tensor:
     def above(bits, k):
         # "x > 0 and log2(x) > k"; patterns past +inf read as +inf
         x = bits.clamp(1, inf_bits).view(torch.float64)
-        return (_log2_ref(x) > k.to(torch.float64)) & (bits > 0)
+        return (log2(x) > k.to(torch.float64)) & (bits > 0)
 
     lo = base - _WINDOW
     hi = (base + _WINDOW).clamp(max=inf_bits)
@@ -211,9 +218,15 @@ def _log2_thresholds() -> torch.Tensor:
 
 
 def _tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(exp2, lo)`` on ``device``: ``exp2[c + _EMAX] = exp(c · ln 2)``
+    """``(exp2, lo)`` on ``device``: ``exp2[c + _EMAX] = _exp2_ref(c)``
     as the reference computes ``exp2(c)``, and the ``log2`` thresholds.
-    Built once on the CPU, then copied to each device on first use."""
+    Built once on the CPU, then copied to each device on first use.
+
+    XLA's CPU ``exp`` is its own approximation: it agrees with
+    ``torch.exp`` on some x86 hosts, and on others it differs by an ulp
+    (14 of the 401 integers in [-200, 200] on an AVX-512 host).  A caller
+    that knows the reference's values (a test that can run it) puts its
+    own tables under ``_TABLES["cpu"]`` before the first use."""
     device = torch.device(device)
     key = str(device)
     t = _TABLES.get(key)
@@ -221,7 +234,7 @@ def _tables(device) -> tuple[torch.Tensor, torch.Tensor]:
         cpu = _TABLES.get("cpu")
         if cpu is None:
             c = torch.arange(-_EMAX, _EMAX + 1, dtype=torch.float64)
-            cpu = _TABLES["cpu"] = (torch.exp(c * _LN2), _log2_thresholds())
+            cpu = _TABLES["cpu"] = (_exp2_ref(c), _log2_thresholds())
         t = _TABLES[key] = tuple(a.to(device) for a in cpu)
     return t
 

@@ -12,8 +12,11 @@ kernels that took the most device time, as JSON lines.  ``--batch k``
 profiles a solve of k right-hand sides (``_batch_rhs``) through
 ``gmres_batched`` with ``--method block`` or ``vmap``.
 
-``--arch yi-9b`` profiles LM decode steps instead, at ``chip_smoke.py``'s
-serving shape (8 slots, prompt 2048, random weights from seed 0), once per
+``--arch yi-9b`` (or any served architecture: the dense and MoE families)
+profiles LM decode steps instead, at ``chip_smoke.py``'s serving shape (8
+slots, prompt 2048, random weights from seed 0; ``profile_decode`` takes
+other slots and prompt lengths, as ``chip_smoke.py`` phase 10 calls it for
+mixtral at 8 layers), once per
 KV format in ``--formats`` (e.g. ``frsz2_16,bf16``): a warm-up prefill, one
 prefill under the profiler, two warm-up steps, then four steps under the
 profiler, each starting with the host read of the previous step's tokens, as
@@ -151,13 +154,14 @@ def time_cache_write(cfg) -> dict:
                 prefill_host_ms=_host_ms(build, 20))
 
 
-def profile_decode(cfg, params, *, top: int = 10) -> dict:
+def profile_decode(cfg, params, *, top: int = 10, slots: int = SERVE_SLOTS,
+                   prompt_len: int = SERVE_PROMPT) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT),
+    prompt = torch.randint(0, cfg.vocab_size, (slots, prompt_len),
                            generator=gen, device="cuda")
-    cache_len = SERVE_PROMPT + SERVE_STEPS + 2
+    cache_len = prompt_len + SERVE_STEPS + 2
     prefill(params, cfg, prompt, cache_len=cache_len)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -190,8 +194,8 @@ def profile_decode(cfg, params, *, top: int = 10) -> dict:
     device_us = sum(e.self_device_time_total for e in kernels)
     kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     n = SERVE_STEPS
-    return dict(arch=cfg.name, kv_format=cfg.kv_format, slots=SERVE_SLOTS,
-                prompt=SERVE_PROMPT, steps=n, wall_per_step_ms=wall * 1e3 / n,
+    return dict(arch=cfg.name, kv_format=cfg.kv_format, slots=slots,
+                prompt=prompt_len, steps=n, wall_per_step_ms=wall * 1e3 / n,
                 device_per_step_ms=device_us * 1e-3 / n,
                 device_busy_share=device_us * 1e-6 / wall,
                 launches_per_step=sum(e.count for e in _device_kernels(prof))

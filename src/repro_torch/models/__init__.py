@@ -1,4 +1,5 @@
-"""Model zoo: the config system and the dense family's serving path."""
+"""Model zoo: the config system and the serving path of the dense and MoE
+families."""
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.lm import (
     decode_step,

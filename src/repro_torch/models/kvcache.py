@@ -23,12 +23,11 @@ package's bit patterns.
 
 On the card, an FRSZ2 cache is written by the cache-write kernel
 (``ops.cache_write``: K and V of a layer in one launch, in a decode step
-and in the prefill), and :func:`attend` over it with neither ``window`` nor
-``ring`` runs the hand-written flash-decode kernel
-(``ops.decode_attention``); on the CPU both run their plain versions
-through the same calls.  The raw formats
-and the windowed or ring cases run the plain masked softmax, which is where
-the JAX package runs jnp for them too.
+and in the prefill), and :func:`attend` over it runs the hand-written
+flash-decode kernel (``ops.decode_attention``), a sliding-window ring
+cache included; on the CPU both run their plain versions through the same
+calls.  The raw formats, and a window without a ring, run the plain masked
+softmax, which is where the JAX package runs jnp for them too.
 """
 from __future__ import annotations
 
@@ -42,7 +41,8 @@ from repro_torch.kernels import ops
 f32 = torch.float32
 
 __all__ = ["CacheFormat", "cache_format", "init_cache", "append", "attend",
-           "build_cache", "cache_nbytes", "encode_heads", "decode_heads"]
+           "masked_attend", "build_cache", "cache_nbytes", "encode_heads",
+           "decode_heads"]
 
 _RAW = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -174,21 +174,54 @@ def attend(q: torch.Tensor, layer_cache: dict, lengths: torch.Tensor,
 
     ``window``: mask keys older than window.  ``ring``: the cache is a ring
     buffer of that size (positions stored modulo ring).  ``chunk`` is
-    accepted for interface parity and ignored.  An FRSZ2 cache with neither
-    goes to ``ops.decode_attention``, which routes by device (the kernel on
-    the card, its plain version on the CPU; both scale the logits rather
-    than q); the rest is one masked softmax over the whole cache, as the
-    JAX package's.
+    accepted for interface parity and ignored.  An FRSZ2 cache without a
+    window, or with a ring (which decode always passes with a window), goes
+    to ``ops.decode_attention``, which routes by device (the kernel on the
+    card, its plain version on the CPU; both scale the logits rather than
+    q), a ring at lengths clamped to the cache's slots; the rest (the raw
+    formats, and a window without a ring, which decode never passes) is
+    one masked softmax over the whole cache, as the JAX package's.
     """
     B, H, D = q.shape
     buf = layer_cache["k"] if fmt.kind == "raw" else layer_cache["k_codes"]
     _, Hkv, S, _ = buf.shape
-    if fmt.kind == "frsz2" and not window and not ring:
+    if fmt.kind == "frsz2" and (ring or not window):
+        if ring:
+            # The ring route.  A cache of S <= ring slots holds position p
+            # at slot p mod ring.  The reference's masked softmax
+            # (masked_attend) takes slot kpos as valid iff its reconstructed
+            # position lies in [len - ring, len): for kpos <= len - 1 that
+            # is the largest p = kpos (mod ring) below len, which lies
+            # there; for kpos >= len, ``wrap`` clamps to 0 and the
+            # position is kpos itself, >= len.  So the valid slots are
+            # exactly kpos < min(len, S): the flash-decode kernel's
+            # prefix, at lengths clamped to S.  Softmax and P·V do not
+            # depend on the order of the positions.  (The window, if
+            # given as well, is the ring's own size and masks nothing
+            # more, as in the reference's ring branch.)
+            if S > ring:
+                raise ValueError(
+                    f"a ring cache of {ring} positions holds {S} slots: "
+                    "the slots past the ring are never written")
+            lengths = lengths.clamp(max=S)
         spec = fmt.spec(D)
         kbc, vbc = (F.BlockCompressed(
             codes=layer_cache[f"{n}_codes"].view(B, Hkv, S, 1, D),
             exps=layer_cache[f"{n}_exps"], n=D, spec=spec) for n in "kv")
         return ops.decode_attention(q, kbc, vbc, lengths, sm_scale=D ** -0.5)
+    return masked_attend(q, layer_cache, lengths, fmt, window=window,
+                         ring=ring)
+
+
+def masked_attend(q: torch.Tensor, layer_cache: dict, lengths: torch.Tensor,
+                  fmt: CacheFormat, *, window: int = 0, ring: int = 0
+                  ) -> torch.Tensor:
+    """The reference's decode attention: one masked softmax over the whole
+    decoded cache, in f32 (the plain route of :func:`attend`, and what the
+    flash-decode kernel is held against on a ring cache)."""
+    B, H, D = q.shape
+    buf = layer_cache["k"] if fmt.kind == "raw" else layer_cache["k_codes"]
+    _, Hkv, S, _ = buf.shape
     G = H // Hkv
     qg = q.reshape(B, Hkv, G, D).to(f32) * D ** -0.5
     k, v = _decoded(layer_cache, fmt, D)                      # (B,Hkv,S,D)

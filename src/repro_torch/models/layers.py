@@ -1,16 +1,19 @@
-"""Dense building blocks: norms, RoPE, blocked attention, SwiGLU MLP.
+"""Building blocks: norms, RoPE, blocked attention, SwiGLU MLP, MoE.
 
 Plain PyTorch: none of these is a TPU kernel in the JAX package, and the
-matrix products stay ``torch.matmul``.  Attention for a prompt is
-*blocked* (an online softmax over key chunks, in f32), so no O(S²) logits
-buffer exists; the one new token of a decode step attends through
-:func:`repro_torch.models.kvcache.attend` instead.  The layer loop is a
+matrix products stay ``torch.matmul``.  The MoE block is the reference's
+grouped top-k dispatch with capacity (MaxText-style), its one-hot einsums
+written as the exact gather and scatter they compute.  Attention for a
+prompt is *blocked* (an online softmax over key chunks, in f32), so no
+O(S²) logits buffer exists; the one new token of a decode step attends
+through :func:`repro_torch.models.kvcache.attend` instead.  The layer loop is a
 Python loop (``repro_torch.models.lm``), and nothing is sharded: the JAX
 package's ``scan_or_unroll`` and sharding constraints have no counterpart.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -19,7 +22,7 @@ import torch.nn.functional as Fn
 f32 = torch.float32
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "blocked_attention",
-           "attention_block", "attention_qkv", "swiglu_block"]
+           "attention_block", "attention_qkv", "swiglu_block", "moe_block"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -155,3 +158,117 @@ def swiglu_block(x: torch.Tensor, p: dict) -> torch.Tensor:
     h = rms_norm(x, p["ln"])
     act = Fn.silu(h @ p["wg"]) * (h @ p["wi"])
     return x + act @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: grouped top-k dispatch with capacity
+# ---------------------------------------------------------------------------
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest, ties to the
+    lower index (a stable descending sort; ``torch.topk`` promises no tie
+    order)."""
+    val, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return val[..., :k], idx[..., :k]
+
+
+def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int,
+                    mask_dtype=torch.bfloat16):
+    """gates (G, T, E) f32 -> the reference's dispatch and combine masks as
+    the slots they fill: ``(expert, slot, keep, weight)``, each (G, T, k).
+
+    The reference (``repro/models/layers.py::_top_k_dispatch``, vmapped over
+    groups) builds one-hot (T, E, C) masks: choice ``s`` of token ``t`` goes
+    to expert ``e = gidx[t, s]`` at slot ``c`` = the count of earlier
+    choices of ``e`` (all tokens' first choices before any second choice:
+    a cumsum over token order per choice), and is dropped where ``c >=
+    capacity``; ``dispatch[t, e, c] = 1`` and ``combine[t, e, c]`` is the
+    gate renormalized over the k chosen experts, rounded to ``mask_dtype``
+    (bf16 even in an f32 model).  A token's k experts differ, so no two of
+    its choices share an (e, c) entry, and each (e, c) holds at most one
+    token: the masks are exactly ``(e, c, keep, weight)``."""
+    G, T, E = gates.shape
+    gval, gidx = _top_k(gates, k)                             # (G, T, k)
+    gval = gval / gval.sum(-1, keepdim=True).clamp(min=1e-9)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=gates.device)
+    slots, keeps = [], []
+    for s in range(k):                                        # k <= 2
+        m = Fn.one_hot(gidx[..., s], E)                       # (G, T, E)
+        pos = torch.cumsum(m, dim=1) - m + counts[:, None, :]
+        c = pos.gather(-1, gidx[..., s:s + 1])[..., 0]        # (G, T)
+        slots.append(c)
+        keeps.append(c < capacity)
+        counts = counts + m.sum(1)
+    slot = torch.stack(slots, -1)
+    keep = torch.stack(keeps, -1)
+    weight = gval.to(mask_dtype)
+    return gidx, slot, keep, weight
+
+
+def moe_capacity(cfg, T: int) -> tuple[int, int]:
+    """(group size g, capacity) for T tokens, as the reference sizes them:
+    g = ``min(moe_group, T)`` lowered until it divides T, capacity =
+    ``ceil(g * k / E * capacity_factor)`` rounded up to 8, at least 8."""
+    g = min(cfg.moe_group, T)
+    while T % g:
+        g -= 1
+    capacity = int(math.ceil(g * cfg.top_k / cfg.num_experts
+                             * cfg.capacity_factor))
+    return g, max(8, -(-capacity // 8) * 8)
+
+
+def expert_inputs(h: torch.Tensor, gidx, slot, keep, E: int,
+                  capacity: int):
+    """h (G, g, d) and :func:`_top_k_dispatch`'s slots -> (xin (G, E, C,
+    d), row (G, g, k)).
+
+    ``xin[g, e, c]`` is the hidden state of the token in slot (e, c), or
+    zeros: what the reference's ``einsum("gtd,gtec->gecd", h, dispatch)``
+    gives, a 0/1 mask times h summed with zeros, here a scatter of the
+    kept tokens' rows.  ``row`` is each choice's row in the flat (G * E *
+    C) slot space, the spare row past the end for a dropped choice."""
+    ngroup, g, d = h.shape
+    k = gidx.shape[-1]
+    n_slots = ngroup * E * capacity
+    grp = torch.arange(ngroup, device=h.device)[:, None, None]
+    row = torch.where(keep, (grp * E + gidx) * capacity + slot, n_slots)
+    xin = h.new_zeros((n_slots + 1, d))
+    xin.index_copy_(0, row.reshape(-1),
+                    h[:, :, None, :].expand(ngroup, g, k, d).reshape(-1, d))
+    return xin[:n_slots].reshape(ngroup, E, capacity, d), row
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg):
+    """Grouped top-k MoE with SwiGLU experts.  Returns (out, aux_loss).
+
+    x (B, S, d); ``p``: ``ln`` (d,), ``router`` (d, E) f32, ``wg``/``wi``
+    (E, d, ff), ``wo`` (E, ff, d).  The expert products are batched
+    matrix products over all (E, C) slots, as the reference's einsums;
+    the combine gathers each token's k slot outputs and weights them in
+    f32 (two products of a bf16 weight, so the order of the sum is moot),
+    then rounds to the model's dtype.  The aux loss is the Switch
+    load-balancing loss: mean gate times the fraction of tokens routed
+    (kept) to each expert, summed over experts, times E.
+    """
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    g, capacity = moe_capacity(cfg, B * S)
+    ngroup = B * S // g
+    h = rms_norm(x, p["ln"]).reshape(ngroup, g, d)
+    gates = torch.softmax(h.to(f32) @ p["router"].to(f32), dim=-1)
+    gidx, slot, keep, weight = _top_k_dispatch(gates, k, capacity)
+    xin, row = expert_inputs(h, gidx, slot, keep, E, capacity)
+    act = (Fn.silu(torch.einsum("gecd,edf->gecf", xin, p["wg"]))
+           * torch.einsum("gecd,edf->gecf", xin, p["wi"]))
+    hout = torch.einsum("gecf,efd->gecd", act, p["wo"])       # (G,E,C,d)
+    flat = hout.reshape(-1, d)
+    picked = flat[row.clamp(max=flat.shape[0] - 1)]          # (G, g, k, d)
+    w = torch.where(keep, weight.to(f32), 0.0)                # dropped: 0
+    out = (picked.to(f32) * w[..., None]).sum(2).to(hout.dtype)
+    me = gates.mean(dim=1)                                    # (G, E)
+    routed = torch.zeros((ngroup, E), dtype=f32, device=x.device)
+    routed.scatter_add_(1, gidx.reshape(ngroup, -1),
+                        keep.reshape(ngroup, -1).to(f32))
+    aux = (me * (routed / g)).sum(-1).mean() * E
+    return x + out.reshape(B, S, d), aux

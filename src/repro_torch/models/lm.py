@@ -1,14 +1,19 @@
-"""Model assembly for serving: init / trunk / prefill / decode, dense family.
+"""Model assembly for serving: init / trunk / prefill / decode, for the
+dense and MoE families.
 
 The dense family is the pre-norm GQA decoder (internlm2, yi, granite,
-mistral-nemo).  Weights are a dict of layer-stacked ``(L, ...)`` tensors
-under the JAX package's names; the layer loop is a Python loop over views
-of them.  The decode cache is a dict of preallocated ``(L, B, Hkv, S, D)``
-tensors (``repro_torch.models.kvcache``) that :func:`prefill` fills and
-:func:`decode_step` appends to in place; on the card its FRSZ2 codes are
-written by the compress kernel and read by the flash-decode kernel.
+mistral-nemo); the MoE family (mixtral, llama4-scout) replaces its SwiGLU
+MLP with a grouped top-k MoE of SwiGLU experts (``layers.moe_block``),
+and mixtral attends through a sliding window whose decode cache is a ring
+of ``window`` slots.  Weights are a dict of layer-stacked ``(L, ...)``
+tensors under the JAX package's names; the layer loop is a Python loop
+over views of them.  The decode cache is a dict of preallocated ``(L, B,
+Hkv, S, D)`` tensors (``repro_torch.models.kvcache``) that :func:`prefill`
+fills and :func:`decode_step` appends to in place; on the card its FRSZ2
+codes are written by the cache-write kernel and read by the flash-decode
+kernel.
 
-The other families of the registry (MoE, SSM, hybrid, encdec, VLM) and
+The other families of the registry (SSM, hybrid, encdec, VLM) and
 training (``loss_fn``) wait for a later slice of the port: their branches
 raise ``NotImplementedError``.
 
@@ -27,6 +32,7 @@ from repro_torch.models.layers import (
     attention_block,
     attention_qkv,
     blocked_attention,
+    moe_block,
     rms_norm,
     swiglu_block,
 )
@@ -37,12 +43,16 @@ __all__ = ["init_params", "trunk", "init_decode_cache", "decode_step",
            "prefill"]
 
 
+#: the families the port runs
+FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{what} for the {cfg.family!r} family ({cfg.name}) waits for a "
             "later slice of the port (ROADMAP.md §1): the port runs the "
-            "dense family")
+            "dense and moe families")
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +99,20 @@ def _mlp_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
     }
 
 
+def _moe_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
+    """The router in f32, the experts' ``wg``/``wi`` (E, d, ff) and ``wo``
+    (E, ff, d) stacked per layer, as the reference's ``_moe_params``."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s_out = ff ** -0.5 / (2 * max(cfg.num_layers, 1)) ** 0.5
+    return {
+        "ln": torch.ones((L, d), dtype=dt, device=gen.device),
+        "router": _init(gen, (d, E), d ** -0.5, f32, L),
+        "wg": _init(gen, (E, d, ff), d ** -0.5, dt, L),
+        "wi": _init(gen, (E, d, ff), d ** -0.5, dt, L),
+        "wo": _init(gen, (E, ff, d), s_out, dt, L),
+    }
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random weights at the reference's scales, on ``gen``'s device."""
     _check_family(cfg, "init_params")
@@ -99,9 +123,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
         "final_ln": torch.ones((d,), dtype=dt, device=gen.device),
         "unembed": _init(gen, (d, V), d ** -0.5, dt),
     }
-    params["layers"] = {"attn": _attn_params(gen, cfg, L, dt),
-                        "mlp": _mlp_params(gen, cfg, L, dt)}
+    layers = {"attn": _attn_params(gen, cfg, L, dt)}
+    if cfg.family == "moe":
+        layers["moe"] = _moe_params(gen, cfg, L, dt)
+    else:
+        layers["mlp"] = _mlp_params(gen, cfg, L, dt)
+    params["layers"] = layers
     return params
+
+
+def _ffn(h: torch.Tensor, lp: dict, cfg: ArchConfig):
+    """The layer's feed-forward half: -> (h, aux loss or None)."""
+    if cfg.family == "moe":
+        return moe_block(h, lp["moe"], cfg)
+    return swiglu_block(h, lp["mlp"]), None
 
 
 def _layer(stacked: dict, i: int) -> dict:
@@ -117,17 +152,22 @@ def _layer(stacked: dict, i: int) -> dict:
 
 def trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
           aux_inputs=None):
-    """tokens (B, S) -> (hidden states (B, S, d), aux loss 0)."""
+    """tokens (B, S) -> (hidden states (B, S, d), aux loss): the MoE
+    layers' load-balancing losses summed over layers (f32), 0 for the
+    dense family."""
     _check_family(cfg, "trunk")
     B, S = tokens.shape
     h = params["embed"][tokens]
     positions = torch.arange(S, device=h.device)
+    aux = torch.zeros((), dtype=f32, device=h.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = attention_block(h, lp["attn"], cfg, positions=positions,
                             window=cfg.window)
-        h = swiglu_block(h, lp["mlp"])
-    return h, torch.zeros((), dtype=f32, device=h.device)
+        h, a = _ffn(h, lp, cfg)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +222,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
         lp = _layer(params["layers"], i)
         lc = _layer(cache["self"], i)
         h = _self_attn_decode(h, lp["attn"], cfg, lc, lengths, fmt, ring)
-        h = swiglu_block(h, lp["mlp"])
+        h, _ = _ffn(h, lp, cfg)
     h = rms_norm(h[:, 0], params["final_ln"])
     logits = (h @ params["unembed"]).to(f32)
     cache["lengths"] = lengths + 1
@@ -196,7 +236,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     Runs the parallel forward (blocked attention) and writes each layer's
     cache whole into a preallocated buffer (no scatter: the paper's
     whole-block-write discipline).  ``cache_len`` pads the cache for later
-    decode steps (defaults to the prompt length).
+    decode steps (defaults to the prompt length); a sliding-window cache
+    is padded up to ``window`` slots at most.
     """
     _check_family(cfg, "prefill")
     fmt = _cache_fmt(cfg)
@@ -207,8 +248,15 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     ring = _cache_seq(cfg, S) if cfg.window else 0
     c_len = max(cache_len, _cache_seq(cfg, S))
     stored = min(S, ring) if ring else S
+    # a sliding-window cache holds at most ``window`` slots, the ring that
+    # decode_step writes (as init_decode_cache allocates it): the
+    # reference pads it to cache_len, and its attend then counts the
+    # never-written slots past the ring as keys (ROADMAP.md §3)
+    n_slots = max(c_len, stored)
+    if cfg.window:
+        n_slots = min(n_slots, cfg.window)
     self_cache = kv.init_cache(fmt, cfg.num_layers, B, cfg.num_kv_heads,
-                               max(c_len, stored), cfg.hd, device=dev)
+                               n_slots, cfg.hd, device=dev)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         ap = lp["attn"]
@@ -220,7 +268,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                        out=_layer(self_cache, i))
         _, _, H, hd = q.shape
         h = h + o.reshape(B, S, H * hd) @ ap["wo"]
-        h = swiglu_block(h, lp["mlp"])
+        h, _ = _ffn(h, lp, cfg)
     h_last = rms_norm(h[:, -1], params["final_ln"])
     logits = (h_last @ params["unembed"]).to(f32)
     cache = {"self": self_cache,

@@ -22,11 +22,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 #: ranks of the spawned world (the reference tests emulate 8 devices)
 WORLD = 8
+#: seconds a world may take before the test fails: three times the
+#: slowest world measured under a parallel test run (``pytest -n 6 --dist
+#: loadfile`` on 8 cores, the worlds one at a time: the sharded module's
+#: world 100.0 s, the collectives module's 12.0 s; alone on those cores
+#: the sharded world takes ~25 s)
+DEADLINE_S = 300.0
 #: seconds each subprocess of a test module may take (a test run has a
-#: hard clock)
-SUBPROCESS_S = 120
-#: seconds a world may take before the test fails
-DEADLINE_S = 100.0
+#: hard clock): the world's deadline plus the ranks' start and teardown
+SUBPROCESS_S = 360
 
 #: sharded solves at P = 8, m = 20 (``synth:atmosmod`` n = 512 as in
 #: ``tests/test_sharded_driver.py``; ``mode`` is ``shard_matvec``)
@@ -153,18 +157,55 @@ def start(args, env_extra=None):
 
 
 def finish(proc, what):
-    """Wait for ``proc`` under :data:`SUBPROCESS_S`; kill its whole session
-    and fail the test if it expires or fails."""
+    """Wait for ``proc`` under :data:`SUBPROCESS_S`; fail the test if it
+    expires or fails.  Its process group (the ranks it spawned) is killed
+    on every path, so nothing it started outlives the test."""
     import pytest
 
     try:
         _, err = proc.communicate(timeout=SUBPROCESS_S)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
+        _kill(proc)
         proc.communicate()
         pytest.fail(f"{what} did not finish within {SUBPROCESS_S} s")
+    finally:
+        _kill(proc)
     if proc.returncode != 0:
         pytest.fail(f"{what} failed:\n{err[-4000:]}")
+
+
+def _kill(proc):
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def run_worlds(d, steps):
+    """Run ``steps`` (``(what, args, env_extra)``) one after another, each
+    to its end, under the run's world lock, and write their wall times to
+    ``d / "walls.json"``.
+
+    One subprocess at a time: the port's 8-rank world is not started
+    beside the JAX package's 8-device run, and the lock (a file in the
+    directory that every xdist worker of the run shares, the parent of
+    :func:`worlds_dir`) keeps the worlds of the two test modules that
+    spawn them from overlapping.  A step that fails kills what it started
+    before the test fails, and no later step starts."""
+    import fcntl
+    import json
+    import time
+
+    walls = {}
+    with open(d.parent / "torch_worlds.lock", "w") as lock:
+        t0 = time.perf_counter()
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        walls["lock wait"] = time.perf_counter() - t0
+        for what, args, env_extra in steps:
+            t0 = time.perf_counter()
+            finish(start(args, env_extra), what)
+            walls[what] = time.perf_counter() - t0
+    (d / "walls.json").write_text(json.dumps(walls, indent=1))
 
 
 def worlds_dir(tmp_path_factory, name: str):

@@ -6,8 +6,9 @@ spawns 8 ranks that run every case of ``_torch_dist_cases.collectives_rank``
 (groups of 2, 4 and 8 ranks made with ``new_group``), another runs the
 same cases through the JAX package under ``shard_map`` on 2, 4 and 8 of 8
 emulated devices, both on the same seeded numpy inputs
-(``_torch_dist_cases.collective_inputs``) and under deadlines of their own.
-Tolerances:
+(``_torch_dist_cases.collective_inputs``), one after the other under
+deadlines of their own and under the run's world lock
+(``_torch_dist_cases.run_worlds``).  Tolerances:
 
 * ``halo_exchange`` (one and two hops, a batch of 3 right-hand sides),
   ``halo_exchange_3d`` (the plan's block layout), plain and FRSZ2-coded,
@@ -108,12 +109,13 @@ def worlds(tmp_path_factory):
     d = C.worlds_dir(tmp_path_factory, "collectives")
     jax_pkl, port_pkl = d / "jax.pkl", d / "port.pkl"
     if not (d / "done").exists():
-        jproc = C.start(["-c", _JAX_SCRIPT, str(jax_pkl)],
-                        {"JAX_PLATFORMS": "cpu"})
-        pproc = C.start(["-c", "import _torch_dist_cases as c; c.main()",
-                         "collectives", str(port_pkl)])
-        C.finish(pproc, "the port's 8-rank world")
-        C.finish(jproc, "the JAX package's 8-device run")
+        C.run_worlds(d, [
+            ("the port's 8-rank world",
+             ["-c", "import _torch_dist_cases as c; c.main()",
+              "collectives", str(port_pkl)], None),
+            ("the JAX package's 8-device run",
+             ["-c", _JAX_SCRIPT, str(jax_pkl)], {"JAX_PLATFORMS": "cpu"}),
+        ])
         (d / "done").touch()
     with open(jax_pkl, "rb") as f:
         ref = pickle.load(f)

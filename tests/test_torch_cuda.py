@@ -34,7 +34,8 @@ at q 1..16, w 5/7/27, f32/f64, aligned or not.  The redesigned decode
 attention at lengths across its 64-position tiles and its splits (with an
 empty row, S not a multiple of the tile), a cache of more than one block a
 row, and K/V blocks across the scaled decode's guard: V rows equal to
-``decompress``, K within 1e-5 of plain; its split rule's wave from the
+``decompress``, K within 1e-5 of plain; on a wrapped ring cache at G = 5
+and 6 against the masked softmax; its split rule's wave from the
 kernel's occupancy query.  The redesigned row codec bit-equal to the
 plain codec at 65,536 and 70,000 rows (one launch each), at a ragged n for
 every spot of ``cardcheck.CODEC_SPOTS`` in both roundings and on views at
@@ -53,7 +54,11 @@ one rank: the coded dots' wire (kernels 1 and 2 at ``WIRE_SPEC``)
 bit-equal to the plain codec on the CPU; a captured sharded cycle (its
 collectives inside the graph) replayed with equal bits, and with the plain
 transport the unsharded solve's iterations, restarts and ``bytes_read``, x
-within 1e-12 relative.
+within 1e-12 relative.  The MoE family: ``moe_block`` on the card with the
+CPU route's routing (slots and drops) and output within 1e-5 of the
+largest entry; mixtral ``reduced()`` past its window (a rolled prefill and
+wrapping decode steps) on the card within 1e-3 of the CPU's logits, the
+flash-decode kernel once a layer on its FRSZ2 ring.
 """
 import numpy as np
 import pytest
@@ -953,3 +958,95 @@ def test_captured_sharded_cycle_replays_with_equal_bits(nccl, transport):
         assert r2.bytes_read == ru.bytes_read
         assert (torch.linalg.vector_norm(r2.x - ru.x)
                 <= 1e-12 * torch.linalg.vector_norm(ru.x))
+
+
+def _to(tree, dev):
+    return ({k: _to(v, dev) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_block_on_card_matches_cpu(cuda, arch):
+    """``moe_block`` (reduced, f32) on the card against the CPU route: the
+    same routing (slots and drops; capacity factor 0.5 drops choices) and
+    the output within 1e-5 of the largest entry, the aux loss within 1e-5
+    relative (f32 products summed in another order)."""
+    import dataclasses
+
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), capacity_factor=0.5)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    x = torch.randn((2, 96, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    oc, ac = layers.moe_block(x, lp, cfg)
+    og, ag = layers.moe_block(x.to(cuda), _to(lp, cuda), cfg)
+    assert float((og.cpu() - oc).abs().max()) <= 1e-5 * float(oc.abs().max())
+    assert abs(float(ag) - float(ac)) <= 1e-5 * abs(float(ac))
+    g, cap = layers.moe_capacity(cfg, 2 * 96)
+    h = layers.rms_norm(x, lp["ln"]).reshape(-1, g, cfg.d_model)
+    gates = torch.softmax(h @ lp["router"], dim=-1)
+    sc = layers._top_k_dispatch(gates, cfg.top_k, cap)
+    sg = layers._top_k_dispatch(gates.to(cuda), cfg.top_k, cap)
+    for a, b in zip(sc, sg):
+        assert torch.equal(a, b.cpu())
+    assert not bool(sc[2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_format", ["frsz2_16", "bf16"])
+def test_moe_ring_decode_on_card_matches_cpu(cuda, kv_format):
+    """mixtral ``reduced()`` (window 64) past its window: a prefill of 80
+    tokens (the ring rolled) and three decode steps (each wrapping) on the
+    card against the CPU route, logits within 1e-3 of the largest; every
+    step runs the flash-decode kernel once a layer on the FRSZ2 ring."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b").reduced(),
+                              kv_format=kv_format)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 83),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = _to(params, cuda)
+    lc, cc = prefill(params, cfg, tokens[:, :80], cache_len=84)
+    lg, cg = prefill(on_card, cfg, tokens[:, :80].to(cuda), cache_len=84)
+    assert next(iter(cg["self"].values())).shape[3] == cfg.window
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
+    for t in range(80, 83):
+        ops.reset_launches()
+        dc, cc = decode_step(params, cfg, cc, tokens[:, t])
+        dg, cg = decode_step(on_card, cfg, cg, tokens[:, t].to(cuda))
+        frsz = kv_format.startswith("frsz2")
+        assert ops.LAUNCHES["decode_attn"] == (cfg.num_layers if frsz else 0)
+        assert float((dg.cpu() - dc).abs().max()) <= (
+            1e-3 * float(dc.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [5, 6])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_a_wrapped_ring_on_card(cuda, G, qdt):
+    """The flash-decode kernel on a ring cache (``kvcache.attend`` with a
+    ring: lengths clamped to the slots) at llama4's and mixtral's query
+    groups, against the reference's masked softmax over the ring
+    (``kvcache.masked_attend``): f32 q within 1e-5 of the largest output,
+    bf16 q within one bf16 step; one launch."""
+    ring, B, Hkv, D = 192, 3, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(G)
+    fmt = kvcache.cache_format("frsz2_16")
+    k = torch.randn((B, ring + 101, Hkv, D), generator=gen, device=cuda)
+    v = torch.randn((B, ring + 101, Hkv, D), generator=gen, device=cuda)
+    lc = kvcache.build_cache(k, v, fmt, ring=ring)
+    lengths = torch.tensor([ring + 101, ring + 1, 2 * ring + 5],
+                           dtype=torch.int32, device=cuda)
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda).to(qdt)
+    ops.reset_launches()
+    got = kvcache.attend(q, lc, lengths, fmt, window=ring, ring=ring)
+    assert ops.LAUNCHES["decode_attn"] == 1
+    want = kvcache.masked_attend(q, lc, lengths, fmt, ring=ring)
+    err = float((got.float() - want.float()).abs().max())
+    tol = cardcheck.ATTN_TOL if qdt == torch.float32 else (
+        cardcheck.ATTN_TOL_BF16)
+    assert err <= tol * float(want.float().abs().max())

@@ -6,8 +6,12 @@ Tolerances:
 * ``sz_abs`` and ``zfp_fr`` roundtrips: bit-equal, including rows whose
   block maxima sit exactly on powers of two and a few ulps either side
   (the reference's ``ceil(log2(max))`` edge).  ``zfp_fr`` reproduces the
-  reference backend's inexact ``exp2``/``log2`` through tables, which agree
-  with it for block maxima in ``[2^-200, 2^200]``: the range tested;
+  reference backend's inexact ``exp2``/``log2`` through tables.  XLA's
+  CPU ``exp`` differs from host to host, so every test here first hands
+  the port tables probed from the installed JAX
+  (``tests/_torch_jax_numerics.py``): the roundtrips then check the port's
+  algorithm against the reference's, whatever the host, for block maxima
+  in ``[2^-200, 2^200]``: the range tested;
 * ``sz_pwrel``: the reference's ``exp`` on the CPU is not PyTorch's (about
   one value in seven differs by an ulp), so entries may differ by one ulp;
   an entry that lands on another quantization level (``log`` and the step
@@ -31,8 +35,16 @@ from repro_torch.convert import csr_from_numpy
 from repro_torch.core import accessor as TA
 from repro_torch.core import emulators as TE
 from repro_torch.solver import gmres, gmres_batched
+from tests import _torch_jax_numerics as JN
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _reference_tables(monkeypatch):
+    """The ZFP emulator's ``exp2``/``log2`` tables as the installed JAX
+    computes them on this host."""
+    JN.install_zfp_tables(monkeypatch)
 
 NAMES = ["sz_abs:1e-10", "sz_abs:1e-6", "sz_abs:3e-4", "sz_pwrel:1e-6",
          "sz_pwrel:1e-4", "sz_pwrel:0.01", "zfp_fr:32", "zfp_fr:16",
@@ -112,9 +124,12 @@ def test_zfp_block_maxima_on_powers_of_two(rate, ulps):
 
 
 def test_zfp_tables_follow_reference_exp2_and_log2():
-    """The tables' ``exp2(c)`` and ``ceil(log2(x))`` against ``jnp.exp2``
-    and ``jnp.ceil(jnp.log2(x))`` near every power of two in range."""
+    """The tables the roundtrips read, built from the installed JAX's
+    primitives, against ``jnp.exp2`` and ``jnp.ceil(jnp.log2(x))`` near
+    every power of two in range: the table's indexing, and the port's
+    threshold search and ``_ceil_log2`` on the reference's ``log2``."""
     exp2, lo = TE._tables("cpu")
+    assert exp2 is JN.zfp_tables()[0] and lo is JN.zfp_tables()[1]
     c = np.arange(-200, 201)
     np.testing.assert_array_equal(
         exp2[c + TE._EMAX].numpy().view(np.int64),

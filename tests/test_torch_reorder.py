@@ -15,6 +15,20 @@ Tolerances:
   RRNs need only both meet the target: its block exponents are taken over
   consecutive entries, which the permutation regroups (the final RRNs of a
   512-row frsz2_32 solve differ by about 1 %).
+* the batched block method (``test_rcm_batched_matches_reference``):
+  iterations within one of JAX ``rcm`` and of port ``none``; ``restarts``
+  and ``bytes_read`` equal where the iterations agree, ``restarts``
+  within one and the restart RRNs within 1e-6 relative where they
+  overlap everywhere, and each side's ``bytes_read`` the reference's
+  model of the iterations it ran (``_cycle_row_reads``).  On the CPU the
+  port's block contractions are MKL matrix products, whose summation
+  order MKL picks by the host's instruction set, and this solve's restart
+  is borderline: on an AVX-512 host the port ``rcm`` solve stops at 29
+  iterations with an RRN of 9.12e-14 against the target 1e-13, and at 30
+  (4.04e-14) when MKL is pinned to its AVX2 path (``MKL_CBWR=AVX2``), as
+  the reference does on hosts with and without AVX-512 (30, 4.1e-14).
+  The north star's rule for a reduction order that moves a borderline
+  restart (at most one iteration, documented) applies.
 """
 import json
 import os
@@ -31,11 +45,13 @@ from tests._hypothesis_compat import given, settings, st
 from repro.launch import solve as jsolve
 from repro.solver import gmres as jgmres
 from repro.solver.gmres import gmres_batched as jgmres_batched
+from repro.solver.gmres import _cycle_row_reads as j_cycle_row_reads
 from repro.sparse import make_problem as jmake
 from repro.sparse import reorder as JR
 from repro.sparse import rhs_for as jrhs
 from repro.sparse.csr import csr_from_coo as jcsr_from_coo
 from repro_torch.convert import csr_from_numpy
+from repro_torch.core import accessor as TA
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.solver.pipeline import (
     CallablePreconditioner,
@@ -273,12 +289,27 @@ def test_rcm_solve_parity_property(seed):
         np.testing.assert_allclose(r1.rrn, r0.rrn, rtol=1e-5, atol=1e-16)
 
 
+def _block_bytes(r, m, row_bytes):
+    """The reference's modelled basis reads (``_cycle_row_reads``, one MGS
+    pass) of a block solve of ``r.iterations`` over ``r.restarts`` cycles,
+    each full but the last, that re-orthogonalizes at every step (block
+    MGS does in this solve): the bytes its column ran, whatever the count."""
+    last = r.iterations - m * (r.restarts - 1)
+    return row_bytes * sum(
+        j_cycle_row_reads(j, 1, j * (j + 1) // 2)
+        for j in [m] * (r.restarts - 1) + [last])
+
+
 @pytest.mark.parametrize("method", ["vmap", "block"])
 def test_rcm_batched_matches_reference(method):
     Aj, At, b, target = _unstructured()
     B = np.stack([b, 1.1 * b])
     kw = dict(m=20, max_iters=2000, target_rrn=target, method=method,
               storage="frsz2_32")
+    # the block method's MKL products sum in a host-dependent order that
+    # moves this solve's borderline restart by one (module docstring)
+    slack = 1 if method == "block" else 0
+    row = TA.format_by_name("frsz2_32").nbytes(1, b.size)
     rj = jgmres_batched(Aj, jnp.asarray(B), reorder="rcm", driver="host",
                         **kw)
     for driver in ("host", "device"):
@@ -287,10 +318,23 @@ def test_rcm_batched_matches_reference(method):
         r0 = gmres_batched(At, torch.from_numpy(B), reorder="none",
                            driver=driver, **kw)
         for a, j, z in zip(rt, rj, r0):
-            assert a.converged and a.iterations == j.iterations == \
-                z.iterations, (method, driver)
-            assert a.restarts == j.restarts
-            assert a.bytes_read == float(j.bytes_read)
+            assert a.converged and z.converged, (method, driver)
+            assert abs(a.iterations - j.iterations) <= slack, (
+                method, driver, a.iterations, j.iterations)
+            assert abs(a.iterations - z.iterations) <= slack, (
+                method, driver, a.iterations, z.iterations)
+            if a.iterations == j.iterations:
+                assert a.restarts == j.restarts
+                assert a.bytes_read == float(j.bytes_read)
+            assert abs(a.restarts - j.restarts) <= slack
+            n = min(len(a.restart_rrns), len(j.restart_rrns))
+            np.testing.assert_allclose(
+                np.asarray(a.restart_rrns[:n], np.float64),
+                np.asarray(j.restart_rrns[:n], np.float64), rtol=1e-6)
+            if method == "block":
+                # each side's modelled reads for the iterations it ran
+                assert float(j.bytes_read) == _block_bytes(j, 20, row)
+                assert a.bytes_read == _block_bytes(a, 20, row)
             np.testing.assert_allclose(a.x.numpy(), np.asarray(j.x),
                                        rtol=1e-9, atol=1e-13)
             np.testing.assert_allclose(a.x.numpy(), z.x.numpy(), rtol=1e-9,

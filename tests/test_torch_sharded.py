@@ -8,10 +8,12 @@ through the JAX package on 8 emulated devices
 (``--xla_force_host_platform_device_count=8``, as
 ``tests/test_sharded_driver.py`` does).  Both solve the problems' operators
 (bit-equal in the two packages) with the same seeded numpy right-hand
-sides.  Both run concurrently, each under
-a deadline of its own, and the results are compared here (a worker of
-pytest-xdist that replaces a crashed one reads them from the run's shared
-directory, ``_torch_dist_cases.worlds_dir``).  Tolerances:
+sides.  They run one after the other, each under a deadline of its own,
+under a file lock that keeps them from overlapping the 8-rank world of
+``tests/test_torch_collectives.py`` (``_torch_dist_cases.run_worlds``),
+and the results are compared here (a worker of pytest-xdist that replaces
+a crashed one reads them from the run's shared directory,
+``_torch_dist_cases.worlds_dir``).  Tolerances:
 
 * ``converged``, ``stagnated``, the executed matvec mode and reorder equal;
 * iterations: equal for the coded transports; within 1 for ``plain``,
@@ -155,15 +157,16 @@ def worlds(tmp_path_factory):
     jax_pkl, port_pkl = d / "jax.pkl", d / "port.pkl"
     cli_json = d / "cli.json"
     if not (d / "done").exists():
-        jproc = C.start(["-c", _JAX_SCRIPT, str(jax_pkl)],
-                        {"JAX_PLATFORMS": "cpu"})
-        pproc = C.start(["-c", "import _torch_dist_cases as c; c.main()",
-                         "solve", str(port_pkl)])
-        C.finish(pproc, "the port's 8-rank world")
-        cproc = C.start(["-m", "repro_torch.launch.solve", "--device", "cpu",
-                         "--shard", "4", *CLI_ARGS, "--json", str(cli_json)])
-        C.finish(cproc, "the port's --shard 4 CLI")
-        C.finish(jproc, "the JAX package's 8-device run")
+        C.run_worlds(d, [
+            ("the port's 8-rank world",
+             ["-c", "import _torch_dist_cases as c; c.main()", "solve",
+              str(port_pkl)], None),
+            ("the port's --shard 4 CLI",
+             ["-m", "repro_torch.launch.solve", "--device", "cpu",
+              "--shard", "4", *CLI_ARGS, "--json", str(cli_json)], None),
+            ("the JAX package's 8-device run",
+             ["-c", _JAX_SCRIPT, str(jax_pkl)], {"JAX_PLATFORMS": "cpu"}),
+        ])
         (d / "done").touch()
     with open(jax_pkl, "rb") as f:
         ref = pickle.load(f)

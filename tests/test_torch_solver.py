@@ -23,6 +23,7 @@ from repro.sparse import make_problem as jmake
 from repro.sparse import rhs_for as jrhs
 from repro_torch.convert import csr_from_numpy
 from repro_torch.solver import cb_gmres, gmres, gmres_batched
+from tests import _torch_jax_numerics as JN
 
 torch.set_num_threads(2)
 
@@ -50,7 +51,10 @@ def _problem(name, n=512):
 @pytest.mark.parametrize("name,kw", CASES,
                          ids=[f"{p}-{'-'.join(map(str, k.values()))}"
                               for p, k in CASES])
-def test_port_matches_jax_host_driver(name, kw):
+def test_port_matches_jax_host_driver(name, kw, monkeypatch):
+    # float16 rows are stored with the installed JAX's f64 -> f16 rounding
+    # (once or through f32, by host: tests/_torch_jax_numerics.py)
+    JN.install_f16_rounding(monkeypatch)
     A, At, b, target = _problem(name)
     rj = jgmres(A, jnp.asarray(b), m=40, target_rrn=target, driver="host",
                 **kw)
