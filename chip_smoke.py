@@ -191,6 +191,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    a decode write past it; each decode step's byte bound on the experts
    its kept choices reach, beside the bound with all of them; and
    mixtral's decode steps profiled (``launch.profile``).
+11. serving the SSM and hybrid families at full width and full depth
+   (bf16, random weights from a seed), one model at a time:
+   falcon-mamba-7b (64 Mamba1 layers, d 4096, no attention and no KV
+   cache) and zamba2-7b (81 Mamba2 layers, d 3584, one shared attention
+   block of 32 heads at head_dim 112 applied after every sixth layer, 13
+   times, each application with its own FRSZ2 cache).  Each: the
+   teacher-forcing check (prefill of 1023 tokens and one decode step
+   against the parallel forward over 1024, B = 2: the scans' chunks are 93
+   and 128 positions), within 5e-2 of the largest logit: falcon-mamba in
+   bf16, zamba2 on its weights cast to f32 with ``bf16`` and ``frsz2_16``
+   caches (in bf16 its 94 blocks amplify last-bit differences past 5e-2;
+   that error is measured and printed beside it, a prefill of 1024 against
+   a forward over 2048); ``serve`` with phase 9's traffic (16
+   requests over 8 slots, prompt 2048, 32 new tokens), for zamba2 in
+   ``frsz2_16`` and ``frsz2_8`` (its ``bf16`` run is left out for time):
+   tokens in range, finite logits,
+   zamba2's ``decode_attn`` and ``frsz2_cache_write`` once an application
+   a decode step (13) and the cache write once an application in the
+   prefill, ``frsz2_compress`` never, falcon-mamba no launch at all (it
+   has no stream for the codec); kernel 9 at D = 112 on the served cache
+   against its plain version (f32 q within 1e-5 of the largest output,
+   the served bf16 q within one bf16 step), timed beside its bound, the
+   plain version and SDPA on the decoded K/V, for l 16 and 8; the cache
+   write at D = 112: the last application's served cache equal to the
+   plain writes replayed, and the prefill and a decode write timed beside
+   their bounds; each step's byte bound (``launch.profile.
+   decode_step_bytes``: weights, the shared block once an application,
+   the SSM states read and written, the K/V attended), the peak memory and
+   the cache's size; two decode steps of each model profiled, the kernels
+   that took the most device time listed (their prefills run unprofiled:
+   a profiler over falcon-mamba's ~10^5 launches takes minutes).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -280,6 +311,24 @@ MOE_REQUESTS, MOE_SLOTS, MOE_PROMPT, MOE_NEW = 8, 8, 4096, 32
 MOE_FORMATS = {"mixtral-8x22b": ("frsz2_16", "frsz2_8", "bf16"),
                "llama4-scout-17b-a16e": ("frsz2_16",)}
 MOE_TF_S, MOE_TF_FORWARD = 5120, 6144
+#: phase 11: the SSM and hybrid families at full width and full depth,
+#: with phase 9's traffic.  The teacher-forcing prompt and the forward's
+#: length have large divisors: the scans' chunks (the largest divisor up
+#: to 128) are 93 and 128 positions.  zamba2's check runs on its weights
+#: in f32: in bf16 the 94 blocks of the random-weight model amplify the
+#: last-bit differences between differently shaped products (the decode
+#: step's M = 2 against the forward's M = 2048) past 5e-2 even where the
+#: chunks line up (``SSM_TF_BF16``, measured and printed beside it)
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+#: zamba2's ``bf16`` run (phase 9's third format) is left out to keep the
+#: phase near 90 s: with it the phase took 120 s
+SSM_FORMATS = {"falcon-mamba-7b": ("frsz2_16",),
+               "zamba2-7b": ("frsz2_16", "frsz2_8")}
+#: decode steps profiled a model: the profiler's processing of a step's
+#: 4,000-8,000 launches takes seconds each
+SSM_PROFILE_STEPS = 2
+SSM_TF_S = 1023
+SSM_TF_BF16 = (1024, 2048)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2241,7 +2290,11 @@ def phase_decode_attn():
              (128, 16, 6, torch.uint8, torch.float32),
              (128, 16, 6, torch.uint8, torch.bfloat16),
              (128, 8, 5, torch.uint8, torch.float32),
-             (128, 16, 5, torch.uint8, torch.bfloat16)]
+             (128, 16, 5, torch.uint8, torch.bfloat16),
+             # zamba2-7b's head_dim (bs = D = 112, no power of two)
+             (112, 16, 1, torch.uint8, torch.float32),
+             (112, 8, 4, torch.uint8, torch.bfloat16),
+             (112, 16, 4, torch.int32, torch.float32)]
     lens = torch.tensor([1, 517, 1000], dtype=torch.int32, device=dev)
     for D_, l, G_, edt, qdt in spots:
         q, kbc, vbc = _attn_inputs(g2, 3, 2, G_, 1000, D_, l, edt, qdt)
@@ -2249,8 +2302,8 @@ def phase_decode_attn():
         ok = rel <= ATTN_TOL if qdt == torch.float32 else err <= ATTN_TOL_BF16
         check(ok, f"decode_attn spot D={D_} l={l} G={G_} {edt} {qdt}: max "
                   f"abs error {err:.3e}, {rel:.3e} of the largest output")
-    print(f"[attn] spot checks passed: {len(spots)} (D 64/128, G 1/2/3/4/5/"
-          "6/8/12, S=1000, bf16 q, int32 exponents, a length-1 row)")
+    print(f"[attn] spot checks passed: {len(spots)} (D 64/112/128, G 1/2/3/4/"
+          "5/6/8/12, S=1000, bf16 q, int32 exponents, a length-1 row)")
 
     # the kernel's tile and split edges; K/V blocks across the decode guard
     edge = cardcheck.ATTN_EDGE_LENGTHS
@@ -2258,7 +2311,8 @@ def phase_decode_attn():
     S_e = max(edge) + 2
     for D_, l, G_, edt, qdt in ((128, 16, 8, torch.uint8, torch.float32),
                                 (64, 8, 3, torch.int32, torch.bfloat16),
-                                (128, 8, 12, torch.uint8, torch.float32)):
+                                (128, 8, 12, torch.uint8, torch.float32),
+                                (112, 16, 1, torch.uint8, torch.float32)):
         q, kbc, vbc = _attn_inputs(g2, len(edge), 2, G_, S_e, D_, l, edt, qdt)
         out, err, rel = _attn_pair(q, kbc, vbc, lens_e)
         ok = rel <= ATTN_TOL if qdt == torch.float32 else err <= ATTN_TOL_BF16
@@ -2275,8 +2329,8 @@ def phase_decode_attn():
                                    f"decode guard, {rel:.3e} of the largest "
                                    "output")
             rows += n
-    print(f"[attn] tile edges: lengths {list(edge)} in S={S_e} (D 64/128, l "
-          f"8/16, G 3/8/12, bf16 q) within tolerance, the empty row 0; "
+    print(f"[attn] tile edges: lengths {list(edge)} in S={S_e} (D 64/112/128,"
+          f" l 8/16, G 1/3/8/12, bf16 q) within tolerance, the empty row 0; "
           f"across the decode guard: {rows} sequences, V equal to "
           "decompress, K within tolerance")
     return entries
@@ -2718,24 +2772,24 @@ class _MoeServeTap:
             setattr(m, n, f)
 
 
-def _ring_cache_writes(tap, fmt):
-    """The cache write (kernel 1) on the served ring.  The last layer's
-    served cache, as the kernel left it after the prefill into the ring and
-    every decode write past it (slot = position mod ring), against the
-    plain version (``ops.cache_write(..., kernel=False)``) replayed from the
-    same K/V and lengths: every code and exponent equal.  Then, on fresh
-    layers, the kernel through the model's calls against the plain version
-    at three writes: the prefill as served, a prefill of ring + 1024
-    positions (the roll: the last ring positions at their modular slots,
-    its first 1024 dropped) and the last decode write; each equal, and
-    timed beside its byte bound."""
+def _served_cache_writes(tap, fmt, key="ring_write", tag="[moe]"):
+    """The cache write (kernel 1) on a served cache.  The last layer's
+    served cache (zamba2: the last application's), as the kernel left it
+    after the prefill and every decode write (into a ring: slot = position
+    mod ring), against the plain version (``ops.cache_write(...,
+    kernel=False)``) replayed from the same K/V and lengths: every code and
+    exponent equal.  Then, on fresh layers, the kernel through the model's
+    calls against the plain version at the prefill as served, into a ring
+    a prefill of ring + 1024 positions (the roll: the last ring positions
+    at their modular slots, its first 1024 dropped), and the last decode
+    write; each equal, and timed beside its byte bound, as ``{key}_*``."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.models import kvcache
 
     q, lc, lengths, _, kw = tap.last
-    ring = kw["ring"]
+    ring = kw.get("ring", 0)
     D = q.shape[-1]
     spec = fmt.spec(D)
     names = ("k_codes", "k_exps", "v_codes", "v_exps")
@@ -2745,7 +2799,7 @@ def _ring_cache_writes(tap, fmt):
           f"the last layer's cache writes are not a prefill and decode "
           f"steps: {[None if w[2] is None else tuple(w[0].shape) for w in tap.writes]}")
     check(all(w[3].get("ring") == ring for w in tap.writes),
-          "a cache write of the served ring passed another ring")
+          "a cache write of the served cache passed another ring")
 
     def fresh():
         return {n: torch.zeros_like(lc[n]) for n in names}
@@ -2759,20 +2813,24 @@ def _ring_cache_writes(tap, fmt):
         plain(replay, k, v, lens, wkw.get("clear_from"))
     for n in names:
         check(torch.equal(replay[n], lc[n]),
-              f"the served ring cache's {n} differ from the plain writes "
+              f"the served cache's {n} differ from the plain writes "
               f"replayed (a prefill of {tap.writes[0][0].shape[1]} and "
               f"{len(tap.writes) - 1} decode writes, ring {ring}, lengths "
               f"{lengths.tolist()})")
     kp, vp = tap.writes[0][:2]
     kd, vd, ld = tap.writes[-1][:3]
-    roll = 1024
-    kr, vr = (torch.cat([x, x[:, :roll]], 1) for x in (kp, vp))
-    cases = {"prefill": (kp, vp, None), "rolled_prefill": (kr, vr, None),
-             "step": (kd, vd, ld)}
-    out = dict(ring_write_ring=ring, ring_write_replayed=len(tap.writes))
+    cases = {"prefill": (kp, vp, None)}
+    if ring:
+        roll = 1024
+        cases["rolled_prefill"] = tuple(torch.cat([x, x[:, :roll]], 1)
+                                        for x in (kp, vp)) + (None,)
+    cases["step"] = (kd, vd, ld)
+    out = {f"{key}_ring": ring, f"{key}_replayed": len(tap.writes)}
+    where = f"into the ring of {ring}" if ring else f"at D = {D}"
     cd = torch.empty((), dtype=fmt.code_dtype()).element_size()
     for name, (k, v, lens) in cases.items():
         T = k.shape[1]
+        stored = min(T, ring) if ring else T
         kl = fresh()
         if lens is None:
             def write(kl=kl, k=k, v=v):
@@ -2780,36 +2838,37 @@ def _ring_cache_writes(tap, fmt):
         else:
             def write(kl=kl, k=k, v=v, lens=lens):
                 kvcache.append(kl, k, v, lens, fmt, ring=ring)
-        clear = min(T, ring) if lens is None else None
+        clear = stored if lens is None else None
         write()
         pl = fresh()
         plain(pl, k, v, lens, clear)
         for n in names:
             check(torch.equal(kl[n], pl[n]),
-                  f"cache write into the ring, {name} ({tuple(k.shape)}, "
-                  f"ring {ring}): {n} != plain")
+                  f"cache write {where}, {name} ({tuple(k.shape)}): {n} != "
+                  "plain")
         # K and V read once and their codes and a uint8 exponent a row
         # written once, for the rows that land (a roll drops the rest)
-        rows = 2 * B * Hkv * min(T, ring)
+        rows = 2 * B * Hkv * stored
         nbytes = rows * D * (k.element_size() + cd) + rows + (
             4 * B if lens is not None else 0)
         out.update({
-            f"ring_write_{name}_shape": list(k.shape),
-            f"ring_write_{name}_ms": timed(write),
-            f"ring_write_{name}_plain_ms": timed(
+            f"{key}_{name}_shape": list(k.shape),
+            f"{key}_{name}_ms": timed(write),
+            f"{key}_{name}_plain_ms": timed(
                 lambda k=k, v=v, lens=lens, clear=clear: plain(
                     fresh(), k, v, lens, clear), reps=3),
-            f"ring_write_{name}_bound_ms": bound_ms(nbytes)[0]})
-        print(f"[moe] cache write into the ring of {ring}, {name} "
+            f"{key}_{name}_bound_ms": bound_ms(nbytes)[0]})
+        print(f"{tag} cache write {where}, {name} "
               f"({tuple(k.shape)} {str(k.dtype)[6:]} K and V, l {spec.l}"
               + (f", lengths {int(lens.min())}-{int(lens.max())}"
                  if lens is not None else "") + "): equal to plain, "
-              f"{out[f'ring_write_{name}_ms'] * 1e3:.2f} us, plain "
-              f"{out[f'ring_write_{name}_plain_ms'] * 1e3:.1f} us, bound "
-              f"{out[f'ring_write_{name}_bound_ms'] * 1e3:.3f} us")
-    print(f"[moe] the served ring cache of the last layer ({B}x{Hkv}x{S} "
-          f"slots, lengths {int(lengths.min())}-{int(lengths.max())}) equals "
-          f"the plain version replayed over its {len(tap.writes)} writes")
+              f"{out[f'{key}_{name}_ms'] * 1e3:.2f} us, plain "
+              f"{out[f'{key}_{name}_plain_ms'] * 1e3:.1f} us, bound "
+              f"{out[f'{key}_{name}_bound_ms'] * 1e3:.3f} us")
+    print(f"{tag} the served cache of the last layer ({B}x{Hkv}x{S} slots"
+          + (f", a ring of {ring}" if ring else "") + ", lengths "
+          f"{int(lengths.min())}-{int(lengths.max())}) equals the plain "
+          f"version replayed over its {len(tap.writes)} writes")
     return out
 
 
@@ -2943,7 +3002,7 @@ def _moe_serve(arch, params, fmt_name, device_line):
     ring = {}
     if frsz and window:
         ring = _ring_attention_check(tap)
-        ring.update(_ring_cache_writes(tap, fmt))
+        ring.update(_served_cache_writes(tap, fmt))
     # the byte bound of a decode step, as phase 9's: the weights it needs,
     # every one but the embedding table and the experts that none of the
     # step's kept choices reach (the distinct experts of each layer's
@@ -3066,6 +3125,336 @@ def phase_moe(device_line):
     return attn, write
 
 
+def _hd112_attention_check(tap):
+    """Kernel 9 at D = 112 on zamba2's served cache (the last decode step's
+    q, the last application's cache and lengths) against its plain version
+    on the card, f32 q within 1e-5 of the largest output and bf16 q (as
+    served) within one bf16 step; timed beside its bound, the plain version
+    and SDPA on the decoded K/V."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cardcheck import ATTN_TOL, ATTN_TOL_BF16
+    from repro_torch.kernels.cardcheck import attn_pair as _attn_pair
+
+    check(tap.last is not None, "zamba2's serve run attended no cache")
+    q, lc, lengths, fmt, _ = tap.last
+    B, H, D = q.shape
+    _, Hkv, S, _ = lc["k_codes"].shape
+    G = H // Hkv
+    check(D == 112, f"zamba2 attended at D = {D}")
+    spec = fmt.spec(D)
+    kbc, vbc = (F.BlockCompressed(codes=lc[f"{n}_codes"].view(B, Hkv, S, 1, D),
+                                  exps=lc[f"{n}_exps"], n=D, spec=spec)
+                for n in "kv")
+    out = {}
+    for label, qq, tol in (("served", q, ATTN_TOL_BF16),
+                           ("f32", q.float(), ATTN_TOL)):
+        ops.reset_launches()
+        _, err, rel = _attn_pair(qq, kbc, vbc, lengths)
+        check(ops.LAUNCHES["decode_attn"] == 1,
+              "kernel 9 at D = 112 did not launch")
+        check(rel <= tol, f"decode_attn at D = 112, l = {spec.l}, {qq.dtype}"
+                          f" q: max abs error {err:.3e}, {rel:.3e} of the "
+                          "largest output")
+        out[f"hd112_rel_err_{label}_q_l{spec.l}"] = rel
+        out[f"hd112_err_{label}_q_l{spec.l}"] = err
+    valid = int(lengths.clamp(max=S).sum())
+    kd = ops.decompress(kbc, kernel=False).view(B, Hkv, S, D)
+    vd = ops.decompress(vbc, kernel=False).view(B, Hkv, S, D)
+    mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+            )[:, None, None, :]
+    sdpa = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention,
+        q.float().view(B, Hkv, G, D), kd, vd, attn_mask=mask)
+    code_bytes = F.code_dtype(spec.l).itemsize
+    nbytes = (2 * valid * Hkv * (D * code_bytes + 1)
+              + 2 * B * H * D * q.element_size())
+    b, by = bound_ms(nbytes, 4.0 * valid * Hkv * G * D, FP32_FLOPS)
+    sfx = f"_l{spec.l}"
+    out.update({
+        "hd112_shape" + sfx: f"B={B} Hkv={Hkv} G={G} D={D} S={S}, lengths "
+                             f"{int(lengths.min())}-{int(lengths.max())}, "
+                             f"{valid} valid positions, l={spec.l}, "
+                             f"{q.dtype} q",
+        "hd112_ms" + sfx: timed(lambda: ops.decode_attention(
+            q, kbc, vbc, lengths, kernel=True)),
+        "hd112_plain_ms" + sfx: timed(lambda: ops.decode_attention(
+            q, kbc, vbc, lengths, kernel=False), reps=3),
+        "hd112_bound_ms" + sfx: b, "hd112_bound_by" + sfx: by,
+        "hd112_bytes" + sfx: nbytes,
+        "hd112_library_ms" + sfx: timed(sdpa)})
+    print(f"[ssm] kernel 9 at D = 112 on zamba2's served cache "
+          f"({out['hd112_shape' + sfx]}): {out['hd112_ms' + sfx] * 1e3:.1f} "
+          f"us, bound {b * 1e3:.2f} us, plain "
+          f"{out['hd112_plain_ms' + sfx] * 1e3:.1f} us, SDPA on the decoded "
+          f"K/V {out['hd112_library_ms' + sfx] * 1e3:.1f} us; against the "
+          f"plain version: served q {out['hd112_rel_err_served_q' + sfx]:.3e}"
+          f", f32 q {out['hd112_rel_err_f32_q' + sfx]:.3e} of the largest "
+          "output")
+    return out
+
+
+def _ssm_teacher_forcing(params, cfg, S=SSM_TF_S, forward=SSM_TF_S + 1):
+    """Relative errors of a prefill of ``S`` tokens and of one decode step
+    against the parallel forward over ``forward`` tokens (causal: the
+    positions past S change nothing before them)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill, trunk
+    from repro_torch.models.layers import rms_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_B, forward), generator=gen,
+                           device="cuda")
+    h, _ = trunk(params, cfg, tokens)
+
+    def head(x):
+        return (rms_norm(x, params["final_ln"]) @ params["unembed"]).float()
+
+    want, want2 = head(h[:, S - 1]), head(h[:, S])
+    del h
+    torch.cuda.empty_cache()
+    got, cache = prefill(params, cfg, tokens[:, :S], cache_len=S + 4)
+    got2, _ = decode_step(params, cfg, cache, tokens[:, S])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return rel(got, want), rel(got2, want2)
+
+
+def _ssm_serve(cfg, params, device_line):
+    """One ``serve`` run of an SSM-family model with phase 9's traffic and
+    launch checks; returns its row and, for zamba2's FRSZ2 runs, the checks
+    of kernels 9 and 1 on what it served."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile import decode_step_bytes
+    from repro_torch.launch.serve import ServeConfig, decode_steps, serve
+    from repro_torch.models import kvcache
+    from repro_torch.models.lm import kv_layers
+
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
+    sc = ServeConfig(slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+                     max_new=SERVE_NEW)
+    steps = decode_steps(len(reqs), sc)
+    sc.max_ctx = SERVE_PROMPT + steps + 8
+    fmt = kvcache.cache_format(cfg.kv_format)
+    R = kv_layers(cfg)
+    frsz = fmt.kind == "frsz2" and R > 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    with _MoeServeTap(max(R, 1), SERVE_SLOTS) as tap:
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = serve(cfg, sc, reqs, params=params, device="cuda",
+                    verbose=False, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    label = f"{cfg.name} {cfg.kv_format if R else '(no KV cache)'}"
+    check(sorted(out) == list(range(len(reqs))), f"{label}: serve lost a "
+                                                 "request")
+    check(all(len(v) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in v)
+              for v in out.values()),
+          f"{label}: a completion is not {SERVE_NEW} tokens in range")
+    check(stats["nonfinite_logits"] == 0,
+          f"{label}: {stats['nonfinite_logits']} logits not finite")
+    check(len(stats["step_s"]) == steps and len(stats["prefill_s"]) == 1,
+          f"{label}: {len(stats['step_s'])} decode steps, "
+          f"{len(stats['prefill_s'])} prefills")
+    split = {"prefill": stats["prefill_launches"],
+             "step": stats["step_launches"]}
+    # zamba2: its shared block writes its cache once an application in the
+    # prefill and in each step, and attends once an application a step
+    per = {"prefill": (1, {"decode_attn": 0, "frsz2_cache_write": 1,
+                           "frsz2_compress": 0}),
+           "step": (steps, {"decode_attn": 1, "frsz2_cache_write": 1,
+                            "frsz2_compress": 0})}
+    for part, (n, want) in per.items():
+        for k, m in want.items():
+            n_want = n * m * R if frsz else 0
+            check(split[part][k] == n_want,
+                  f"{label}: {k} launched {split[part][k]} times in the "
+                  f"{part}, the path implies {n_want}")
+    others = {k: v for k, v in got.items() if v and k not in per["step"][1]}
+    check(not others, f"{label}: other kernels launched: {others}")
+    if not R:
+        check(not any(got.values()),
+              f"{label}: FRSZ2 kernels launched: {got}")
+        print(f"[ssm] {cfg.name}: 0 FRSZ2 launches in the prefill and the "
+              f"{steps} decode steps: a pure SSM keeps no KV cache, so the "
+              "paper's technique has no written-once, re-read-many stream "
+              "to compress here (its state is rewritten every step)")
+    checks = {}
+    if frsz:
+        checks = _hd112_attention_check(tap)
+        if fmt.l == 16:
+            checks.update(_served_cache_writes(tap, fmt, "hd112_write",
+                                               "[ssm]"))
+    del tap
+    mean_len = SERVE_PROMPT + (steps + 1) / 2
+    bound = decode_step_bytes(cfg, params, SERVE_SLOTS, mean_len)
+    row = dict(phase="ssm-serve", arch=cfg.name, layers=cfg.num_layers,
+               kv_format=cfg.kv_format if R else None, kv_layers=R,
+               requests=len(reqs), slots=SERVE_SLOTS, prompt=SERVE_PROMPT,
+               max_new=SERVE_NEW, decode_steps=steps,
+               prefill_s=stats["prefill_s"],
+               step_ms_median=statistics.median(stats["step_s"]) * 1e3,
+               step_ms_min=min(stats["step_s"]) * 1e3,
+               decode_tokens_per_s=SERVE_SLOTS * steps / sum(stats["step_s"]),
+               step_bound_ms=bound["bound_ms"],
+               step_weight_bytes=bound["weight_bytes"],
+               step_state_bytes=bound["state_bytes"],
+               step_cache_bytes=bound["cache_bytes"], wall_s=wall,
+               peak_mem_bytes=peak,
+               cache_nbytes=kvcache.cache_nbytes(
+                   fmt, R, SERVE_SLOTS, cfg.num_kv_heads, sc.max_ctx,
+                   cfg.hd) if R else 0,
+               launches={k: v for k, v in got.items() if v},
+               step_launches={k: v for k, v in split["step"].items() if v},
+               prefill_launches={k: v for k, v in split["prefill"].items()
+                                 if v},
+               sample=out[0][:8], device=device_line, **checks)
+    emit(row)
+    print(f"[ssm] {label}: prefill {row['prefill_s'][0]:.3f} s, decode step "
+          f"median {row['step_ms_median']:.2f} ms (bound "
+          f"{row['step_bound_ms']:.2f} ms: {bound['weight_bytes'] / 1e9:.2f}"
+          f" GB of weights, {bound['state_bytes'] / 1e9:.3f} GB of state, "
+          f"{bound['cache_bytes'] / 1e9:.3f} GB of cache), "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB, cache {row['cache_nbytes'] / 1e9:.3f} GB,"
+          f" decode_attn {split['step']['decode_attn']} and "
+          f"frsz2_cache_write {split['step']['frsz2_cache_write']} in "
+          f"{steps} steps")
+    return row
+
+
+def phase_ssm(device_line):
+    """Slice 7b's path: falcon-mamba-7b and zamba2-7b served at full width
+    and full depth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.profile import profile_decode
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import kv_layers
+
+    t_phase = time.perf_counter()
+    marks = []                                 # (what, seconds) in order
+
+    def mark(what, t0):
+        marks.append((what, time.perf_counter() - t0))
+        return time.perf_counter()
+
+    attn, write, launches = {}, {}, {}
+    for arch in SSM_ARCHS:
+        cfg = get_arch(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        R = kv_layers(cfg)
+        print(f"[ssm] {arch}: full width and depth ({cfg.num_layers} "
+              f"Mamba{cfg.mamba_version} layers, d={cfg.d_model}, "
+              f"d_inner={cfg.d_inner}, N={cfg.ssm_state}"
+              + (f", P={cfg.ssm_head_dim}, one shared attention block "
+                 f"({cfg.num_heads}/{cfg.num_kv_heads} heads, hd={cfg.hd}, "
+                 f"d_ff={cfg.d_ff}) applied {R} times"
+                 if cfg.family == "hybrid" else "")
+              + f", vocab={cfg.vocab_size}, {cfg.dtype}): {n / 1e9:.2f} B "
+              f"parameters, {w_bytes / 1e9:.2f} GB drawn in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = mark(f"{arch} weights", t0)
+        # zamba2's check on its weights cast to f32 (see SSM_TF_BF16)
+        tf_params = _cast(params, torch.float32) if R else params
+        tf_dtype = "float32" if R else cfg.dtype
+        for fmt in ("bf16", "frsz2_16") if R else (cfg.kv_format,):
+            e1, e2 = _ssm_teacher_forcing(tf_params, dataclasses.replace(
+                cfg, kv_format=fmt, dtype=tf_dtype))
+            print(f"[ssm] {arch} teacher forcing, {tf_dtype} weights"
+                  + (f", {fmt} cache" if R else "") + f" (B={TF_B}, "
+                  f"S={SSM_TF_S}, the forward over {SSM_TF_S + 1}): prefill "
+                  f"{e1:.3e}, decode {e2:.3e} (relative to the largest "
+                  f"logit, tolerance {TF_TOL})")
+            check(e1 <= TF_TOL and e2 <= TF_TOL,
+                  f"{arch} teacher forcing {fmt}: {e1:.3e}, {e2:.3e} > "
+                  f"{TF_TOL}")
+            emit(dict(phase="ssm-teacher-forcing", arch=arch,
+                      dtype=tf_dtype, kv_format=fmt if R else None,
+                      prefill_rel_err=e1, decode_rel_err=e2))
+        del tf_params
+        torch.cuda.empty_cache()
+        if R:
+            S_, F_ = SSM_TF_BF16
+            e1, e2 = _ssm_teacher_forcing(params, dataclasses.replace(
+                cfg, kv_format="frsz2_16"), S_, F_)
+            print(f"[ssm] {arch} in bf16 (frsz2_16 cache, S={S_}, the "
+                  f"forward over {F_}: the chunks line up): prefill "
+                  f"{e1:.3e}, decode {e2:.3e}; measured, not held to "
+                  f"{TF_TOL}: bf16 roundings of differently shaped products,"
+                  f" amplified over {cfg.num_layers + 2 * R} blocks")
+            emit(dict(phase="ssm-teacher-forcing", arch=arch,
+                      dtype=cfg.dtype, kv_format="frsz2_16", prompt=S_,
+                      forward=F_, prefill_rel_err=e1, decode_rel_err=e2,
+                      checked=False))
+            torch.cuda.empty_cache()
+        t0 = mark(f"{arch} teacher forcing", t0)
+        for fmt in SSM_FORMATS[arch]:
+            row = _ssm_serve(dataclasses.replace(cfg, kv_format=fmt), params,
+                             device_line)
+            torch.cuda.empty_cache()
+            t0 = mark(f"{arch} serve {fmt if R else ''}".rstrip(), t0)
+            if R and fmt.startswith("frsz2"):
+                attn.update({k: v for k, v in row.items()
+                             if k.startswith("hd112_")
+                             and not k.startswith("hd112_write_")})
+                write.update({k: v for k, v in row.items()
+                              if k.startswith("hd112_write_")})
+            if R and fmt == "frsz2_16":
+                launches = row["step_launches"]
+        cfg_p = dataclasses.replace(cfg, kv_format=SSM_FORMATS[arch][0])
+        prof = profile_decode(cfg_p, params, top=8,
+                              steps=SSM_PROFILE_STEPS, profile_prefill=False)
+        t0 = mark(f"{arch} profile", t0)
+        emit(dict(phase="ssm-profile", device=device_line, **prof))
+        print(f"[ssm] {arch}" + (f" {cfg_p.kv_format}" if R else "")
+              + f" profiled: {prof['wall_per_step_ms']:.2f} ms wall and "
+              f"{prof['device_per_step_ms']:.2f} ms of device time a decode "
+              f"step (bound {prof['step_bound_ms']:.2f} ms), busy "
+              f"{prof['device_busy_share']:.3f}, "
+              f"{prof['launches_per_step']:.0f} launches a step")
+        if R:
+            attn["hd112_profile"] = prof
+        else:
+            attn["ssm_profile_" + arch] = prof
+        del params
+        release()
+    print(f"[ssm] phase 11 took {time.perf_counter() - t_phase:.1f} s: "
+          + "; ".join(f"{w} {t:.1f}" for w, t in marks))
+    attn["hd112_serve_step_launches"] = launches.get("decode_attn", 0)
+    write["hd112_serve_step_launches"] = launches.get("frsz2_cache_write", 0)
+    return attn, write
+
+
+def _cast(tree, dtype):
+    """A copy of a weight tree with every floating tensor in ``dtype``."""
+    return {k: _cast(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3140,6 +3529,9 @@ def _run(t_start, device_line) -> int:
     release()
     ring_attn, ring_write = phase_moe(device_line)
     entries["decode_attn"].update(ring_attn)
+    release()
+    hd112_attn, hd112_write = phase_ssm(device_line)
+    entries["decode_attn"].update(hd112_attn)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at
@@ -3153,7 +3545,7 @@ def _run(t_start, device_line) -> int:
         err_unit="code", **writes,
         serve_step_launches=serve_launches["frsz2_cache_write_step"],
         serve_prefill_launches=serve_launches["frsz2_cache_write_prefill"],
-        **ring_write)
+        **ring_write, **hd112_write)
     entries["frsz2_compress"]["serve_launches"] = serve_launches[
         "frsz2_compress"]
     for name, e in entries.items():

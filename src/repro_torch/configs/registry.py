@@ -4,8 +4,8 @@ Ten published configurations; sources are cited per entry.  The frontend
 stubs of whisper (conv audio) and llama-3.2 vision give precomputed
 embeddings whose token counts the reference rounded to a multiple of 128
 (1500 -> 1536 frames, 1601 -> 1664 patches).  The entries are data: the
-port serves the dense and MoE families, and ``repro_torch.models.lm``
-raises for the others.
+port serves the dense, MoE, SSM and hybrid families, and
+``repro_torch.models.lm`` raises for the others (encdec, VLM).
 """
 from __future__ import annotations
 

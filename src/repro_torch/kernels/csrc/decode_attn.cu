@@ -53,6 +53,12 @@
 // same function.  FP32 CUDA cores, not tensor cores: a 16-bit code carries a
 // 15-bit significand, which neither bf16 nor tf32 holds exactly.
 //
+// Head widths: D = 64, 112 (zamba2-7b's) and 128.  D = 112 is no power of
+// two: its rows are 14 chunks of 8 codes (224 or 112 bytes, still whole
+// 16-byte copies), P.V's 28 column quads leave 16 of the 128 threads idle,
+// and its cache holds one block a row (nbd = 1, bs = D), so every code's
+// exponent is the row's first.
+//
 // Layouts (row-major):
 //   q        (B, Hkv, G, D)         f32 or bf16
 //   k/v codes (B, Hkv, S, D)        uint8 (l = 8) or uint16 (l = 16) patterns
@@ -191,6 +197,7 @@ struct Geom {
   static constexpr int RSK = RB + CB;          // K row stride: one chunk of padding
   static constexpr int DQ = D / kPvCols;       // P.V: column quads
   static constexpr int TP = kThreads / DQ;     // P.V: position lanes
+  static constexpr int PVT = TP * DQ;          // P.V: threads that own columns
   static constexpr int RED = TP * GT * D * 4;  // the split's closing sum
   __host__ __device__ static int exp_bytes(int nbd) { return (kTile * nbd + 8 + 15) / 16 * 16; }
   __host__ __device__ static int stage_bytes(int nbd) {
@@ -313,6 +320,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int dq = tid % DQ;
   const int tp = tid / DQ;
+  // a thread past TP * DQ (D = 112: 16 of them) owns no P.V column
+  const bool pv = tid < Gm::PVT;
   const int ntiles = (s1 - s0 + kTile - 1) / kTile;
   for (int it = 0; it < ntiles; ++it) {
     const int ts = s0 + it * kTile;
@@ -410,7 +419,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kPvCols; ++i) acc[g][i] *= al;
     }
 #pragma unroll 1
-    for (int t = tp; t < nv; t += TP) {
+    for (int t = pv ? tp : nv; t < nv; t += TP) {
       const Quad w = *reinterpret_cast<const Quad*>(vt + t * RB + dq * kPvCols * sizeof(CodeT));
       const float sc = vsc[t];
       float v[kPvCols];
@@ -436,10 +445,12 @@ __global__ void __launch_bounds__(kThreads)
   // close the split: the position lanes' sums, then one partial per head
   __syncthreads();  // the ring is free
   float* red = reinterpret_cast<float*>(smem);     // (TP, GT, D)
+  if (pv) {
 #pragma unroll
-  for (int g = 0; g < GT; ++g)
-    *reinterpret_cast<float4*>(red + (tp * GT + g) * D + dq * kPvCols) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    for (int g = 0; g < GT; ++g)
+      *reinterpret_cast<float4*>(red + (tp * GT + g) * D + dq * kPvCols) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
 #pragma unroll
   for (int i = 0; i < GPW; ++i) {
     const int g = warp + i * kWarps;
@@ -460,7 +471,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Block-wide max or sum over the D (64 or 128) threads of a merge block;
+// Block-wide max or sum over the threads of a merge block (whole warps);
 // every thread gets the result.
 template <bool MAX>
 __device__ __forceinline__ float block_reduce(float v, float* red) {
@@ -478,10 +489,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return v;
 }
 
-// One block of D threads per (b, query head): merge the splits' partials.
-// The splits' weights exp2(m_s - M) are formed once, in shared memory
-// (nsplit floats, dynamic), by the block's threads together; then each
-// thread sums its column over the splits, the loads independent of each
+// One block per (b, query head), D threads rounded up to whole warps (the
+// reductions shuffle over full warps): merge the splits' partials.  The
+// splits' weights exp2(m_s - M) are formed once, in shared memory (nsplit
+// floats, dynamic), by the block's threads together; then each thread
+// d < D sums its column over the splits, the loads independent of each
 // other.
 template <typename QT>
 __global__ void merge_kernel(const float* __restrict__ part_acc,
@@ -491,18 +503,20 @@ __global__ void merge_kernel(const float* __restrict__ part_acc,
   __shared__ float red[4];
   const long long row = blockIdx.x;
   const int d = threadIdx.x;
+  const int nt = blockDim.x;
   const float* ml = part_ml + 2 * row * nsplit;
   float M = -INFINITY;
-  for (int s = d; s < nsplit; s += D) M = fmaxf(M, ml[2 * s]);
+  for (int s = d; s < nsplit; s += nt) M = fmaxf(M, ml[2 * s]);
   M = block_reduce<true>(M, red);
   float Ls = 0.f;
-  for (int s = d; s < nsplit; s += D) {
+  for (int s = d; s < nsplit; s += nt) {
     const float ms = ml[2 * s];
     const float f = ms == -INFINITY ? 0.f : exp2f(ms - M);
     wts[s] = f;
     Ls = fmaf(ml[2 * s + 1], f, Ls);
   }
   Ls = block_reduce<false>(Ls, red);  // its barriers also publish wts
+  if (d >= D) return;
   const float* acc = part_acc + row * nsplit * D + d;
   float A = 0.f;
 #pragma unroll 8
@@ -546,9 +560,9 @@ struct Launch {
         static_cast<const unsigned char*>(a.ke), static_cast<const CodeT*>(a.vc),
         static_cast<const unsigned char*>(a.ve), a.lengths, a.part_acc, a.part_ml, a.Hkv,
         a.G, a.S, a.nbd, a.bs_log2, a.chunk, a.nsplit, a.scale_log2);
-    merge_kernel<QT><<<static_cast<unsigned>(a.B * a.Hkv * a.G), D, a.nsplit * sizeof(float),
-                       a.stream>>>(a.part_acc, a.part_ml, static_cast<QT*>(a.out), a.nsplit,
-                                   D);
+    merge_kernel<QT><<<static_cast<unsigned>(a.B * a.Hkv * a.G), (D + 31) / 32 * 32,
+                       a.nsplit * sizeof(float), a.stream>>>(
+        a.part_acc, a.part_ml, static_cast<QT*>(a.out), a.nsplit, D);
   }
 };
 
@@ -577,6 +591,7 @@ template <typename QT, typename CodeT, typename F>
 bool by_width(const F& f, int G, int D) {
   switch (D) {
     case 64: by_group<QT, CodeT, 64>(f, G); return true;
+    case 112: by_group<QT, CodeT, 112>(f, G); return true;
     case 128: by_group<QT, CodeT, 128>(f, G); return true;
     default: return false;
   }
@@ -606,9 +621,11 @@ bool dispatch(const F& f, int G, int D, int l, int q_kind) {
 extern "C" {
 
 // q_kind as the codec numbers value kinds (0 f32, 3 bf16); chunk a multiple
-// of the tile (64 positions).  Returns cudaGetLastError() after both
-// launches, or cudaErrorInvalidValue for a shape or type it has no kernel
-// for.
+// of the tile (64 positions); code d's exponent is exps[d >> bs_log2] of its
+// row: nbd << bs_log2 == D, or with one block a row (nbd = 1) any bs_log2
+// with D <= 1 << bs_log2, which maps every d to 0.  Returns
+// cudaGetLastError() after both launches, or cudaErrorInvalidValue for a
+// shape or type it has no kernel for.
 int decode_attn(const void* q, const void* kcodes, const void* kexps, const void* vcodes,
                 const void* vexps, const void* lengths, void* part_acc, void* part_ml,
                 void* out, int B, int Hkv, int G, int S, int D, int nbd, int bs_log2,
@@ -616,7 +633,8 @@ int decode_attn(const void* q, const void* kcodes, const void* kexps, const void
                 void* stream) {
   using namespace frsz2;
   if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || nbd <= 0 || chunk <= 0 ||
-      chunk % attn::kTile != 0 || nsplit <= 0 || nsplit > 8192 || nbd << bs_log2 != D ||
+      chunk % attn::kTile != 0 || nsplit <= 0 || nsplit > 8192 ||
+      (nbd == 1 ? D > 1 << bs_log2 : nbd << bs_log2 != D) ||
       static_cast<long long>(chunk) * nsplit < S ||
       static_cast<long long>(Hkv) * ((G + 7) / 8) > 65535 || B > 65535)
     return cudaErrorInvalidValue;

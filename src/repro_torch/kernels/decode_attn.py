@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import frsz2 as F
 from repro_torch.kernels import build
-from repro_torch.kernels.frsz2_kernel import KIND, bs_log2
+from repro_torch.kernels.frsz2_kernel import KIND
 
 #: the widest group tile of query heads a split block serves
 GROUP_TILE = 8
@@ -38,7 +38,7 @@ MIN_CHUNK, MAX_CHUNK = 2 * TILE, 8 * TILE
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, kcodes, kexps, vcodes, vexps, lengths, part_acc, part_ml, out, B, Hkv,
-#  G, S, D, nbd, bs_log2, l, q_kind, chunk, nsplit, sm_scale, stream)
+#  G, S, D, nbd, exp_shift, l, q_kind, chunk, nsplit, sm_scale, stream)
 _ATTN = [_P] * 9 + [_I] * 11 + [_F, _P]
 # (G, D, nbd, l, q_kind, *blocks)
 _OCC = [_I] * 5 + [_P]
@@ -78,6 +78,14 @@ def splits(B: int, Hkv: int, G: int, S: int, resident: int
     return chunk, -(-S // chunk)
 
 
+def exp_shift(bs: int) -> int:
+    """The shift that maps a code's column to its exponent in the row,
+    ``d >> shift``: log2(bs), rounded up.  For a power of two that is the
+    block index; for any other bs (zamba2's D = bs = 112) the row must be
+    one block, and every column maps to 0."""
+    return (bs - 1).bit_length()
+
+
 def decode_attn(q: torch.Tensor, kcodes: torch.Tensor, kexps: torch.Tensor,
                 vcodes: torch.Tensor, vexps: torch.Tensor,
                 lengths: torch.Tensor, part_acc: torch.Tensor,
@@ -92,7 +100,7 @@ def decode_attn(q: torch.Tensor, kcodes: torch.Tensor, kexps: torch.Tensor,
     build.check(f(q.data_ptr(), kcodes.data_ptr(), kexps.data_ptr(),
                   vcodes.data_ptr(), vexps.data_ptr(), lengths.data_ptr(),
                   part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                  B, Hkv, G, S, D, nbd, bs_log2(spec), spec.l,
+                  B, Hkv, G, S, D, nbd, exp_shift(spec.bs), spec.l,
                   KIND[q.dtype], chunk,
                   part_acc.shape[3], sm_scale, build.stream()),
                 "decode_attn")

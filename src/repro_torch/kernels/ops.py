@@ -8,9 +8,10 @@ the same answer as ``repro/kernels/ops.py:60``):
 * a CPU tensor goes to the plain PyTorch version in :mod:`.ref`;
 * outside the contract (unaligned ``l`` such as 21, ``bs`` not dividing
   128) the plain codec runs on whatever device the tensor is, exactly where
-  the JAX package runs its jnp codec.  The KV-cache write is the exception:
-  it routes by device alone, and a CUDA write its kernel does not take
-  raises.
+  the JAX package runs its jnp codec.  The KV cache's write and its decode
+  attention are the exceptions: they route by device alone, and a CUDA call
+  that the kernel does not take raises (zamba2-7b's head_dim of 112 is no
+  divisor of 128, and both kernels take it).
 
 ``kernel=False`` forces the plain version on the card too, so that
 ``chip_smoke.py`` can compare the two routes there; ``kernel=True`` on a CPU
@@ -553,7 +554,7 @@ def block_givens_step(state: torch.Tensor, H: torch.Tensor, T: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 #: head widths and code lengths the decode-attention kernel takes
-_ATTN_D = (64, 128)
+_ATTN_D = (64, 112, 128)
 _ATTN_L = (8, 16)
 _ATTN_Q = (torch.float32, torch.bfloat16)
 
@@ -569,9 +570,14 @@ def decode_attention(q: torch.Tensor, k_bc: F.BlockCompressed,
     uses ``bs = D``); ``lengths (B,)`` or ``(B, 1)``: positions at or past
     ``lengths[b]`` are masked.  Returns ``(B, H, D)`` in q's dtype,
     computed in f32 (``sm_scale`` defaults to ``D ** -0.5``).  The kernel
-    takes f32 values coded with ``l`` 8 or 16, ``D`` 64 or 128, f32 or bf16
-    q, any ``S`` and any ``G = H / Hkv``; it reads uint8 exponents (the KV
-    cache's), and int32 ones are narrowed for it first.
+    takes f32 values coded with ``l`` 8 or 16, ``D`` 64, 112 or 128 (a
+    block size that is no power of two only as one block a row, ``bs =
+    D``), f32 or bf16 q, any ``S`` and any ``G = H / Hkv``; it reads uint8
+    exponents (the KV cache's), and int32 ones are narrowed for it first.
+    Only the device routes, as for :func:`cache_write`: a CPU tensor runs
+    the plain version, and a CUDA call the kernel does not take raises
+    before any launch (it never runs the plain version on the card, unless
+    ``kernel=False`` asks for it).
     """
     spec = k_bc.spec
     B, H, D = q.shape
@@ -585,16 +591,18 @@ def decode_attention(q: torch.Tensor, k_bc: F.BlockCompressed,
     vcodes = v_bc.codes.reshape(B, Hkv, S, D)
     if sm_scale is None:
         sm_scale = D ** -0.5
-    if not _use_kernel(q, spec, kernel):
+    if not _use_kernel(q, None, kernel):
         return ref.decode_attn_ref(q, kcodes, k_bc.exps, vcodes, v_bc.exps,
                                    lengths.reshape(B), spec,
                                    sm_scale=sm_scale)
     if (D not in _ATTN_D or spec.l not in _ATTN_L or q.dtype not in _ATTN_Q
-            or spec.dtype != torch.float32):
+            or spec.dtype != torch.float32
+            or (nbd > 1 and spec.bs & (spec.bs - 1))):
         raise NotImplementedError(
-            f"decode attention has no kernel for D={D}, l={spec.l}, "
-            f"{F.dtype_name(spec.dtype)} values, {q.dtype} queries "
-            f"(D in {_ATTN_D}, l in {_ATTN_L}, f32 values, f32/bf16 q)")
+            f"decode attention has no kernel for D={D}, bs={spec.bs}, "
+            f"l={spec.l}, {F.dtype_name(spec.dtype)} values, {q.dtype} "
+            f"queries (D in {_ATTN_D}, bs = D or a power of two, l in "
+            f"{_ATTN_L}, f32 values, f32/bf16 q)")
     dev = q.device
     q = q.contiguous()
     cd = F.code_dtype(spec.l)

@@ -12,18 +12,19 @@ kernels that took the most device time, as JSON lines.  ``--batch k``
 profiles a solve of k right-hand sides (``_batch_rhs``) through
 ``gmres_batched`` with ``--method block`` or ``vmap``.
 
-``--arch yi-9b`` (or any served architecture: the dense and MoE families)
-profiles LM decode steps instead, at ``chip_smoke.py``'s serving shape (8
-slots, prompt 2048, random weights from seed 0; ``profile_decode`` takes
-other slots and prompt lengths, as ``chip_smoke.py`` phase 10 calls it for
-mixtral at 8 layers), once per
+``--arch yi-9b`` (or any served architecture: the dense, MoE, SSM and
+hybrid families) profiles LM decode steps instead, at ``chip_smoke.py``'s
+serving shape (8 slots, prompt 2048, random weights from seed 0;
+``profile_decode`` takes other slots and prompt lengths, as
+``chip_smoke.py`` phase 10 calls it for mixtral at 8 layers), once per
 KV format in ``--formats`` (e.g. ``frsz2_16,bf16``): a warm-up prefill, one
 prefill under the profiler, two warm-up steps, then four steps under the
 profiler, each starting with the host read of the previous step's tokens, as
 in ``serve``.  Besides the busy share it reports the kernel launches per
-step and the prefill's wall, device time and launches.  For an FRSZ2 format
-it also times one layer's KV-cache write (``time_cache_write``).  Needs a
-CUDA card.
+step, the prefill's wall, device time and launches, and the step's byte
+bound (``decode_step_bytes``).  For an FRSZ2 format of a model with a KV
+cache it also times one layer's KV-cache write (``time_cache_write``).
+Needs a CUDA card.
 
 The module uses only the port's public entry points (the model, the
 profiler, ``kvcache``), so a copy of it placed in an older checkout's
@@ -32,6 +33,7 @@ profiler, ``kvcache``), so a copy of it placed in an older checkout's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import time
@@ -42,11 +44,51 @@ from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.solve import _batch_rhs
 from repro_torch.models import decode_step, init_params, kvcache, prefill
+from repro_torch.models.lm import init_decode_cache, kv_layers
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
 
 #: the serving shape of ``chip_smoke.py`` phase 9
 SERVE_SLOTS, SERVE_PROMPT, SERVE_STEPS = 8, 2048, 4
+#: H100 SXM data sheet: HBM3 at 3.35 TB/s
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _nbytes(tree) -> int:
+    return sum(_nbytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def decode_step_bytes(cfg, params, slots: int, mean_len: float) -> dict:
+    """The bytes a decode step of ``slots`` rows must move, and the least
+    time they take at the card's memory rate (``bound_ms``):
+
+    * ``weight_bytes``: every weight but the embedding table (a step
+      gathers ``slots`` rows of it) once, the MoE experts all (``moe_block``
+      reads every expert), and the hybrid's shared attention and MLP block
+      once an application: at 0.41 GB (zamba2-7b) it does not stay in the
+      50 MB L2 from one application to the next;
+    * ``state_bytes``: the SSM families' ``ssm_h`` and ``ssm_conv`` read
+      and written;
+    * ``cache_bytes``: the K/V positions attended, ``mean_len`` a row, in
+      every KV layer, at the cache format's bits a value.
+    """
+    weights = _nbytes(params) - _nbytes({"embed": params["embed"]})
+    R = kv_layers(cfg)
+    if cfg.family == "hybrid":
+        weights += (R - 1) * _nbytes({k: params[k] for k in
+                                      ("shared_attn", "shared_mlp")})
+    state = 0
+    if cfg.family in ("ssm", "hybrid"):
+        st = init_decode_cache(cfg, slots, 1, device="meta")
+        state = 2 * _nbytes({k: st[k] for k in ("ssm_h", "ssm_conv")})
+    cache = 0.0
+    if R:
+        fmt = kvcache.cache_format(cfg.kv_format)
+        cache = (R * slots * cfg.num_kv_heads * mean_len * 2 * cfg.hd
+                 * fmt.bits_per_value(cfg.hd) / 8)
+    return dict(weight_bytes=weights, state_bytes=state, cache_bytes=cache,
+                bound_ms=(weights + state + cache) / HBM_BYTES_PER_S * 1e3)
 
 
 def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
@@ -155,25 +197,35 @@ def time_cache_write(cfg) -> dict:
 
 
 def profile_decode(cfg, params, *, top: int = 10, slots: int = SERVE_SLOTS,
-                   prompt_len: int = SERVE_PROMPT) -> dict:
+                   prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
+                   profile_prefill: bool = True) -> dict:
+    """``steps`` decode steps (and, with ``profile_prefill``, the prefill)
+    under the profiler.  The profiler's own cost grows with the kernels it
+    records: a full-depth SSM prefill launches ~10^5 of them
+    (falcon-mamba-7b's scan: one a position and layer), which takes it
+    minutes to process, so ``profile_prefill=False`` runs the prefill
+    unprofiled and reports only its wall."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (slots, prompt_len),
                            generator=gen, device="cuda")
-    cache_len = prompt_len + SERVE_STEPS + 2
-    prefill(params, cfg, prompt, cache_len=cache_len)
+    cache_len = prompt_len + steps + 2
+    if profile_prefill:
+        prefill(params, cfg, prompt, cache_len=cache_len)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if profile_prefill else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
         logits, cache = prefill(params, cfg, prompt, cache_len=cache_len)
         torch.cuda.synchronize()
         prefill_wall = time.perf_counter() - t0
-    kernels = _device_kernels(prof)
-    pre = dict(prefill_wall_ms=prefill_wall * 1e3,
-               prefill_device_ms=sum(e.self_device_time_total
-                                     for e in kernels) * 1e-3,
-               prefill_launches=sum(e.count for e in kernels))
+    pre = dict(prefill_wall_ms=prefill_wall * 1e3)
+    if profile_prefill:
+        kernels = _device_kernels(prof)
+        pre.update(prefill_device_ms=sum(e.self_device_time_total
+                                         for e in kernels) * 1e-3,
+                   prefill_launches=sum(e.count for e in kernels))
 
     def step(tokens, cache):                        # as serve's loop
         tokens.tolist()
@@ -186,14 +238,16 @@ def profile_decode(cfg, params, *, top: int = 10, slots: int = SERVE_SLOTS,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(SERVE_STEPS):
+        for _ in range(steps):
             tokens, cache = step(tokens, cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = _device_kernels(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
     kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    n = SERVE_STEPS
+    n = steps
+    # the profiled steps attend prompt + 3 .. prompt + 2 + steps positions
+    bound = decode_step_bytes(cfg, params, slots, prompt_len + 2.5 + n / 2)
     return dict(arch=cfg.name, kv_format=cfg.kv_format, slots=slots,
                 prompt=prompt_len, steps=n, wall_per_step_ms=wall * 1e3 / n,
                 device_per_step_ms=device_us * 1e-3 / n,
@@ -202,7 +256,9 @@ def profile_decode(cfg, params, *, top: int = 10, slots: int = SERVE_SLOTS,
                 / n,
                 top=[dict(name=e.key[:100], calls_per_step=e.count / n,
                           device_ms_per_step=e.self_device_time_total
-                          * 1e-3 / n) for e in kernels], **pre)
+                          * 1e-3 / n) for e in kernels],
+                step_bound_ms=bound.pop("bound_ms"),
+                **{f"step_{k}": v for k, v in bound.items()}, **pre)
 
 
 def main(argv=None):
@@ -233,7 +289,7 @@ def main(argv=None):
         for fmt in args.formats.split(","):
             cfg_f = dataclasses.replace(cfg, kv_format=fmt)
             row = profile_decode(cfg_f, params, top=args.top)
-            if kvcache.cache_format(fmt).kind == "frsz2":
+            if kvcache.cache_format(fmt).kind == "frsz2" and kv_layers(cfg):
                 row["cache_write"] = time_cache_write(cfg_f)
             print(json.dumps(row), flush=True)
         return

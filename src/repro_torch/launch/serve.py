@@ -2,6 +2,7 @@
 
   python -m repro_torch.launch.serve --arch yi-9b
   python -m repro_torch.launch.serve --arch yi-9b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-7b  (or falcon-mamba-7b)
 
 A fixed pool of decode slots, the JAX package's loop (``repro.launch.serve``)
 step for step: the first wave of requests is prefilled into a fresh cache;
@@ -11,9 +12,10 @@ prefilled: the reference's re-prefill branch runs only when every slot is
 free while requests wait, which its loop never reaches).  Greedy decoding.
 
 Runs on CUDA by default: an FRSZ2 cache (``--kv-format frsz2_16``, the
-config's default) is written by the FRSZ2 compress kernel and read by the
-flash-decode attention kernel; ``--device cpu`` runs the plain PyTorch
-versions.  Weights are random, drawn from seed 0 on the device, layer by
+config's default) is written by the cache-write kernel and read by the
+flash-decode attention kernel (in the hybrid family, by its shared
+attention block; the SSM family has no KV cache and carries its state from
+step to step); ``--device cpu`` runs the plain PyTorch versions.  Weights are random, drawn from seed 0 on the device, layer by
 layer.  The flags are the reference's, plus ``--device``; the cache holds
 every position the run writes (the reference CLI's ``prompt + max_new +
 8`` overflows as soon as requests outnumber slots, and the JAX package then
@@ -34,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.lm import kv_layers
 
 
 @dataclasses.dataclass
@@ -145,7 +148,8 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
     dt = time.perf_counter() - t0
     if verbose:
         print(f"[serve] {len(requests)} requests x {sc.max_new} tokens in "
-              f"{dt:.1f}s ({steps} decode steps, kv={cfg.kv_format}, "
+              f"{dt:.1f}s ({steps} decode steps, kv="
+              f"{cfg.kv_format if kv_layers(cfg) else 'no cache'}, "
               f"{dev.type})")
     return out
 

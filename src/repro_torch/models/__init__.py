@@ -1,5 +1,5 @@
-"""Model zoo: the config system and the serving path of the dense and MoE
-families."""
+"""Model zoo: the config system and the serving path of the dense, MoE,
+SSM and hybrid families."""
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.lm import (
     decode_step,

@@ -1,21 +1,28 @@
 """Model assembly for serving: init / trunk / prefill / decode, for the
-dense and MoE families.
+dense, MoE, SSM and hybrid families.
 
 The dense family is the pre-norm GQA decoder (internlm2, yi, granite,
 mistral-nemo); the MoE family (mixtral, llama4-scout) replaces its SwiGLU
 MLP with a grouped top-k MoE of SwiGLU experts (``layers.moe_block``),
 and mixtral attends through a sliding window whose decode cache is a ring
-of ``window`` slots.  Weights are a dict of layer-stacked ``(L, ...)``
-tensors under the JAX package's names; the layer loop is a Python loop
-over views of them.  The decode cache is a dict of preallocated ``(L, B,
-Hkv, S, D)`` tensors (``repro_torch.models.kvcache``) that :func:`prefill`
-fills and :func:`decode_step` appends to in place; on the card its FRSZ2
-codes are written by the cache-write kernel and read by the flash-decode
-kernel.
+of ``window`` slots.  The SSM family (falcon-mamba) is a pure Mamba1 stack
+with no attention and no KV cache; the hybrid family (zamba2) is a Mamba2
+stack with ONE shared attention + SwiGLU block applied after every
+``attn_every`` layers (each application has its own KV cache, the weights
+are shared), then the ``L % attn_every`` tail layers
+(``repro_torch.models.ssm``).  Weights are a dict of layer-stacked ``(L,
+...)`` tensors under the JAX package's names; the layer loop is a Python
+loop over views of them.  The decode cache is a dict of preallocated
+tensors: ``(L, B, Hkv, S, D)`` K/V (``repro_torch.models.kvcache``; one
+layer an application of the shared block in the hybrid family), and the
+SSM families' f32 states ``ssm_h`` and conv states ``ssm_conv``, which
+:func:`prefill` fills and :func:`decode_step` updates in place; on the card
+an FRSZ2 cache's codes are written by the cache-write kernel and read by
+the flash-decode kernel.
 
-The other families of the registry (SSM, hybrid, encdec, VLM) and
-training (``loss_fn``) wait for a later slice of the port: their branches
-raise ``NotImplementedError``.
+The other families of the registry (encdec, VLM) and training
+(``loss_fn``) wait for a later slice of the port: their branches raise
+``NotImplementedError``.
 
 Random weights cannot match the JAX package's (``jax.random`` and
 ``torch.Generator`` give other numbers): :func:`init_params` draws its own,
@@ -24,9 +31,12 @@ and the parity tests carry the JAX package's weights across with
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models import kvcache as kv
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig, torch_dtype
 from repro_torch.models.layers import (
     attention_block,
@@ -40,11 +50,11 @@ from repro_torch.models.layers import (
 f32 = torch.float32
 
 __all__ = ["init_params", "trunk", "init_decode_cache", "decode_step",
-           "prefill"]
+           "prefill", "kv_layers"]
 
 
 #: the families the port runs
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig, what: str) -> None:
@@ -52,7 +62,7 @@ def _check_family(cfg: ArchConfig, what: str) -> None:
         raise NotImplementedError(
             f"{what} for the {cfg.family!r} family ({cfg.name}) waits for a "
             "later slice of the port (ROADMAP.md §1): the port runs the "
-            "dense and moe families")
+            f"{', '.join(FAMILIES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -75,12 +85,19 @@ def _init(gen: torch.Generator, shape, scale: float, dtype, L: int = 0
     return out
 
 
+def _full(gen, shape, value: float, dtype, L: int = 0) -> torch.Tensor:
+    """A constant tensor, stacked over L layers when ``L`` > 0."""
+    return torch.full((L, *shape) if L else shape, value, dtype=dtype,
+                      device=gen.device)
+
+
 def _attn_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
+    """``L`` = 0: one unstacked block (the hybrid family's shared one)."""
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     s_in = d ** -0.5
     s_out = (H * hd) ** -0.5 / (2 * max(cfg.num_layers, 1)) ** 0.5
     return {
-        "ln": torch.ones((L, d), dtype=dt, device=gen.device),
+        "ln": _full(gen, (d,), 1.0, dt, L),
         "wq": _init(gen, (d, H * hd), s_in, dt, L),
         "wk": _init(gen, (d, Hkv * hd), s_in, dt, L),
         "wv": _init(gen, (d, Hkv * hd), s_in, dt, L),
@@ -92,7 +109,7 @@ def _mlp_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
     s_out = ff ** -0.5 / (2 * max(cfg.num_layers, 1)) ** 0.5
     return {
-        "ln": torch.ones((L, d), dtype=dt, device=gen.device),
+        "ln": _full(gen, (d,), 1.0, dt, L),
         "wg": _init(gen, (d, ff), d ** -0.5, dt, L),
         "wi": _init(gen, (d, ff), d ** -0.5, dt, L),
         "wo": _init(gen, (ff, d), s_out, dt, L),
@@ -113,6 +130,69 @@ def _moe_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
     }
 
 
+def _dt_bias(gen, shape) -> torch.Tensor:
+    """softplus^-1 of dt drawn log-uniform in [1e-3, 0.1], f32."""
+    u = torch.rand(shape, generator=gen, dtype=f32, device=gen.device)
+    dt = torch.exp(u * float(math.log(0.1 / 1e-3)) + float(math.log(1e-3)))
+    return torch.log(torch.expm1(dt))
+
+
+def _mamba1_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
+    """The reference's ``_mamba1_params``: projections at its scales,
+    ``A_log`` = log(1..N) on every channel, D = 1, f32 where it keeps f32."""
+    d, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    R = max(1, d // 16)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=f32, device=gen.device))
+    return {
+        "ln": _full(gen, (d,), 1.0, dt, L),
+        "in_proj": _init(gen, (d, 2 * di), d ** -0.5, dt, L),
+        "conv_w": _init(gen, (W, di), W ** -0.5, dt, L),
+        "conv_b": _full(gen, (di,), 0.0, dt, L),
+        "x_proj": _init(gen, (di, R + 2 * N), di ** -0.5, dt, L),
+        "dt_proj": _init(gen, (R, di), R ** -0.5, dt, L),
+        "dt_bias": _dt_bias(gen, (L, di)),
+        "A_log": a_log.expand(L, di, N).clone(),
+        "D": _full(gen, (di,), 1.0, f32, L),
+        "out_proj": _init(gen, (di, d), di ** -0.5
+                          / (2 * cfg.num_layers) ** 0.5, dt, L),
+    }
+
+
+def _mamba2_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
+    """The reference's ``_mamba2_params``: one in-projection for z, x, B,
+    C and dt, ``A_log`` = 0 and D = 1 per head, the gated output norm."""
+    d, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    Hs = di // cfg.ssm_head_dim
+    return {
+        "ln": _full(gen, (d,), 1.0, dt, L),
+        "in_proj": _init(gen, (d, 2 * di + 2 * N + Hs), d ** -0.5, dt, L),
+        "conv_w": _init(gen, (W, di), W ** -0.5, dt, L),
+        "conv_b": _full(gen, (di,), 0.0, dt, L),
+        "dt_bias": _dt_bias(gen, (L, Hs)),
+        "A_log": _full(gen, (Hs,), 0.0, f32, L),
+        "D": _full(gen, (Hs,), 1.0, f32, L),
+        "out_ln": _full(gen, (di,), 1.0, dt, L),
+        "out_proj": _init(gen, (di, d), di ** -0.5
+                          / (2 * cfg.num_layers) ** 0.5, dt, L),
+    }
+
+
+def kv_layers(cfg: ArchConfig) -> int:
+    """Layers of the KV cache: one an attention layer, one an application
+    of the hybrid's shared block, none in the SSM family."""
+    if cfg.family == "ssm":
+        return 0
+    return _rounds(cfg)[0] if cfg.family == "hybrid" else cfg.num_layers
+
+
+def _rounds(cfg: ArchConfig) -> tuple[int, int]:
+    """Hybrid: (R applications of the shared block, the R * attn_every
+    body layers before the tail)."""
+    k = cfg.attn_every
+    R = cfg.num_layers // k if k else 0
+    return R, R * k
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random weights at the reference's scales, on ``gen``'s device."""
     _check_family(cfg, "init_params")
@@ -123,6 +203,17 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
         "final_ln": torch.ones((d,), dtype=dt, device=gen.device),
         "unembed": _init(gen, (d, V), d ** -0.5, dt),
     }
+    if cfg.family == "ssm":
+        params["layers"] = _mamba1_params(gen, cfg, L, dt)
+        return params
+    if cfg.family == "hybrid":
+        _, body = _rounds(cfg)
+        params["layers"] = _mamba2_params(gen, cfg, body, dt)
+        if L - body:
+            params["tail_layers"] = _mamba2_params(gen, cfg, L - body, dt)
+        params["shared_attn"] = _attn_params(gen, cfg, 0, dt)
+        params["shared_mlp"] = _mlp_params(gen, cfg, 0, dt)
+        return params
     layers = {"attn": _attn_params(gen, cfg, L, dt)}
     if cfg.family == "moe":
         layers["moe"] = _moe_params(gen, cfg, L, dt)
@@ -145,6 +236,27 @@ def _layer(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def _ssm_layers(params: dict, cfg: ArchConfig):
+    """The SSM families' layers in order: (layer index, its weights, the
+    application of the shared block after it or None)."""
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            yield i, _layer(params["layers"], i), None
+        return
+    R, body = _rounds(cfg)
+    k = cfg.attn_every
+    for i in range(cfg.num_layers):
+        if i < body:
+            lp = _layer(params["layers"], i)
+        else:
+            lp = _layer(params["tail_layers"], i - body)
+        yield i, lp, (i // k if i < body and i % k == k - 1 else None)
+
+
+def _ssm_seq(cfg: ArchConfig):
+    return ssm_mod.mamba1_seq if cfg.family == "ssm" else ssm_mod.mamba2_seq
+
+
 # ---------------------------------------------------------------------------
 # parallel forward (the teacher-forcing reference of the serving path)
 # ---------------------------------------------------------------------------
@@ -154,12 +266,21 @@ def trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
           aux_inputs=None):
     """tokens (B, S) -> (hidden states (B, S, d), aux loss): the MoE
     layers' load-balancing losses summed over layers (f32), 0 for the
-    dense family."""
+    other families."""
     _check_family(cfg, "trunk")
     B, S = tokens.shape
     h = params["embed"][tokens]
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), dtype=f32, device=h.device)
+    if cfg.family in ("ssm", "hybrid"):
+        seq = _ssm_seq(cfg)
+        for _, lp, r in _ssm_layers(params, cfg):
+            h = seq(h, lp, cfg)
+            if r is not None:
+                h = attention_block(h, params["shared_attn"], cfg,
+                                    positions=positions)
+                h = swiglu_block(h, params["shared_mlp"])
+        return h, aux
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = attention_block(h, lp["attn"], cfg, positions=positions,
@@ -188,10 +309,30 @@ def init_decode_cache(cfg: ArchConfig, B: int, S: int, device=None) -> dict:
     """Allocate the decode cache for max context S."""
     _check_family(cfg, "init_decode_cache")
     cache = {"lengths": torch.zeros((B,), dtype=torch.int32, device=device)}
-    cache["self"] = kv.init_cache(_cache_fmt(cfg), cfg.num_layers, B,
+    if cfg.family in ("ssm", "hybrid"):
+        cache.update(_ssm_state(cfg, B, device))
+        if cfg.family == "ssm":
+            return cache
+    cache["self"] = kv.init_cache(_cache_fmt(cfg), kv_layers(cfg), B,
                                   cfg.num_kv_heads, _cache_seq(cfg, S),
                                   cfg.hd, device=device)
     return cache
+
+
+def _ssm_state(cfg: ArchConfig, B: int, device) -> dict:
+    """Zero SSM states: ``ssm_h`` f32, (L, B, di, N) for Mamba1 and (L, B,
+    Hs, P, N) for Mamba2, and ``ssm_conv`` (L, B, W-1, di) in the model's
+    dtype."""
+    L, di, N, W = cfg.num_layers, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    if cfg.family == "ssm":
+        hshape = (L, B, di, N)
+    else:
+        P = cfg.ssm_head_dim
+        hshape = (L, B, di // P, P, N)
+    return {"ssm_h": torch.zeros(hshape, dtype=f32, device=device),
+            "ssm_conv": torch.zeros((L, B, W - 1, di),
+                                    dtype=torch_dtype(cfg.dtype),
+                                    device=device)}
 
 
 def _self_attn_decode(h, lp, cfg, layer_cache, lengths, fmt, ring):
@@ -218,11 +359,31 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     lengths = cache["lengths"]
     h = params["embed"][tokens][:, None, :]                   # (B, 1, d)
     ring = cfg.window                 # a sliding-window cache is a ring
+    if cfg.family in ("ssm", "hybrid"):
+        # the SSM states and the shared block's caches, updated in place
+        step = (ssm_mod.mamba1_decode if cfg.family == "ssm"
+                else ssm_mod.mamba2_decode)
+        sh, sc = cache["ssm_h"], cache["ssm_conv"]
+        for i, lp, r in _ssm_layers(params, cfg):
+            h, (h1, c1) = step(h, lp, cfg, (sh[i], sc[i]))
+            sh[i].copy_(h1)
+            sc[i].copy_(c1)
+            if r is not None:
+                h = _self_attn_decode(h, params["shared_attn"], cfg,
+                                      _layer(cache["self"], r), lengths,
+                                      fmt, ring)
+                h = swiglu_block(h, params["shared_mlp"])
+        return _decode_logits(params, h, cache, lengths)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         lc = _layer(cache["self"], i)
         h = _self_attn_decode(h, lp["attn"], cfg, lc, lengths, fmt, ring)
         h, _ = _ffn(h, lp, cfg)
+    return _decode_logits(params, h, cache, lengths)
+
+
+def _decode_logits(params, h, cache, lengths):
+    """The step's logits (B, V) f32; advances the cache's lengths."""
     h = rms_norm(h[:, 0], params["final_ln"])
     logits = (h @ params["unembed"]).to(f32)
     cache["lengths"] = lengths + 1
@@ -233,11 +394,13 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             aux_inputs=None, *, cache_len: int = 0):
     """Bulk-process a prompt: returns (last-token logits, populated cache).
 
-    Runs the parallel forward (blocked attention) and writes each layer's
-    cache whole into a preallocated buffer (no scatter: the paper's
-    whole-block-write discipline).  ``cache_len`` pads the cache for later
-    decode steps (defaults to the prompt length); a sliding-window cache
-    is padded up to ``window`` slots at most.
+    Runs the parallel forward (blocked attention, the SSM families'
+    chunked scans) and writes each attention layer's cache whole into a
+    preallocated buffer (no scatter: the paper's whole-block-write
+    discipline), and each SSM layer's last state and conv state.
+    ``cache_len`` pads the KV cache for later decode steps (defaults to the
+    prompt length); a sliding-window cache is padded up to ``window`` slots
+    at most.
     """
     _check_family(cfg, "prefill")
     fmt = _cache_fmt(cfg)
@@ -255,22 +418,43 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     n_slots = max(c_len, stored)
     if cfg.window:
         n_slots = min(n_slots, cfg.window)
-    self_cache = kv.init_cache(fmt, cfg.num_layers, B, cfg.num_kv_heads,
-                               n_slots, cfg.hd, device=dev)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        ap = lp["attn"]
+    cache = {"lengths": torch.full((B,), S, dtype=torch.int32, device=dev)}
+
+    def attn_and_cache(h, ap, layer_cache):
+        """Self-attention over the prompt; its K/V written whole into
+        ``layer_cache``."""
         hn = rms_norm(h, ap["ln"])
         q, k, v = attention_qkv(hn, ap, cfg, positions=positions)
         o = blocked_attention(q, k, v, causal=True, window=cfg.window,
                               chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk)
         kv.build_cache(k, v, fmt, cache_len=c_len, ring=ring,
-                       out=_layer(self_cache, i))
+                       out=layer_cache)
         _, _, H, hd = q.shape
-        h = h + o.reshape(B, S, H * hd) @ ap["wo"]
-        h, _ = _ffn(h, lp, cfg)
+        return h + o.reshape(B, S, H * hd) @ ap["wo"]
+
+    if cfg.family in ("ssm", "hybrid"):
+        cache.update(_ssm_state(cfg, B, dev))
+        if cfg.family == "hybrid":
+            cache["self"] = kv.init_cache(fmt, kv_layers(cfg), B,
+                                          cfg.num_kv_heads, n_slots, cfg.hd,
+                                          device=dev)
+        seq = _ssm_seq(cfg)
+        for i, lp, r in _ssm_layers(params, cfg):
+            h, (h1, c1) = seq(h, lp, cfg, return_state=True)
+            cache["ssm_h"][i].copy_(h1)
+            cache["ssm_conv"][i].copy_(c1)
+            if r is not None:
+                h = attn_and_cache(h, params["shared_attn"],
+                                   _layer(cache["self"], r))
+                h = swiglu_block(h, params["shared_mlp"])
+    else:
+        cache["self"] = kv.init_cache(fmt, cfg.num_layers, B,
+                                      cfg.num_kv_heads, n_slots, cfg.hd,
+                                      device=dev)
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            h = attn_and_cache(h, lp["attn"], _layer(cache["self"], i))
+            h, _ = _ffn(h, lp, cfg)
     h_last = rms_norm(h[:, -1], params["final_ln"])
     logits = (h_last @ params["unembed"]).to(f32)
-    cache = {"self": self_cache,
-             "lengths": torch.full((B,), S, dtype=torch.int32, device=dev)}
     return logits, cache

@@ -765,6 +765,101 @@ def test_cache_write_raises_on_card_outside_kernel(cuda):
     assert ops.LAUNCHES["frsz2_cache_write"] == 0
 
 
+#: zamba2-7b's head_dim: a block size (bs = D) that is no power of two
+HD112 = 112
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [8, 16])
+def test_decode_attention_head_dim_112_on_card(cuda, l, qdt, G):
+    """D = bs = 112 (one block a row, no power of two) on the kernel, once
+    a call: lengths 0, 1, T-1, T, T+1 and a full row of S = 300, within
+    1e-5 of the largest plain output (f32 q) or 2^-7 (bf16 q), an empty
+    row 0, two calls bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(112 + l + G)
+    T = cardcheck.TILE
+    S, Hkv = 300, 2
+    lens = (0, 1, T - 1, T, T + 1, S)
+    kbc, vbc = _coded_kv(gen, len(lens), Hkv, S, HD112, l, torch.uint8, cuda)
+    q = torch.randn((len(lens), Hkv * G, HD112), generator=gen,
+                    device=cuda).to(qdt)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    out, err, rel = cardcheck.attn_pair(q, kbc, vbc, lengths)
+    assert ops.LAUNCHES["decode_attn"] == 1
+    if qdt == torch.float32:
+        assert rel <= cardcheck.ATTN_TOL, (err, rel)
+    else:
+        assert err <= cardcheck.ATTN_TOL_BF16, err
+    assert not out[0].any()
+    assert torch.equal(out, ops.decode_attention(q, kbc, vbc, lengths))
+
+
+@pytest.mark.cuda
+def test_decode_attention_raises_on_card_outside_kernel(cuda, monkeypatch):
+    """A CUDA attention the kernel does not take (D = 96) raises before any
+    launch; the plain version never runs on the card in its place."""
+    gen = torch.Generator(device=cuda).manual_seed(96)
+    kbc, vbc = _coded_kv(gen, 2, 2, 40, 96, 16, torch.uint8, cuda)
+    q = torch.randn((2, 4, 96), generator=gen, device=cuda)
+    lengths = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+
+    def forbidden(*a, **kw):
+        raise AssertionError("the plain decode attention ran on the card")
+
+    monkeypatch.setattr(ref, "decode_attn_ref", forbidden)
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        ops.decode_attention(q, kbc, vbc, lengths)
+    assert ops.LAUNCHES["decode_attn"] == 0
+
+
+def _to_card(tree, dev):
+    return ({k: _to_card(v, dev) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("falcon-mamba-7b", {}),
+    ("zamba2-7b", dict(head_dim=HD112, num_heads=2, num_kv_heads=2,
+                       d_model=224))])
+def test_ssm_families_on_card_match_cpu(cuda, name, kw):
+    """falcon-mamba and zamba2 ``reduced()`` (zamba2 at its head_dim of
+    112): prefill and two decode steps on the card within 1e-3 of the CPU's
+    logits (relative to the largest), the SSM states within 1e-3; zamba2's
+    shared block attends through the kernel once an application a step
+    and writes its cache once, falcon-mamba launches no FRSZ2 kernel."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), **kw)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 34),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = _to_card(params, cuda)
+    lc, cc = prefill(params, cfg, tokens[:, :32], cache_len=36)
+    ops.reset_launches()
+    lg, cg = prefill(on_card, cfg, tokens[:, :32].to(cuda), cache_len=36)
+    apps = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    assert ops.LAUNCHES["frsz2_cache_write"] == apps
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
+    for t in (32, 33):
+        ops.reset_launches()
+        dc, cc = decode_step(params, cfg, cc, tokens[:, t])
+        dg, cg = decode_step(on_card, cfg, cg, tokens[:, t].to(cuda))
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want = ({"decode_attn": apps, "frsz2_cache_write": apps} if apps
+                else {})
+        assert got == want
+        assert float((dg.cpu() - dc).abs().max()) <= 1e-3 * float(
+            dc.abs().max())
+    for n in ("ssm_h", "ssm_conv"):
+        a, b = cg[n].cpu().float(), cc[n].float()
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["float64", "frsz2_32"])
 def test_rcm_solve_on_card_matches_cpu_and_replays(cuda, storage):
