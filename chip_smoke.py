@@ -222,6 +222,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    the cache's size; two decode steps of each model profiled, the kernels
    that took the most device time listed (their prefills run unprofiled:
    a profiler over falcon-mamba's ~10^5 launches takes minutes).
+12. serving the encoder-decoder and VLM families at full width and full
+   depth (bf16, random weights from a seed), one model at a time:
+   whisper-medium (24 decoder layers, each cross-attending to a 24-layer
+   bidirectional encoder's states over 1,536 stub frames; d 1024, 16 heads,
+   hd 64) and llama-3.2-vision-11b (40 self layers, a cross block with its
+   own MLP after every fifth, over 1,664 stub image tokens; d 4096, 32/8
+   heads, hd 128).  Each: the teacher-forcing check (B = 2, S = 256, the
+   same frames or image embeddings in the forward) for ``bf16`` and
+   ``frsz2_16`` caches, within 5e-2 of the largest logit; ``serve`` as a
+   user calls it (its frames or image embeddings drawn by ``serve``), 16
+   requests over 8 slots, 32 new tokens: whisper with a prompt of 384 in
+   ``frsz2_16``, ``frsz2_8`` and ``bf16``, the VLM with 2048 in
+   ``frsz2_16`` and ``frsz2_8``; tokens in range, finite logits, in the
+   FRSZ2 runs ``decode_attn`` 48 times a decode step (whisper 24 self + 24
+   cross, the VLM 40 + 8), ``frsz2_cache_write`` 24 / 40 a step and 48 in
+   the prefill (self and cross), ``frsz2_compress`` never, and neither
+   kernel in ``bf16``; every cross cache bit for bit as the prefill left
+   it after the decode steps; the last cross layer's codes bit-equal to
+   the plain compress of the K/V the prefill wrote there, and that write
+   (kernel 1 through ``build_cache``) equal to its plain version and timed
+   beside its bound; kernel 9 on the last decode step's cross q and the
+   last cross cache (every position valid) against its plain version (f32
+   q within 1e-5 of the largest output, the served bf16 q within one bf16
+   step), timed beside its bound, the plain version and SDPA on the
+   decoded K/V, for l 16 and 8; each step's byte bound
+   (``decode_step_bytes``: the weights a step reads, the self K/V
+   attended, every cross cache whole), the peak memory and the caches'
+   sizes; two decode steps of each model profiled (prefills unprofiled).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -329,6 +357,17 @@ SSM_FORMATS = {"falcon-mamba-7b": ("frsz2_16",),
 SSM_PROFILE_STEPS = 2
 SSM_TF_S = 1023
 SSM_TF_BF16 = (1024, 2048)
+#: phase 12: the encoder-decoder and VLM families at full width and full
+#: depth, 16 requests over 8 slots, 32 new tokens each: whisper-medium with
+#: 1,536 frames a request and a prompt of 384 (448 decoder positions, the
+#: real model's decoder context), llama-3.2-vision-11b with 1,664 image
+#: tokens a request and phase 9's prompt of 2048
+CROSS_ARCHS = ("whisper-medium", "llama-3.2-vision-11b")
+CROSS_TAG = {"whisper-medium": "whisper", "llama-3.2-vision-11b": "vlm"}
+CROSS_PROMPT = {"whisper-medium": 384, "llama-3.2-vision-11b": 2048}
+CROSS_FORMATS = {"whisper-medium": ("frsz2_16", "frsz2_8", "bf16"),
+                 "llama-3.2-vision-11b": ("frsz2_16", "frsz2_8")}
+CROSS_PROFILE_STEPS = 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -3125,12 +3164,12 @@ def phase_moe(device_line):
     return attn, write
 
 
-def _hd112_attention_check(tap):
-    """Kernel 9 at D = 112 on zamba2's served cache (the last decode step's
-    q, the last application's cache and lengths) against its plain version
-    on the card, f32 q within 1e-5 of the largest output and bf16 q (as
-    served) within one bf16 step; timed beside its bound, the plain version
-    and SDPA on the decoded K/V."""
+def _served_attention_check(q, lc, lengths, fmt, pre, tag):
+    """Kernel 9 on a served cache (a decode step's q, one layer's cache and
+    its lengths) against its plain version on the card, f32 q within 1e-5
+    of the largest output and the served bf16 q within one bf16 step; timed
+    beside its bound, the plain version and SDPA on the decoded K/V.  The
+    results are keyed ``{pre}<name>_l<l>``."""
     import torch
 
     from repro_torch.core import frsz2 as F
@@ -3138,28 +3177,26 @@ def _hd112_attention_check(tap):
     from repro_torch.kernels.cardcheck import ATTN_TOL, ATTN_TOL_BF16
     from repro_torch.kernels.cardcheck import attn_pair as _attn_pair
 
-    check(tap.last is not None, "zamba2's serve run attended no cache")
-    q, lc, lengths, fmt, _ = tap.last
     B, H, D = q.shape
     _, Hkv, S, _ = lc["k_codes"].shape
     G = H // Hkv
-    check(D == 112, f"zamba2 attended at D = {D}")
     spec = fmt.spec(D)
     kbc, vbc = (F.BlockCompressed(codes=lc[f"{n}_codes"].view(B, Hkv, S, 1, D),
                                   exps=lc[f"{n}_exps"], n=D, spec=spec)
                 for n in "kv")
+    sfx = f"_l{spec.l}"
     out = {}
     for label, qq, tol in (("served", q, ATTN_TOL_BF16),
                            ("f32", q.float(), ATTN_TOL)):
         ops.reset_launches()
         _, err, rel = _attn_pair(qq, kbc, vbc, lengths)
         check(ops.LAUNCHES["decode_attn"] == 1,
-              "kernel 9 at D = 112 did not launch")
-        check(rel <= tol, f"decode_attn at D = 112, l = {spec.l}, {qq.dtype}"
-                          f" q: max abs error {err:.3e}, {rel:.3e} of the "
+              f"{tag}: kernel 9 did not launch")
+        check(rel <= tol, f"{tag}: decode_attn at l = {spec.l}, {qq.dtype} "
+                          f"q: max abs error {err:.3e}, {rel:.3e} of the "
                           "largest output")
-        out[f"hd112_rel_err_{label}_q_l{spec.l}"] = rel
-        out[f"hd112_err_{label}_q_l{spec.l}"] = err
+        out[f"{pre}rel_err_{label}_q{sfx}"] = rel
+        out[f"{pre}err_{label}_q{sfx}"] = err
     valid = int(lengths.clamp(max=S).sum())
     kd = ops.decompress(kbc, kernel=False).view(B, Hkv, S, D)
     vd = ops.decompress(vbc, kernel=False).view(B, Hkv, S, D)
@@ -3172,28 +3209,36 @@ def _hd112_attention_check(tap):
     nbytes = (2 * valid * Hkv * (D * code_bytes + 1)
               + 2 * B * H * D * q.element_size())
     b, by = bound_ms(nbytes, 4.0 * valid * Hkv * G * D, FP32_FLOPS)
-    sfx = f"_l{spec.l}"
     out.update({
-        "hd112_shape" + sfx: f"B={B} Hkv={Hkv} G={G} D={D} S={S}, lengths "
+        pre + "shape" + sfx: f"B={B} Hkv={Hkv} G={G} D={D} S={S}, lengths "
                              f"{int(lengths.min())}-{int(lengths.max())}, "
                              f"{valid} valid positions, l={spec.l}, "
                              f"{q.dtype} q",
-        "hd112_ms" + sfx: timed(lambda: ops.decode_attention(
+        pre + "ms" + sfx: timed(lambda: ops.decode_attention(
             q, kbc, vbc, lengths, kernel=True)),
-        "hd112_plain_ms" + sfx: timed(lambda: ops.decode_attention(
+        pre + "plain_ms" + sfx: timed(lambda: ops.decode_attention(
             q, kbc, vbc, lengths, kernel=False), reps=3),
-        "hd112_bound_ms" + sfx: b, "hd112_bound_by" + sfx: by,
-        "hd112_bytes" + sfx: nbytes,
-        "hd112_library_ms" + sfx: timed(sdpa)})
-    print(f"[ssm] kernel 9 at D = 112 on zamba2's served cache "
-          f"({out['hd112_shape' + sfx]}): {out['hd112_ms' + sfx] * 1e3:.1f} "
-          f"us, bound {b * 1e3:.2f} us, plain "
-          f"{out['hd112_plain_ms' + sfx] * 1e3:.1f} us, SDPA on the decoded "
-          f"K/V {out['hd112_library_ms' + sfx] * 1e3:.1f} us; against the "
-          f"plain version: served q {out['hd112_rel_err_served_q' + sfx]:.3e}"
-          f", f32 q {out['hd112_rel_err_f32_q' + sfx]:.3e} of the largest "
-          "output")
+        pre + "bound_ms" + sfx: b, pre + "bound_by" + sfx: by,
+        pre + "bytes" + sfx: nbytes,
+        pre + "library_ms" + sfx: timed(sdpa)})
+    print(f"{tag} kernel 9 ({out[pre + 'shape' + sfx]}): "
+          f"{out[pre + 'ms' + sfx] * 1e3:.1f} us, bound {b * 1e3:.2f} us, "
+          f"plain {out[pre + 'plain_ms' + sfx] * 1e3:.1f} us, SDPA on the "
+          f"decoded K/V {out[pre + 'library_ms' + sfx] * 1e3:.1f} us; "
+          f"against the plain version: served q "
+          f"{out[pre + 'rel_err_served_q' + sfx]:.3e}, f32 q "
+          f"{out[pre + 'rel_err_f32_q' + sfx]:.3e} of the largest output")
     return out
+
+
+def _hd112_attention_check(tap):
+    """Kernel 9 at D = 112 on zamba2's served cache: the last decode step's
+    q, the last application's cache and lengths."""
+    check(tap.last is not None, "zamba2's serve run attended no cache")
+    q, lc, lengths, fmt, _ = tap.last
+    check(q.shape[-1] == 112, f"zamba2 attended at D = {q.shape[-1]}")
+    return _served_attention_check(q, lc, lengths, fmt, "hd112_",
+                                   "[ssm] zamba2's served cache,")
 
 
 def _ssm_teacher_forcing(params, cfg, S=SSM_TF_S, forward=SSM_TF_S + 1):
@@ -3448,6 +3493,383 @@ def phase_ssm(device_line):
     return attn, write
 
 
+class _CrossServeTap:
+    """For one serve run of an encdec or VLM model: the cross caches as the
+    prefill left them (a clone of ``cache["cross"]``, and the cache itself,
+    which the decode steps then use in place), the inputs of the last
+    cross-attention of the last decode step (``attn``: q, the layer's
+    cache, the source lengths, the format), and the K/V of the last cross
+    layer's prefill write (``write``: a whole write of ``cross_len``
+    positions from position 0).  Everything runs unchanged."""
+
+    def __init__(self, cross_len):
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve as serve_mod
+        from repro_torch.models import kvcache, lm
+
+        self.cross_len = cross_len
+        self.cache = self.snapshot = self.attn = self.write = None
+        self._in_cross = False
+        self._slots = ((serve_mod, "prefill"), (lm, "_cross_attn_decode"),
+                       (kvcache, "attend"), (ops, "cache_write"))
+        self._orig = [getattr(m, n) for m, n in self._slots]
+
+    def __enter__(self):
+        prefill0, cross0, attend0, write0 = self._orig
+
+        def prefill(*args, **kw):
+            logits, cache = prefill0(*args, **kw)
+            self.cache = cache
+            self.snapshot = {n: t.clone() for n, t in cache["cross"].items()}
+            return logits, cache
+
+        def cross_attn_decode(*args, **kw):
+            self._in_cross = True
+            try:
+                return cross0(*args, **kw)
+            finally:
+                self._in_cross = False
+
+        def attend(q, layer_cache, lengths, fmt, **kw):
+            if self._in_cross:
+                self.attn = (q, layer_cache, lengths, fmt)
+            return attend0(q, layer_cache, lengths, fmt, **kw)
+
+        def cache_write(k, v, lengths, *args, **kw):
+            if lengths is None and k.shape[1] == self.cross_len:
+                self.write = (k, v)
+            return write0(k, v, lengths, *args, **kw)
+
+        for (m, n), f in zip(self._slots, (prefill, cross_attn_decode, attend,
+                                           cache_write)):
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self._slots, self._orig):
+            setattr(m, n, f)
+
+
+def _cross_attention_check(tap, tag):
+    """Kernel 9 on the served cross cache: the last decode step's last
+    cross-attention q, the last cross layer's cache, every position
+    valid."""
+    check(tap.attn is not None, f"{tag}: the serve run read no cross cache")
+    q, lc, lengths, fmt = tap.attn
+    S = lc["k_codes"].shape[2]
+    check(S == tap.cross_len and bool((lengths == S).all()),
+          f"{tag}: the cross attention read lengths {lengths.tolist()} of a "
+          f"cache of {S} positions, not all {tap.cross_len}")
+    return _served_attention_check(q, lc, lengths, fmt, f"cross_{tag}_",
+                                   f"[cross] {tag}'s served cross cache,")
+
+
+def _cross_cache_checks(tap, tag, fmt):
+    """The cross caches as served: every layer bit for bit as the prefill
+    left it after all the decode steps; for an FRSZ2 format, the last
+    cross layer's codes and exponents bit-equal to the plain compress of
+    the K/V the prefill wrote there (``src @ wk``, ``src @ wv``), and that
+    write (kernel 1 through ``kvcache.build_cache``) equal to its plain
+    version on a fresh layer and timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import kvcache
+
+    cross = tap.cache["cross"]
+    for n, t in tap.snapshot.items():
+        check(torch.equal(cross[n], t),
+              f"{tag}: the decode steps changed the cross cache's {n}")
+    name = f"l{fmt.l}" if fmt.kind == "frsz2" else fmt.raw_dtype
+    out = {f"cross_{tag}_unchanged_bytes_{name}": sum(
+        t.numel() * t.element_size() for t in tap.snapshot.values())}
+    if fmt.kind != "frsz2":
+        return out
+    check(tap.write is not None, f"{tag}: no whole cross-cache write seen")
+    k, v = tap.write
+    B, S, Hkv, D = k.shape
+    spec = fmt.spec(D)
+    lc = {n: t[-1] for n, t in cross.items()}
+    for x, name in ((k, "k"), (v, "v")):
+        want = ops.compress(x.transpose(1, 2).float(), spec, kernel=False)
+        check(torch.equal(lc[f"{name}_codes"].reshape(want.codes.shape),
+                          want.codes)
+              and torch.equal(lc[f"{name}_exps"].reshape(want.exps.shape),
+                              want.exps.to(torch.uint8)),
+              f"{tag}: the last cross layer's {name} codes differ from the "
+              "plain compress of the prefill's K/V")
+    names = ("k_codes", "k_exps", "v_codes", "v_exps")
+
+    def fresh():
+        return {n: torch.zeros_like(lc[n]) for n in names}
+
+    kl, pl = fresh(), fresh()
+
+    def write():
+        kvcache.build_cache(k, v, fmt, out=kl)
+
+    def plain(layer):
+        ops.cache_write(k, v, None, *(layer[n] for n in names), spec,
+                        clear_from=S, kernel=False)
+
+    write()
+    plain(pl)
+    for n in names:
+        check(torch.equal(kl[n], pl[n]) and torch.equal(kl[n], lc[n]),
+              f"{tag}: the cross cache write's {n} != plain")
+    rows = 2 * B * S * Hkv
+    cd = torch.empty((), dtype=fmt.code_dtype()).element_size()
+    nbytes = rows * D * (k.element_size() + cd) + rows
+    pre = f"cross_{tag}_write_l{spec.l}_"
+    out.update({pre + "shape": list(k.shape), pre + "ms": timed(write),
+                pre + "plain_ms": timed(lambda: plain(fresh()), reps=3),
+                pre + "bytes": nbytes, pre + "bound_ms": bound_ms(nbytes)[0],
+                pre + "rows_bit_equal": rows})
+    print(f"[cross] {tag}: every cross cache unchanged across the decode "
+          f"steps; the last cross layer ({B}x{Hkv}x{S}) bit-equal to the "
+          f"plain compress of the prefill's K/V; its write "
+          f"({tuple(k.shape)} {str(k.dtype)[6:]} K and V, l {spec.l}) "
+          f"{out[pre + 'ms'] * 1e3:.2f} us through build_cache, plain "
+          f"{out[pre + 'plain_ms'] * 1e3:.1f} us, bound "
+          f"{out[pre + 'bound_ms'] * 1e3:.2f} us")
+    return out
+
+
+def _cross_teacher_forcing(params, cfg):
+    """Relative errors of a prefill of TF_S tokens and of one decode step
+    against the parallel forward over TF_S + 1, with the same frames or
+    image embeddings."""
+    import torch
+
+    from repro_torch.launch.serve import aux_for
+    from repro_torch.models import decode_step, prefill, trunk
+    from repro_torch.models.layers import rms_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_B, TF_S + 1), generator=gen,
+                           device="cuda")
+    aux = aux_for(cfg, TF_B, gen)
+    h, _ = trunk(params, cfg, tokens, aux)
+
+    def head(x):
+        return (rms_norm(x, params["final_ln"]) @ params["unembed"]).float()
+
+    want, want2 = head(h[:, TF_S - 1]), head(h[:, TF_S])
+    del h
+    torch.cuda.empty_cache()
+    got, cache = prefill(params, cfg, tokens[:, :TF_S], aux,
+                         cache_len=TF_S + 4)
+    got2, _ = decode_step(params, cfg, cache, tokens[:, TF_S])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return rel(got, want), rel(got2, want2)
+
+
+def _cross_serve(cfg, params, device_line):
+    """One ``serve`` run of an encdec or VLM model as a user calls it (its
+    frames or image embeddings drawn by ``serve``), with the launch checks;
+    returns its row with, for the FRSZ2 runs, the checks of kernels 9 and
+    1 on the served cross caches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile import decode_step_bytes
+    from repro_torch.launch.serve import ServeConfig, decode_steps, serve
+    from repro_torch.models import kvcache
+    from repro_torch.models.lm import cross_layers, cross_len, kv_layers
+
+    tag = CROSS_TAG[cfg.name]
+    prompt = CROSS_PROMPT[cfg.name]
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, prompt).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
+    sc = ServeConfig(slots=SERVE_SLOTS, prompt_len=prompt, max_new=SERVE_NEW)
+    steps = decode_steps(len(reqs), sc)
+    sc.max_ctx = prompt + steps + 8
+    fmt = kvcache.cache_format(cfg.kv_format)
+    R, X, Ss = kv_layers(cfg), cross_layers(cfg), cross_len(cfg)
+    frsz = fmt.kind == "frsz2"
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    with _CrossServeTap(Ss) as tap:
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = serve(cfg, sc, reqs, params=params, device="cuda",
+                    verbose=False, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    label = f"{cfg.name} {cfg.kv_format}"
+    check(sorted(out) == list(range(len(reqs))), f"{label}: serve lost a "
+                                                 "request")
+    check(all(len(v) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in v)
+              for v in out.values()),
+          f"{label}: a completion is not {SERVE_NEW} tokens in range")
+    check(stats["nonfinite_logits"] == 0,
+          f"{label}: {stats['nonfinite_logits']} logits not finite")
+    check(len(stats["step_s"]) == steps and len(stats["prefill_s"]) == 1,
+          f"{label}: {len(stats['step_s'])} decode steps, "
+          f"{len(stats['prefill_s'])} prefills")
+    split = {"prefill": stats["prefill_launches"],
+             "step": stats["step_launches"]}
+    # the prefill writes every self layer's cache and every cross cache
+    # once; a decode step writes the self layers only, and attends once a
+    # self layer and once a cross block
+    want = {"prefill": {"decode_attn": 0, "frsz2_cache_write": R + X,
+                        "frsz2_compress": 0},
+            "step": {"decode_attn": (R + X) * steps,
+                     "frsz2_cache_write": R * steps, "frsz2_compress": 0}}
+    for part, per in want.items():
+        for k, n in per.items():
+            n_want = n if frsz else 0
+            check(split[part][k] == n_want,
+                  f"{label}: {k} launched {split[part][k]} times in the "
+                  f"{part}, the path implies {n_want}")
+    others = {k: v for k, v in got.items() if v and k not in want["step"]}
+    check(not others, f"{label}: other kernels launched: {others}")
+    checks = _cross_cache_checks(tap, tag, fmt)
+    if frsz:
+        checks.update(_cross_attention_check(tap, tag))
+    del tap
+    torch.cuda.empty_cache()
+    mean_len = prompt + (steps + 1) / 2
+    bound = decode_step_bytes(cfg, params, SERVE_SLOTS, mean_len)
+    row = dict(phase="cross-serve", arch=cfg.name, layers=cfg.num_layers,
+               kv_format=cfg.kv_format, kv_layers=R, cross_layers=X,
+               cross_len=Ss, requests=len(reqs), slots=SERVE_SLOTS,
+               prompt=prompt, max_new=SERVE_NEW, decode_steps=steps,
+               prefill_s=stats["prefill_s"],
+               step_ms_median=statistics.median(stats["step_s"]) * 1e3,
+               step_ms_min=min(stats["step_s"]) * 1e3,
+               decode_tokens_per_s=SERVE_SLOTS * steps / sum(stats["step_s"]),
+               step_bound_ms=bound["bound_ms"],
+               step_weight_bytes=bound["weight_bytes"],
+               step_cache_bytes=bound["cache_bytes"],
+               step_cross_bytes=bound["cross_bytes"], wall_s=wall,
+               peak_mem_bytes=peak,
+               cache_nbytes=kvcache.cache_nbytes(
+                   fmt, R, SERVE_SLOTS, cfg.num_kv_heads, sc.max_ctx, cfg.hd),
+               cross_cache_nbytes=kvcache.cache_nbytes(
+                   fmt, X, SERVE_SLOTS, cfg.num_kv_heads, Ss, cfg.hd),
+               launches={k: v for k, v in got.items() if v},
+               step_launches={k: v for k, v in split["step"].items() if v},
+               prefill_launches={k: v for k, v in split["prefill"].items()
+                                 if v},
+               sample=out[0][:8], device=device_line, **checks)
+    emit(row)
+    print(f"[cross] {label}: prefill {row['prefill_s'][0]:.3f} s, decode "
+          f"step median {row['step_ms_median']:.2f} ms (bound "
+          f"{row['step_bound_ms']:.3f} ms: {bound['weight_bytes'] / 1e9:.3f}"
+          f" GB of weights, {bound['cache_bytes'] / 1e9:.3f} GB of self "
+          f"cache, {bound['cross_bytes'] / 1e9:.3f} GB of cross caches), "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB, caches {row['cache_nbytes'] / 1e9:.3f} "
+          f"GB self + {row['cross_cache_nbytes'] / 1e9:.3f} GB cross, "
+          f"decode_attn {split['step']['decode_attn']} and "
+          f"frsz2_cache_write {split['step']['frsz2_cache_write']} in "
+          f"{steps} steps, {split['prefill']['frsz2_cache_write']} writes in "
+          "the prefill")
+    return row
+
+
+def phase_cross(device_line):
+    """Slice 7c's path: whisper-medium and llama-3.2-vision-11b served at
+    full width and full depth, one at a time."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.profile import profile_decode
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import cross_layers, cross_len, kv_layers
+
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(what, t0):
+        marks.append((what, time.perf_counter() - t0))
+        return time.perf_counter()
+
+    attn, write = {}, {}
+    for arch in CROSS_ARCHS:
+        cfg = get_arch(arch)
+        tag = CROSS_TAG[arch]
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"[cross] {arch}: full width and depth ({cfg.num_layers} "
+              f"decoder layers"
+              + (f", {cfg.encoder_layers} encoder layers over "
+                 f"{cfg.encoder_seq} frames" if cfg.family == "encdec" else
+                 f", a cross block after every {cfg.cross_attn_every}th over "
+                 f"{cfg.num_image_tokens} image tokens")
+              + f", d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+              f"heads, hd={cfg.hd}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size},"
+              f" {cfg.dtype}; {kv_layers(cfg)} self and {cross_layers(cfg)} "
+              f"cross caches of {cross_len(cfg)} positions): "
+              f"{n / 1e9:.2f} B parameters, {w_bytes / 1e9:.2f} GB drawn in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = mark(f"{tag} weights", t0)
+        for fmt in ("bf16", "frsz2_16"):
+            e1, e2 = _cross_teacher_forcing(
+                params, dataclasses.replace(cfg, kv_format=fmt))
+            print(f"[cross] {arch} teacher forcing, {fmt} caches (B={TF_B}, "
+                  f"S={TF_S}): prefill {e1:.3e}, decode {e2:.3e} (relative "
+                  f"to the largest logit, tolerance {TF_TOL})")
+            check(e1 <= TF_TOL and e2 <= TF_TOL,
+                  f"{arch} teacher forcing {fmt}: {e1:.3e}, {e2:.3e} > "
+                  f"{TF_TOL}")
+            emit(dict(phase="cross-teacher-forcing", arch=arch,
+                      kv_format=fmt, prefill_rel_err=e1, decode_rel_err=e2))
+            torch.cuda.empty_cache()
+        t0 = mark(f"{tag} teacher forcing", t0)
+        for fmt in CROSS_FORMATS[arch]:
+            row = _cross_serve(dataclasses.replace(cfg, kv_format=fmt),
+                               params, device_line)
+            t0 = mark(f"{tag} serve {fmt}", t0)
+            attn.update({k: v for k, v in row.items()
+                         if k.startswith(f"cross_{tag}_")
+                         and not k.startswith(f"cross_{tag}_write_")})
+            write.update({k: v for k, v in row.items()
+                          if k.startswith(f"cross_{tag}_write_")})
+            if fmt == "frsz2_16":
+                attn[f"cross_{tag}_serve_step_launches"] = \
+                    row["step_launches"]["decode_attn"]
+                write[f"cross_{tag}_serve_step_launches"] = \
+                    row["step_launches"]["frsz2_cache_write"]
+                write[f"cross_{tag}_serve_prefill_launches"] = \
+                    row["prefill_launches"]["frsz2_cache_write"]
+        cfg_p = dataclasses.replace(cfg, kv_format="frsz2_16")
+        prof = profile_decode(cfg_p, params, top=8, slots=SERVE_SLOTS,
+                              prompt_len=CROSS_PROMPT[arch],
+                              steps=CROSS_PROFILE_STEPS,
+                              profile_prefill=False)
+        t0 = mark(f"{tag} profile", t0)
+        emit(dict(phase="cross-profile", device=device_line, **prof))
+        print(f"[cross] {arch} frsz2_16 profiled: "
+              f"{prof['wall_per_step_ms']:.2f} ms wall and "
+              f"{prof['device_per_step_ms']:.2f} ms of device time a decode "
+              f"step (bound {prof['step_bound_ms']:.3f} ms), busy "
+              f"{prof['device_busy_share']:.3f}, "
+              f"{prof['launches_per_step']:.0f} launches a step; top: "
+              + "; ".join(f"{k['name'][:40]} {k['device_ms_per_step']:.3f} ms"
+                          for k in prof["top"][:4]))
+        attn[f"cross_{tag}_profile"] = prof
+        del params
+        release()
+    print(f"[cross] phase 12 took {time.perf_counter() - t_phase:.1f} s: "
+          + "; ".join(f"{w} {t:.1f}" for w, t in marks))
+    return attn, write
+
+
 def _cast(tree, dtype):
     """A copy of a weight tree with every floating tensor in ``dtype``."""
     return {k: _cast(v, dtype) if isinstance(v, dict)
@@ -3532,6 +3954,9 @@ def _run(t_start, device_line) -> int:
     release()
     hd112_attn, hd112_write = phase_ssm(device_line)
     entries["decode_attn"].update(hd112_attn)
+    release()
+    cross_attn, cross_write = phase_cross(device_line)
+    entries["decode_attn"].update(cross_attn)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at
@@ -3545,7 +3970,7 @@ def _run(t_start, device_line) -> int:
         err_unit="code", **writes,
         serve_step_launches=serve_launches["frsz2_cache_write_step"],
         serve_prefill_launches=serve_launches["frsz2_cache_write_prefill"],
-        **ring_write, **hd112_write)
+        **ring_write, **hd112_write, **cross_write)
     entries["frsz2_compress"]["serve_launches"] = serve_launches[
         "frsz2_compress"]
     for name, e in entries.items():

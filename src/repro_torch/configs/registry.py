@@ -3,9 +3,9 @@
 Ten published configurations; sources are cited per entry.  The frontend
 stubs of whisper (conv audio) and llama-3.2 vision give precomputed
 embeddings whose token counts the reference rounded to a multiple of 128
-(1500 -> 1536 frames, 1601 -> 1664 patches).  The entries are data: the
-port serves the dense, MoE, SSM and hybrid families, and
-``repro_torch.models.lm`` raises for the others (encdec, VLM).
+(1500 -> 1536 frames, 1601 -> 1664 patches).  The port serves every
+family of the registry (``repro_torch.models.lm``): dense, MoE, SSM,
+hybrid, encoder-decoder and VLM.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ kernels that took the most device time, as JSON lines.  ``--batch k``
 profiles a solve of k right-hand sides (``_batch_rhs``) through
 ``gmres_batched`` with ``--method block`` or ``vmap``.
 
-``--arch yi-9b`` (or any served architecture: the dense, MoE, SSM and
-hybrid families) profiles LM decode steps instead, at ``chip_smoke.py``'s
+``--arch yi-9b`` (or any served architecture: the dense, MoE, SSM,
+hybrid, encoder-decoder and VLM families) profiles LM decode steps instead,
+at ``chip_smoke.py``'s
 serving shape (8 slots, prompt 2048, random weights from seed 0;
 ``profile_decode`` takes other slots and prompt lengths, as
 ``chip_smoke.py`` phase 10 calls it for mixtral at 8 layers), once per
@@ -44,7 +45,9 @@ from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.solve import _batch_rhs
 from repro_torch.models import decode_step, init_params, kvcache, prefill
-from repro_torch.models.lm import init_decode_cache, kv_layers
+from repro_torch.launch.serve import aux_for
+from repro_torch.models.lm import (cross_layers, cross_len, init_decode_cache,
+                                   kv_layers)
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
 
@@ -59,21 +62,41 @@ def _nbytes(tree) -> int:
                else v.numel() * v.element_size() for v in tree.values())
 
 
+def _unread_in_decode(cfg, params) -> int:
+    """Bytes of weights a decode step never reads: the encoder (it ran in
+    the prefill) and the cross blocks' ``wk``/``wv`` (their K/V are in the
+    cross caches)."""
+    if cfg.family == "encdec":
+        cross = params["layers"]["cross"]
+    elif cfg.family == "vlm":
+        cross = params["cross_layers"]["attn"]
+    else:
+        return 0
+    return (_nbytes(params.get("encoder", {}))
+            + _nbytes({k: cross[k] for k in ("wk", "wv")}))
+
+
 def decode_step_bytes(cfg, params, slots: int, mean_len: float) -> dict:
     """The bytes a decode step of ``slots`` rows must move, and the least
     time they take at the card's memory rate (``bound_ms``):
 
-    * ``weight_bytes``: every weight but the embedding table (a step
-      gathers ``slots`` rows of it) once, the MoE experts all (``moe_block``
-      reads every expert), and the hybrid's shared attention and MLP block
-      once an application: at 0.41 GB (zamba2-7b) it does not stay in the
-      50 MB L2 from one application to the next;
+    * ``weight_bytes``: every weight a step reads once: all but the
+      embedding table (a step gathers ``slots`` rows of it), the encoder
+      and the cross blocks' ``wk``/``wv`` (never read in decode); the MoE
+      experts all (``moe_block`` reads every expert), and the hybrid's
+      shared attention and MLP block once an application: at 0.41 GB
+      (zamba2-7b) it does not stay in the 50 MB L2 from one application to
+      the next;
     * ``state_bytes``: the SSM families' ``ssm_h`` and ``ssm_conv`` read
       and written;
-    * ``cache_bytes``: the K/V positions attended, ``mean_len`` a row, in
-      every KV layer, at the cache format's bits a value.
+    * ``cache_bytes``: the self-attention K/V positions attended,
+      ``mean_len`` a row, in every layer of ``kv_layers``, at the cache
+      format's bits a value;
+    * ``cross_bytes``: every cross cache (``cross_layers``) read whole, at
+      its ``cross_len`` source positions a row.
     """
-    weights = _nbytes(params) - _nbytes({"embed": params["embed"]})
+    weights = (_nbytes(params) - _nbytes({"embed": params["embed"]})
+               - _unread_in_decode(cfg, params))
     R = kv_layers(cfg)
     if cfg.family == "hybrid":
         weights += (R - 1) * _nbytes({k: params[k] for k in
@@ -82,13 +105,16 @@ def decode_step_bytes(cfg, params, slots: int, mean_len: float) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         st = init_decode_cache(cfg, slots, 1, device="meta")
         state = 2 * _nbytes({k: st[k] for k in ("ssm_h", "ssm_conv")})
-    cache = 0.0
-    if R:
-        fmt = kvcache.cache_format(cfg.kv_format)
-        cache = (R * slots * cfg.num_kv_heads * mean_len * 2 * cfg.hd
-                 * fmt.bits_per_value(cfg.hd) / 8)
+    fmt = kvcache.cache_format(cfg.kv_format)
+    # a position of every row, K and V, in one layer
+    per_pos = (slots * cfg.num_kv_heads * 2 * cfg.hd
+               * fmt.bits_per_value(cfg.hd) / 8)
+    cache = R * mean_len * per_pos
+    cross = cross_layers(cfg) * cross_len(cfg) * per_pos
     return dict(weight_bytes=weights, state_bytes=state, cache_bytes=cache,
-                bound_ms=(weights + state + cache) / HBM_BYTES_PER_S * 1e3)
+                cross_bytes=cross,
+                bound_ms=(weights + state + cache + cross)
+                / HBM_BYTES_PER_S * 1e3)
 
 
 def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
@@ -198,26 +224,31 @@ def time_cache_write(cfg) -> dict:
 
 def profile_decode(cfg, params, *, top: int = 10, slots: int = SERVE_SLOTS,
                    prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
-                   profile_prefill: bool = True) -> dict:
+                   profile_prefill: bool = True, aux_inputs=None) -> dict:
     """``steps`` decode steps (and, with ``profile_prefill``, the prefill)
     under the profiler.  The profiler's own cost grows with the kernels it
     records: a full-depth SSM prefill launches ~10^5 of them
     (falcon-mamba-7b's scan: one a position and layer), which takes it
     minutes to process, so ``profile_prefill=False`` runs the prefill
-    unprofiled and reports only its wall."""
+    unprofiled and reports only its wall.  ``aux_inputs``: the encdec and
+    VLM families' frames or image embeddings for the prefill (by default
+    ``serve.aux_for`` drawn from seed 0)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (slots, prompt_len),
                            generator=gen, device="cuda")
+    if aux_inputs is None:
+        aux_inputs = aux_for(cfg, slots, gen)
     cache_len = prompt_len + steps + 2
     if profile_prefill:
-        prefill(params, cfg, prompt, cache_len=cache_len)
+        prefill(params, cfg, prompt, aux_inputs, cache_len=cache_len)
     torch.cuda.synchronize()
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
           if profile_prefill else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
-        logits, cache = prefill(params, cfg, prompt, cache_len=cache_len)
+        logits, cache = prefill(params, cfg, prompt, aux_inputs,
+                                cache_len=cache_len)
         torch.cuda.synchronize()
         prefill_wall = time.perf_counter() - t0
     pre = dict(prefill_wall_ms=prefill_wall * 1e3)

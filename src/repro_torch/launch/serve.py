@@ -3,6 +3,8 @@
   python -m repro_torch.launch.serve --arch yi-9b
   python -m repro_torch.launch.serve --arch yi-9b --reduced --device cpu
   python -m repro_torch.launch.serve --arch zamba2-7b  (or falcon-mamba-7b)
+  python -m repro_torch.launch.serve --arch whisper-medium
+      (or llama-3.2-vision-11b)
 
 A fixed pool of decode slots, the JAX package's loop (``repro.launch.serve``)
 step for step: the first wave of requests is prefilled into a fresh cache;
@@ -15,8 +17,14 @@ Runs on CUDA by default: an FRSZ2 cache (``--kv-format frsz2_16``, the
 config's default) is written by the cache-write kernel and read by the
 flash-decode attention kernel (in the hybrid family, by its shared
 attention block; the SSM family has no KV cache and carries its state from
-step to step); ``--device cpu`` runs the plain PyTorch versions.  Weights are random, drawn from seed 0 on the device, layer by
-layer.  The flags are the reference's, plus ``--device``; the cache holds
+step to step).  The encoder-decoder and VLM families also take stub frame
+or image embeddings (``serve(aux_inputs=...)``, drawn by :func:`aux_for`
+when not given, the same for every wave, as the reference's): the prefill
+writes each cross-attention block's cache whole from them, and every
+decode step reads those caches whole through the same attention kernel.
+``--device cpu`` runs the plain PyTorch versions.  Weights are random,
+drawn from seed 0 on the device, layer by layer.  The flags are the
+reference's, plus ``--device``; the cache holds
 every position the run writes (the reference CLI's ``prompt + max_new +
 8`` overflows as soon as requests outnumber slots, and the JAX package then
 drops the writes past its end).
@@ -36,7 +44,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import kv_layers
+from repro_torch.models.config import torch_dtype
+from repro_torch.models.lm import cross_layers, cross_len, kv_layers
 
 
 @dataclasses.dataclass
@@ -55,18 +64,48 @@ def decode_steps(n_requests: int, sc: ServeConfig) -> int:
     return -(-n_requests // sc.slots) * sc.max_new if n_requests else 0
 
 
+def aux_for(cfg: ArchConfig, B: int, gen: torch.Generator) -> dict:
+    """The reference's ``_aux_for``: stub frame embeddings (encdec) or image
+    embeddings (VLM), normal x 0.02 in the model's dtype, ``(B,
+    cross_len, d_model)``, on ``gen``'s device; empty for the other
+    families."""
+    key = {"encdec": "frames", "vlm": "image_embeds"}.get(cfg.family)
+    if key is None:
+        return {}
+    dt = torch_dtype(cfg.dtype)
+    x = torch.randn((B, cross_len(cfg), cfg.d_model), generator=gen,
+                    dtype=torch.float32, device=gen.device).to(dt)
+    return {key: x * 0.02}
+
+
+def _kv_line(cfg: ArchConfig) -> str:
+    """The cache formats of the closing line: the self cache's and the
+    cross caches' (the same format, ``cfg.kv_format``)."""
+    if not kv_layers(cfg):
+        return "kv=no cache"
+    line = f"kv={cfg.kv_format}"
+    if cross_layers(cfg):
+        line += (f", cross kv={cfg.kv_format} ({cross_layers(cfg)} layers x "
+                 f"{cross_len(cfg)} positions)")
+    return line
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
 def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
-          params: dict | None = None, device="cuda", verbose: bool = True,
+          params: dict | None = None, aux_inputs: dict | None = None,
+          device="cuda", verbose: bool = True,
           stats: dict | None = None) -> dict:
     """Generate ``max_new`` tokens for every request; returns completions.
 
     ``params`` (the weights, on ``device``) defaults to random ones drawn
-    from ``sc.seed``.  ``stats``, if given, receives the wall of each
+    from ``sc.seed``; ``aux_inputs`` (the encdec family's ``"frames"``, the
+    VLM's ``"image_embeds"``, ``(slots, cross_len, d_model)``), handed to
+    every wave's prefill, to :func:`aux_for` drawn from ``sc.seed`` on the
+    device.  ``stats``, if given, receives the wall of each
     prefill (``prefill_s``) and of each decode step including its host
     read of the new tokens (``step_s``), in seconds, the kernel launches
     (``ops.LAUNCHES``) of the prefills (``prefill_launches``) and of the
@@ -82,6 +121,9 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
         params = init_params(cfg, torch.Generator(device=dev)
                              .manual_seed(sc.seed))
     B = sc.slots
+    if aux_inputs is None:
+        aux_inputs = aux_for(cfg, B, torch.Generator(device=dev)
+                             .manual_seed(sc.seed))
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     if stats is not None:
         stats.update(prefill_s=[], step_s=[],
@@ -108,7 +150,7 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
         t = time.perf_counter()
         before = dict(ops.LAUNCHES)
         logits, cache = prefill(params, cfg, torch.from_numpy(prompt).to(dev),
-                                cache_len=sc.max_ctx)
+                                aux_inputs, cache_len=sc.max_ctx)
         count("prefill_launches", before)
         tokens = logits.argmax(-1)
         if stats is not None:
@@ -148,8 +190,7 @@ def serve(cfg: ArchConfig, sc: ServeConfig, requests: list[np.ndarray], *,
     dt = time.perf_counter() - t0
     if verbose:
         print(f"[serve] {len(requests)} requests x {sc.max_new} tokens in "
-              f"{dt:.1f}s ({steps} decode steps, kv="
-              f"{cfg.kv_format if kv_layers(cfg) else 'no cache'}, "
+              f"{dt:.1f}s ({steps} decode steps, {_kv_line(cfg)}, "
               f"{dev.type})")
     return out
 

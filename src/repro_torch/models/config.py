@@ -1,10 +1,9 @@
 """Architecture configuration of the LM families (the port's own copy).
 
 One dataclass covers the ten architectures of the JAX package's registry:
-dense GQA/MQA decoders, MoE, encoder-decoder, VLM, SSM and hybrid.  The
-port runs the dense, MoE, SSM and hybrid families
-(``repro_torch.models.lm``); the others are configured here and raise
-where they would run.  ``.reduced()`` derives the CPU test variant.
+dense GQA/MQA decoders, MoE, encoder-decoder, VLM, SSM and hybrid, all of
+which the port runs (``repro_torch.models.lm``).  ``.reduced()`` derives
+the CPU test variant.
 
 The paper's technique enters through ``kv_format``: the decode-time KV
 cache is stored FRSZ2-compressed (block size = head_dim, one ``e_max`` per

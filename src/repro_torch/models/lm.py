@@ -1,5 +1,5 @@
 """Model assembly for serving: init / trunk / prefill / decode, for the
-dense, MoE, SSM and hybrid families.
+dense, MoE, SSM, hybrid, encoder-decoder and VLM families.
 
 The dense family is the pre-norm GQA decoder (internlm2, yi, granite,
 mistral-nemo); the MoE family (mixtral, llama4-scout) replaces its SwiGLU
@@ -10,19 +10,25 @@ with no attention and no KV cache; the hybrid family (zamba2) is a Mamba2
 stack with ONE shared attention + SwiGLU block applied after every
 ``attn_every`` layers (each application has its own KV cache, the weights
 are shared), then the ``L % attn_every`` tail layers
-(``repro_torch.models.ssm``).  Weights are a dict of layer-stacked ``(L,
-...)`` tensors under the JAX package's names; the layer loop is a Python
-loop over views of them.  The decode cache is a dict of preallocated
-tensors: ``(L, B, Hkv, S, D)`` K/V (``repro_torch.models.kvcache``; one
-layer an application of the shared block in the hybrid family), and the
-SSM families' f32 states ``ssm_h`` and conv states ``ssm_conv``, which
-:func:`prefill` fills and :func:`decode_step` updates in place; on the card
-an FRSZ2 cache's codes are written by the cache-write kernel and read by
-the flash-decode kernel.
+(``repro_torch.models.ssm``).  The encoder-decoder family (whisper) runs a
+bidirectional encoder over stub frame embeddings (``aux_inputs["frames"]``)
+and a causal decoder whose every layer cross-attends to the encoder's
+states; the VLM family (llama-3.2-vision) runs ``cross_attn_every`` self
+layers, then one cross-attention + SwiGLU block over stub image embeddings
+(``aux_inputs["image_embeds"]``), ``L // cross_attn_every`` rounds.  Weights
+are a dict of layer-stacked ``(L, ...)`` tensors under the JAX package's
+names; the layer loop is a Python loop over views of them.  The decode
+cache is a dict of preallocated tensors: ``(L, B, Hkv, S, D)`` K/V
+(``repro_torch.models.kvcache``; one layer an application of the shared
+block in the hybrid family) under ``"self"``, the cross caches under
+``"cross"`` (one layer a cross-attention block, written whole by
+:func:`prefill` from the encoder or image states and only read by
+:func:`decode_step`), and the SSM families' f32 states ``ssm_h`` and conv
+states ``ssm_conv``, which :func:`prefill` fills and :func:`decode_step`
+updates in place; on the card an FRSZ2 cache's codes are written by the
+cache-write kernel and read by the flash-decode kernel.
 
-The other families of the registry (encdec, VLM) and training
-(``loss_fn``) wait for a later slice of the port: their branches raise
-``NotImplementedError``.
+Training (``loss_fn``) waits for a later slice of the port.
 
 Random weights cannot match the JAX package's (``jax.random`` and
 ``torch.Generator`` give other numbers): :func:`init_params` draws its own,
@@ -50,19 +56,18 @@ from repro_torch.models.layers import (
 f32 = torch.float32
 
 __all__ = ["init_params", "trunk", "init_decode_cache", "decode_step",
-           "prefill", "kv_layers"]
+           "prefill", "kv_layers", "cross_layers", "cross_len"]
 
 
-#: the families the port runs
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families the port runs: every family of the registry
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _check_family(cfg: ArchConfig, what: str) -> None:
+    """An unknown family raises ``ValueError``, as the reference's does."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{what} for the {cfg.family!r} family ({cfg.name}) waits for a "
-            "later slice of the port (ROADMAP.md §1): the port runs the "
-            f"{', '.join(FAMILIES)} families")
+        raise ValueError(f"{what}: unknown family {cfg.family!r} "
+                         f"({cfg.name}); known: {', '.join(FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -178,11 +183,43 @@ def _mamba2_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
 
 
 def kv_layers(cfg: ArchConfig) -> int:
-    """Layers of the KV cache: one an attention layer, one an application
-    of the hybrid's shared block, none in the SSM family."""
+    """Layers of the self-attention KV cache (``cache["self"]``): one a
+    self-attention layer, one an application of the hybrid's shared block,
+    none in the SSM family.  The cross caches are not counted here:
+    :func:`cross_layers`."""
     if cfg.family == "ssm":
         return 0
     return _rounds(cfg)[0] if cfg.family == "hybrid" else cfg.num_layers
+
+
+def cross_layers(cfg: ArchConfig) -> int:
+    """Layers of the cross-attention cache (``cache["cross"]``): one a
+    decoder layer (encdec), one a cross block (VLM), none elsewhere."""
+    if cfg.family == "encdec":
+        return cfg.num_layers
+    if cfg.family == "vlm":
+        return _cross_rounds(cfg)
+    return 0
+
+
+def cross_len(cfg: ArchConfig) -> int:
+    """Source positions a cross cache holds and every decode step reads:
+    the encoder's frames (encdec) or the image tokens (VLM)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_seq
+    if cfg.family == "vlm":
+        return cfg.num_image_tokens
+    return 0
+
+
+def _cross_rounds(cfg: ArchConfig) -> int:
+    """VLM: the rounds of ``cross_attn_every`` self layers and one cross
+    block (the reference reshapes the L layers to (R, k), so k divides L)."""
+    k = cfg.cross_attn_every
+    if not k or cfg.num_layers % k:
+        raise ValueError(f"{cfg.name}: cross_attn_every={k} must divide "
+                         f"num_layers={cfg.num_layers}")
+    return cfg.num_layers // k
 
 
 def _rounds(cfg: ArchConfig) -> tuple[int, int]:
@@ -214,12 +251,25 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
         params["shared_attn"] = _attn_params(gen, cfg, 0, dt)
         params["shared_mlp"] = _mlp_params(gen, cfg, 0, dt)
         return params
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        params["encoder"] = {
+            "layers": {"attn": _attn_params(gen, cfg, Le, dt),
+                       "mlp": _mlp_params(gen, cfg, Le, dt)},
+            "final_ln": torch.ones((d,), dtype=dt, device=gen.device),
+        }
     layers = {"attn": _attn_params(gen, cfg, L, dt)}
+    if cfg.family == "encdec":
+        layers["cross"] = _attn_params(gen, cfg, L, dt)
     if cfg.family == "moe":
         layers["moe"] = _moe_params(gen, cfg, L, dt)
     else:
         layers["mlp"] = _mlp_params(gen, cfg, L, dt)
     params["layers"] = layers
+    if cfg.family == "vlm":
+        R = _cross_rounds(cfg)
+        params["cross_layers"] = {"attn": _attn_params(gen, cfg, R, dt),
+                                  "mlp": _mlp_params(gen, cfg, R, dt)}
     return params
 
 
@@ -257,6 +307,63 @@ def _ssm_seq(cfg: ArchConfig):
     return ssm_mod.mamba1_seq if cfg.family == "ssm" else ssm_mod.mamba2_seq
 
 
+def _cross_src(params: dict, cfg: ArchConfig, aux_inputs, dtype, B: int
+               ) -> torch.Tensor:
+    """The cross-attention source (B, cross_len, d): the encoder's states
+    over ``aux_inputs["frames"]`` (encdec) or ``aux_inputs["image_embeds"]``
+    (VLM), in the model's dtype."""
+    key = "frames" if cfg.family == "encdec" else "image_embeds"
+    if not aux_inputs or key not in aux_inputs:
+        raise ValueError(f"the {cfg.family} family ({cfg.name}) needs "
+                         f"aux_inputs[{key!r}]")
+    src = aux_inputs[key].to(dtype)
+    want = (B, cross_len(cfg), cfg.d_model)
+    if tuple(src.shape) != want:
+        raise ValueError(f"aux_inputs[{key!r}] is {tuple(src.shape)}, "
+                         f"expected {want} (the decode steps read "
+                         f"cross_len = {want[1]} positions)")
+    if cfg.family == "vlm":
+        return src
+    # the bidirectional encoder, RoPE at the frames' positions
+    enc_pos = torch.arange(src.shape[1], device=src.device)
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        lp = _layer(enc["layers"], i)
+        src = attention_block(src, lp["attn"], cfg, positions=enc_pos,
+                              causal=False)
+        src = swiglu_block(src, lp["mlp"])
+    return rms_norm(src, enc["final_ln"])
+
+
+def _decoder(params: dict, cfg: ArchConfig, h: torch.Tensor, self_attn,
+             cross_attn) -> torch.Tensor:
+    """The encdec / VLM decoder stack over ``h``, with the attention halves
+    given: ``self_attn(h, attention weights, layer i)`` and ``cross_attn(h,
+    attention weights, cross layer c)`` (the forward's, the prefill's or a
+    decode step's); the SwiGLU blocks are the same in all three.  whisper
+    cross-attends in every layer, between its self-attention and its MLP;
+    the VLM runs ``cross_attn_every`` self layers, then a cross block with
+    its own MLP, ``L // cross_attn_every`` rounds (its layer ``r * k + j``
+    is step j of round r, the reference's (R, k) reshape)."""
+    if cfg.family == "encdec":
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            h = self_attn(h, lp["attn"], i)
+            h = cross_attn(h, lp["cross"], i)
+            h = swiglu_block(h, lp["mlp"])
+        return h
+    k = cfg.cross_attn_every
+    for r in range(_cross_rounds(cfg)):
+        for i in range(r * k, (r + 1) * k):
+            lp = _layer(params["layers"], i)
+            h = self_attn(h, lp["attn"], i)
+            h = swiglu_block(h, lp["mlp"])
+        cp = _layer(params["cross_layers"], r)
+        h = cross_attn(h, cp["attn"], r)
+        h = swiglu_block(h, cp["mlp"])
+    return h
+
+
 # ---------------------------------------------------------------------------
 # parallel forward (the teacher-forcing reference of the serving path)
 # ---------------------------------------------------------------------------
@@ -266,12 +373,21 @@ def trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
           aux_inputs=None):
     """tokens (B, S) -> (hidden states (B, S, d), aux loss): the MoE
     layers' load-balancing losses summed over layers (f32), 0 for the
-    other families."""
+    other families.  ``aux_inputs``: the encdec family's ``"frames"`` or
+    the VLM's ``"image_embeds"``, (B, cross_len, d)."""
     _check_family(cfg, "trunk")
     B, S = tokens.shape
     h = params["embed"][tokens]
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), dtype=f32, device=h.device)
+    if cfg.family in ("encdec", "vlm"):
+        src = _cross_src(params, cfg, aux_inputs, h.dtype, B)
+        h = _decoder(
+            params, cfg, h,
+            lambda x, ap, i: attention_block(x, ap, cfg, positions=positions),
+            lambda x, ap, c: attention_block(x, ap, cfg, positions=positions,
+                                             kv_src=src))
+        return h, aux
     if cfg.family in ("ssm", "hybrid"):
         seq = _ssm_seq(cfg)
         for _, lp, r in _ssm_layers(params, cfg):
@@ -316,7 +432,19 @@ def init_decode_cache(cfg: ArchConfig, B: int, S: int, device=None) -> dict:
     cache["self"] = kv.init_cache(_cache_fmt(cfg), kv_layers(cfg), B,
                                   cfg.num_kv_heads, _cache_seq(cfg, S),
                                   cfg.hd, device=device)
+    if cross_layers(cfg):
+        # the reference pads the cross cache to a multiple of 128 here,
+        # where its prefill builds it unpadded (cross_len positions): the
+        # decode steps read cross_len positions, so the padding never
+        # enters a result (ROADMAP.md §3)
+        cache["cross"] = kv.init_cache(
+            _cache_fmt(cfg), cross_layers(cfg), B, cfg.num_kv_heads,
+            _round_up(cross_len(cfg), 128), cfg.hd, device=device)
     return cache
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def _ssm_state(cfg: ArchConfig, B: int, device) -> dict:
@@ -347,18 +475,44 @@ def _self_attn_decode(h, lp, cfg, layer_cache, lengths, fmt, ring):
     return h + (o.reshape(B, 1, -1) @ lp["wo"])
 
 
+def _cross_attn_decode(h, lp, cfg, layer_cache, src_len, fmt):
+    """One decode step of a cross-attention block against its cache (no
+    RoPE; the cache is only read)."""
+    B = h.shape[0]
+    hn = rms_norm(h, lp["ln"])
+    q = (hn @ lp["wq"]).reshape(B, cfg.num_heads, cfg.hd)
+    o = kv.attend(q, layer_cache, src_len, fmt, chunk=cfg.decode_chunk)
+    return h + (o.reshape(B, 1, -1) @ lp["wo"])
+
+
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 tokens: torch.Tensor):
     """One-token decode.  tokens (B,) -> (logits (B, V) f32, cache).
 
     Writes the new token's K/V into ``cache`` and advances its lengths, in
-    place (the JAX package returns a new cache), and returns it.
+    place (the JAX package returns a new cache), and returns it.  The cross
+    caches are read whole (``cross_len`` positions a row), never written.
     """
     _check_family(cfg, "decode_step")
     fmt = _cache_fmt(cfg)
     lengths = cache["lengths"]
     h = params["embed"][tokens][:, None, :]                   # (B, 1, d)
     ring = cfg.window                 # a sliding-window cache is a ring
+    if cfg.family in ("encdec", "vlm"):
+        S_src = cross_len(cfg)
+        buf = cache["cross"]["k" if fmt.kind == "raw" else "k_codes"]
+        if buf.shape[3] < S_src:
+            raise ValueError(f"the cross cache holds {buf.shape[3]} "
+                             f"positions; a decode step reads {S_src}")
+        src_len = torch.full((h.shape[0],), S_src, dtype=torch.int32,
+                             device=h.device)
+        h = _decoder(
+            params, cfg, h,
+            lambda x, ap, i: _self_attn_decode(
+                x, ap, cfg, _layer(cache["self"], i), lengths, fmt, ring),
+            lambda x, ap, c: _cross_attn_decode(
+                x, ap, cfg, _layer(cache["cross"], c), src_len, fmt))
+        return _decode_logits(params, h, cache, lengths)
     if cfg.family in ("ssm", "hybrid"):
         # the SSM states and the shared block's caches, updated in place
         step = (ssm_mod.mamba1_decode if cfg.family == "ssm"
@@ -397,7 +551,9 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     Runs the parallel forward (blocked attention, the SSM families'
     chunked scans) and writes each attention layer's cache whole into a
     preallocated buffer (no scatter: the paper's whole-block-write
-    discipline), and each SSM layer's last state and conv state.
+    discipline), each cross-attention block's K/V of the source likewise
+    (``aux_inputs``: the encdec family's ``"frames"``, the VLM's
+    ``"image_embeds"``), and each SSM layer's last state and conv state.
     ``cache_len`` pads the KV cache for later decode steps (defaults to the
     prompt length); a sliding-window cache is padded up to ``window`` slots
     at most.
@@ -419,6 +575,21 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     if cfg.window:
         n_slots = min(n_slots, cfg.window)
     cache = {"lengths": torch.full((B,), S, dtype=torch.int32, device=dev)}
+
+    def cross_and_cache(h, ap, src, layer_cache):
+        """Cross-attention over the source (no RoPE, no mask); its K/V
+        written whole into ``layer_cache`` (the reference projects them
+        twice, for the cache and for the attention: the same bits)."""
+        hn = rms_norm(h, ap["ln"])
+        Hkv, hd = cfg.num_kv_heads, cfg.hd
+        Ss = src.shape[1]
+        q = (hn @ ap["wq"]).reshape(B, S, cfg.num_heads, hd)
+        k = (src @ ap["wk"]).reshape(B, Ss, Hkv, hd)
+        v = (src @ ap["wv"]).reshape(B, Ss, Hkv, hd)
+        kv.build_cache(k, v, fmt, out=layer_cache)
+        o = blocked_attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk,
+                              chunk_k=min(cfg.attn_chunk, Ss))
+        return h + o.reshape(B, S, -1) @ ap["wo"]
 
     def attn_and_cache(h, ap, layer_cache):
         """Self-attention over the prompt; its K/V written whole into
@@ -447,6 +618,21 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 h = attn_and_cache(h, params["shared_attn"],
                                    _layer(cache["self"], r))
                 h = swiglu_block(h, params["shared_mlp"])
+    elif cfg.family in ("encdec", "vlm"):
+        src = _cross_src(params, cfg, aux_inputs, h.dtype, B)
+        cache["self"] = kv.init_cache(fmt, cfg.num_layers, B,
+                                      cfg.num_kv_heads, n_slots, cfg.hd,
+                                      device=dev)
+        # unpadded (cross_len positions), as the reference's prefill builds
+        # it
+        cache["cross"] = kv.init_cache(fmt, cross_layers(cfg), B,
+                                       cfg.num_kv_heads, src.shape[1],
+                                       cfg.hd, device=dev)
+        h = _decoder(
+            params, cfg, h,
+            lambda x, ap, i: attn_and_cache(x, ap, _layer(cache["self"], i)),
+            lambda x, ap, c: cross_and_cache(x, ap, src,
+                                             _layer(cache["cross"], c)))
     else:
         cache["self"] = kv.init_cache(fmt, cfg.num_layers, B,
                                       cfg.num_kv_heads, n_slots, cfg.hd,

@@ -15,6 +15,7 @@ import pickle
 import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -23,14 +24,19 @@ ROOT = os.path.dirname(HERE)
 #: ranks of the spawned world (the reference tests emulate 8 devices)
 WORLD = 8
 #: seconds a world may take before the test fails: three times the
-#: slowest world measured under a parallel test run (``pytest -n 6 --dist
-#: loadfile`` on 8 cores, the worlds one at a time: the sharded module's
-#: world 100.0 s, the collectives module's 12.0 s; alone on those cores
-#: the sharded world takes ~25 s)
-DEADLINE_S = 300.0
+#: slowest world measured, 140.7 s (the sharded module's world in a run of
+#: that module alone on a shared 8-core host; 111.0 s alone on an idle
+#: one, 112.0 and 121.5 s under ``pytest -n 6 --dist loadfile``; the
+#: collectives module's 12-20 s).  Most of a world's wall is gloo's
+#: all-reduce at 8 ranks (3.6 of a 4.7 s solve, 307 calls), whose latency
+#: grows with the host's load: 2.8 ms idle, 17 ms beside 48 busy threads,
+#: where a solve took 1.9 times as long.  Under a full test run on a
+#: loaded host the world outlived the former 300 s (3 x 100 s, measured
+#: before the float64 switch solves, 31 s, joined the world)
+DEADLINE_S = 420.0
 #: seconds each subprocess of a test module may take (a test run has a
 #: hard clock): the world's deadline plus the ranks' start and teardown
-SUBPROCESS_S = 360
+SUBPROCESS_S = 480
 
 #: sharded solves at P = 8, m = 20 (``synth:atmosmod`` n = 512 as in
 #: ``tests/test_sharded_driver.py``; ``mode`` is ``shard_matvec``)
@@ -166,8 +172,9 @@ def finish(proc, what):
         _, err = proc.communicate(timeout=SUBPROCESS_S)
     except subprocess.TimeoutExpired:
         _kill(proc)
-        proc.communicate()
-        pytest.fail(f"{what} did not finish within {SUBPROCESS_S} s")
+        _, err = proc.communicate()
+        pytest.fail(f"{what} did not finish within {SUBPROCESS_S} s:\n"
+                    f"{err[-4000:]}")
     finally:
         _kill(proc)
     if proc.returncode != 0:
@@ -184,7 +191,8 @@ def _kill(proc):
 def run_worlds(d, steps):
     """Run ``steps`` (``(what, args, env_extra)``) one after another, each
     to its end, under the run's world lock, and write their wall times to
-    ``d / "walls.json"``.
+    ``d / "walls.json"`` as each ends (a step that fails too, so that a
+    failed run shows how far it got and how long each step took).
 
     One subprocess at a time: the port's 8-rank world is not started
     beside the JAX package's 8-device run, and the lock (a file in the
@@ -194,7 +202,6 @@ def run_worlds(d, steps):
     before the test fails, and no later step starts."""
     import fcntl
     import json
-    import time
 
     walls = {}
     with open(d.parent / "torch_worlds.lock", "w") as lock:
@@ -203,9 +210,11 @@ def run_worlds(d, steps):
         walls["lock wait"] = time.perf_counter() - t0
         for what, args, env_extra in steps:
             t0 = time.perf_counter()
-            finish(start(args, env_extra), what)
-            walls[what] = time.perf_counter() - t0
-    (d / "walls.json").write_text(json.dumps(walls, indent=1))
+            try:
+                finish(start(args, env_extra), what)
+            finally:
+                walls[what] = time.perf_counter() - t0
+                (d / "walls.json").write_text(json.dumps(walls, indent=1))
 
 
 def worlds_dir(tmp_path_factory, name: str):
@@ -242,6 +251,7 @@ def solve_rank(rank, dev, cases):
 
     out = []
     for c in cases:
+        t0 = time.perf_counter()
         A, target = make_problem(c["problem"], c["n"], device=dev)
         b = torch.from_numpy(rhs(A.shape[0]))
         kw = dict(storage=c["storage"], m=M, max_iters=MAX_ITERS,
@@ -266,10 +276,19 @@ def solve_rank(rank, dev, cases):
             wire=(wire_bytes(res[0], plan, storage=c["storage"], m=M,
                              transport=c["transport"])
                   if "method" not in c else None)))
-    return dict(cases=out, switches=_switched_solves(dev))
+        _progress(rank, case_id(c), t0)
+    return dict(cases=out, switches=_switched_solves(rank, dev))
 
 
-def _switched_solves(dev):
+def _progress(rank, what, t0):
+    """Rank 0's wall of a finished case, on stderr (a failed world's
+    message ends with them)."""
+    if rank == 0:
+        print(f"[world] {what}: {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+
+
+def _switched_solves(rank, dev):
     """The float64 solves of :data:`SWITCHES`, each half switched through
     the port's own seam: ``_wrap_policy`` codes the dots,
     ``_partition_for`` the halo strips."""
@@ -285,12 +304,14 @@ def _switched_solves(dev):
     out = {}
     try:
         for name, (dots, halo) in SWITCHES.items():
+            t0 = time.perf_counter()
             S._wrap_policy = lambda pol, g, _c, d=dots: wrap(pol, g, d)
             S._partition_for = (lambda plan, r, g, dv, _c, h=halo:
                                 part(plan, r, g, dv, h))
             out[name] = result_row(gmres(
                 A, b, storage="float64", m=SWITCH_M, max_iters=MAX_ITERS,
                 target_rrn=target, shard=WORLD, shard_matvec="halo"))
+            _progress(rank, f"switched solve {name}", t0)
     finally:
         S._wrap_policy, S._partition_for = wrap, part
     return out

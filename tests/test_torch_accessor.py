@@ -103,7 +103,11 @@ def _assert_tree_equal(got, ref):
 @pytest.mark.parametrize("name", ["float64", "float32", "float16", "bfloat16",
                                   "frsz2_32", "frsz2_16", "frsz2_21",
                                   "mixed:2:frsz2_32"])
-def test_rows_dots_combine_match_reference(name, rng):
+def test_rows_dots_combine_match_reference(name, rng, monkeypatch):
+    # float16 rows: the installed JAX's f64 -> f16 rounding, which differs
+    # from the port's (the card's) on some values by host (see
+    # ``_torch_jax_numerics.install_f16_rounding``)
+    JN.install_f16_rounding(monkeypatch)
     m, n, live = 6, 333, 4
     aj, at = _pair(name, m, n)
     sj, st = aj.empty(), at.empty()

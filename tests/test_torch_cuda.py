@@ -58,7 +58,12 @@ within 1e-12 relative.  The MoE family: ``moe_block`` on the card with the
 CPU route's routing (slots and drops) and output within 1e-5 of the
 largest entry; mixtral ``reduced()`` past its window (a rolled prefill and
 wrapping decode steps) on the card within 1e-3 of the CPU's logits, the
-flash-decode kernel once a layer on its FRSZ2 ring.
+flash-decode kernel once a layer on its FRSZ2 ring.  The encoder-decoder
+and VLM families: the flash-decode kernel on a cross cache read whole at
+whisper-medium's and llama-3.2-vision-11b's serving shapes against the
+masked softmax (the tolerances above), the cross cache's prefill write
+bit-equal to the CPU's, and whisper and the VLM ``reduced()`` on the card
+within 1e-3 of the CPU's logits, the cross caches' exponents bit-equal.
 """
 import numpy as np
 import pytest
@@ -1145,3 +1150,105 @@ def test_decode_attention_on_a_wrapped_ring_on_card(cuda, G, qdt):
     tol = cardcheck.ATTN_TOL if qdt == torch.float32 else (
         cardcheck.ATTN_TOL_BF16)
     assert err <= tol * float(want.float().abs().max())
+
+
+#: the cross caches at serving size: whisper-medium's 16 kv heads of
+#: head_dim 64 over 1,536 frames (G = 1) and llama-3.2-vision-11b's 8 of
+#: 128 over 1,664 image tokens (G = 4), 8 rows, every position valid
+CROSS_SHAPES = {"whisper": (16, 1, 64, 1536), "vlm": (8, 4, 128, 1664)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [8, 16])
+@pytest.mark.parametrize("model", sorted(CROSS_SHAPES))
+def test_decode_attention_on_full_length_cross_cache_on_card(cuda, model, l,
+                                                             qdt):
+    """Kernel 9 on a cross cache read whole (a cache written by
+    ``build_cache`` from bf16 K/V as the prefill writes it, lengths = S on
+    every row), through ``kvcache.attend`` as a decode step calls it:
+    against the masked softmax (``kvcache.masked_attend``), f32 q within
+    1e-5 of the largest output and bf16 q within one bf16 step; one
+    launch."""
+    Hkv, G, D, S = CROSS_SHAPES[model]
+    B = 8
+    gen = torch.Generator(device=cuda).manual_seed(l + G)
+    fmt = kvcache.cache_format(f"frsz2_{l}")
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    lc = kvcache.build_cache(k, v, fmt)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda).to(qdt)
+    ops.reset_launches()
+    got = kvcache.attend(q, lc, lengths, fmt)
+    assert ops.LAUNCHES["decode_attn"] == 1
+    want = kvcache.masked_attend(q, lc, lengths, fmt)
+    err = float((got.float() - want.float()).abs().max())
+    tol = cardcheck.ATTN_TOL if qdt == torch.float32 else (
+        cardcheck.ATTN_TOL_BF16)
+    assert err <= tol * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [8, 16])
+@pytest.mark.parametrize("model", sorted(CROSS_SHAPES))
+def test_cross_cache_write_on_card_bit_equal_to_cpu(cuda, model, l):
+    """The cross cache's prefill write (``build_cache`` of the whole
+    source, no padding) on the card: one launch, codes and exponents
+    bit-equal to the same write on the CPU."""
+    Hkv, _, D, S = CROSS_SHAPES[model]
+    gen = torch.Generator().manual_seed(l)
+    fmt = kvcache.cache_format(f"frsz2_{l}")
+    k, v = ((torch.randn((2, S, Hkv, D), generator=gen) * 3)
+            .to(torch.bfloat16) for _ in range(2))
+    want = kvcache.build_cache(k, v, fmt)
+    ops.reset_launches()
+    got = kvcache.build_cache(k.to(cuda), v.to(cuda), fmt)
+    assert ops.LAUNCHES["frsz2_cache_write"] == 1
+    for n, t in want.items():
+        assert torch.equal(got[n].cpu(), t), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_format", ["frsz2_16", "bf16"])
+@pytest.mark.parametrize("name", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_cross_families_on_card_match_cpu(cuda, name, kv_format):
+    """whisper and the VLM ``reduced()``: prefill and two decode steps on
+    the card within 1e-3 of the CPU's logits (relative to the largest), on
+    the same frames or image embeddings; in ``frsz2_16`` the prefill
+    writes every self and cross cache once, a decode step writes the self
+    caches and attends once a self layer and once a cross block, and the
+    cross caches' exponents end bit-equal to the CPU's (the f32 K/V differ
+    in their last bits); in ``bf16`` no FRSZ2 kernel runs."""
+    import dataclasses
+
+    from repro_torch.launch.serve import aux_for
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), kv_format=kv_format)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 34),
+                           generator=torch.Generator().manual_seed(1))
+    aux = aux_for(cfg, 2, torch.Generator().manual_seed(2))
+    on_card = _to_card(params, cuda)
+    R, X = lm.kv_layers(cfg), lm.cross_layers(cfg)
+    frsz = kv_format.startswith("frsz2")
+    lc, cc = prefill(params, cfg, tokens[:, :32], aux, cache_len=36)
+    ops.reset_launches()
+    lg, cg = prefill(on_card, cfg, tokens[:, :32].to(cuda),
+                     _to_card(aux, cuda), cache_len=36)
+    assert ops.LAUNCHES["frsz2_cache_write"] == (R + X if frsz else 0)
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
+    for t in (32, 33):
+        ops.reset_launches()
+        dc, cc = decode_step(params, cfg, cc, tokens[:, t])
+        dg, cg = decode_step(on_card, cfg, cg, tokens[:, t].to(cuda))
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        assert got == ({"decode_attn": R + X, "frsz2_cache_write": R}
+                       if frsz else {})
+        assert float((dg.cpu() - dc).abs().max()) <= 1e-3 * float(
+            dc.abs().max())
+    if frsz:
+        for n, t in cc["cross"].items():
+            if n.endswith("_exps"):
+                assert torch.equal(cg["cross"][n].cpu(), t), n

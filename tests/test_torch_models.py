@@ -159,16 +159,19 @@ def test_init_params_shapes_and_scales():
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.05 * cfg.d_model ** -0.5
 
 
-@pytest.mark.parametrize("name", sorted(n for n, c in ARCHS.items()
-                                        if c.family not in FAMILIES))
-def test_other_families_wait(name):
-    cfg = ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+def test_unknown_family_raises():
+    """Every family of the registry runs; an unknown one raises
+    ``ValueError`` where it would run, as the reference's ``init_params``
+    does."""
+    assert {c.family for c in ARCHS.values()} == set(FAMILIES)
+    cj, ct = (dataclasses.replace(c, family="bogus") for c in _cfgs("none"))
+    with pytest.raises(ValueError):
+        jinit(cj, jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="unknown family 'bogus'"):
+        init_params(ct, torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        prefill({}, cfg, tokens)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        decode_step({}, cfg, {}, tokens[:, 0])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        trunk({}, cfg, tokens)
+    for call in (lambda: prefill({}, ct, tokens),
+                 lambda: decode_step({}, ct, {}, tokens[:, 0]),
+                 lambda: trunk({}, ct, tokens)):
+        with pytest.raises(ValueError, match="unknown family 'bogus'"):
+            call()
