@@ -250,6 +250,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``decode_step_bytes``: the weights a step reads, the self K/V
    attended, every cross cache whole), the peak memory and the caches'
    sizes; two decode steps of each model profiled (prefills unprofiled).
+13. training at full width: yi-9b (d 4096, 32/4 heads, d_ff 11008, vocab
+   64,000, bf16, remat on), 8 of its 48 layers (the gradients and coded
+   moments of all 48 pass the card without the reference's FSDP), S 4,096
+   (``train_4k``), batch 4 in one microbatch, AdamW with FRSZ2-coded
+   moments (bs 128, l 16, f32, nearest) through ``launch.train.train`` as
+   a user calls it: 5 steps with a checkpoint every 3, so one at step 3
+   (finite losses; ``frsz2_compress`` and ``frsz2_decompress`` exactly 2 x
+   12 leaves a step, and 24 compresses of the zero state), then a fresh
+   ``train()`` that resumes from step 3 over steps 3 and 4 (what it
+   restores bit-equal to the step-3 snapshot written, its losses within
+   1e-3 of the uninterrupted run's); one more step with
+   every m and v code and exponent held against the plain compress of the
+   same f32 moments and every decode against the plain decompress, 24
+   launches of each; the step profiled (``launch.profile.profile_train``:
+   wall, device time, busy share, launches, MFU against 989 TFLOP/s) and
+   the AdamW update alone against its codec's byte bound; kernels 1 and 2
+   on one row of the largest leaf (``mlp/wg``, 360.7 M values) and of the
+   embedding, timed beside the plain codec and their bounds (rows 1o and
+   2o); 2 steps with the plain f32 state on the same weights (no codec
+   launch, its bytes and peak); and mixtral-8x22b, falcon-mamba-7b,
+   zamba2-7b, whisper-medium and llama-3.2-vision-11b at ``reduced()``, 2
+   coded steps each: finite losses, the codec's launches as counted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -260,6 +282,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -368,6 +391,20 @@ CROSS_PROMPT = {"whisper-medium": 384, "llama-3.2-vision-11b": 2048}
 CROSS_FORMATS = {"whisper-medium": ("frsz2_16", "frsz2_8", "bf16"),
                  "llama-3.2-vision-11b": ("frsz2_16", "frsz2_8")}
 CROSS_PROFILE_STEPS = 2
+#: phase 13: training yi-9b at full width, 8 of its 48 layers (all 48 with
+#: their gradients, coded moments and f32 update temporaries pass 80 GB:
+#: the reference shards them with FSDP, which the port has not yet),
+#: ``train_4k``'s sequence, global batch 4 in one microbatch, AdamW with
+#: FRSZ2-coded moments; 5 steps with a checkpoint every 3 (one, at step 3),
+#: then a run that resumes from it over steps 3 and 4; the plain state for 2 steps; every other family at
+#: ``reduced()`` for 2 coded steps
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH = "yi-9b", 8, 4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_PLAIN_STEPS = 5, 3, 2
+TRAIN_RESUME_TOL = 1e-3
+TRAIN_FAMILIES = ("mixtral-8x22b", "falcon-mamba-7b", "zamba2-7b",
+                  "whisper-medium", "llama-3.2-vision-11b")
+#: H100 SXM data sheet: dense bf16 tensor-core peak (the MFU's denominator)
+BF16_FLOPS = 989e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -3870,6 +3907,420 @@ def phase_cross(device_line):
     return attn, write
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training (slice 7d)
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(a, b) -> bool:
+    """Two trees of tensors and ``BlockCompressed`` leaves, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.cardcheck import bits
+    from repro_torch.tree import leaves_with_paths
+
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        xb = bits(x) if x.is_floating_point() else x
+        yb = bits(y) if y.is_floating_point() else y
+        if not torch.equal(xb, yb.to(xb.device)):
+            return False
+    return True
+
+
+def _expect_codec(got, per_step, steps, init, what):
+    """The codec's launches of a coded run: ``per_step`` of each a step,
+    and ``per_step`` compress more for the zero state of ``adamw_init``
+    (``init``); nothing else launched."""
+    want = {"frsz2_compress": per_step * (steps + init),
+            "frsz2_decompress": per_step * steps}
+    others = {k: v for k, v in got.items() if v and k not in want}
+    check({k: got[k] for k in want} == want and not others,
+          f"{what}: launches {({k: v for k, v in got.items() if v})}, the "
+          f"path implies {want}")
+
+
+class _MomentTap:
+    """During one training step, every ``ops.compress`` and
+    ``ops.decompress`` (the AdamW moments through kernels 1 and 2) held
+    against the plain codec on the same inputs: codes and exponents of the
+    f32 moments, and the decoded values, bit for bit.  The comparisons run
+    the plain codec and launch nothing."""
+
+    def __enter__(self):
+        from repro_torch.kernels import cardcheck, ops
+
+        self.ops, self.n = ops, {"compress": 0, "decompress": 0, "values": 0}
+        self._orig = ops.compress, ops.decompress
+        compress0, decompress0 = self._orig
+
+        def compress(x, spec, **kw):
+            bc = compress0(x, spec, **kw)
+            check(x.is_cuda and cardcheck.row_codes_equal(x, bc),
+                  f"a moment's codes ({bc.n} values) differ from the plain "
+                  "compress of the same f32 values")
+            self.n["compress"] += 1
+            self.n["values"] += bc.n
+            return bc
+
+        def decompress(bc, **kw):
+            out = decompress0(bc, **kw)
+            check(cardcheck.row_decode_equal(bc, out),
+                  f"a moment's decode ({bc.n} values) differs from the "
+                  "plain decompress")
+            self.n["decompress"] += 1
+            return out
+
+        ops.compress, ops.decompress = compress, decompress
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.compress, self.ops.decompress = self._orig
+
+
+def _opt_kernel_entries(state, largest, embed):
+    """Kernels 1 and 2 as the coded AdamW runs them (rows 1o and 2o): one
+    row of the largest leaf and of the embedding, f32 values, bs 128, l 16,
+    nearest, on the final state's decoded moments; timed by CUDA events
+    beside the plain codec (the largest leaf) and the bytes they move."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import cardcheck, ops
+
+    rows = {}
+    for key, name in ((largest, "largest"), (embed, "embed")):
+        bc = state["m"]
+        for k in key.split("/"):
+            bc = bc[k]
+        x = ops.decompress(bc)
+        codes, exps = torch.empty_like(bc.codes), torch.empty_like(bc.exps)
+        n, nb = bc.n, bc.exps.numel()
+        coded = codes.numel() * codes.element_size() + nb * 4
+        row = dict(leaf=key, n=n, bytes=4 * n + coded)
+        row["compress_ms"] = timed(lambda x=x, bc=bc, out=(codes, exps):
+                                   ops.compress(x, bc.spec, out=out))
+        row["decompress_ms"] = timed(lambda bc=bc: ops.decompress(bc))
+        check(cardcheck.row_codes_equal(x, F.BlockCompressed(
+            codes=codes, exps=exps, n=n, spec=bc.spec)),
+            f"kernel 1 on {key} != plain")
+        if name == "largest":
+            row["compress_plain_ms"] = timed(
+                lambda x=x, bc=bc: F.compress(x, bc.spec), reps=1)
+            row["decompress_plain_ms"] = timed(
+                lambda bc=bc: F.decompress(bc), reps=1)
+        rows[name] = row
+        del x, codes, exps
+        torch.cuda.empty_cache()
+    big = rows["largest"]
+
+    def one(kernel):
+        e = entry(f"frsz2_{kernel}_opt",
+                  "src/repro_torch/kernels/csrc/frsz2_codec.cu",
+                  "src/repro/kernels/frsz2_kernel.py:"
+                  + ("113" if kernel == "compress" else "75"),
+                  big[f"{kernel}_ms"], big[f"{kernel}_plain_ms"],
+                  big["bytes"], 0.0, 0.0, kernel=f"frsz2_{kernel}",
+                  path="train", err_unit="code" if kernel == "compress"
+                  else "value bits",
+                  shape=f"1 row of {big['n']} f32 ({big['leaf']}), bs 128, "
+                        "l 16, nearest",
+                  **{f"embed_{k}": v for k, v in rows["embed"].items()
+                     if k != "bytes"},
+                  embed_bound_ms=bound_ms(rows["embed"]["bytes"])[0])
+        return e
+
+    return {"frsz2_compress_opt": one("compress"),
+            "frsz2_decompress_opt": one("decompress")}
+
+
+def _train_family(arch, root):
+    """One other family at ``reduced()`` on the card: 2 coded steps, the
+    losses finite, the codec's launches as counted."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    leaves = len(tree_leaves(params))
+    opt = AdamWConfig(warmup_steps=5, decay_steps=2, compress_state=True)
+    tc = TrainConfig(steps=2, global_batch=2, seq_len=64, ckpt_every=0,
+                     ckpt_dir=str(root / arch))
+    ops.reset_launches()
+    t = time.perf_counter()
+    _, hist = train(cfg, opt, tc, params=params, device="cuda",
+                    verbose=False)
+    wall = time.perf_counter() - t
+    got = dict(ops.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          f"{arch} reduced: losses {losses}")
+    _expect_codec(got, 2 * leaves, 2, 1, f"{arch} reduced")
+    print(f"[train] {arch} reduced ({cfg.family}, {leaves} leaves): losses "
+          f"{losses[0]:.4f}, {losses[1]:.4f}; frsz2_compress "
+          f"{got['frsz2_compress']}, frsz2_decompress "
+          f"{got['frsz2_decompress']} ({wall:.1f} s)")
+    return dict(arch=arch, family=cfg.family, leaves=leaves, losses=losses,
+                launches={k: v for k, v in got.items() if v}, wall_s=wall)
+
+
+def phase_train(device_line):
+    """Slice 7d's path: yi-9b trained at full width (8 layers) with
+    FRSZ2-coded AdamW moments through kernels 1 and 2, checkpointed,
+    resumed; the plain state; every other family's backward."""
+    import dataclasses
+    import statistics as stats_mod
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import GlobalBatchSpec
+    from repro_torch.kernels import ops
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.profile import profile_train, train_step_flops
+    from repro_torch.launch.train import TrainConfig, make_step, train
+    from repro_torch.models import init_params
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import leaves_with_paths, tree_leaves
+
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(what, t0):
+        marks.append((what, time.perf_counter() - t0))
+        return time.perf_counter()
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    seq = SHAPES["train_4k"].seq_len
+    # the CLI's schedule for --steps 5: warmup max(5 // 20, 5), decay 5
+    opt = AdamWConfig(warmup_steps=5, decay_steps=TRAIN_STEPS,
+                      compress_state=True)
+    t0 = time.perf_counter()
+    params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    paths = leaves_with_paths(params0)
+    L = len(paths)
+    N = sum(t.numel() for _, t in paths)
+    largest = max(paths, key=lambda kv: kv[1].numel())[0]
+    print(f"[train] {TRAIN_ARCH} at full width, {TRAIN_LAYERS} of "
+          f"{get_arch(TRAIN_ARCH).num_layers} layers (d={cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff={cfg.d_ff}, "
+          f"vocab={cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}): {N:,} "
+          f"parameters in {L} leaves (largest {largest}), S={seq}, "
+          f"batch {TRAIN_BATCH}, {time.perf_counter() - t0:.1f} s to draw")
+    t0 = mark("weights", t0)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    out = {}
+    try:
+        tc = TrainConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                         seq_len=seq, ckpt_dir=str(root / "yi"),
+                         ckpt_every=TRAIN_CKPT_EVERY, keep=2)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        final, saved, restored = {}, {}, {}
+        save0, restore0 = store.save, train_mod.restore
+
+        def keep_save(root_, step, tree, **kw):
+            # the host snapshot the async writer wrote, kept for the check
+            # of what a resumed run restores
+            saved[step] = tree
+            return save0(root_, step, tree, **kw)
+
+        def keep_restore(*a, **kw):
+            out = restore0(*a, **kw)
+            restored[out[0]] = out[1]
+            return out
+
+        store.save, train_mod.restore = keep_save, keep_restore
+        try:
+            t = time.perf_counter()
+            _, hist = train(cfg, opt, tc, params=params0, device="cuda",
+                            verbose=False, state_out=final)
+            wall_a = time.perf_counter() - t
+            launches_a = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            losses = [h["loss"] for h in hist]
+            check([h["step"] for h in hist] == list(range(TRAIN_STEPS))
+                  and all(math.isfinite(x) for x in losses),
+                  f"the training run's losses: {losses}")
+            _expect_codec(launches_a, 2 * L, TRAIN_STEPS, 1, "the training run")
+            step_s = [h["dt"] for h in hist]
+            step_med = stats_mod.median(step_s[1:])
+            flops = train_step_flops(cfg, TRAIN_BATCH, seq)
+            mfu = flops / (step_med * BF16_FLOPS)
+            coded = sum(bc.nbytes() for part in ("m", "v")
+                        for bc in tree_leaves(final["opt"][part]))
+            print(f"[train] {TRAIN_STEPS} coded steps in {wall_a:.1f} s (the "
+                  f"checkpoint at {TRAIN_CKPT_EVERY} included): losses "
+                  + ", ".join(f"{x:.4f}" for x in losses)
+                  + f"; step wall median {step_med * 1e3:.1f} ms (first "
+                  f"{step_s[0] * 1e3:.1f}), {TRAIN_BATCH * seq / step_med:.0f} "
+                  f"tokens/s, model FLOPs {flops / 1e12:.1f} T, MFU {mfu:.4f} "
+                  f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms at 989 TFLOP/s); "
+                  f"peak {peak / 2**30:.2f} GiB; optimizer state {coded / 1e9:.3f}"
+                  f" GB coded against {8 * N / 1e9:.3f} GB f32; frsz2_compress "
+                  f"{launches_a['frsz2_compress']} and frsz2_decompress "
+                  f"{launches_a['frsz2_decompress']} ({2 * L} each a step, "
+                  f"{2 * L} compress for the zero state)")
+            t0 = mark(f"{TRAIN_STEPS} steps", t0)
+            ckpt_bytes = sum(f.stat().st_size for f in (
+                root / "yi" / f"step_{TRAIN_CKPT_EVERY:08d}").iterdir())
+
+            # a fresh train() that resumes from the one checkpoint (step 3,
+            # as after a crash after it), writing none
+            ops.reset_launches()
+            t = time.perf_counter()
+            _, hist_b = train(cfg, opt, dataclasses.replace(tc, ckpt_every=0),
+                              params=params0, device="cuda", verbose=False)
+            wall_b = time.perf_counter() - t
+        finally:
+            store.save, train_mod.restore = save0, restore0
+        check(sorted(restored) == [TRAIN_CKPT_EVERY]
+              and _bits_equal(restored[TRAIN_CKPT_EVERY],
+                              saved[TRAIN_CKPT_EVERY]),
+              "the resumed run's restored params and coded moments differ "
+              "from the step-3 checkpoint's snapshot")
+        del restored, saved
+        _expect_codec(dict(ops.LAUNCHES), 2 * L,
+                      TRAIN_STEPS - TRAIN_CKPT_EVERY, 1, "the resumed run")
+        check([h["step"] for h in hist_b]
+              == list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)),
+              f"the resumed run ran steps {[h['step'] for h in hist_b]}")
+        resume_rel = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+                         for a, b in zip(hist[TRAIN_CKPT_EVERY:], hist_b))
+        check(resume_rel <= TRAIN_RESUME_TOL,
+              f"the resumed losses differ by {resume_rel:.3e} (relative)")
+        print(f"[train] resumed from step {TRAIN_CKPT_EVERY} in a fresh "
+              f"train() ({wall_b:.1f} s): losses "
+              + ", ".join(f"{h['loss']:.4f}" for h in hist_b)
+              + f", within {resume_rel:.2e} of the uninterrupted run's; "
+              f"the params and coded moments it restored bit-equal to the "
+              f"step-3 snapshot written ({ckpt_bytes / 1e9:.2f} GB a "
+              f"checkpoint)")
+        t0 = mark("resume", t0)
+        del hist_b
+        torch.cuda.empty_cache()
+
+        # one more step with the moments held against the plain codec, and
+        # its launches exactly 2 x leaves of each
+        data = GlobalBatchSpec(seed=0, seq_len=seq, global_batch=TRAIN_BATCH,
+                               vocab=cfg.vocab_size)
+        batch = {"tokens": torch.from_numpy(
+            data.global_batch_at(TRAIN_STEPS)).cuda()}
+        step_fn = make_step(cfg, opt, tc)
+        with _MomentTap() as tap:
+            ops.reset_launches()
+            params7, state7, _ = step_fn(final["params"], final["opt"], batch)
+            torch.cuda.synchronize()
+            step_launches = dict(ops.LAUNCHES)
+        _expect_codec(step_launches, 2 * L, 1, 0, "one step")
+        check(tap.n["compress"] == tap.n["decompress"] == 2 * L
+              and tap.n["values"] == 2 * N,
+              f"the tap saw {tap.n}, expected {2 * L} rows of each, "
+              f"{2 * N} values")
+        del params7, state7
+        print(f"[train] one step: {2 * L} frsz2_compress and {2 * L} "
+              f"frsz2_decompress launches; every m and v code and exponent "
+              f"({2 * N:,} values) bit-equal to the plain compress of the "
+              "same f32 moments, every decode bit-equal to the plain "
+              "decompress")
+        t0 = mark("moment check", t0)
+
+        # the step under the profiler, and the update alone
+        torch.cuda.empty_cache()
+        prof = profile_train(cfg, opt, batch=TRAIN_BATCH, seq=seq,
+                             params=final["params"], opt_state=final["opt"],
+                             top=8, reps=3, warmup=False)
+        emit(dict(phase="train-profile", device=device_line, **prof))
+        print(f"[train] profiled step: {prof['step_wall_ms']:.1f} ms wall, "
+              f"{prof['step_device_ms']:.1f} ms of device time, busy "
+              f"{prof['device_busy_share']:.3f}, {prof['step_launches']} "
+              f"launches, MFU {prof['mfu']:.4f}; top: "
+              + "; ".join(f"{k['name'][:40]} {k['device_ms']:.1f} ms"
+                          for k in prof["top"][:5])
+              + f"; the AdamW update {prof['update_ms']:.2f} ms by events, "
+              f"{prof['update_device_ms']:.2f} ms of device time in "
+              f"{prof['update_launches']} launches, its codec kernels "
+              f"{prof['update_codec_ms']:.2f} ms against their byte bound "
+              f"{prof['update_codec_bound_ms']:.2f} ms "
+              f"({prof['update_codec_bytes'] / 1e9:.2f} GB)")
+        t0 = mark("profile", t0)
+
+        # kernels 1 and 2 at the largest leaf and at the embedding
+        kernels = _opt_kernel_entries(final["opt"], largest, "embed")
+        for e in kernels.values():
+            e.update(launches_per_step=2 * L)
+        t0 = mark("kernel times", t0)
+        del final
+        torch.cuda.empty_cache()
+
+        # the plain state on the same weights
+        plain = dataclasses.replace(opt, compress_state=False)
+        tcp = dataclasses.replace(tc, steps=TRAIN_PLAIN_STEPS, ckpt_every=0,
+                                  ckpt_dir=str(root / "plain"))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        plain_out = {}
+        _, hist_p = train(cfg, plain, tcp, params=params0, device="cuda",
+                          verbose=False, state_out=plain_out)
+        check(not any(ops.LAUNCHES.values()),
+              f"the plain-state run launched {ops.LAUNCHES}")
+        plain_bytes = sum(t.numel() * t.element_size() for part in ("m", "v")
+                          for t in tree_leaves(plain_out["opt"][part]))
+        plain_peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(h["loss"]) for h in hist_p),
+              "plain-state losses")
+        check(hist_p[0]["loss"] == hist[0]["loss"],
+              "the plain and coded runs' first losses differ on the same "
+              "weights and tokens")
+        print(f"[train] plain state: {TRAIN_PLAIN_STEPS} steps, walls "
+              + ", ".join(f"{h['dt'] * 1e3:.1f}" for h in hist_p)
+              + f" ms; {plain_bytes / 1e9:.3f} GB of f32 moments; peak "
+              f"{plain_peak / 2**30:.2f} GiB")
+        del plain_out, params0
+        release()
+        t0 = mark("plain state", t0)
+
+        families = [_train_family(a, root) for a in TRAIN_FAMILIES]
+        release()
+        t0 = mark("families", t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = dict(phase="train", arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
+               params=N, leaves=L, seq=seq, batch=TRAIN_BATCH, microbatch=1,
+               steps=TRAIN_STEPS, losses=losses, step_s=step_s,
+               step_ms_median=step_med * 1e3,
+               tokens_per_s=TRAIN_BATCH * seq / step_med, model_flops=flops,
+               mfu=mfu, peak_mem_bytes=peak, opt_state_bytes_coded=coded,
+               opt_state_bytes_f32=8 * N, ckpt_bytes=ckpt_bytes,
+               resume_wall_s=wall_b, resume_rel_err=resume_rel,
+               launches={k: v for k, v in launches_a.items() if v},
+               step_launches={k: v for k, v in step_launches.items() if v},
+               update_ms=prof["update_ms"],
+               update_device_ms=prof["update_device_ms"],
+               update_codec_ms=prof["update_codec_ms"],
+               update_codec_bound_ms=prof["update_codec_bound_ms"],
+               plain_step_s=[h["dt"] for h in hist_p],
+               plain_state_bytes=plain_bytes, plain_peak_mem_bytes=plain_peak,
+               families=families, device=device_line)
+    emit(row)
+    print(f"[train] phase 13 took {time.perf_counter() - t_phase:.1f} s: "
+          + "; ".join(f"{w} {t:.1f}" for w, t in marks))
+    return kernels, {k: v for k, v in launches_a.items() if v}
+
+
 def _cast(tree, dtype):
     """A copy of a weight tree with every floating tensor in ``dtype``."""
     return {k: _cast(v, dtype) if isinstance(v, dict)
@@ -3957,6 +4408,9 @@ def _run(t_start, device_line) -> int:
     release()
     cross_attn, cross_write = phase_cross(device_line)
     entries["decode_attn"].update(cross_attn)
+    release()
+    train_entries, train_launches = phase_train(device_line)
+    entries.update(train_entries)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at
@@ -3981,6 +4435,8 @@ def _run(t_start, device_line) -> int:
             e["launches"] = sharded_launches[key]
         elif e.get("path") == "serve":
             e["launches"] = serve_launches[key]
+        elif e.get("path") == "train":
+            e["launches"] = train_launches[key]
         else:
             e["launches"] = launches[key]
             e["path"] = paths[key]

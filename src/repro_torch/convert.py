@@ -16,6 +16,12 @@ through their ``uint16`` bit patterns (an ``int16`` tensor viewed as
 ``torch.bfloat16``), and come back as ``uint16`` bit patterns, which
 ``arr.view(jnp.bfloat16)`` turns into JAX's type.  KV codes keep their bit
 patterns as the basis codes do.
+
+An AdamW state (``{"m", "v", "step"}``) carries across with its moments
+plain (f32 arrays) or FRSZ2-coded: a coded leaf of the JAX package is a
+``BlockCompressed`` of numpy arrays (``jax.tree.map(np.asarray, state)``),
+read by its fields, never by its type, and rebuilt as the port's
+``BlockCompressed`` with the same codes and exponents.
 """
 from __future__ import annotations
 
@@ -26,10 +32,12 @@ from repro_torch.core import frsz2 as F
 from repro_torch.core.accessor import FrszFormat, MixedFormat, NativeFormat
 from repro_torch.device import resolve_device
 from repro_torch.sparse.csr import CSR
+from repro_torch.tree import tree_map
 
 __all__ = ["csr_from_numpy", "csr_to_numpy", "store_from_numpy",
            "store_to_numpy", "params_from_numpy", "params_to_numpy",
-           "kv_cache_from_numpy", "kv_cache_to_numpy"]
+           "kv_cache_from_numpy", "kv_cache_to_numpy", "opt_state_from_numpy",
+           "opt_state_to_numpy"]
 
 _SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32,
            np.dtype(np.uint64): np.int64}
@@ -112,22 +120,16 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return a if unsigned is None else a.view(unsigned)
 
 
-def _tree(x, leaf):
-    if isinstance(x, dict):
-        return {k: _tree(v, leaf) for k, v in x.items()}
-    return leaf(x)
-
-
 def params_from_numpy(params, device="cuda"):
     """A nested dict of numpy arrays (e.g. the JAX package's weights) ->
     the same dict of tensors, same bits (bf16 included)."""
     dev = resolve_device(device)
-    return _tree(params, lambda a: _array_to_torch(a, dev))
+    return tree_map(lambda a: _array_to_torch(a, dev), params)
 
 
 def params_to_numpy(params):
     """Inverse of :func:`params_from_numpy`; bf16 as uint16 patterns."""
-    return _tree(params, _tensor_to_numpy)
+    return tree_map(_tensor_to_numpy, params)
 
 
 #: a decode cache (``{"lengths", "self": {...}}``) carries across as the
@@ -135,3 +137,50 @@ def params_to_numpy(params):
 #: for l = 16, int16 here)
 kv_cache_from_numpy = params_from_numpy
 kv_cache_to_numpy = params_to_numpy
+
+
+def _spec_from(spec) -> F.FrszSpec:
+    """The port's spec of a JAX package ``FrszSpec`` (read by its fields)."""
+    dt = getattr(torch, np.dtype(spec.dtype).name)
+    ed = getattr(spec, "exp_dtype", np.int32)
+    return F.FrszSpec(bs=spec.bs, l=spec.l, dtype=dt, rounding=spec.rounding,
+                      exp_dtype=getattr(torch, np.dtype(ed).name))
+
+
+def _is_coded(x) -> bool:
+    return all(hasattr(x, a) for a in ("codes", "exps", "n", "spec"))
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """A JAX package AdamW state, its arrays as numpy -> the port's, same
+    bits: plain moments as tensors on ``device``, coded ones as
+    ``BlockCompressed``, the step count on the CPU."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        if _is_coded(x):
+            return F.BlockCompressed(codes=_codes_to_torch(x.codes, dev),
+                                     exps=_array_to_torch(x.exps, dev),
+                                     n=int(x.n), spec=_spec_from(x.spec))
+        return _array_to_torch(x, dev)
+
+    # the step count stays on the host (``optim.adamw``)
+    return {"m": tree_map(leaf, state["m"]), "v": tree_map(leaf, state["v"]),
+            "step": _array_to_torch(state["step"], "cpu")}
+
+
+def opt_state_to_numpy(state, like):
+    """The port's AdamW state -> the JAX package's, its arrays as numpy.
+    ``like`` is a JAX package state of the same tree: a coded leaf becomes
+    an instance of its coded leaf's own type, with unsigned codes as the
+    JAX package holds them and its ``n`` and spec."""
+    def walk(x, ref):
+        if isinstance(x, dict):
+            return {k: walk(v, ref[k]) for k, v in x.items()}
+        if not isinstance(x, F.BlockCompressed):
+            return _tensor_to_numpy(x)
+        return type(ref)(codes=_tensor_to_numpy(x.codes),
+                         exps=x.exps.cpu().numpy(), n=ref.n, spec=ref.spec)
+
+    return {"m": walk(state["m"], like["m"]), "v": walk(state["v"], like["v"]),
+            "step": state["step"].cpu().numpy()}

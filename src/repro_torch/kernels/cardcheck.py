@@ -5,8 +5,10 @@ these, so the two cannot drift apart: the row counts that cross the matvec's
 and the block combine's tilings, the lengths that cross the decode
 attention's tiles and splits, bit comparison of values, seeded codes, the
 checks across the scaled decode's guard (matvec, block combine, decode
-attention), and the row codec's spot list and edge cases (rows past the old
-grid limit, a ragged n, views at an offset), each launching once.  Each
+attention), the row codec's spot list and edge cases (rows past the old
+grid limit, a ragged n, views at an offset), each launching once, and the
+codec on one long row (an AdamW moment of a whole leaf) against the plain
+codec a block-aligned chunk at a time.  Each
 check runs the kernel through ``ops`` (so it launches on a CUDA generator's
 device) and compares with the plain ``decompress`` or the plain version of
 the kernel.
@@ -251,3 +253,43 @@ def codec_edges(gen: torch.Generator) -> list[str]:
         exps = torch.empty(nb + 1, dtype=torch.int32, device=gen.device)[1:]
         faults.append(codec_check(x, spec, out=(codes, exps)))
     return [f for f in faults if f]
+
+
+#: values of a long row compared at a time: the plain codec's int64
+#: temporaries of a whole 360 M-value leaf would take tens of GB
+ROW_CHUNK = 1 << 24
+
+
+def row_codes_equal(x: torch.Tensor, bc: F.BlockCompressed) -> bool:
+    """The codes and exponents of one row ``x`` (n values) as the kernel
+    wrote them (``bc``, (nb, bs) and (nb,)) bit-equal to the plain codec's,
+    a chunk of whole blocks at a time (the codec is blockwise)."""
+    x = x.reshape(-1)
+    spec, n, bs = bc.spec, x.numel(), bc.spec.bs
+    codes, exps = bc.codes.reshape(-1, bs), bc.exps.reshape(-1)
+    chunk = ROW_CHUNK - ROW_CHUNK % bs
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        want = F.compress(x[a:b], spec)
+        blk = slice(a // bs, -(-b // bs))
+        if not (torch.equal(codes[blk], want.codes)
+                and torch.equal(exps[blk], want.exps.to(exps.dtype))):
+            return False
+    return True
+
+
+def row_decode_equal(bc: F.BlockCompressed, values: torch.Tensor) -> bool:
+    """``values`` (the kernel's decode of the one-row ``bc``) bit-equal to
+    the plain decode, a chunk of whole blocks at a time."""
+    values = values.reshape(-1)
+    spec, bs = bc.spec, bc.spec.bs
+    codes, exps = bc.codes.reshape(-1, bs), bc.exps.reshape(-1)
+    chunk = ROW_CHUNK - ROW_CHUNK % bs
+    for a in range(0, bc.n, chunk):
+        b = min(a + chunk, bc.n)
+        blk = slice(a // bs, -(-b // bs))
+        part = F.BlockCompressed(codes=codes[blk], exps=exps[blk], n=b - a,
+                                 spec=spec)
+        if not torch.equal(bits(values[a:b]), bits(F.decompress(part))):
+            return False
+    return True

@@ -27,6 +27,17 @@ bound (``decode_step_bytes``).  For an FRSZ2 format of a model with a KV
 cache it also times one layer's KV-cache write (``time_cache_write``).
 Needs a CUDA card.
 
+``--train [--arch yi-9b]`` profiles a training step instead, at phase
+13's shape (the model cut to 8 layers at full width, FRSZ2-coded AdamW
+moments, batch 4 in one microbatch, ``train_4k``'s S 4,096)
+(``profile_train``): a warm-up step, then one step of ``launch.train``'s
+``make_step`` (the loss, its backward and the AdamW update) under the
+profiler, its wall, device time, busy share and launches, tokens a second,
+the model FLOPs utilisation of a dense model (``train_step_flops``), and
+the AdamW update alone: its device time by CUDA events and under the
+profiler, its launches and the time of its codec kernels against the bytes
+those must move (``opt_update_bytes``).
+
 The module uses only the port's public entry points (the model, the
 profiler, ``kvcache``), so a copy of it placed in an older checkout's
 ``src/repro_torch/launch`` times that port alike.
@@ -44,7 +55,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.launch.solve import _batch_rhs
-from repro_torch.models import decode_step, init_params, kvcache, prefill
+from repro_torch.models import SHAPES, decode_step, init_params, kvcache, prefill
 from repro_torch.launch.serve import aux_for
 from repro_torch.models.lm import (cross_layers, cross_len, init_decode_cache,
                                    kv_layers)
@@ -53,8 +64,12 @@ from repro_torch.sparse import make_problem, rhs_for
 
 #: the serving shape of ``chip_smoke.py`` phase 9
 SERVE_SLOTS, SERVE_PROMPT, SERVE_STEPS = 8, 2048, 4
-#: H100 SXM data sheet: HBM3 at 3.35 TB/s
+#: the training shape of phase 13 (its sequence is ``train_4k``'s): full
+#: width at 8 layers, which fits the card with the coded moments (48 do not)
+TRAIN_BATCH, TRAIN_LAYERS = 4, 8
+#: H100 SXM data sheet: HBM3 at 3.35 TB/s; dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def _nbytes(tree) -> int:
@@ -292,6 +307,129 @@ def profile_decode(cfg, params, *, top: int = 10, slots: int = SERVE_SLOTS,
                 **{f"step_{k}": v for k, v in bound.items()}, **pre)
 
 
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step of a dense model: 6 per token and
+    matrix weight (the layers' and the unembedding's; forward and
+    backward), plus causal attention's two S x S products, forward and
+    backward (3 x 4 x B x S^2 x H x hd / 2 a layer).  Recomputation under
+    remat is not model work and is not counted."""
+    if cfg.family != "dense":
+        raise ValueError(f"model FLOPs are counted for the dense family, "
+                         f"not {cfg.family} ({cfg.name})")
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    per_layer = d * H * hd + 2 * d * Hkv * hd + H * hd * d + 3 * d * cfg.d_ff
+    matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = 3 * cfg.num_layers * 4 * batch * seq * seq * H * hd / 2
+    return 6.0 * matmul * batch * seq + attn
+
+
+def opt_update_bytes(opt_state) -> int:
+    """Bytes the codec kernels of one coded AdamW update must move: for m
+    and v of every leaf, the decode (codes and exponents read, f32 values
+    written) and the code (f32 read, codes and exponents written)."""
+    from repro_torch.core.frsz2 import BlockCompressed
+    from repro_torch.tree import tree_leaves
+
+    total = 0
+    for part in ("m", "v"):
+        for bc in tree_leaves(opt_state[part]):
+            if not isinstance(bc, BlockCompressed):
+                continue
+            coded = (bc.codes.numel() * bc.codes.element_size()
+                     + bc.exps.numel() * bc.exps.element_size())
+            total += 2 * (coded + bc.n * 4)
+    return total
+
+
+def profile_train(cfg, opt, *, batch: int, seq: int, params=None, opt_state=None, top: int = 10,
+                  reps: int = 5, warmup: bool = True) -> dict:
+    """One training step under the profiler, after a warm-up step (none
+    with ``warmup=False``, where the caller has trained already), and the
+    AdamW update alone (``reps`` timed calls on the step's gradients).
+    ``params`` and ``opt_state`` (on the card) default to random weights
+    from seed 0 and a fresh state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import GlobalBatchSpec
+    from repro_torch.launch.train import (TrainConfig, _stub_embeds,
+                                          make_step, value_and_grad)
+    from repro_torch.optim import adamw_init, adamw_update
+
+    dev = torch.device("cuda")
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    if opt_state is None:
+        opt_state = adamw_init(params, opt)
+    tc = TrainConfig(global_batch=batch, seq_len=seq, microbatch=1)
+    data = GlobalBatchSpec(seed=0, seq_len=seq, global_batch=batch,
+                           vocab=cfg.vocab_size)
+    step_fn = make_step(cfg, opt, tc)
+
+    def batch_at(step):
+        b = {"tokens": torch.from_numpy(data.global_batch_at(step)).to(dev)}
+        if cfg.family in ("encdec", "vlm"):
+            key = "frames" if cfg.family == "encdec" else "image_embeds"
+            n = cross_len(cfg)
+            b[key] = _stub_embeds(cfg, tc, step, n, dev)
+        return b
+
+    if warmup:
+        params, opt_state, _ = step_fn(params, opt_state, batch_at(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b1 = batch_at(1)
+    # the card's kernels only: the host's op events are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, stats = step_fn(params, opt_state, b1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kernels = _device_kernels(prof)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    topk = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    tokens = batch * seq
+    row = dict(arch=cfg.name, layers=cfg.num_layers, batch=batch, seq=seq,
+               microbatch=1, compress_state=opt.compress_state,
+               loss=float(stats["loss"]), step_wall_ms=wall * 1e3,
+               step_device_ms=device_us * 1e-3,
+               device_busy_share=device_us * 1e-6 / wall,
+               step_launches=launches, tokens_per_s=tokens / wall,
+               peak_mem_bytes=peak,
+               top=[dict(name=e.key[:100], calls=e.count,
+                         device_ms=e.self_device_time_total * 1e-3)
+                    for e in topk])
+    if cfg.family == "dense":
+        flops = train_step_flops(cfg, batch, seq)
+        row.update(model_flops=flops, mfu=flops / (wall * BF16_FLOPS),
+                   flops_bound_ms=flops / BF16_FLOPS * 1e3)
+
+    # the AdamW update alone, on this step's gradients
+    _, grads = value_and_grad(params, cfg, b1)
+
+    def update():
+        return adamw_update(grads, opt_state, params, opt)
+
+    row["update_ms"] = _event_ms(update, reps=reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        update()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    codec = [e for e in kernels if "compress_kernel" in e.key]
+    row.update(update_device_ms=sum(e.self_device_time_total
+                                    for e in kernels) * 1e-3,
+               update_launches=sum(e.count for e in kernels),
+               update_codec_ms=sum(e.self_device_time_total
+                                   for e in codec) * 1e-3,
+               update_codec_launches=sum(e.count for e in codec))
+    if opt.compress_state:
+        nbytes = opt_update_bytes(opt_state)
+        row.update(update_codec_bytes=nbytes,
+                   update_codec_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", default="synth:atmosmod")
@@ -310,8 +448,23 @@ def main(argv=None):
                          "solve; --formats then names KV formats")
     ap.add_argument("--top", type=int, default=10,
                     help="kernels listed, the most device time first")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step of --arch (yi-9b) at "
+                         f"{TRAIN_LAYERS} layers, coded moments, instead")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    if args.train:
+        import dataclasses
+
+        from repro_torch.optim import AdamWConfig
+
+        cfg = dataclasses.replace(get_arch(args.arch or "yi-9b"),
+                                  num_layers=TRAIN_LAYERS)
+        opt = AdamWConfig(compress_state=True)
+        print(json.dumps(profile_train(
+            cfg, opt, batch=TRAIN_BATCH, seq=SHAPES["train_4k"].seq_len,
+            top=args.top)), flush=True)
+        return
     if args.arch:
         import dataclasses
 

@@ -22,7 +22,23 @@ import torch.nn.functional as Fn
 f32 = torch.float32
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "blocked_attention",
-           "attention_block", "attention_qkv", "swiglu_block", "moe_block"]
+           "attention_block", "attention_qkv", "swiglu_block", "moe_block",
+           "remat"]
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (the reference's ``jax.checkpoint`` of a scan body) when
+    ``cfg.remat`` and autograd records; a plain call otherwise (serving).
+    Only the reference's default policy, ``"full"``, has a counterpart."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6

@@ -1,4 +1,4 @@
-"""Model assembly for serving: init / trunk / prefill / decode, for the
+"""Model assembly: init / train loss / trunk / prefill / decode, for the
 dense, MoE, SSM, hybrid, encoder-decoder and VLM families.
 
 The dense family is the pre-norm GQA decoder (internlm2, yi, granite,
@@ -17,7 +17,10 @@ states; the VLM family (llama-3.2-vision) runs ``cross_attn_every`` self
 layers, then one cross-attention + SwiGLU block over stub image embeddings
 (``aux_inputs["image_embeds"]``), ``L // cross_attn_every`` rounds.  Weights
 are a dict of layer-stacked ``(L, ...)`` tensors under the JAX package's
-names; the layer loop is a Python loop over views of them.  The decode
+names; the layer loop is a Python loop over views of them, each stacked
+tensor unbound once a forward (``_layers``: the backward of ``unbind`` is one
+``stack``, where a select a layer would write a zero-filled gradient of
+the whole stack each, L² in the depth).  The decode
 cache is a dict of preallocated tensors: ``(L, B, Hkv, S, D)`` K/V
 (``repro_torch.models.kvcache``; one layer an application of the shared
 block in the hybrid family) under ``"self"``, the cross caches under
@@ -28,7 +31,13 @@ states ``ssm_conv``, which :func:`prefill` fills and :func:`decode_step`
 updates in place; on the card an FRSZ2 cache's codes are written by the
 cache-write kernel and read by the flash-decode kernel.
 
-Training (``loss_fn``) waits for a later slice of the port.
+Training: :func:`loss_fn` is the next-token cross entropy over the
+:func:`trunk`, in sequence chunks so that no (B, S, V) logits exist, with
+the reference's z-loss and MoE aux loss.  Under autograd with ``cfg.remat``
+(the default) each layer is recomputed in its backward
+(``layers.remat``, the reference's ``jax.checkpoint`` of a scan body), and
+the SSM blocks recompute each scan chunk too.  Serving (:func:`prefill`,
+:func:`decode_step`) runs under ``torch.no_grad``.
 
 Random weights cannot match the JAX package's (``jax.random`` and
 ``torch.Generator`` give other numbers): :func:`init_params` draws its own,
@@ -40,6 +49,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as Fn
 
 from repro_torch.models import kvcache as kv
 from repro_torch.models import ssm as ssm_mod
@@ -49,14 +59,16 @@ from repro_torch.models.layers import (
     attention_qkv,
     blocked_attention,
     moe_block,
+    remat,
     rms_norm,
     swiglu_block,
 )
 
 f32 = torch.float32
 
-__all__ = ["init_params", "trunk", "init_decode_cache", "decode_step",
-           "prefill", "kv_layers", "cross_layers", "cross_len"]
+__all__ = ["init_params", "trunk", "loss_fn", "init_decode_cache",
+           "decode_step", "prefill", "kv_layers", "cross_layers",
+           "cross_len"]
 
 
 #: the families the port runs: every family of the registry
@@ -281,25 +293,35 @@ def _ffn(h: torch.Tensor, lp: dict, cfg: ArchConfig):
 
 
 def _layer(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s views of a (nested) dict of stacked tensors."""
+    """Layer ``i``'s views of a (nested) dict of stacked tensors (a decode
+    cache's layer, written in place)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def _layers(stacked: dict) -> list[dict]:
+    """Every layer's views of a (nested) dict of stacked weights, each
+    tensor unbound once: its backward is one ``stack`` of the layers'
+    gradients."""
+    parts = {k: _layers(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _ssm_layers(params: dict, cfg: ArchConfig):
     """The SSM families' layers in order: (layer index, its weights, the
     application of the shared block after it or None)."""
     if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            yield i, _layer(params["layers"], i), None
+        for i, lp in enumerate(_layers(params["layers"])):
+            yield i, lp, None
         return
-    R, body = _rounds(cfg)
+    _, body = _rounds(cfg)
     k = cfg.attn_every
-    for i in range(cfg.num_layers):
-        if i < body:
-            lp = _layer(params["layers"], i)
-        else:
-            lp = _layer(params["tail_layers"], i - body)
+    layers = _layers(params["layers"]) if body else []
+    if cfg.num_layers > body:
+        layers += _layers(params["tail_layers"])
+    for i, lp in enumerate(layers):
         yield i, lp, (i // k if i < body and i % k == k - 1 else None)
 
 
@@ -327,11 +349,12 @@ def _cross_src(params: dict, cfg: ArchConfig, aux_inputs, dtype, B: int
     # the bidirectional encoder, RoPE at the frames' positions
     enc_pos = torch.arange(src.shape[1], device=src.device)
     enc = params["encoder"]
-    for i in range(cfg.encoder_layers):
-        lp = _layer(enc["layers"], i)
-        src = attention_block(src, lp["attn"], cfg, positions=enc_pos,
-                              causal=False)
-        src = swiglu_block(src, lp["mlp"])
+    for lp in _layers(enc["layers"]):
+        def body(x, lp=lp):
+            x = attention_block(x, lp["attn"], cfg, positions=enc_pos,
+                                causal=False)
+            return swiglu_block(x, lp["mlp"])
+        src = remat(cfg, body, src)
     return rms_norm(src, enc["final_ln"])
 
 
@@ -344,23 +367,28 @@ def _decoder(params: dict, cfg: ArchConfig, h: torch.Tensor, self_attn,
     cross-attends in every layer, between its self-attention and its MLP;
     the VLM runs ``cross_attn_every`` self layers, then a cross block with
     its own MLP, ``L // cross_attn_every`` rounds (its layer ``r * k + j``
-    is step j of round r, the reference's (R, k) reshape)."""
+    is step j of round r, the reference's (R, k) reshape).  Each layer and
+    each cross block is one :func:`~repro_torch.models.layers.remat`
+    region."""
+    layers = _layers(params["layers"])
     if cfg.family == "encdec":
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
-            h = self_attn(h, lp["attn"], i)
-            h = cross_attn(h, lp["cross"], i)
-            h = swiglu_block(h, lp["mlp"])
+        for i, lp in enumerate(layers):
+            def body(x, lp=lp, i=i):
+                x = self_attn(x, lp["attn"], i)
+                x = cross_attn(x, lp["cross"], i)
+                return swiglu_block(x, lp["mlp"])
+            h = remat(cfg, body, h)
         return h
     k = cfg.cross_attn_every
-    for r in range(_cross_rounds(cfg)):
+    for r, cp in enumerate(_layers(params["cross_layers"])):
         for i in range(r * k, (r + 1) * k):
-            lp = _layer(params["layers"], i)
-            h = self_attn(h, lp["attn"], i)
-            h = swiglu_block(h, lp["mlp"])
-        cp = _layer(params["cross_layers"], r)
-        h = cross_attn(h, cp["attn"], r)
-        h = swiglu_block(h, cp["mlp"])
+            def body(x, lp=layers[i], i=i):
+                return swiglu_block(self_attn(x, lp["attn"], i), lp["mlp"])
+            h = remat(cfg, body, h)
+
+        def cross(x, cp=cp, r=r):
+            return swiglu_block(cross_attn(x, cp["attn"], r), cp["mlp"])
+        h = remat(cfg, cross, h)
     return h
 
 
@@ -374,10 +402,15 @@ def trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """tokens (B, S) -> (hidden states (B, S, d), aux loss): the MoE
     layers' load-balancing losses summed over layers (f32), 0 for the
     other families.  ``aux_inputs``: the encdec family's ``"frames"`` or
-    the VLM's ``"image_embeds"``, (B, cross_len, d)."""
+    the VLM's ``"image_embeds"``, (B, cross_len, d).  Each layer (each
+    application of the hybrid's shared block, each encoder layer, each
+    cross block) is one :func:`~repro_torch.models.layers.remat` region."""
     _check_family(cfg, "trunk")
     B, S = tokens.shape
-    h = params["embed"][tokens]
+    # the gather of ``embed[tokens]``; its backward sums the rows of a
+    # repeated token in a fixed order (the indexing's backward on the CPU
+    # adds them with atomics, in any order)
+    h = Fn.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), dtype=f32, device=h.device)
     if cfg.family in ("encdec", "vlm"):
@@ -390,21 +423,59 @@ def trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         return h, aux
     if cfg.family in ("ssm", "hybrid"):
         seq = _ssm_seq(cfg)
+
+        def shared(x):
+            x = attention_block(x, params["shared_attn"], cfg,
+                                positions=positions)
+            return swiglu_block(x, params["shared_mlp"])
         for _, lp, r in _ssm_layers(params, cfg):
-            h = seq(h, lp, cfg)
+            h = remat(cfg, lambda x, lp=lp: seq(x, lp, cfg), h)
             if r is not None:
-                h = attention_block(h, params["shared_attn"], cfg,
-                                    positions=positions)
-                h = swiglu_block(h, params["shared_mlp"])
+                h = remat(cfg, shared, h)
         return h, aux
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        h = attention_block(h, lp["attn"], cfg, positions=positions,
+
+    def body(x, lp):
+        x = attention_block(x, lp["attn"], cfg, positions=positions,
                             window=cfg.window)
-        h, a = _ffn(h, lp, cfg)
-        if a is not None:
-            aux = aux + a
+        x, a = _ffn(x, lp, cfg)
+        return x, (a if a is not None else torch.zeros_like(aux))
+    for lp in _layers(params["layers"]):
+        h, a = remat(cfg, lambda x, lp=lp: body(x, lp), h)
+        aux = aux + a
     return h, aux
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
+            vocab_chunk: int = 1024, z_loss: float = 1e-4) -> torch.Tensor:
+    """Next-token cross entropy of ``batch["tokens"]`` (B, S + 1), f32.
+
+    The reference's ``loss_fn``: the hidden states of the first S tokens,
+    RMS-normed, against the last S, in chunks of ``min(vocab_chunk, S)``
+    positions (each chunk's (B, c, V) logits in f32, never the whole (B, S,
+    V)), plus ``z_loss`` times the mean squared log-sum-exp and 0.01 times
+    the MoE aux loss.  The batch's other keys (``"frames"``,
+    ``"image_embeds"``) are the trunk's ``aux_inputs``.
+    """
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    h, aux = trunk(params, cfg, inputs,
+                   {k: v for k, v in batch.items() if k != "tokens"})
+    h = rms_norm(h, params["final_ln"])
+    B, S, _ = h.shape
+    c = min(vocab_chunk, S)
+    if S % c:
+        raise ValueError(f"the sequence ({S}) must be a multiple of the "
+                         f"loss chunk ({c}), as in the reference")
+    ce = torch.zeros((), dtype=f32, device=h.device)
+    zl = torch.zeros((), dtype=f32, device=h.device)
+    for s in range(0, S, c):
+        logits = (h[:, s:s + c] @ params["unembed"]).to(f32)  # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[:, s:s + c, None].long())[..., 0]
+        ce = ce + (lse - tgt).sum()
+        zl = zl + lse.square().sum()
+    ntok = B * S
+    return ce / ntok + z_loss * zl / ntok + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +556,7 @@ def _cross_attn_decode(h, lp, cfg, layer_cache, src_len, fmt):
     return h + (o.reshape(B, 1, -1) @ lp["wo"])
 
 
+@torch.no_grad()
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 tokens: torch.Tensor):
     """One-token decode.  tokens (B,) -> (logits (B, V) f32, cache).
@@ -528,8 +600,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                                       fmt, ring)
                 h = swiglu_block(h, params["shared_mlp"])
         return _decode_logits(params, h, cache, lengths)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_layers(params["layers"])):
         lc = _layer(cache["self"], i)
         h = _self_attn_decode(h, lp["attn"], cfg, lc, lengths, fmt, ring)
         h, _ = _ffn(h, lp, cfg)
@@ -544,6 +615,7 @@ def _decode_logits(params, h, cache, lengths):
     return logits, cache
 
 
+@torch.no_grad()
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             aux_inputs=None, *, cache_len: int = 0):
     """Bulk-process a prompt: returns (last-token logits, populated cache).
@@ -637,8 +709,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         cache["self"] = kv.init_cache(fmt, cfg.num_layers, B,
                                       cfg.num_kv_heads, n_slots, cfg.hd,
                                       device=dev)
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_layers(params["layers"])):
             h = attn_and_cache(h, lp["attn"], _layer(cache["self"], i))
             h, _ = _ffn(h, lp, cfg)
     h_last = rms_norm(h[:, -1], params["final_ln"])

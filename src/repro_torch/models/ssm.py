@@ -9,13 +9,19 @@ so they are plain PyTorch ops on tensors, as ``layers.py``:
   L)``, lowered until it divides L, so a prime length runs one position a
   chunk).  Inside a chunk the recurrence ``h_t = exp(dt_t A) h_{t-1} +
   dt_t x_t B_t`` runs position by position, one fused multiply-add over
-  the (B, d_inner, N) state each, in place in the chunk's (B, c, d_inner,
-  N) buffer; the reference's associative scan gives the same values up to
-  the order of its f32 roundings.
+  the (B, d_inner, N) state each, out of place (autograd keeps each
+  position's state for the gradient of the next), then the chunk's states
+  are stacked; the reference's associative scan gives the same values up
+  to the order of its f32 roundings.
 * **Mamba2** is the SSD block-matrix form, as the reference: the masked,
   decay-weighted ``C Bᵀ`` product inside a chunk, the carried state's
   contribution, and the decay-to-end weighted state update, with the
   reference's ``1e-37`` clamp on the prefix decay.
+
+Under autograd with ``cfg.remat`` (the default) each chunk of either
+block is recomputed in the backward (``layers.remat``), the reference's
+chunk-level ``jax.checkpoint``: the backward holds one chunk's states at a
+time, not every chunk's.
 
 A decode step is the same function at L = 1, with the carried state ``h0``
 and the conv state as left context, which the caller writes back in place.
@@ -28,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import remat, rms_norm
 
 f32 = torch.float32
 
@@ -76,6 +82,22 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+def _mamba1_chunk(hprev, dt, xi, Bm, Cm, A):
+    """One chunk of the selective scan: ``h_t = exp(dt_t A) h_{t-1} + dt_t
+    x_t B_t`` position by position from ``hprev`` (B, di, N), then ``y_t =
+    h_t C_t``.  -> (the last state, y (B, c, di) f32)."""
+    dtc = dt.to(f32)                                          # (B, c, di)
+    a = torch.exp(dtc[..., None] * A)                         # (B,c,di,N)
+    bx = ((dtc * xi.to(f32))[..., None]
+          * Bm[:, :, None, :].to(f32))                        # (B,c,di,N)
+    hs = []
+    for t in range(dtc.shape[1]):
+        hprev = torch.addcmul(bx[:, t], a[:, t], hprev)
+        hs.append(hprev)
+    y = torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1), Cm.to(f32))
+    return hprev, y
+
+
 def mamba1_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
                return_state: bool = False):
     """Mamba1 over a sequence.  x (B, L, d) -> (B, L, d).
@@ -102,23 +124,15 @@ def mamba1_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
              if h0 is None else h0)
     ys = []
     for s in range(0, L, c):
-        dtc = dt[:, s:s + c].to(f32)                          # (B, c, di)
-        a = torch.exp(dtc[..., None] * A)                     # (B,c,di,N)
-        hs = ((dtc * xi[:, s:s + c].to(f32))[..., None]
-              * Bm[:, s:s + c, None, :].to(f32))              # b x, then h
-        for t in range(c):
-            hs[:, t].addcmul_(a[:, t], hprev)
-            hprev = hs[:, t]
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs,
-                               Cm[:, s:s + c].to(f32)))
-        del a
-    hlast = hprev.clone()                 # not a view of the last chunk
+        hprev, y = remat(cfg, _mamba1_chunk, hprev, dt[:, s:s + c],
+                         xi[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c], A)
+        ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]        # (B, L, di)
     y = y + xi.to(f32) * p["D"].to(f32)
     y = y * Fn.silu(z.to(f32))
     out = x + (y.to(x.dtype) @ p["out_proj"])
     if return_state:
-        return out, (hlast, conv_state)
+        return out, (hprev, conv_state)
     return out
 
 
@@ -143,6 +157,28 @@ def _segsum(loga: torch.Tensor) -> torch.Tensor:
     dif = cum[..., :, None] - cum[..., None, :]               # sum_(j,i]
     tri = torch.ones((c, c), dtype=torch.bool, device=loga.device).tril()
     return dif.masked_fill(~tri, float("-inf"))
+
+
+def _mamba2_chunk(hprev, xk, dk, lak, Bm, Cm):
+    """One SSD chunk from the carried state ``hprev`` (B, Hs, P, N): xk (B,
+    c, Hs, P), dt and log-decay (B, c, Hs), B and C (B, c, N).  -> (the
+    state after the chunk, y (B, c, Hs, P) f32)."""
+    Bk, Ck = Bm.to(f32), Cm.to(f32)
+    # intra-chunk: masked decay-weighted "attention"
+    Lmat = torch.exp(_segsum(lak.transpose(1, 2)))            # (B,Hs,c,c)
+    scores = torch.einsum("bin,bjn->bij", Ck, Bk)             # (B, c, c)
+    M = scores[:, None] * Lmat
+    xdt = xk.to(f32) * dk[..., None]                          # (B,c,Hs,P)
+    y_intra = torch.einsum("bhij,bjhp->bihp", M, xdt)
+    # inter-chunk: the carried state, decayed to each position
+    pref = torch.exp(torch.cumsum(lak, dim=1))                # (B, c, Hs)
+    y_inter = torch.einsum("bin,bhpn->bihp", Ck, hprev) * pref[..., None]
+    # state update: decay-to-end weighted outer products
+    total = pref[:, -1]                                       # (B, Hs)
+    suff = total[:, None] / torch.clamp(pref, min=1e-37)
+    hnew = (total[..., None, None] * hprev
+            + torch.einsum("bin,bihp->bhpn", Bk, xdt * suff[..., None]))
+    return hnew, y_intra + y_inter
 
 
 def mamba2_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
@@ -170,26 +206,10 @@ def mamba2_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
              if h0 is None else h0)
     ys = []
     for s in range(0, L, c):
-        xk = xi[:, s:s + c].reshape(B, c, Hs, P)
-        dk, lak = dt[:, s:s + c], loga[:, s:s + c]            # (B, c, Hs)
-        Bk, Ck = Bm[:, s:s + c].to(f32), Cm[:, s:s + c].to(f32)
-        # intra-chunk: masked decay-weighted "attention"
-        Lmat = torch.exp(_segsum(lak.transpose(1, 2)))        # (B,Hs,c,c)
-        scores = torch.einsum("bin,bjn->bij", Ck, Bk)         # (B, c, c)
-        M = scores[:, None] * Lmat
-        xdt = xk.to(f32) * dk[..., None]                      # (B,c,Hs,P)
-        y_intra = torch.einsum("bhij,bjhp->bihp", M, xdt)
-        # inter-chunk: the carried state, decayed to each position
-        pref = torch.exp(torch.cumsum(lak, dim=1))            # (B, c, Hs)
-        y_inter = (torch.einsum("bin,bhpn->bihp", Ck, hprev)
-                   * pref[..., None])
-        # state update: decay-to-end weighted outer products
-        total = pref[:, -1]                                   # (B, Hs)
-        suff = total[:, None] / torch.clamp(pref, min=1e-37)
-        hprev = (total[..., None, None] * hprev
-                 + torch.einsum("bin,bihp->bhpn", Bk,
-                                xdt * suff[..., None]))
-        ys.append(y_intra + y_inter)
+        hprev, y = remat(cfg, _mamba2_chunk, hprev,
+                         xi[:, s:s + c].reshape(B, c, Hs, P), dt[:, s:s + c],
+                         loga[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c])
+        ys.append(y)
     y = (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]).reshape(B, L, di)
     y = y + xi.to(f32) * p["D"].to(f32).repeat_interleave(P)
     y = rms_norm(y.to(x.dtype), p["out_ln"]) * Fn.silu(z)

@@ -1252,3 +1252,147 @@ def test_cross_families_on_card_match_cpu(cuda, name, kv_format):
         for n, t in cc["cross"].items():
             if n.endswith("_exps"):
                 assert torch.equal(cg["cross"][n].cpu(), t), n
+
+
+# ---------------------------------------------------------------------------
+# training: the FRSZ2-coded AdamW moments (kernels 1 and 2 on one row a
+# leaf) and the backward of every family
+# ---------------------------------------------------------------------------
+
+#: the optimizer state's spec (``optim.AdamWConfig.state_spec``)
+OPT_SPEC = F.FrszSpec(bs=128, l=16, dtype=torch.float32, rounding="nearest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [262_144_000, 1_000_003])
+def test_optimizer_codec_row_on_card(cuda, n):
+    """One row of n values (yi-9b's embedding at full width; a ragged n
+    whose tail block is part padding): one launch of each kernel, codes,
+    exponents and decode bit-equal to the plain codec."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(n, generator=gen, device=cuda)
+    x *= torch.exp2(torch.randint(-30, 30, (n,), generator=gen, device=cuda)
+                    .float())
+    x[:4096] = 0.0
+    ops.reset_launches()
+    bc = ops.compress(x, OPT_SPEC)
+    values = ops.decompress(bc)
+    assert bc.codes.shape == (-(-n // 128), 128)
+    assert ops.LAUNCHES["frsz2_compress"] == 1
+    assert ops.LAUNCHES["frsz2_decompress"] == 1
+    assert cardcheck.row_codes_equal(x, bc)
+    assert cardcheck.row_decode_equal(bc, values)
+
+
+@pytest.mark.cuda
+def test_coded_adamw_step_on_card_matches_cpu(cuda):
+    """One coded AdamW update on the card bit-equal to the same update on
+    the CPU (gradients under the clip, so the global norm's sum order does
+    not enter), each leaf's m and v through kernels 2 then 1."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves
+
+    g = torch.Generator().manual_seed(0)
+    shapes = {"embed": (64, 48), "ln": (3, 48), "b": (48,), "w": (3, 48, 70)}
+    params = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=g) * 3e-3 for k, s in
+              shapes.items()} for _ in range(2)]
+    cfg = AdamWConfig(peak_lr=1e-2, warmup_steps=2, decay_steps=10,
+                      compress_state=True)
+    state = adamw_init(params, cfg)
+    params, state, _ = adamw_update(grads[0], state, params, cfg)
+    want_p, want_s, _ = adamw_update(grads[1], state, params, cfg)
+    card = lambda t: {k: v.to(cuda) for k, v in t.items()}  # noqa: E731
+    card_state = {part: {k: F.BlockCompressed(codes=v.codes.to(cuda),
+                                              exps=v.exps.to(cuda), n=v.n,
+                                              spec=v.spec)
+                         for k, v in state[part].items()} for part in "mv"}
+    card_state["step"] = state["step"]
+    ops.reset_launches()
+    got_p, got_s, st = adamw_update(card(grads[1]), card_state,
+                                    card(params), cfg)
+    assert ops.LAUNCHES["frsz2_compress"] == 2 * len(shapes)
+    assert ops.LAUNCHES["frsz2_decompress"] == 2 * len(shapes)
+    assert float(st["grad_norm"]) < cfg.grad_clip
+    for k in shapes:
+        assert torch.equal(got_p[k].cpu(), want_p[k]), k
+        for part in "mv":
+            a, b = got_s[part][k], want_s[part][k]
+            assert torch.equal(a.codes.cpu(), b.codes), (part, k)
+            assert torch.equal(a.exps.cpu(), b.exps), (part, k)
+    assert int(got_s["step"]) == 2 and len(tree_leaves(got_p)) == 4
+
+
+@pytest.mark.cuda
+def test_adamw_square_root_on_card_is_correctly_rounded(cuda):
+    """The update's f32 root on the card (CUDA's f32 ``sqrt``) equals
+    numpy's IEEE root bit for bit, as the CPU's route through f64 does."""
+    from repro_torch.optim.adamw import _sqrt
+
+    rng = np.random.default_rng(5)
+    x = (rng.random(1 << 22, dtype=np.float32)
+         * np.exp2(rng.integers(-120, 120, 1 << 22)).astype(np.float32))
+    got = _sqrt(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    assert np.array_equal(got.view(np.uint32), np.sqrt(x).view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [
+    F.FrszSpec(bs=128, l=21, dtype=torch.float32, rounding="nearest"),
+    F.FrszSpec(bs=96, l=16, dtype=torch.float32, rounding="nearest")],
+    ids=["l21", "bs96"])
+def test_coded_adamw_raises_on_card_outside_kernel(cuda, spec):
+    """The coded AdamW has no plain fallback on the card: a state spec that
+    kernels 1 and 2 do not take raises at init and at update, and nothing
+    is launched."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn((3, 48), generator=g),
+              "b": torch.randn((48,), generator=g)}
+    grads = {k: v * 1e-3 for k, v in params.items()}
+    cfg = AdamWConfig(compress_state=True, state_spec=spec)
+    state = adamw_init(params, cfg)
+    card = lambda t: {k: v.to(cuda) for k, v in t.items()}  # noqa: E731
+    card_state = {part: {k: F.BlockCompressed(codes=v.codes.to(cuda),
+                                              exps=v.exps.to(cuda), n=v.n,
+                                              spec=v.spec)
+                         for k, v in state[part].items()} for part in "mv"}
+    card_state["step"] = state["step"]
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        adamw_init(card(params), cfg)
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        adamw_update(card(grads), card_state, card(params), cfg)
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yi-9b", "mixtral-8x22b", "falcon-mamba-7b",
+                                  "zamba2-7b", "whisper-medium",
+                                  "llama-3.2-vision-11b"])
+def test_loss_backward_on_card_matches_cpu(cuda, name):
+    """``loss_fn`` and its backward at ``reduced()`` on the card: the loss
+    within 1e-4 of the CPU's (relative), each gradient leaf within 1e-3 of
+    its largest CPU entry (f32 products and sums in another order; MoE
+    routing the same), and no kernel launched (the trunk has none)."""
+    from repro_torch.launch.serve import aux_for
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens,
+             **aux_for(cfg, 2, torch.Generator().manual_seed(2))}
+    lc, gc = value_and_grad(params, cfg, batch)
+    ops.reset_launches()
+    lg, gg = value_and_grad(_to_card(params, cuda), cfg,
+                            _to_card(batch, cuda))
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        assert torch.isfinite(a).all()
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+            b.abs().max())

@@ -1,4 +1,6 @@
-"""The port stands alone: an AST scan of ``src/repro_torch`` and
+"""The port stands alone: an AST scan of ``src/repro_torch`` (every
+subpackage: the solver, the models, the training modules ``optim``,
+``data``, ``checkpoint`` and ``launch/train.py``, and ``examples``) and
 ``chip_smoke.py``.
 
 * No ``import jax``/``from jax ...`` and no import of the JAX package
@@ -29,7 +31,9 @@ KERNEL_CALLS = {"compress", "decompress", "matvec", "rmatvec", "compress_2d",
                 "read_block", "read_all_blocks", "gmres_batched",
                 "gmres_block", "decode_attention", "decode_attn", "attend",
                 "append", "build_cache", "encode_heads", "decode_heads",
-                "decode_step", "prefill", "serve"}
+                "decode_step", "prefill", "serve", "adamw_init",
+                "adamw_update", "_compress_leaf", "_decompress_leaf",
+                "make_step", "step_fn", "train", "profile_train"}
 
 
 def _banned(module: str) -> bool:
@@ -89,4 +93,9 @@ def test_scan_sees_the_package():
     assert {"ops.py", "gmres.py", "accessor.py", "chip_smoke.py",
             "ell_spmv.py", "gmres_step.py", "csr.py", "block.py",
             "frsz2_block.py", "decode_attn.py", "kvcache.py", "lm.py",
-            "serve.py", "registry.py"} <= names
+            "serve.py", "registry.py", "adamw.py", "pipeline.py", "store.py",
+            "train.py", "train_lm.py", "serve_decode.py", "tree.py"} <= names
+    # every subpackage of the port, the training ones included
+    subs = {p.parent.name for p in FILES}
+    assert {"optim", "data", "checkpoint", "examples", "models", "kernels",
+            "launch"} <= subs
