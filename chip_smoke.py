@@ -272,6 +272,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch, its bytes and peak); and mixtral-8x22b, falcon-mamba-7b,
    zamba2-7b, whisper-medium and llama-3.2-vision-11b at ``reduced()``, 2
    coded steps each: finite losses, the codec's launches as counted.
+14. the roofline of the card's steps (slice 7e): phase 9's decode step
+   (yi-9b, 8 slots, ~2,052 positions, frsz2_16: its device time profiled
+   at the end of phase 9 through ``launch.profile.profile_decode``) and
+   phase 13's training step (8 layers, S 4,096, batch 4: its profiled
+   device time, the peaks of its coded and plain runs) against the dry
+   run of the same cells on a fake 1x1 mesh (``python -m
+   repro_torch.launch.dryrun --mesh 1x1 ...``: counted FLOPs and bytes,
+   ``bytes_model`` and ``model_flops_for``, the three terms under
+   ``HW_H100``, ``step_roofline_fraction``, the counted peak of live bytes
+   against ``torch.cuda.max_memory_allocated``), and the dry run's probes
+   of yi-9b x decode_32k and mixtral-8x22b x train_4k on the fake 16x16
+   mesh; four subprocesses, all started together; a failed row fails the
+   script.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -403,6 +416,11 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_PLAIN_STEPS = 5, 3, 2
 TRAIN_RESUME_TOL = 1e-3
 TRAIN_FAMILIES = ("mixtral-8x22b", "falcon-mamba-7b", "zamba2-7b",
                   "whisper-medium", "llama-3.2-vision-11b")
+#: phase 14: the dry runs' deadline (s) and the cache length of the decode
+#: cell: phase 9's profiled steps attend 2,051-2,054 positions
+ROOF_DEADLINE_S, ROOF_DECODE_SEQ = 300, 2052
+#: the step times and peaks phases 9 and 13 measured, for phase 14
+STEP_TIMES: dict = {}
 #: H100 SXM data sheet: dense bf16 tensor-core peak (the MFU's denominator)
 BF16_FLOPS = 989e12
 
@@ -2747,6 +2765,23 @@ def phase_serve(device_line):
               f"{r['step_bound_ms']:.2f} ms), {r['decode_tokens_per_s']:.1f} "
               f"tokens/s, peak {r['peak_mem_bytes'] / 2**30:.2f} GiB, cache "
               f"{r['cache_nbytes'] / 1e9:.3f} GB")
+    # the frsz2_16 decode steps' device time, for phase 14's roofline
+    from repro_torch.launch.profile import profile_decode
+
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_decode(_serve_config("frsz2_16"), params, top=4,
+                          profile_prefill=False)
+    STEP_TIMES["decode"] = dict(
+        device_ms=prof["device_per_step_ms"],
+        wall_ms=prof["wall_per_step_ms"],
+        peak=torch.cuda.max_memory_allocated(),
+        served_peak=[r["peak_mem_bytes"] for r in rows
+                     if r["kv_format"] == "frsz2_16"][0],
+        slots=prof["slots"], prompt=prof["prompt"], steps=prof["steps"])
+    print(f"[serve] frsz2_16 decode steps profiled: "
+          f"{prof['device_per_step_ms']:.2f} ms of device time a step, "
+          f"{prof['wall_per_step_ms']:.2f} ms of wall, busy "
+          f"{prof['device_busy_share']:.3f}")
     return launches, _cache_write_times(writes, kvcache.cache_format(
         "frsz2_16"))
 
@@ -4298,6 +4333,10 @@ def phase_train(device_line):
         t0 = mark("families", t0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    STEP_TIMES["train"] = dict(
+        device_ms=prof["step_device_ms"], wall_ms=prof["step_wall_ms"],
+        step_ms_median=step_med * 1e3, peak_coded=peak,
+        peak_plain=plain_peak)
     row = dict(phase="train", arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
                params=N, leaves=L, seq=seq, batch=TRAIN_BATCH, microbatch=1,
                steps=TRAIN_STEPS, losses=losses, step_s=step_s,
@@ -4319,6 +4358,143 @@ def phase_train(device_line):
     print(f"[train] phase 13 took {time.perf_counter() - t_phase:.1f} s: "
           + "; ".join(f"{w} {t:.1f}" for w, t in marks))
     return kernels, {k: v for k, v in launches_a.items() if v}
+
+
+#: phase 14's dry runs: (label, the dry-run CLI's arguments)
+ROOF_RUNS = (
+    ("decode 1x1", ["--arch", SERVE_ARCH, "--shape", "decode_32k", "--mesh",
+                    "1x1", "--batch", str(SERVE_SLOTS), "--seq",
+                    str(ROOF_DECODE_SEQ)]),
+    ("train 1x1", ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+                   "1x1", "--batch", str(TRAIN_BATCH), "--layers",
+                   str(TRAIN_LAYERS), "--microbatch", "1"]),
+    ("decode 16x16 probes", ["--arch", "yi-9b", "--shape", "decode_32k",
+                             "--probes"]),
+    ("train 16x16 probes", ["--arch", "mixtral-8x22b", "--shape", "train_4k",
+                            "--probes"]),
+)
+
+
+def _dry_runs(root):
+    """Run :data:`ROOF_RUNS` as subprocesses, all at once -> label -> its
+    JSON row; a run that fails or a row that is not ``ok`` fails."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    env["CUDA_VISIBLE_DEVICES"] = ""          # the dry run needs no card
+    procs = []
+    for i, (label, args) in enumerate(ROOF_RUNS):
+        out = root / f"run{i}.jsonl"
+        log = open(root / f"run{i}.log", "w")
+        procs.append((label, out, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--json", str(out)], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)))
+    rows = {}
+    deadline = time.perf_counter() + ROOF_DEADLINE_S
+    try:
+        for label, out, log, p in procs:
+            rc = p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            log.close()
+            text = (root / out.name.replace(".jsonl", ".log")).read_text()
+            check(rc == 0, f"the dry run '{label}' exited {rc}:\n"
+                  + text[-3000:])
+            with open(out) as f:
+                row = json.loads(f.read().splitlines()[-1])
+            check(row.get("status") == "ok",
+                  f"the dry run '{label}' gave a {row.get('status')} row: "
+                  f"{row.get('error') or row}")
+            rows[label] = row
+    finally:
+        for _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return rows
+
+
+def _roof_report(row):
+    from repro_torch.roofline.analysis import HW_H100, RooflineReport
+
+    return RooflineReport(
+        flops=row["flops_per_dev"], bytes_hbm=row["bytes_per_dev"],
+        bytes_coll=row["coll_bytes_per_dev"], coll_by_op=row["coll_by_op"],
+        t_compute=row["t_compute"], t_memory=row["t_memory"],
+        t_collective=row["t_collective"],
+        model_flops=row["model_flops_per_dev"],
+        bytes_model=row["bytes_model_per_dev"], hw=HW_H100)
+
+
+def phase_roofline(device_line):
+    """Slice 7e: the card's decode and training steps (phases 9 and 13) set
+    against the dry run's roofline of the same cells, and the dry run on
+    the fake 16x16 mesh under this machine's torch."""
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        rows = _dry_runs(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for kind, label in (("decode", "decode 1x1"), ("train", "train 1x1")):
+        row, meas = rows[label], STEP_TIMES[kind]
+        rep = _roof_report(row)
+        counted = (row["arg_gib"] + row["temp_gib"]) * 2**30
+        peaks = ({"max_memory_allocated (profiled decode)": meas["peak"],
+                  "max_memory_allocated (serve run)": meas["served_peak"]}
+                 if kind == "decode" else
+                 {"max_memory_allocated (coded run)": meas["peak_coded"],
+                  "max_memory_allocated (plain run)": meas["peak_plain"]})
+        r = dict(phase="roofline", step=kind, cell=label,
+                 counted_flops=rep.flops, counted_bytes=rep.bytes_hbm,
+                 bytes_model=rep.bytes_model,
+                 model_flops=rep.model_flops,
+                 t_compute_ms=rep.t_compute * 1e3,
+                 t_memory_ms=rep.t_memory * 1e3,
+                 t_memory_floor_ms=rep.t_memory_floor * 1e3,
+                 t_bound_ms=rep.t_bound * 1e3, dominant=rep.dominant,
+                 step_roofline_fraction=rep.step_roofline_fraction,
+                 device_ms=meas["device_ms"], wall_ms=meas["wall_ms"],
+                 device_over_bound=meas["device_ms"] / (rep.t_bound * 1e3),
+                 counted_peak_bytes=counted, arg_bytes=row["arg_gib"] * 2**30,
+                 temp_bytes=row["temp_gib"] * 2**30, trace_s=row["trace_s"],
+                 device=device_line, **peaks)
+        check(all(math.isfinite(v) and v > 0 for v in (
+            rep.flops, rep.bytes_hbm, rep.bytes_model, rep.t_bound)),
+            f"the {kind} cell's roofline terms: {r}")
+        emit(r)
+        print(f"[roofline] {kind} ({label}): counted {rep.flops:.4e} FLOPs, "
+              f"{rep.bytes_hbm:.4e} bytes; bytes_model {rep.bytes_model:.4e}"
+              f", model_flops_for {rep.model_flops:.4e}; t_compute "
+              f"{rep.t_compute * 1e3:.3f} ms, t_memory "
+              f"{rep.t_memory * 1e3:.3f} ms, t_memory_floor "
+              f"{rep.t_memory_floor * 1e3:.3f} ms -> {rep.dominant}, "
+              f"step_roofline_fraction {rep.step_roofline_fraction:.4f}; "
+              f"device {meas['device_ms']:.2f} ms a step = "
+              f"{r['device_over_bound']:.2f} x t_bound "
+              f"{rep.t_bound * 1e3:.3f} ms; counted peak "
+              f"{counted / 2**30:.2f} GiB (args {row['arg_gib']:.2f} + "
+              f"temp {row['temp_gib']:.2f}) against "
+              + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in peaks.items())
+              + f" ({device_line})")
+        out[kind] = r
+    for label in ("decode 16x16 probes", "train 16x16 probes"):
+        row = rows[label]
+        emit(dict(phase="roofline-dryrun", cell=label, **row))
+        print(f"[roofline] {row['arch']} x {row['shape']} on the fake "
+              f"{row['mesh']} mesh ({row['chips']} ranks), probes in "
+              f"{row['trace_s']:.1f} s: {row['flops_per_dev']:.4e} FLOPs, "
+              f"{row['coll_bytes_per_dev']:.4e} collective bytes a device; "
+              f"t_compute {row['t_compute'] * 1e3:.3f} ms, t_memory_floor "
+              f"{row['t_memory_floor'] * 1e3:.3f} ms, t_collective "
+              f"{row['t_collective'] * 1e3:.3f} ms -> {row['dominant']}, "
+              f"step_roofline_fraction {row['step_roofline_fraction']}")
+    print(f"[roofline] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _cast(tree, dtype):
@@ -4411,6 +4587,8 @@ def _run(t_start, device_line) -> int:
     release()
     train_entries, train_launches = phase_train(device_line)
     entries.update(train_entries)
+    release()
+    phase_roofline(device_line)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at

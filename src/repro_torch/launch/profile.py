@@ -59,6 +59,7 @@ from repro_torch.models import SHAPES, decode_step, init_params, kvcache, prefil
 from repro_torch.launch.serve import aux_for
 from repro_torch.models.lm import (cross_layers, cross_len, init_decode_cache,
                                    kv_layers)
+from repro_torch.roofline.analysis import HW_H100
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
 
@@ -68,8 +69,8 @@ SERVE_SLOTS, SERVE_PROMPT, SERVE_STEPS = 8, 2048, 4
 #: width at 8 layers, which fits the card with the coded moments (48 do not)
 TRAIN_BATCH, TRAIN_LAYERS = 4, 8
 #: H100 SXM data sheet: HBM3 at 3.35 TB/s; dense bf16 tensor-core peak
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]
+BF16_FLOPS = HW_H100["peak_flops"]
 
 
 def _nbytes(tree) -> int:

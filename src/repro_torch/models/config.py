@@ -93,6 +93,18 @@ class ArchConfig:
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid / sliding-window)."""
+        return self.family in ("ssm", "hybrid") or self.window > 0
+
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        return self.sub_quadratic or shape.kind != "long_decode"
+
     def param_count(self) -> int:
         """Approximate total parameters (embeddings included)."""
         d, ff, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
@@ -129,6 +141,14 @@ class ArchConfig:
         else:
             n += L * (attn + dense_ffn() + 2 * d)
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of num_experts)."""
+        if self.family != "moe" or not self.num_experts:
+            return self.param_count()
+        d, ff, L = self.d_model, self.d_ff, self.num_layers
+        dead = L * 3 * d * ff * (self.num_experts - self.top_k)
+        return self.param_count() - dead
 
     def reduced(self) -> ArchConfig:
         """Smoke-test configuration: same family/topology, tiny dims."""

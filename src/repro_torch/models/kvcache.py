@@ -28,6 +28,12 @@ flash-decode kernel (``ops.decode_attention``), a sliding-window ring
 cache included; on the CPU both run their plain versions through the same
 calls.  The raw formats, and a window without a ring, run the plain masked
 softmax, which is where the JAX package runs jnp for them too.
+
+The cache's writes and its coded decode attention run per rank on the
+local shards under the dry run's sharding policy
+(``repro_torch.dist.act_sharding.local_region``: DTensor has no rule for
+them): K/V, lengths and caches sharded over the batch, heads replicated.
+Outside the policy they are plain calls.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import frsz2 as F
+from repro_torch.dist.act_sharding import local_region, zeros
 from repro_torch.kernels import ops
 
 f32 = torch.float32
@@ -45,6 +52,11 @@ __all__ = ["CacheFormat", "cache_format", "init_cache", "append", "attend",
            "decode_heads"]
 
 _RAW = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# logical names of the local regions' tensors: batch-sharded, the rest whole
+_B = ("batch",)
+_B4 = ("batch", None, None, None)
+_B3 = ("batch", None, None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,17 +121,18 @@ def init_cache(fmt: CacheFormat, L: int, B: int, Hkv: int, S: int, D: int,
                device=None) -> dict:
     """Layer-stacked zero cache.  Layout (L, B, Hkv, S, D)."""
     shape = (L, B, Hkv, S, D)
+    names = (None, "batch")         # batch-sharded under the dry run's policy
     if fmt.kind == "raw":
         dt = fmt.raw_torch_dtype()
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        return {"k": zeros(shape, names, dtype=dt, device=device),
+                "v": zeros(shape, names, dtype=dt, device=device)}
     cd = fmt.code_dtype()
     eshape = (L, B, Hkv, S, 1)
     return {
-        "k_codes": torch.zeros(shape, dtype=cd, device=device),
-        "k_exps": torch.zeros(eshape, dtype=torch.uint8, device=device),
-        "v_codes": torch.zeros(shape, dtype=cd, device=device),
-        "v_exps": torch.zeros(eshape, dtype=torch.uint8, device=device),
+        "k_codes": zeros(shape, names, dtype=cd, device=device),
+        "k_exps": zeros(eshape, names, dtype=torch.uint8, device=device),
+        "v_codes": zeros(shape, names, dtype=cd, device=device),
+        "v_exps": zeros(eshape, names, dtype=torch.uint8, device=device),
     }
 
 
@@ -135,25 +148,38 @@ def append(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     scatter does.  A raw cache's positions must lie inside it
     (``launch.serve`` sizes the cache so that there are none).
     """
-    B, T, Hkv, D = k_new.shape
     if fmt.kind == "frsz2":
-        ops.cache_write(k_new, v_new, lengths, layer_cache["k_codes"],
-                        layer_cache["k_exps"], layer_cache["v_codes"],
-                        layer_cache["v_exps"], fmt.spec(D), ring=ring)
+        spec = fmt.spec(k_new.shape[-1])
+        local_region(
+            lambda k, v, lens, kc, ke, vc, ve: ops.cache_write(
+                k, v, lens, kc, ke, vc, ve, spec, ring=ring),
+            [], (_B4, _B4, _B, _B4, _B4, _B4, _B4),
+            kernel="frsz2_cache_write")(
+            k_new, v_new, lengths, layer_cache["k_codes"],
+            layer_cache["k_exps"], layer_cache["v_codes"],
+            layer_cache["v_exps"])
         return layer_cache
+    local_region(lambda k, v, lens, kb, vb: _raw_append(k, v, lens, kb, vb,
+                                                        ring),
+                 [], (_B4, _B4, _B, _B4, _B4))(
+        k_new, v_new, lengths, layer_cache["k"], layer_cache["v"])
+    return layer_cache
+
+
+def _raw_append(k_new, v_new, lengths, k_buf, v_buf, ring: int) -> None:
+    """A raw cache's write of :func:`append`, in place."""
+    B, T, Hkv, D = k_new.shape
     dev = k_new.device
-    S = layer_cache["k"].shape[2]
+    S = k_buf.shape[2]
     pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=dev)
     if ring:
         pos = pos % ring
     # one flat row index per (b, h, t) into the (B * Hkv * S, D) views
     rows = (torch.arange(B * Hkv, device=dev).view(B, Hkv, 1) * S
             + pos[:, None, :]).reshape(-1)
-    for name, x in (("k", k_new), ("v", v_new)):
-        buf = layer_cache[name]
+    for buf, x in ((k_buf, k_new), (v_buf, v_new)):
         buf.view(-1, D).index_copy_(
             0, rows, x.transpose(1, 2).reshape(-1, D).to(buf.dtype))
-    return layer_cache
 
 
 def _decoded(layer_cache: dict, fmt: CacheFormat, D: int):
@@ -182,35 +208,45 @@ def attend(q: torch.Tensor, layer_cache: dict, lengths: torch.Tensor,
     formats, and a window without a ring, which decode never passes) is
     one masked softmax over the whole cache, as the JAX package's.
     """
-    B, H, D = q.shape
-    buf = layer_cache["k"] if fmt.kind == "raw" else layer_cache["k_codes"]
-    _, Hkv, S, _ = buf.shape
     if fmt.kind == "frsz2" and (ring or not window):
-        if ring:
-            # The ring route.  A cache of S <= ring slots holds position p
-            # at slot p mod ring.  The reference's masked softmax
-            # (masked_attend) takes slot kpos as valid iff its reconstructed
-            # position lies in [len - ring, len): for kpos <= len - 1 that
-            # is the largest p = kpos (mod ring) below len, which lies
-            # there; for kpos >= len, ``wrap`` clamps to 0 and the
-            # position is kpos itself, >= len.  So the valid slots are
-            # exactly kpos < min(len, S): the flash-decode kernel's
-            # prefix, at lengths clamped to S.  Softmax and P·V do not
-            # depend on the order of the positions.  (The window, if
-            # given as well, is the ring's own size and masks nothing
-            # more, as in the reference's ring branch.)
-            if S > ring:
-                raise ValueError(
-                    f"a ring cache of {ring} positions holds {S} slots: "
-                    "the slots past the ring are never written")
-            lengths = lengths.clamp(max=S)
-        spec = fmt.spec(D)
-        kbc, vbc = (F.BlockCompressed(
-            codes=layer_cache[f"{n}_codes"].view(B, Hkv, S, 1, D),
-            exps=layer_cache[f"{n}_exps"], n=D, spec=spec) for n in "kv")
-        return ops.decode_attention(q, kbc, vbc, lengths, sm_scale=D ** -0.5)
+        return local_region(
+            lambda q, kc, ke, vc, ve, lens: _coded_attend(
+                q, kc, ke, vc, ve, lens, fmt, ring),
+            _B3, (_B3, _B4, _B4, _B4, _B4, _B), kernel="decode_attn")(
+            q, layer_cache["k_codes"], layer_cache["k_exps"],
+            layer_cache["v_codes"], layer_cache["v_exps"], lengths)
     return masked_attend(q, layer_cache, lengths, fmt, window=window,
                          ring=ring)
+
+
+def _coded_attend(q, k_codes, k_exps, v_codes, v_exps, lengths,
+                  fmt: CacheFormat, ring: int) -> torch.Tensor:
+    """:func:`attend` over an FRSZ2 cache: ``ops.decode_attention``."""
+    B, H, D = q.shape
+    _, Hkv, S, _ = k_codes.shape
+    if ring:
+        # The ring route.  A cache of S <= ring slots holds position p
+        # at slot p mod ring.  The reference's masked softmax
+        # (masked_attend) takes slot kpos as valid iff its reconstructed
+        # position lies in [len - ring, len): for kpos <= len - 1 that
+        # is the largest p = kpos (mod ring) below len, which lies
+        # there; for kpos >= len, ``wrap`` clamps to 0 and the
+        # position is kpos itself, >= len.  So the valid slots are
+        # exactly kpos < min(len, S): the flash-decode kernel's
+        # prefix, at lengths clamped to S.  Softmax and P·V do not
+        # depend on the order of the positions.  (The window, if
+        # given as well, is the ring's own size and masks nothing
+        # more, as in the reference's ring branch.)
+        if S > ring:
+            raise ValueError(
+                f"a ring cache of {ring} positions holds {S} slots: "
+                "the slots past the ring are never written")
+        lengths = lengths.clamp(max=S)
+    spec = fmt.spec(D)
+    kbc, vbc = (F.BlockCompressed(codes=c.view(B, Hkv, S, 1, D), exps=e,
+                                  n=D, spec=spec)
+                for c, e in ((k_codes, k_exps), (v_codes, v_exps)))
+    return ops.decode_attention(q, kbc, vbc, lengths, sm_scale=D ** -0.5)
 
 
 def masked_attend(q: torch.Tensor, layer_cache: dict, lengths: torch.Tensor,
@@ -270,21 +306,33 @@ def build_cache(k_all: torch.Tensor, v_all: torch.Tensor, fmt: CacheFormat, *,
         out = {n: t[0] for n, t in init_cache(fmt, 1, B, Hkv, target, D,
                                               device=k_all.device).items()}
     if fmt.kind == "frsz2":
-        ops.cache_write(k_all, v_all, None, out["k_codes"], out["k_exps"],
-                        out["v_codes"], out["v_exps"], fmt.spec(D), ring=ring,
-                        clear_from=stored)
+        spec = fmt.spec(D)
+        local_region(
+            lambda k, v, kc, ke, vc, ve: ops.cache_write(
+                k, v, None, kc, ke, vc, ve, spec, ring=ring,
+                clear_from=stored),
+            [], (_B4,) * 6, kernel="frsz2_cache_write")(
+            k_all, v_all, out["k_codes"], out["k_exps"], out["v_codes"],
+            out["v_exps"])
         return out
+    local_region(lambda k, v, kb, vb: _raw_build(k, v, kb, vb, ring),
+                 [], (_B4,) * 4)(k_all, v_all, out["k"], out["v"])
+    return out
+
+
+def _raw_build(k_all, v_all, k_buf, v_buf, ring: int) -> None:
+    """A raw cache's write of :func:`build_cache`, in place."""
+    S = k_all.shape[1]
+    stored = min(S, ring) if ring else S
     k_bhsd = k_all.transpose(1, 2)
     v_bhsd = v_all.transpose(1, 2)
     if ring and S > ring:
         shift = (S - ring) % ring
         k_bhsd = torch.roll(k_bhsd[:, :, S - ring:], shift, dims=2)
         v_bhsd = torch.roll(v_bhsd[:, :, S - ring:], shift, dims=2)
-    for name, x in (("k", k_bhsd), ("v", v_bhsd)):
-        buf = out[name]
+    for buf, x in ((k_buf, k_bhsd), (v_buf, v_bhsd)):
         buf[:, :, :stored].copy_(x)
         buf[:, :, stored:].zero_()
-    return out
 
 
 def cache_nbytes(fmt: CacheFormat, L, B, Hkv, S, D) -> int:

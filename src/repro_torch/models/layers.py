@@ -7,8 +7,10 @@ written as the exact gather and scatter they compute.  Attention for a
 prompt is *blocked* (an online softmax over key chunks, in f32), so no
 O(S²) logits buffer exists; the one new token of a decode step attends
 through :func:`repro_torch.models.kvcache.attend` instead.  The layer loop is a
-Python loop (``repro_torch.models.lm``), and nothing is sharded: the JAX
-package's ``scan_or_unroll`` and sharding constraints have no counterpart.
+Python loop (``repro_torch.models.lm``), so the JAX package's
+``scan_or_unroll`` has no counterpart.  Its activation-sharding constraints
+do (``repro_torch.dist.act_sharding.constrain``, at the same places): the
+identity outside the dry run's policy, and on plain tensors.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as Fn
+
+from repro_torch.dist.act_sharding import constrain, local_region
 
 f32 = torch.float32
 
@@ -94,9 +98,30 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     repeated over the group and the softmax runs in f32, as the JAX
     package's.
     """
-    B, Sq, H, hd = q.shape
-    _, Sk, Hkv, _ = k.shape
+    H, Hkv = q.shape[2], k.shape[2]
     G = H // Hkv
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "heads", None)
+    v = constrain(v, "batch", None, "heads", None)
+    # the tiles run per rank on its batch rows and heads under the dry
+    # run's policy (DTensor's rule search over the tile products takes
+    # minutes on a 3-d mesh); a plain call otherwise
+    names = ("batch", None, "heads", None)
+    return local_region(
+        lambda q, k, v: _attention_tiles(q, k, v, causal, window, chunk_q,
+                                         chunk_k, q_offset),
+        names, (names, names, names))(q, k, v)
+
+
+def _attention_tiles(q, k, v, causal: bool, window: int, chunk_q: int,
+                     chunk_k: int, q_offset: int) -> torch.Tensor:
+    """:func:`blocked_attention`'s online softmax over (query, key) tiles,
+    K and V already repeated to q's heads."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
     cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
     while Sq % cq:
         cq //= 2
@@ -105,9 +130,6 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq, nk = Sq // cq, Sk // ck
     scale = hd ** -0.5
     dev = q.device
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
     outs = []
     for iq in range(nq):
         qi = q[:, iq * cq:(iq + 1) * cq].to(f32) * scale       # (B,cq,H,hd)
@@ -142,6 +164,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg, *, positions,
                     ) -> torch.Tensor:
     """Pre-norm attention block.  ``kv_src`` switches to cross-attention."""
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    x = constrain(x, "batch", None, None)
     h = rms_norm(x, p["ln"])
     src = h if kv_src is None else kv_src
     B, S, _ = h.shape
@@ -171,8 +194,10 @@ def attention_qkv(h: torch.Tensor, p: dict, cfg, *, positions):
 
 
 def swiglu_block(x: torch.Tensor, p: dict) -> torch.Tensor:
+    x = constrain(x, "batch", None, None)
     h = rms_norm(x, p["ln"])
     act = Fn.silu(h @ p["wg"]) * (h @ p["wi"])
+    act = constrain(act, "batch", None, "mlp")
     return x + act @ p["wo"]
 
 
@@ -255,6 +280,11 @@ def expert_inputs(h: torch.Tensor, gidx, slot, keep, E: int,
     return xin[:n_slots].reshape(ngroup, E, capacity, d), row
 
 
+# logical names of the MoE's per-group tensors: the groups batch-sharded
+_G3 = ("batch", None, None)
+_G4 = ("batch", None, None, None)
+
+
 def moe_block(x: torch.Tensor, p: dict, cfg):
     """Grouped top-k MoE with SwiGLU experts.  Returns (out, aux_loss).
 
@@ -267,24 +297,43 @@ def moe_block(x: torch.Tensor, p: dict, cfg):
     load-balancing loss: mean gate times the fraction of tokens routed
     (kept) to each expert, summed over experts, times E.
     """
+    x = constrain(x, "batch", None, None)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     g, capacity = moe_capacity(cfg, B * S)
     ngroup = B * S // g
     h = rms_norm(x, p["ln"]).reshape(ngroup, g, d)
     gates = torch.softmax(h.to(f32) @ p["router"].to(f32), dim=-1)
-    gidx, slot, keep, weight = _top_k_dispatch(gates, k, capacity)
-    xin, row = expert_inputs(h, gidx, slot, keep, E, capacity)
+
+    def dispatch(h, gates):
+        gidx, slot, keep, weight = _top_k_dispatch(gates, k, capacity)
+        xin, row = expert_inputs(h, gidx, slot, keep, E, capacity)
+        return xin, row, gidx, keep, weight
+
+    # the dispatch and the combine index within each group: run per rank
+    # on its groups under the dry run's policy (DTensor has no rule)
+    xin, row, gidx, keep, weight = local_region(
+        dispatch, [_G4, _G3, _G3, _G3, _G3], (_G3, _G3))(h, gates)
+    xin = constrain(xin, "batch", "experts", None, None)
     act = (Fn.silu(torch.einsum("gecd,edf->gecf", xin, p["wg"]))
            * torch.einsum("gecd,edf->gecf", xin, p["wi"]))
+    act = constrain(act, "batch", "experts", None, "mlp")
     hout = torch.einsum("gecf,efd->gecd", act, p["wo"])       # (G,E,C,d)
-    flat = hout.reshape(-1, d)
-    picked = flat[row.clamp(max=flat.shape[0] - 1)]          # (G, g, k, d)
-    w = torch.where(keep, weight.to(f32), 0.0)                # dropped: 0
-    out = (picked.to(f32) * w[..., None]).sum(2).to(hout.dtype)
+
+    def combine(hout, row, keep, weight, gidx):
+        flat = hout.reshape(-1, d)
+        picked = flat[row.clamp(max=flat.shape[0] - 1)]      # (G, g, k, d)
+        w = torch.where(keep, weight.to(f32), 0.0)            # dropped: 0
+        out = (picked.to(f32) * w[..., None]).sum(2).to(hout.dtype)
+        G = gidx.shape[0]
+        routed = torch.zeros((G, E), dtype=f32, device=hout.device)
+        routed.scatter_add_(1, gidx.reshape(G, -1),
+                            keep.reshape(G, -1).to(f32))
+        return out, routed
+
+    out, routed = local_region(combine, [_G3, ("batch", None)],
+                               (_G4, _G3, _G3, _G3, _G3))(
+        hout, row, keep, weight, gidx)
     me = gates.mean(dim=1)                                    # (G, E)
-    routed = torch.zeros((ngroup, E), dtype=f32, device=x.device)
-    routed.scatter_add_(1, gidx.reshape(ngroup, -1),
-                        keep.reshape(ngroup, -1).to(f32))
     aux = (me * (routed / g)).sum(-1).mean() * E
     return x + out.reshape(B, S, d), aux

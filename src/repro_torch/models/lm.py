@@ -51,6 +51,8 @@ import math
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.dist import act_sharding
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import kvcache as kv
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig, torch_dtype
@@ -68,7 +70,7 @@ f32 = torch.float32
 
 __all__ = ["init_params", "trunk", "loss_fn", "init_decode_cache",
            "decode_step", "prefill", "kv_layers", "cross_layers",
-           "cross_len"]
+           "cross_len", "META"]
 
 
 #: the families the port runs: every family of the registry
@@ -87,11 +89,25 @@ def _check_family(cfg: ArchConfig, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+class _MetaDraws:
+    """Stands in for a generator on the ``meta`` device: :func:`init_params`
+    then gives every weight its shape and dtype and allocates nothing."""
+
+    device = torch.device("meta")
+
+
+#: pass as ``gen`` to :func:`init_params` for weights on the meta device
+META = _MetaDraws()
+
+
 def _init(gen: torch.Generator, shape, scale: float, dtype, L: int = 0
           ) -> torch.Tensor:
     """``normal * scale`` in f32, cast to ``dtype``; with ``L`` a stack of L
     draws made one layer at a time, so the f32 temporary stays one layer."""
     dev = gen.device
+    if dev.type == "meta":
+        return torch.empty((L, *shape) if L else shape, dtype=dtype,
+                           device=dev)
     if not L:
         return (torch.randn(shape, generator=gen, dtype=f32, device=dev)
                 * scale).to(dtype)
@@ -149,6 +165,8 @@ def _moe_params(gen, cfg: ArchConfig, L: int, dt) -> dict:
 
 def _dt_bias(gen, shape) -> torch.Tensor:
     """softplus^-1 of dt drawn log-uniform in [1e-3, 0.1], f32."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=f32, device=gen.device)
     u = torch.rand(shape, generator=gen, dtype=f32, device=gen.device)
     dt = torch.exp(u * float(math.log(0.1 / 1e-3)) + float(math.log(1e-3)))
     return torch.log(torch.expm1(dt))
@@ -243,7 +261,8 @@ def _rounds(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """Random weights at the reference's scales, on ``gen``'s device."""
+    """Random weights at the reference's scales, on ``gen``'s device; with
+    ``gen=META`` the weights' shapes on the meta device, nothing drawn."""
     _check_family(cfg, "init_params")
     dt = torch_dtype(cfg.dtype)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
@@ -411,6 +430,10 @@ def trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     # repeated token in a fixed order (the indexing's backward on the CPU
     # adds them with atomics, in any order)
     h = Fn.embedding(tokens, params["embed"])
+    # reduced where the vocab is sharded (the dry run's policy; the
+    # identity otherwise), before a remat region saves it: DTensor's masked
+    # partial of an embedding reduces once
+    h = constrain(h, "batch", None, None)
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), dtype=f32, device=h.device)
     if cfg.family in ("encdec", "vlm"):
@@ -471,7 +494,11 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
     for s in range(0, S, c):
         logits = (h[:, s:s + c] @ params["unembed"]).to(f32)  # (B, c, V)
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[:, s:s + c, None].long())[..., 0]
+        # the gathered logit reduced where the vocab is sharded (the dry
+        # run's policy; the identity otherwise), before it loses its last
+        # dim: DTensor's masked partial of a gather keeps the gather's shape
+        tgt = constrain(logits.gather(-1, targets[:, s:s + c, None].long()),
+                        "batch", None, None)[..., 0]
         ce = ce + (lse - tgt).sum()
         zl = zl + lse.square().sum()
     ntok = B * S
@@ -495,7 +522,8 @@ def _cache_seq(cfg: ArchConfig, S: int) -> int:
 def init_decode_cache(cfg: ArchConfig, B: int, S: int, device=None) -> dict:
     """Allocate the decode cache for max context S."""
     _check_family(cfg, "init_decode_cache")
-    cache = {"lengths": torch.zeros((B,), dtype=torch.int32, device=device)}
+    cache = {"lengths": act_sharding.zeros((B,), ("batch",),
+                                           dtype=torch.int32, device=device)}
     if cfg.family in ("ssm", "hybrid"):
         cache.update(_ssm_state(cfg, B, device))
         if cfg.family == "ssm":
@@ -528,10 +556,11 @@ def _ssm_state(cfg: ArchConfig, B: int, device) -> dict:
     else:
         P = cfg.ssm_head_dim
         hshape = (L, B, di // P, P, N)
-    return {"ssm_h": torch.zeros(hshape, dtype=f32, device=device),
-            "ssm_conv": torch.zeros((L, B, W - 1, di),
-                                    dtype=torch_dtype(cfg.dtype),
-                                    device=device)}
+    return {"ssm_h": act_sharding.zeros(hshape, (None, "batch"), dtype=f32,
+                                        device=device),
+            "ssm_conv": act_sharding.zeros((L, B, W - 1, di), (None, "batch"),
+                                           dtype=torch_dtype(cfg.dtype),
+                                           device=device)}
 
 
 def _self_attn_decode(h, lp, cfg, layer_cache, lengths, fmt, ring):
@@ -646,7 +675,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     n_slots = max(c_len, stored)
     if cfg.window:
         n_slots = min(n_slots, cfg.window)
-    cache = {"lengths": torch.full((B,), S, dtype=torch.int32, device=dev)}
+    cache = {"lengths": act_sharding.full((B,), S, ("batch",),
+                                          dtype=torch.int32, device=dev)}
 
     def cross_and_cache(h, ap, src, layer_cache):
         """Cross-attention over the source (no RoPE, no mask); its K/V

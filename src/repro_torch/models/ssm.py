@@ -18,7 +18,10 @@ so they are plain PyTorch ops on tensors, as ``layers.py``:
   contribution, and the decay-to-end weighted state update, with the
   reference's ``1e-37`` clamp on the prefix decay.
 
-Under autograd with ``cfg.remat`` (the default) each chunk of either
+Each chunk, and the causal conv, runs per rank on its local shards under
+the dry run's sharding policy (``dist.act_sharding.local_region``), a
+plain call otherwise.  Under autograd with ``cfg.remat`` (the default) each chunk of
+either
 block is recomputed in the backward (``layers.remat``), the reference's
 chunk-level ``jax.checkpoint``: the backward holds one chunk's states at a
 time, not every chunk's.
@@ -34,9 +37,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.dist.act_sharding import local_region
 from repro_torch.models.layers import remat, rms_norm
 
 f32 = torch.float32
+
+# logical names of the scan chunks' and the conv's tensors, which run per
+# rank on their local shards under the dry run's policy (DTensor's rule
+# search over the chunk's products takes minutes on a 3-d mesh; some
+# versions' DTensor cannot pad a sharded tensor): the batch sharded, and
+# Mamba1's inner dim (the conv's channels) over the tensor-parallel dim
+# where it divides
+_BDN = ("batch", "mlp", None)
+_BLD = ("batch", None, "mlp")
+_BLN = ("batch", None, None)
+_B4 = ("batch", None, None, None)
 
 __all__ = ["causal_conv", "mamba1_seq", "mamba1_decode", "mamba2_seq",
            "mamba2_decode"]
@@ -65,6 +80,15 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     W-1 rows of the context and x).  Summed in f32 tap by tap, as the
     reference.
     """
+    names = None if state is None else _BLD
+    return local_region(_causal_conv, [_BLD, _BLD],
+                        (_BLD, (None, "mlp"), ("mlp",),
+                         names))(x, w, b, state)
+
+
+def _causal_conv(x, w, b, state):
+    """:func:`causal_conv` on a rank's channels (all of them outside the
+    dry run's policy)."""
     B, L, C = x.shape
     W = w.shape[0]
     xp = (Fn.pad(x, (0, 0, W - 1, 0)) if state is None
@@ -122,9 +146,11 @@ def mamba1_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
     c = _chunk(L, cfg.ssm_chunk)
     hprev = (torch.zeros((B, di, N), dtype=f32, device=x.device)
              if h0 is None else h0)
+    chunk = local_region(_mamba1_chunk, [_BDN, _BLD],
+                         (_BDN, _BLD, _BLD, _BLN, _BLN, ("mlp", None)))
     ys = []
     for s in range(0, L, c):
-        hprev, y = remat(cfg, _mamba1_chunk, hprev, dt[:, s:s + c],
+        hprev, y = remat(cfg, chunk, hprev, dt[:, s:s + c],
                          xi[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c], A)
         ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]        # (B, L, di)
@@ -204,9 +230,11 @@ def mamba2_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
     c = _chunk(L, cfg.ssm_chunk)
     hprev = (torch.zeros((B, Hs, P, N), dtype=f32, device=x.device)
              if h0 is None else h0)
+    chunk = local_region(_mamba2_chunk, [_B4, _B4],
+                         (_B4, _B4, _BLN, _BLN, _BLN, _BLN))
     ys = []
     for s in range(0, L, c):
-        hprev, y = remat(cfg, _mamba2_chunk, hprev,
+        hprev, y = remat(cfg, chunk, hprev,
                          xi[:, s:s + c].reshape(B, c, Hs, P), dt[:, s:s + c],
                          loga[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c])
         ys.append(y)

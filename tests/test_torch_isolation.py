@@ -1,6 +1,8 @@
 """The port stands alone: an AST scan of ``src/repro_torch`` (every
 subpackage: the solver, the models, the training modules ``optim``,
-``data``, ``checkpoint`` and ``launch/train.py``, and ``examples``) and
+``data``, ``checkpoint`` and ``launch/train.py``, ``examples``, the dry run
+and the roofline: ``roofline/``, ``dist/sharding.py``,
+``dist/act_sharding.py``, ``launch/{mesh,specs,dryrun}.py``) and
 ``chip_smoke.py``.
 
 * No ``import jax``/``from jax ...`` and no import of the JAX package
@@ -99,3 +101,18 @@ def test_scan_sees_the_package():
     subs = {p.parent.name for p in FILES}
     assert {"optim", "data", "checkpoint", "examples", "models", "kernels",
             "launch"} <= subs
+
+
+#: the dry run's and the roofline's modules (their scans run above)
+DRYRUN_MODULES = ["roofline/__init__.py", "roofline/__main__.py",
+                  "roofline/analysis.py", "roofline/analytic.py",
+                  "roofline/probe.py", "roofline/table.py",
+                  "dist/sharding.py", "dist/act_sharding.py",
+                  "launch/mesh.py", "launch/specs.py", "launch/dryrun.py"]
+
+
+@pytest.mark.parametrize("rel", DRYRUN_MODULES)
+def test_scan_covers_the_dry_run(rel):
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path.is_file()
+    assert path in FILES
