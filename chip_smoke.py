@@ -285,6 +285,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    of yi-9b x decode_32k and mixtral-8x22b x train_4k on the fake 16x16
    mesh; four subprocesses, all started together; a failed row fails the
    script.
+15. the analysis gate (slice 8) at the main path's full width (n =
+   1,259,712, m = 100): the fixed-trajectory reads audit (``target_rrn=0``,
+   CGS2, 2 cycles) of the device driver in frsz2_32 and float64 and of the
+   p = 8 frsz2_32 block driver (kernels 7, 8 and 5b), whose ``bytes_read``
+   and ``op_reads`` must equal the model on the real store tensors;
+   recapture (a second solve captures nothing) and host reads (the sync
+   warnings and host-to-device copies of a warmed solve equal each
+   driver's ``HOST_TRAFFIC``) of both drivers; the f64 audit of an
+   frsz2_16 cycle at f32 arithmetic (kernels 1-6); the collective census
+   on phase 7c's NCCL group of one rank (every matvec mode, a rows-mode
+   solve whose cycles replay from a graph); one ``{"phase": "analysis"}``
+   row each, any finding fails; then ``python -m repro_torch.analysis
+   --check --format json`` in a subprocess, which must print ``[]``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -2099,6 +2112,7 @@ def _sharded_rank(rank, dev, target, ref, block_ref):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.dist.collectives import gather_objects
     from repro_torch.launch.solve import _batch_rhs
     from repro_torch.solver import clear_graph_cache, gmres, gmres_batched
     from repro_torch.solver.sharded import _plan_and_precond, wire_bytes
@@ -2183,9 +2197,7 @@ def _sharded_rank(rank, dev, target, ref, block_ref):
     finally:
         clear_graph_cache()
         mark("end")
-    timelines = [None] * P
-    dist.all_gather_object(timelines, dict(rank=rank, start=t_start,
-                                           marks=marks))
+    timelines = gather_objects(dict(rank=rank, start=t_start, marks=marks))
     return dict(rows=rows, timelines=timelines) if rank == 0 else None
 
 
@@ -4497,6 +4509,137 @@ def phase_roofline(device_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the analysis gate on the card (slice 8)
+# ---------------------------------------------------------------------------
+
+#: phase 15: cycles of the fixed trajectories at the main path's m, the
+#: block audits' right-hand sides, the gate's subprocess deadline (s)
+GATE_K = 2
+GATE_P = 8
+GATE_DEADLINE_S = 600
+#: the f64 audit's cycle runs these kernels (fused: the coded-operand ELL;
+#: unfused: the decoded row through the dense ELL)
+F64_AUDIT_KERNELS = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
+                     "frsz2_rmatvec", "ell_spmv", "ell_spmv_frsz2")
+#: the block reads audit's kernels 7, 8 and 5b (the batched ELL)
+BLOCK_AUDIT_KERNELS = ("frsz2_block_dots", "frsz2_block_combine", "ell_spmv")
+
+
+def _gate_row(audit, fn, kernels=(), **extra):
+    """Run one audit, timed, with the launches it makes: one ``{"phase":
+    "analysis", ...}`` row; a finding fails the script after the row."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    info = {}
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    findings = fn(info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info.pop("calls", None)       # the census's recorded calls: not a row
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                if ops.LAUNCHES[k] != before[k]}
+    row = dict(phase="analysis", audit=audit, wall_s=wall,
+               findings=[f.render() for f in findings], launches=launched,
+               info=info, **extra)
+    emit(row)
+    print(f"[analysis] {audit}: {len(findings)} finding(s) in {wall:.2f} s")
+    check(not findings, f"the gate's {audit} audit: "
+          + "; ".join(row["findings"]))
+    missing = [k for k in kernels if not launched.get(k)]
+    check(not missing, f"the gate's {audit} audit launched no {missing}")
+    return row
+
+
+def phase_analysis(device_line):
+    """Slice 8: the analysis gate at the main path's full width (the
+    fixed-trajectory reads of the device driver in float64 and frsz2_32
+    and of the p = 8 frsz2_32 block driver; recapture and host reads of
+    both drivers; the f64 audit of an frsz2_16 cycle at f32 arithmetic; the
+    census on phase 7c's NCCL group of one rank), then ``python -m
+    repro_torch.analysis --check --format json`` in a subprocess, which
+    must print ``[]``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import traceaudit, traffic
+    from repro_torch.sparse import make_problem, rhs_for
+
+    t_phase = time.perf_counter()
+    A, _ = make_problem("synth:atmosmod", N_MAIN, device="cuda")
+    b, _ = rhs_for(A, device="cuda")
+    n = A.shape[0]
+    walls = {}
+    for storage in ("frsz2_32", "float64"):
+        r = _gate_row(f"reads[{storage}]", lambda info, s=storage:
+                      traffic.audit_reads(A, b, storage=s, m=M, k=GATE_K,
+                                          info=info), n=n, m=M, k=GATE_K,
+                      device=device_line)
+        walls[r["audit"]] = r["wall_s"]
+        release()
+    r = _gate_row("block-reads[frsz2_32]", lambda info: traffic.audit_reads(
+        A, b, storage="frsz2_32", m=M, k=GATE_K, p=GATE_P, info=info),
+        BLOCK_AUDIT_KERNELS, n=n, m=M, k=GATE_K, p=GATE_P,
+        device=device_line)
+    walls[r["audit"]] = r["wall_s"]
+    release()
+    for audit, fn in (("recapture", traceaudit.audit_recapture),
+                      ("host-reads", traceaudit.audit_host_reads)):
+        r = _gate_row(audit, lambda info, f=fn: f(A, b, m=M, k=GATE_K,
+                                                  p=GATE_P, info=info),
+                      n=n, m=M, k=GATE_K, p=GATE_P, device=device_line)
+        walls[audit] = r["wall_s"]
+        release()
+    A32, _ = make_problem("synth:atmosmod", N_MAIN, dtype=np.float32,
+                          device="cuda")
+    b32 = b.to(torch.float32)
+    r = _gate_row("f64-leak", lambda info: traceaudit.audit_f64_leak(
+        A32, b32, m=M, info=info), F64_AUDIT_KERNELS, n=n, m=M,
+        device=device_line)
+    walls["f64-leak"] = r["wall_s"]
+    del A32, b32
+    release()
+    r = _gate_row("census", lambda info: traffic.census_world(
+        0, "cuda", rows_A=A, halo_A=A, info=info), n=n,
+        device=device_line)
+    walls["census"] = r["wall_s"]
+    del A, b
+    release()
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "--format",
+         "json"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=GATE_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.strip()
+    try:
+        payload = json.loads(out[out.index("["):])
+    except ValueError:
+        payload = None
+    emit(dict(phase="analysis", audit="python -m repro_torch.analysis "
+              "--check --format json", exit=proc.returncode, wall_s=wall,
+              findings=payload, device=device_line))
+    print(f"[analysis] the gate's CLI exited {proc.returncode} in "
+          f"{wall:.1f} s")
+    check(proc.returncode == 0 and payload == [],
+          f"the gate's CLI exited {proc.returncode} with {out[-3000:]!r}; "
+          f"stderr {proc.stderr[-3000:]!r}")
+    walls["cli"] = wall
+    print(f"[analysis] phase 15 took {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+
+
 def _cast(tree, dtype):
     """A copy of a weight tree with every floating tensor in ``dtype``."""
     return {k: _cast(v, dtype) if isinstance(v, dict)
@@ -4589,6 +4732,8 @@ def _run(t_start, device_line) -> int:
     entries.update(train_entries)
     release()
     phase_roofline(device_line)
+    release()
+    phase_analysis(device_line)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at

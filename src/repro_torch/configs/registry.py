@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from repro_torch.models.config import SHAPES, ArchConfig
 
-__all__ = ["ARCHS", "get_arch", "SHAPES", "arch_names"]
+__all__ = ["ARCHS", "get_arch", "SHAPES", "arch_names", "cells"]
 
 
 ARCHS = {
@@ -94,3 +94,12 @@ def get_arch(name: str) -> ArchConfig:
 def arch_names():
     return sorted(ARCHS)
 
+
+def cells():
+    """All assigned (arch × shape) dry-run cells, honoring documented skips."""
+    for aname in arch_names():
+        cfg = ARCHS[aname]
+        for sname, shp in SHAPES.items():
+            if not cfg.supports_shape(shp):
+                continue  # long_500k on pure full-attention archs
+            yield aname, sname

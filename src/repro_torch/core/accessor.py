@@ -470,7 +470,9 @@ class ShardedFormat(StorageFormat):
         the stale rows of an earlier cycle included, because the wire
         block's exponent is the largest of its 128 values, as the
         reference's unmasked dots give it.  With the plain transport only
-        the live rows are contracted and all-reduced;
+        the live rows are contracted, and their partials are all-reduced
+        padded with zeros to every stored row, as the reference's (m + 1,)
+        reduction ships them (the wire model prices that length);
       * ``combine``, ``write_row``, ``read_row`` — local, on the chunk;
       * ``operand`` — the row read: the sharded matvec exchanges decoded
         values, so the coded-operand ELL kernel is not on this path.
@@ -522,10 +524,19 @@ class ShardedFormat(StorageFormat):
     def _wire_rows(self, store, rows: int) -> int:
         return self.inner.rows(store) if self.compressed_transport else rows
 
+    def _reduce_rows(self, store, local: torch.Tensor) -> torch.Tensor:
+        """:meth:`reduce_partials` of one partial a stored row: the live
+        rows' partials padded with zeros to every row of ``store``."""
+        pad = self.inner.rows(store) - local.shape[0]
+        if pad:
+            local = torch.cat([local, local.new_zeros((pad,)
+                                                      + local.shape[1:])])
+        return self.reduce_partials(local)
+
     def dots(self, store, w, arith_dtype, n: int, rows: int):
         local = self.inner.dots(store, w, arith_dtype, n,
                                 self._wire_rows(store, rows))
-        return self.reduce_partials(local)[:rows].to(arith_dtype)
+        return self._reduce_rows(store, local)[:rows].to(arith_dtype)
 
     def combine(self, store, h, arith_dtype, n: int):
         return self.inner.combine(store, h, arith_dtype, n)
@@ -537,7 +548,7 @@ class ShardedFormat(StorageFormat):
                    rows: int):
         local = self.inner.block_dots(store, W, arith_dtype, n, p, n_seg,
                                       self._wire_rows(store, rows))
-        return self.reduce_partials(local)[:rows].to(arith_dtype)
+        return self._reduce_rows(store, local)[:rows].to(arith_dtype)
 
     def block_combine(self, store, Y, arith_dtype, n: int, p: int,
                       n_seg: int):

@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_leaves
 
 __all__ = [
     "WIRE_SPEC",
@@ -37,12 +38,15 @@ __all__ = [
     "compressed_psum",
     "exchange_bytes",
     "gather_bytes",
+    "gather_objects",
     "gather_operand",
+    "halo_bytes",
     "halo_exchange",
     "halo_exchange_3d",
     "halo_exchange_3d_start",
     "halo_wire_spec",
     "perm_defect",
+    "pmean_bytes",
     "psum",
     "reduce_bytes",
     "rounds_defect",
@@ -135,6 +139,15 @@ def gather_operand(x_local: torch.Tensor, group=None) -> torch.Tensor:
     ``replicated`` matvecs, priced by :func:`gather_bytes`."""
     out = _all_gather(x_local, group)                  # (P, ..., n_local)
     return out.movedim(0, -2).reshape(*x_local.shape[:-1], -1)
+
+
+def gather_objects(obj, group=None) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank: the
+    host-side exchange of reports (timelines, recorded collectives), never
+    of a solve's data, and priced by no wire model."""
+    out = [None] * _size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def _gathered_shards(x: torch.Tensor, group) -> torch.Tensor:
@@ -262,19 +275,34 @@ class _Pending:
 def _ppermute_start(x: torch.Tensor, group, perm, compressed: bool
                     ) -> _Pending:
     """Start one permutation exchange of ``x``: this rank sends ``x`` to the
-    destination its pair names and receives its source's ``x``, in one
-    ``batch_isend_irecv``.  With ``compressed`` the payload is ``x``'s
+    destination its pair names and receives its source's ``x``
+    (:func:`_exchange`).  With ``compressed`` the payload is ``x``'s
     :func:`halo_wire_spec` codes, compressed and decoded on every rank
     whether it sends or receives (zero codes decode to exact zeros), as
     the reference's dataflow runs."""
-    rank = _rank(group)
-    dst = next((int(d) for s, d in perm if int(s) == rank), None)
-    src = next((int(s) for s, d in perm if int(d) == rank), None)
     if compressed:
         bc = ops.compress(x, halo_wire_spec(x.dtype))
         payload = _pack(bc)
     else:
         payload = x.contiguous()
+    works, recv = _exchange(payload, group, perm)
+
+    def finish():
+        if not compressed:
+            return recv
+        return ops.decompress(_unpack(recv, bc)).to(x.dtype)
+
+    return _Pending(works, finish)
+
+
+def _exchange(payload: torch.Tensor, group, perm):
+    """One exchange of ``payload`` along ``perm``, called on every rank of
+    the group (the census records it there, named or not): one
+    ``batch_isend_irecv`` of this rank's send and receive, if a pair names
+    it.  Returns ``(works, recv)``, ``recv`` zeros where nothing arrives."""
+    rank = _rank(group)
+    dst = next((int(d) for s, d in perm if int(s) == rank), None)
+    src = next((int(s) for s, d in perm if int(d) == rank), None)
     recv = torch.zeros_like(payload)
     p2p = []
     if dst is not None:
@@ -283,13 +311,7 @@ def _ppermute_start(x: torch.Tensor, group, perm, compressed: bool
     if src is not None:
         p2p.append(dist.P2POp(dist.irecv, recv, _peer(group, src), group))
     works = dist.batch_isend_irecv(p2p) if p2p else []
-
-    def finish():
-        if not compressed:
-            return recv
-        return ops.decompress(_unpack(recv, bc)).to(x.dtype)
-
-    return _Pending(works, finish)
+    return works, recv
 
 
 def _pshift_start(x, k: int, n_shards: int, group, compressed: bool):
@@ -386,6 +408,16 @@ def exchange_bytes(sizes, *, compressed: bool = False,
     return int(sum(int(s) for s in sizes)) * plain_itemsize
 
 
+def halo_bytes(strips, *, compressed: bool = False, plain_itemsize: int = 8,
+               dtype=torch.float64) -> int:
+    """Per-device wire payload of one :func:`halo_exchange`: each strip is
+    both sent and received on each side, so a device moves ``2 *
+    sum(strips)`` values, priced through :func:`exchange_bytes` as two
+    sends a strip."""
+    return exchange_bytes(tuple(strips) * 2, compressed=compressed,
+                          plain_itemsize=plain_itemsize, dtype=dtype)
+
+
 def gather_bytes(n_local: int, n_shards: int, *,
                  plain_itemsize: int = 8) -> int:
     """Per-device wire payload of one tiled ring all-gather: each device
@@ -404,3 +436,17 @@ def reduce_bytes(n_values: int, *, compressed: bool,
         return F.storage_nbytes(n_values, WIRE_SPEC)
     return n_values * plain_itemsize
 
+
+def pmean_bytes(tree, *, compressed: bool) -> int:
+    """Per-device wire payload of one pmean of ``tree`` (nested dicts of
+    tensors, :mod:`repro_torch.tree`): each plain leaf at its own itemsize,
+    or, coded, the :data:`WIRE_SPEC` codes and exponents of its values
+    (whatever the leaf's dtype: the codec casts to its wire dtype)."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        n = leaf.numel()
+        if compressed:
+            total += F.storage_nbytes(n, WIRE_SPEC)
+        else:
+            total += n * leaf.element_size()
+    return total

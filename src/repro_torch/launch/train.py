@@ -22,7 +22,9 @@ Runs on CUDA by default, where the FRSZ2-coded optimizer state
 step; ``--device cpu`` runs their plain versions.  Weights are random,
 drawn from ``seed`` on the device.  ``compress_pod_grads`` is kept as the
 reference's field: its collective acts only over a "pod" mesh axis, which
-the reference's ``train`` never builds, and the LM mesh is not ported yet.
+the reference's ``train`` never builds.  Nor does this one: the LM mesh
+(``launch/mesh.py``, with the multi-pod fold) serves the dry run, and
+``train`` runs one process on one device.
 """
 from __future__ import annotations
 

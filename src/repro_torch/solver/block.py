@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accessor import BlockBasisAccessor
+from repro_torch.dist import census
 from repro_torch.dist.context import LOCAL
 from repro_torch.kernels import ops, ref
 from repro_torch.solver.gmres import (
@@ -73,6 +74,7 @@ from repro_torch.sparse.csr import CSR, ELL
 __all__ = ["gmres_block"]
 
 
+@census.cycle
 def _block_cycle(bmv: Callable, acc: BlockBasisAccessor, store, state, init,
                  W0, bn_safe, eta: float, target: float, ortho,
                  branch_free: bool, dist=LOCAL) -> None:
@@ -100,7 +102,9 @@ def _block_cycle(bmv: Callable, acc: BlockBasisAccessor, store, state, init,
         Q, H, T, fired = orth(acc, store, W, j + 1, eta, dist, w_pre)
         acc.write_block(store, j + 1, Q)
         if not torch.is_tensor(fired):
-            fired = torch.tensor(bool(fired), device=state.device)
+            # the host route's flag, an int on the host already; a
+            # branch-free (captured) cycle gets a tensor and never comes here
+            fired = torch.tensor(bool(fired), device=state.device)  # graphlint: ok[host-sync] host route only
         ops.block_givens_step(state, H, T, fired, bn_safe, j, mb, p, target)
 
 
@@ -128,6 +132,7 @@ class _BlockCycle:
         self.pins = pins            # keeps the tensors the graph reads alive
         self.graph = None
         self.launches: dict[str, int] = {}
+        self.calls = ()             # the collectives the graph holds
         self.fresh = False          # zero the store before the next cycle
 
     def _run(self) -> None:
@@ -139,12 +144,12 @@ class _BlockCycle:
         self.W0.copy_(W0)
         self.bn.copy_(bn_safe)
         if self.capture and self.graph is None:
-            self.graph, self.launches = _capture(self._run)
+            self.graph, self.launches, self.calls = _capture(self._run)
         if self.fresh:              # after a capture's warm-up wrote it
             _zero_store(self.store)
             self.fresh = False
         if self.capture:
-            _replay(self.graph, self.launches)
+            _replay(self.graph, self.launches, self.calls)
         else:
             self._run()
         mb, p = self.acc.m - 1, self.acc.p
@@ -192,6 +197,15 @@ def _block_results(X, rrn, total, converged, history, restart_rrns,
                     stagnated=stagnated, op_reads=op_reads / p)
         for b in range(p)
     ]
+
+
+#: the block device driver's host round trips, held as
+#: :data:`repro_torch.solver.gmres.HOST_TRAFFIC` (reads: the restart
+#: residuals at each loop head; the cycle's least squares and the explicit
+#: residuals in each cycle; copies: the live-column mask and the update's
+#: coefficients in each cycle)
+HOST_TRAFFIC = dict(reads=dict(solve=0, restart=1, cycle=2),
+                    copies=dict(solve=0, restart=0, cycle=2))
 
 
 def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accessor import BasisAccessor
+from repro_torch.dist import census
 from repro_torch.dist.context import LOCAL
 from repro_torch.kernels import ops, ref
 from repro_torch.solver.pipeline import (
@@ -104,6 +105,7 @@ def _normalized(w: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@census.cycle
 def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
            beta: torch.Tensor, eta: float, target: float, ortho, precond,
            dist=LOCAL):
@@ -174,6 +176,7 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
 # ---------------------------------------------------------------------------
 
 
+@census.cycle
 def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
                   r, beta, b_norm, eta: float, target: float, ortho, precond,
                   fused: bool, dist=LOCAL) -> None:
@@ -208,13 +211,15 @@ def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
 
 
 def _capture(run: Callable):
-    """Capture ``run()`` as a CUDA graph: ``(graph, launches)``.
+    """Capture ``run()`` as a CUDA graph: ``(graph, launches, calls)``.
 
     ``run`` first runs once on a side stream (every kernel library is then
     built and loaded, cuBLAS has its workspace) and counts the launches it
     really makes; the capture then counts them again, and those counts are
     taken back out of ``ops.LAUNCHES`` and returned, for :func:`_replay` to
-    add per replay (a replay runs no Python).  A failed capture raises."""
+    add per replay (a replay runs no Python), with the collectives the
+    graph holds (:func:`repro_torch.dist.census.capturing`).  A failed
+    capture raises."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -222,17 +227,18 @@ def _capture(run: Callable):
     torch.cuda.current_stream().wait_stream(side)
     before = dict(ops.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with census.capturing() as calls, torch.cuda.graph(graph):
         run()
     launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
     ops.LAUNCHES.update(before)               # a capture launches nothing
-    return graph, launches
+    return graph, launches, calls
 
 
-def _replay(graph, launches: dict) -> None:
+def _replay(graph, launches: dict, calls=()) -> None:
     graph.replay()
     for k, v in launches.items():
         ops.LAUNCHES[k] += v
+    census.replayed(calls)
 
 
 class _DeviceCycle:
@@ -264,6 +270,7 @@ class _DeviceCycle:
         self.pins = pins            # keeps the tensors the graph reads alive
         self.graph = None
         self.launches: dict[str, int] = {}
+        self.calls = ()             # the collectives the graph holds
         self.fresh = False          # zero the store before the next cycle
 
     def _run(self) -> None:
@@ -277,12 +284,12 @@ class _DeviceCycle:
         self.beta.copy_(beta)
         self.b_norm.copy_(b_norm)
         if self.state.is_cuda and self.graph is None:
-            self.graph, self.launches = _capture(self._run)
+            self.graph, self.launches, self.calls = _capture(self._run)
         if self.fresh:              # after a capture's warm-up wrote it
             _zero_store(self.store)
             self.fresh = False
         if self.state.is_cuda:
-            _replay(self.graph, self.launches)
+            _replay(self.graph, self.launches, self.calls)
         else:
             self._run()
         m = self.acc.m - 1
@@ -441,6 +448,17 @@ def _cycle_row_reads(j_stop: int, passes: int, extra_rows: int = 0) -> int:
     the exact rows swept by conditional extra passes.
     """
     return j_stop * (2 + passes * (j_stop + 1)) + extra_rows
+
+
+#: the device driver's host round trips, which the analysis gate
+#: (``python -m repro_torch.analysis``) holds a warmed solve to exactly:
+#: ``reads`` from the device (``||b||`` once a solve; the restart residual
+#: at each loop head; the cycle's least squares and the explicit residual
+#: after the update in each cycle), ``copies`` to it (the update's
+#: coefficients, from the back substitution on the host, in each cycle).
+#: A replayed cycle adds none.
+HOST_TRAFFIC = dict(reads=dict(solve=1, restart=1, cycle=2),
+                    copies=dict(solve=0, restart=0, cycle=1))
 
 
 def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,

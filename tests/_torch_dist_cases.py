@@ -10,6 +10,7 @@ under a deadline, every case inside it; rank 0's results are pickled to
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import signal
@@ -188,11 +189,13 @@ def _kill(proc):
         pass
 
 
-def run_worlds(d, steps):
+def run_worlds(d, steps, once=False):
     """Run ``steps`` (``(what, args, env_extra)``) one after another, each
     to its end, under the run's world lock, and write their wall times to
     ``d / "walls.json"`` as each ends (a step that fails too, so that a
     failed run shows how far it got and how long each step took).
+    ``once``: under the lock, skip the steps if ``d / "done"`` marks them
+    run, and mark them when they end (two test modules share the world).
 
     One subprocess at a time: the port's 8-rank world is not started
     beside the JAX package's 8-device run, and the lock (a file in the
@@ -208,6 +211,8 @@ def run_worlds(d, steps):
         t0 = time.perf_counter()
         fcntl.flock(lock, fcntl.LOCK_EX)
         walls["lock wait"] = time.perf_counter() - t0
+        if once and (d / "done").exists():
+            return
         for what, args, env_extra in steps:
             t0 = time.perf_counter()
             try:
@@ -215,6 +220,8 @@ def run_worlds(d, steps):
             finally:
                 walls[what] = time.perf_counter() - t0
                 (d / "walls.json").write_text(json.dumps(walls, indent=1))
+        if once:
+            (d / "done").touch()
 
 
 def worlds_dir(tmp_path_factory, name: str):
@@ -381,6 +388,95 @@ def collectives_rank(rank, dev, _):
                                      group)
                 out[("matvec", P, mode, comp)] = (
                     plan.extract(y).numpy(), mv.mode)
+    t0 = time.perf_counter()
+    out["analysis"] = analysis_rank(rank, dev)
+    _progress(rank, "the analysis gate's census and audits", t0)
+    return out
+
+
+@contextlib.contextmanager
+def _planted(plant, rank):
+    """A violation the census must find: ``"extra"`` adds a ``psum`` to
+    every rank's rows-mode matvec (the wire model breaks), ``"rank"`` adds
+    a recorded ``all_reduce`` to the last rank's record before the ranks
+    exchange theirs (a rank-dependent call: the uniformity check breaks;
+    issued for real it would hang the group)."""
+    import torch
+
+    import repro_torch.sparse as SP
+    from repro_torch.dist import collectives as TC
+    from repro_torch.dist.census import Call
+
+    part, gather = SP.partition_matvec, TC.gather_objects
+
+    def extra(*args, **kw):
+        mv = part(*args, **kw)
+        if mv.mode != "rows":
+            return mv
+
+        def planted(x):
+            y = mv(x)
+            TC.psum(torch.zeros((), dtype=torch.float64))
+            return y
+        return planted
+
+    def one_rank(recorded):
+        if rank == WORLD - 1:
+            ranks = tuple(range(WORLD))
+            recorded = dict(recorded, rows=recorded["rows"] + [
+                Call("all_reduce", ranks, (), "float64", 8, "solve")])
+        return gather(recorded)
+
+    if plant == "extra":
+        SP.partition_matvec = extra
+    else:
+        TC.gather_objects = one_rank
+    try:
+        yield
+    finally:
+        SP.partition_matvec, TC.gather_objects = part, gather
+
+
+def analysis_rank(rank, dev):
+    """The analysis gate's sharded legs on the world's 8 ranks: the census
+    (``repro_torch.analysis.traffic.census_world``) as the gate runs it and
+    with each planted violation, and the sharded recapture audit, also with
+    the partition cache bypassed.  Findings as their dicts, the census's
+    priced bytes, and this step's wall on rank 0."""
+    import dataclasses
+
+    import repro_torch.solver.sharded as S
+    from repro_torch.analysis.traceaudit import audit_sharded_recapture
+    from repro_torch.analysis.traffic import census_world
+    from repro_torch.sparse import make_problem, rhs_for
+
+    def rows(fs):
+        return [dataclasses.asdict(f) for f in fs]
+
+    t0 = time.perf_counter()
+    out = {"info": {}}
+    out["census"] = rows(census_world(rank, dev, info=out["info"]))
+    for plant in ("extra", "rank"):
+        with _planted(plant, rank):
+            out[f"census_{plant}"] = rows(census_world(rank, dev))
+    A, _ = make_problem("synth:atmosmod", 256, device=dev)
+    b, _ = rhs_for(A, device=dev)
+    out["calls"] = out["info"].pop("calls")
+    out["recapture"] = rows(audit_sharded_recapture(A, b, shard=WORLD,
+                                                    info=out["info"]))
+    part = S._partition_for
+
+    def uncached(plan, r, g, dv, c):
+        return S.partition_matvec(plan=plan, rank=r, group=g,
+                                  compressed_halo=c, device=dv)
+
+    S._partition_for = uncached
+    try:
+        out["recapture_planted"] = rows(audit_sharded_recapture(
+            A, b, shard=WORLD))
+    finally:
+        S._partition_for = part
+    out["wall"] = time.perf_counter() - t0
     return out
 
 

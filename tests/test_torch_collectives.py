@@ -104,19 +104,25 @@ with open(sys.argv[1], "wb") as fh:
 """
 
 
+def world_steps(d):
+    """The module's two runs: the port's 8-rank world (which also runs the
+    analysis gate's step, read by ``tests/test_torch_analysis.py``) and
+    the JAX package's 8-device run."""
+    return [
+        ("the port's 8-rank world",
+         ["-c", "import _torch_dist_cases as c; c.main()", "collectives",
+          str(d / "port.pkl")], None),
+        ("the JAX package's 8-device run",
+         ["-c", _JAX_SCRIPT, str(d / "jax.pkl")], {"JAX_PLATFORMS": "cpu"}),
+    ]
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     d = C.worlds_dir(tmp_path_factory, "collectives")
     jax_pkl, port_pkl = d / "jax.pkl", d / "port.pkl"
     if not (d / "done").exists():
-        C.run_worlds(d, [
-            ("the port's 8-rank world",
-             ["-c", "import _torch_dist_cases as c; c.main()",
-              "collectives", str(port_pkl)], None),
-            ("the JAX package's 8-device run",
-             ["-c", _JAX_SCRIPT, str(jax_pkl)], {"JAX_PLATFORMS": "cpu"}),
-        ])
-        (d / "done").touch()
+        C.run_worlds(d, world_steps(d), once=True)
     with open(jax_pkl, "rb") as f:
         ref = pickle.load(f)
     with open(port_pkl, "rb") as f:

@@ -64,6 +64,12 @@ whisper-medium's and llama-3.2-vision-11b's serving shapes against the
 masked softmax (the tolerances above), the cross cache's prefill write
 bit-equal to the CPU's, and whisper and the VLM ``reduced()`` on the card
 within 1e-3 of the CPU's logits, the cross caches' exponents bit-equal.
+The analysis gate's card-only audits (``-k gate``): a second same-shape
+solve of either driver captures no graph (and, with the graph cache
+bypassed, the audit finds the new capture); a warmed solve's host reads
+and host-to-device copies equal its ``HOST_TRAFFIC`` (an extra read is
+found); the f64 audit on kernels 1-6 and the fixed-trajectory reads on
+the kernel route; the collective census on a NCCL group of one rank.
 """
 import numpy as np
 import pytest
@@ -1396,3 +1402,97 @@ def test_loss_backward_on_card_matches_cpu(cuda, name):
         assert torch.isfinite(a).all()
         assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
             b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: the analysis gate's card-only audits
+# ---------------------------------------------------------------------------
+
+
+def _gate_problem(dtype=None):
+    from repro_torch.analysis import traceaudit
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return traceaudit.problem(180, "cuda", dtype=dtype)[:2]
+
+
+@pytest.mark.cuda
+def test_gate_recapture_clean_and_finds_an_uncached_graph(monkeypatch):
+    """A second same-shape solve of either driver captures nothing; with
+    the graph cache bypassed it captures again, a ``retrace`` finding."""
+    import importlib
+
+    from repro_torch.analysis import traceaudit
+    from repro_torch.solver import block as BL
+
+    G = importlib.import_module("repro_torch.solver.gmres")
+    A, b = _gate_problem()
+    info = {}
+    assert traceaudit.audit_recapture(A, b, info=info) == []
+    for label in ("recapture[device]", "recapture[block]"):
+        caps = info[label]["captures"]
+        assert caps[0] >= 1 and caps[1] == caps[0], (label, info[label])
+    monkeypatch.setattr(G, "_cached_graph", lambda key, build: build())
+    monkeypatch.setattr(BL, "_cached_graph", lambda key, build: build())
+    got = traceaudit.audit_recapture(A, b)
+    assert {f.rule for f in got} == {"retrace"}
+    assert {f.path for f in got} == {"trace:recapture[device]",
+                                     "trace:recapture[block]"}
+
+
+@pytest.mark.cuda
+def test_gate_host_reads_as_documented_and_finds_an_extra_read(
+        monkeypatch):
+    """A warmed solve of either driver makes exactly the host reads and
+    copies its ``HOST_TRAFFIC`` documents; an extra read in the restart
+    loop is a ``transfer`` finding."""
+    import importlib
+
+    from repro_torch.analysis import traceaudit
+
+    G = importlib.import_module("repro_torch.solver.gmres")
+    A, b = _gate_problem()
+    info = {}
+    assert traceaudit.audit_host_reads(A, b, info=info) == []
+    row = info["host-reads[device]"]
+    assert row["reads"] == row["expected_reads"] == 1 + 3 * 2
+    assert row["h2d_copies"] == row["expected_copies"] == 2
+    update = G._solve_and_update
+
+    def planted(*args, **kw):
+        x = update(*args, **kw)
+        float(x[0])                                   # the planted read
+        return x
+
+    monkeypatch.setattr(G, "_solve_and_update", planted)
+    got = traceaudit.audit_host_reads(A, b)
+    assert [f.path for f in got] == ["trace:host-reads[device]"]
+    assert got[0].rule == "transfer"
+
+
+@pytest.mark.cuda
+def test_gate_f64_and_reads_audits_on_the_card():
+    """The f64 audit of an frsz2_16 cycle at f32 arithmetic on kernels 1-6,
+    and the fixed-trajectory reads audit on the kernel route."""
+    from repro_torch.analysis import traceaudit, traffic
+
+    A32, b32 = _gate_problem(np.float32)
+    info = {}
+    assert traceaudit.audit_f64_leak(A32, b32, info=info) == []
+    assert traffic.run_local_traffic("cuda", info=info) == []
+    assert info["reads[frsz2_32]"]["iterations"] == [18]
+
+
+@pytest.mark.cuda
+def test_gate_census_on_a_nccl_group_of_one(nccl):
+    """The census on the NCCL group of one rank: every matvec mode and the
+    rows-mode solve (its cycles replayed from a graph that holds their
+    collectives) priced as the models price them."""
+    from repro_torch.analysis import traffic
+
+    info = {}
+    assert traffic.census_world(0, "cuda", info=info) == []
+    solve = info["census[rows]"]
+    assert solve["priced"]["cycle"] == solve["model"]["cycle"]
+    assert solve["priced"]["cycle"]["dots"] > 0
