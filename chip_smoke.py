@@ -299,6 +299,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    row each, any finding fails; then ``python -m repro_torch.analysis
    --check --format json`` in a subprocess, which must print ``[]``.
 
+Slice 9 (MGS's second pass as a CUDA graph IF node, ``remat_policy=
+"dots"``) adds to these phases: in 3, the IF node's condition kernel
+(``graph_if``) against the branch-free select; before 5, one replayed
+cycle of the full-width frsz2_32 scalar and block solves under
+``torch.profiler`` in a fresh process, whose kernels 3 and 4 (7 and 8)
+run m + fired times, as ``ops.LAUNCHES`` counts; in 5 and 7, the steps a
+cycle where MGS fired (scalar and block, float64 and frsz2_32), one
+replayed cycle's launches, and the replayed solves bit-equal to the host
+driver's; in 7c, the census of a warmed MGS sharded
+solve equal to ``cycle_wire_bytes`` with its fired steps; in 13, 3 steps
+under ``remat_policy="dots"`` beside full remat (losses within 1e-5
+relative, step walls, peak memory); in 15, the MGS reads audits.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
 The sharded path's entries (``frsz2_compress_wire``, ...) carry
@@ -341,19 +354,26 @@ FULL_MAX_ITERS = 500
 HOST_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
              "frsz2_rmatvec", "ell_spmv")
 DEVICE_PATH = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
-               "ell_spmv_frsz2", "gmres_givens")
+               "ell_spmv_frsz2", "gmres_givens", "graph_if")
 #: slice 3's block path: each block row written and read back through the
 #: codec, the fused block contractions, the batched ELL, the block Givens
-#: step; no scalar contraction
+#: step, MGS's IF node (slice 9); no scalar contraction
 BLOCK_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_block_dots",
-              "frsz2_block_combine", "ell_spmv", "gmres_block_givens")
+              "frsz2_block_combine", "ell_spmv", "gmres_block_givens",
+              "graph_if")
+#: slice 9: the full-width replay walls (s) of the branch-free MGS pass
+#: that the IF node replaced, on an H100 80GB HBM3 at 700.00 W: the
+#: device solves, and the p = 8 frsz2_32 block solve
+BRANCH_FREE_WALLS = {"float64": 0.0888, "frsz2_32": 0.1301, "block": 1.2565}
+#: the fresh process of the one-cycle profiles: seconds it may take
+PROFILE_DEADLINE_S = 180
 P_BLOCK = 8                # right-hand sides of the block solves
 #: slice 6's path on one rank: the basis written and read back through the
 #: codec (the sharded matvec exchanges decoded rows, so no coded-operand
 #: ELL), the wire codec of the coded reductions and halo strips, the local
 #: contractions and the ELL on localized columns, the Givens step
 SHARDED_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
-                "frsz2_rmatvec", "ell_spmv", "gmres_givens")
+                "frsz2_rmatvec", "ell_spmv", "gmres_givens", "graph_if")
 TRANSPORTS = ("plain", "compressed", "compressed+norms")
 
 #: phase 7b: operator planning on the paper's atmosmodd row count
@@ -426,6 +446,9 @@ CROSS_PROFILE_STEPS = 2
 #: ``reduced()`` for 2 coded steps
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH = "yi-9b", 8, 4
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_PLAIN_STEPS = 5, 3, 2
+#: slice 9: steps under ``remat_policy="dots"`` (the reference ladder's last
+#: rung), and their losses' tolerance against full remat's first steps
+TRAIN_DOTS_STEPS, TRAIN_DOTS_TOL = 3, 1e-5
 TRAIN_RESUME_TOL = 1e-3
 TRAIN_FAMILIES = ("mixtral-8x22b", "falcon-mamba-7b", "zamba2-7b",
                   "whisper-medium", "llama-3.2-vision-11b")
@@ -938,6 +961,63 @@ def phase_givens():
         helper=True)}
 
 
+def phase_graph_if():
+    """Slice 9's helper kernel: the IF node's condition
+    (``csrc/graph_if.cu``) through ``solver.graphs.device_if``, in a
+    captured graph whose node doubles a main-path row, replayed with the
+    condition true and false against the plain version of the branch (the
+    body run, then ``torch.where``); its time where it does not fire
+    beside the branch-free graph's."""
+    import torch
+
+    from repro_torch.solver import graphs
+
+    n = round(N_MAIN ** (1 / 3)) ** 3
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((n,), generator=gen, dtype=torch.float64, device="cuda")
+    y = torch.empty_like(x)
+    pred = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def branch():
+        with graphs.device_if(pred) as put:
+            put(y, x * 2.0)
+
+    def plain():
+        y.copy_(torch.where(pred, x * 2.0, y))
+
+    made = {}
+    for name, body in (("if", branch), ("plain", plain)):
+        body()                                      # warm-up, eagerly
+        g = torch.cuda.CUDAGraph()
+        with graphs.capturing(g), torch.cuda.graph(g):
+            body()
+        made[name] = g
+    err = 0.0
+    for p in (True, False):
+        for name, g in made.items():
+            y.fill_(-1.0)
+            pred.fill_(p)
+            g.replay()
+            want = x * 2.0 if p else torch.full_like(x, -1.0)
+            check(torch.equal(y, want), f"graph_if: the {name} graph with "
+                                        f"the condition {p} wrote other bits")
+    pred.fill_(False)
+    ms = timed(made["if"].replay)
+    plain_ms = timed(made["plain"].replay)
+    pred.fill_(True)
+    fired_ms = timed(made["if"].replay)
+    print(f"[graph_if] an IF node over a row of {n}: bit-equal to the "
+          f"branch-free select both ways; replay {ms * 1e3:.1f} us not "
+          f"firing, {fired_ms * 1e3:.1f} us firing, branch-free "
+          f"{plain_ms * 1e3:.1f} us")
+    return {"graph_if": entry(
+        "graph_if", "src/repro_torch/kernels/csrc/graph_if.cu",
+        "src/repro/solver/pipeline.py:131 (jax.lax.cond of MGS's second "
+        "pass; no Pallas kernel: a helper, not a TPU-kernel port)",
+        ms, plain_ms, 1.0, 0.0, err, shape=f"a 0-d bool; body: a row of {n}",
+        fired_ms=fired_ms, helper=True)}
+
+
 def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver,
                reorder="auto"):
     import torch
@@ -1081,10 +1161,139 @@ def phase_solve():
           f"{p.iterations} it")
 
 
+def _cycle_launches(contractions, givens, m, fired) -> dict:
+    """What one replayed cycle of m steps, ``fired`` of them where MGS
+    fired, launches: each kernel of ``contractions`` at every step and
+    again at every fired one, MGS's IF condition and ``givens`` at every
+    step."""
+    want = dict.fromkeys(contractions, m + fired)
+    want.update({"graph_if": m, givens: m})
+    return want
+
+
+def _one_replay(call, contractions, givens, m, what):
+    """One replayed cycle (``call()`` returns the cycle's host tuple, its
+    fired slots last): ``ops.LAUNCHES`` must count each kernel of
+    ``contractions`` m + (fired steps) times, MGS's IF condition and
+    ``givens`` m times.  Returns (fired steps, those counts).  The
+    profiler's own count of the same replay runs in a fresh process
+    (:func:`phase_cycle_profiles`)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    fired = int(call()[-1].sum())
+    want = _cycle_launches(contractions, givens, m, fired)
+    for k, v in want.items():
+        check(ops.LAUNCHES[k] == v,
+              f"{what}: one replayed cycle counted {k} {ops.LAUNCHES[k]} "
+              f"launches, expected {v} (m = {m}, {fired} fired steps)")
+    return fired, {k: ops.LAUNCHES[k] for k in want}
+
+
+def _profile_one_cycle(call, contractions, givens, m, what) -> dict:
+    """As :func:`_one_replay`, and the replay under ``torch.profiler``: each
+    kernel must also have run as often as ``ops.LAUNCHES`` counts."""
+    from repro_torch.kernels import cardcheck, ops
+
+    ops.reset_launches()
+    out = {}
+    counted = cardcheck.profiled_launches(lambda: out.update(r=call()))
+    fired = int(out["r"][-1].sum())
+    want = _cycle_launches(contractions, givens, m, fired)
+    for k, v in want.items():
+        check(counted[k] == ops.LAUNCHES[k] == v,
+              f"{what}: one replayed cycle ran {k} {counted[k]} times (the "
+              f"profiler), counted {ops.LAUNCHES[k]}, expected {v} (m = {m},"
+              f" {fired} fired steps)")
+    return dict(fired=fired, m=m, profiled={k: counted[k] for k in want})
+
+
+def _cycle_profiles_child(path: str) -> int:
+    """The fresh process of :func:`phase_cycle_profiles`: the full-width
+    frsz2_32 block and scalar device solves (capture, then replay), one
+    replayed cycle of each under the profiler, the result as JSON."""
+    import torch
+
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.solver import gmres, gmres_batched
+    from repro_torch.sparse import make_problem, rhs_for
+
+    A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
+    b, _ = rhs_for(A, device="cuda")
+    B = _batch_rhs(b, P_BLOCK)
+    kw = dict(storage="frsz2_32", m=M, max_iters=FULL_MAX_ITERS,
+              target_rrn=target)
+    out = {}
+    for _ in range(2):
+        gmres_batched(A, B, method="block", **kw)
+    cyc = _last_cycle()
+    bn = torch.clamp(torch.linalg.vector_norm(B, dim=1), min=1e-300)
+    out["block"] = _profile_one_cycle(
+        lambda: cyc(B, bn), ("frsz2_block_dots", "frsz2_block_combine"),
+        "gmres_block_givens", M, "full-width block frsz2_32")
+    del cyc
+    release()
+    for _ in range(2):
+        gmres(A, b, **kw)
+    cyc = _last_cycle()
+    bn = torch.linalg.vector_norm(b)
+    out["scalar"] = _profile_one_cycle(
+        lambda: cyc(b, bn, bn), ("frsz2_matvec", "frsz2_rmatvec"),
+        "gmres_givens", M, "full-width frsz2_32")
+    pathlib.Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def phase_cycle_profiles(device_line):
+    """Slice 9: one replayed cycle of the full-width frsz2_32 scalar and
+    block device solves under ``torch.profiler``, in a fresh process:
+    kernels 3 and 4 (7 and 8) run m + (fired steps) times, the IF
+    condition and the Givens step m times, each as ``ops.LAUNCHES``
+    counts.  A fresh process, because in one that has made and freed
+    other graphs the profiler names some kernel records of the IF nodes'
+    bodies after other kernels (a block cycle's block-dots records read
+    fewer than ran, while its results stay bit-equal to the host
+    driver's)."""
+    import os
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as d:
+        path = pathlib.Path(d) / "profiles.json"
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--one-cycle-profiles", str(path)], cwd=ROOT,
+            env=dict(os.environ), capture_output=True, text=True,
+            timeout=PROFILE_DEADLINE_S)
+        check(proc.returncode == 0 and path.exists(),
+              f"the one-cycle profiles exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        got = json.loads(path.read_text())
+    wall = time.perf_counter() - t0
+    emit(dict(phase="one-cycle-profiles", wall_s=wall, device=device_line,
+              **got))
+    for label, r in got.items():
+        print(f"[profile] {label} frsz2_32, one replayed cycle of m = "
+              f"{r['m']} steps, {r['fired']} fired: "
+              + ", ".join(f"{k} {v}" for k, v in r["profiled"].items())
+              + " kernel executions (the profiler), equal to ops.LAUNCHES")
+    print(f"[profile] in a fresh process: {wall:.1f} s")
+
+
+def _last_cycle():
+    """The cycle the last device solve replayed (the most recently used
+    entry of the graph cache)."""
+    from repro_torch.solver.gmres import _GRAPHS
+
+    return next(reversed(_GRAPHS.values()))
+
+
 def phase_full_width(A, target):
     """Each path's full-width frsz2_32 solve, counts read just after it:
     returns the launches per kernel from the path that runs it, and each
-    format's replayed device solve (phase 7c compares against it)."""
+    format's replayed device solve (phase 7c compares against it).  Slice
+    9: the steps a cycle where MGS fired, and one replayed cycle's
+    launches (kernels 3 and 4 m + fired times; the profiler's count of
+    the same is :func:`phase_cycle_profiles`')."""
     import torch
 
     from repro_torch.sparse import rhs_for
@@ -1103,14 +1312,34 @@ def phase_full_width(A, target):
             check(bool(torch.isfinite(res.x).all()) and res.rrn < 1.0,
                   f"{fmt} full-width solve did not reduce the residual")
         rel = _check_drivers_agree(d2, h, rd2, rh, f"full-width {fmt}")
-        check(torch.equal(d1.x, d2.x), f"full-width {fmt}: two device "
-                                       "solves differ")
+        check(torch.equal(d1.x, d2.x) and torch.equal(d2.x, h.x),
+              f"full-width {fmt}: the device solves and the host solve are "
+              "not bit-equal")
         device_runs[fmt] = (d2, rd2)
+        # the replayed cycle's first cycle again, from the solve's inputs
+        cyc = _last_cycle()
+        bn = torch.linalg.vector_norm(b)
+        fired, counted = _one_replay(
+            lambda: cyc(b, bn, bn),
+            ("frsz2_matvec", "frsz2_rmatvec") if fmt == "frsz2_32" else (),
+            "gmres_givens", M, f"full-width {fmt}")
+        check(fired == int(d2.fired[0].sum()), f"full-width {fmt}: the "
+              f"replayed cycle fired {fired} steps, the solve's first "
+              f"{int(d2.fired[0].sum())}")
+        emit(dict(phase="full-one-cycle", format=fmt, m=M, fired=fired,
+                  launches=counted,
+                  fired_device=d2.fired.sum(1).tolist(),
+                  fired_host=h.fired.sum(1).tolist()))
         print(f"[full] {fmt}: device {d2.iterations} it = host "
-              f"{h.iterations} it, x rel diff {rel:.3e}; walls host "
-              f"{rh['wall_s']:.4f} s, device first {rd1['wall_s']:.4f} s, "
-              f"second {rd2['wall_s']:.4f} s; peak memory device "
-              f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB")
+              f"{h.iterations} it, x rel diff {rel:.3e} (bit-equal); walls "
+              f"host {rh['wall_s']:.4f} s, device first {rd1['wall_s']:.4f} "
+              f"s, second {rd2['wall_s']:.4f} s (branch-free pass "
+              f"{BRANCH_FREE_WALLS[fmt]:.4f} s); peak memory device "
+              f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB; MGS fired at "
+              f"{d2.fired.sum(1).tolist()} of {M} steps a cycle on the "
+              f"device ({h.fired.sum(1).tolist()} of the live steps on the "
+              f"host); one replayed cycle launched "
+              + ", ".join(f"{k} {v}" for k, v in counted.items()))
         if fmt == "float64":
             _check_launches(rh, ("ell_spmv",), "float64 host solve")
             _check_launches(rd2, ("ell_spmv", "gmres_givens"),
@@ -1557,7 +1786,11 @@ def phase_block_solve():
 def phase_block_full_width(A, target):
     """Slice 3's path at full width: returns its launches per kernel, read
     from the frsz2_32 block device-driver solve (the replay), and that
-    solve's X and row (phase 7c compares against them)."""
+    solve's X and row (phase 7c compares against them).  Slice 9: the block
+    steps a cycle where MGS fired, and one replayed cycle's launches
+    (kernels 7 and 8 m + fired times)."""
+    import torch
+
     from repro_torch.launch.solve import _batch_rhs
     from repro_torch.sparse import rhs_for
 
@@ -1567,8 +1800,27 @@ def phase_block_full_width(A, target):
     for fmt in ("float64", "frsz2_32"):
         _, Xd1, rd1 = _block_row("block-full-capture", A, B, x_sol, fmt,
                                  target, FULL_MAX_ITERS, "block", "device")
-        _, Xd2, rd2 = _block_row("block-full", A, B, x_sol, fmt, target,
-                                 FULL_MAX_ITERS, "block", "device")
+        rs2, Xd2, rd2 = _block_row("block-full", A, B, x_sol, fmt, target,
+                                   FULL_MAX_ITERS, "block", "device")
+        # the replayed cycle's first cycle again, from the solve's inputs
+        cyc = _last_cycle()
+        bn = torch.clamp(torch.linalg.vector_norm(B, dim=1), min=1e-300)
+        fired, counted = _one_replay(
+            lambda: cyc(B, bn),
+            (("frsz2_block_dots", "frsz2_block_combine")
+             if fmt == "frsz2_32" else ()),
+            "gmres_block_givens", M, f"full-width block {fmt}")
+        check(fired == int(rs2[0].fired[0].sum()), f"full-width block {fmt}:"
+              f" the replayed cycle fired {fired} steps, the solve's first "
+              f"{int(rs2[0].fired[0].sum())}")
+        emit(dict(phase="block-full-one-cycle", format=fmt, m=M, p=P_BLOCK,
+                  fired=fired, launches=counted,
+                  fired_device=rs2[0].fired.sum(1).tolist()))
+        print(f"[block-full] {fmt}: MGS fired at "
+              f"{rs2[0].fired.sum(1).tolist()} of {M} block steps a cycle; "
+              "one replayed cycle launched "
+              + ", ".join(f"{k} {v}" for k, v in counted.items()))
+        del cyc
         _, Xh, rh = _block_row("block-full", A, B, x_sol, fmt, target,
                                FULL_MAX_ITERS, "block", "host")
         release()
@@ -1581,10 +1833,15 @@ def phase_block_full_width(A, target):
         _check_block_drivers(Xd1, Xh, rd1, rh, f"full-width {fmt}")
         _check_block_drivers(Xd2, Xh, rd2, rh, f"full-width {fmt} replay")
         ratio = rd2["bytes_read_per_rhs"] / rv["bytes_read_per_rhs"]
+        check(torch.equal(Xd2, Xh), f"full-width block {fmt}: the replay "
+              "and the host solve are not bit-equal")
+        walls_before = (f" (branch-free pass {BRANCH_FREE_WALLS['block']:.4f} s)"
+                    if fmt == "frsz2_32" else "")
         print(f"[block-full] {fmt}: block iterations {rd2['iters']} "
               f"restarts {rd2['restarts'][0]}, vmap {rv['iters']}; walls "
               f"block device first {rd1['wall_s']:.4f} s, replay "
-              f"{rd2['wall_s']:.4f} s, host {rh['wall_s']:.4f} s, vmap "
+              f"{rd2['wall_s']:.4f} s{walls_before}, host {rh['wall_s']:.4f} s, "
+              f"vmap "
               f"{rv['wall_s']:.4f} s; peak memory block "
               f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB, vmap "
               f"{rv['peak_mem_bytes'] / 2**30:.2f} GiB; modelled basis "
@@ -2064,7 +2321,32 @@ def phase_sharded(A, target, unsharded, block_unsharded):
           f"{r2['iters']} (unsharded {ru['iters']}), X relative "
           f"{x_rel:.3e}; walls capture {r1['wall_s']:.4f} s, replay "
           f"{r2['wall_s']:.4f} s (unsharded replay {ru['wall_s']:.4f} s)")
+    _sharded_mgs_census()
     return entries, launches
+
+
+def _sharded_mgs_census():
+    """Slice 9: the census of a warmed MGS sharded solve on this NCCL rank
+    (the gate's rows-mode solve: atmosmod n 256, m 8, 2 full cycles): the
+    replays put the second pass's all-reduces on the wire only at the
+    fired steps, and the recorded bytes equal ``cycle_wire_bytes`` with
+    them."""
+    from repro_torch.analysis import traffic
+
+    info = {}
+    t0 = time.perf_counter()
+    findings = traffic.census_world(0, "cuda", info=info, ortho="mgs")
+    row = info["census[rows, mgs]"]
+    emit(dict(phase="sharded-mgs-census", wall_s=time.perf_counter() - t0,
+              findings=[f.render() for f in findings], fired=row["fired"],
+              priced=row["priced"], model=row["model"], calls=row["calls"]))
+    check(not findings, "the MGS census: "
+          + "; ".join(f.render() for f in findings))
+    cyc = row["priced"]["cycle"]
+    print(f"[sharded] MGS census on one NCCL rank (n 256, m 8, 2 cycles, "
+          f"fired steps {row['fired']}): cycle dots {cyc['dots']} B, norms "
+          f"{cyc['norms']} B, equal to cycle_wire_bytes; {row['calls']} "
+          "calls a solve")
 
 
 def _plan_sharded_solve(A, target, rcm_iters):
@@ -4336,9 +4618,16 @@ def phase_train(device_line):
               + ", ".join(f"{h['dt'] * 1e3:.1f}" for h in hist_p)
               + f" ms; {plain_bytes / 1e9:.3f} GB of f32 moments; peak "
               f"{plain_peak / 2**30:.2f} GiB")
-        del plain_out, params0
+        del plain_out
         release()
         t0 = mark("plain state", t0)
+
+        # remat_policy="dots" (slice 9) on the same weights and tokens:
+        # the products with no batch dimension kept, the rest recomputed
+        dots = _train_dots(cfg, opt, tc, params0, root, hist, peak, step_med)
+        del params0
+        release()
+        t0 = mark("dots remat", t0)
 
         families = [_train_family(a, root) for a in TRAIN_FAMILIES]
         release()
@@ -4365,11 +4654,55 @@ def phase_train(device_line):
                update_codec_bound_ms=prof["update_codec_bound_ms"],
                plain_step_s=[h["dt"] for h in hist_p],
                plain_state_bytes=plain_bytes, plain_peak_mem_bytes=plain_peak,
-               families=families, device=device_line)
+               dots=dots, families=families, device=device_line)
     emit(row)
     print(f"[train] phase 13 took {time.perf_counter() - t_phase:.1f} s: "
           + "; ".join(f"{w} {t:.1f}" for w, t in marks))
     return kernels, {k: v for k, v in launches_a.items() if v}
+
+
+def _train_dots(cfg, opt, tc, params0, root, hist, peak, step_med) -> dict:
+    """Slice 9: ``TRAIN_DOTS_STEPS`` coded steps under ``remat_policy=
+    "dots"`` on phase 13's weights and tokens, beside the full-remat run's
+    first steps (``hist``, its peak and median step wall): finite losses
+    within ``TRAIN_DOTS_TOL`` relative of full remat's, the step walls and
+    the peak memory."""
+    import dataclasses
+    import statistics as stats_mod
+
+    import torch
+
+    from repro_torch.launch.train import train
+
+    dcfg = dataclasses.replace(cfg, remat_policy="dots")
+    tcd = dataclasses.replace(tc, steps=TRAIN_DOTS_STEPS, ckpt_every=0,
+                              ckpt_dir=str(root / "dots"))
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, hist_d = train(dcfg, opt, tcd, params=params0, device="cuda",
+                      verbose=False)
+    wall = time.perf_counter() - t
+    dots_peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist_d]
+    full = [h["loss"] for h in hist[:TRAIN_DOTS_STEPS]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, full))
+    check(len(losses) == TRAIN_DOTS_STEPS
+          and all(math.isfinite(x) for x in losses) and rel <= TRAIN_DOTS_TOL,
+          f"the dots-remat losses {losses} against full remat's {full}: "
+          f"relative {rel:.3e}")
+    step_s = [h["dt"] for h in hist_d]
+    med = stats_mod.median(step_s[1:])
+    print(f"[train] remat_policy=\"dots\": {TRAIN_DOTS_STEPS} coded steps "
+          f"in {wall:.1f} s: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f", within {rel:.2e} of full remat's; step wall median "
+          f"{med * 1e3:.1f} ms (full remat {step_med * 1e3:.1f} ms), "
+          f"walls " + ", ".join(f"{x * 1e3:.1f}" for x in step_s)
+          + f" ms; peak {dots_peak / 2**30:.2f} GiB (full remat "
+          f"{peak / 2**30:.2f} GiB)")
+    return dict(losses=losses, full_losses=full, rel_err=rel, step_s=step_s,
+                step_ms_median=med * 1e3, peak_mem_bytes=dots_peak,
+                full_peak_mem_bytes=peak, full_step_ms_median=step_med * 1e3)
 
 
 #: phase 14's dry runs: (label, the dry-run CLI's arguments)
@@ -4558,7 +4891,8 @@ def _gate_row(audit, fn, kernels=(), **extra):
 def phase_analysis(device_line):
     """Slice 8: the analysis gate at the main path's full width (the
     fixed-trajectory reads of the device driver in float64 and frsz2_32
-    and of the p = 8 frsz2_32 block driver; recapture and host reads of
+    and of the p = 8 frsz2_32 block driver, CGS2 and, slice 9, MGS;
+    recapture and host reads of
     both drivers; the f64 audit of an frsz2_16 cycle at f32 arithmetic; the
     census on phase 7c's NCCL group of one rank), then ``python -m
     repro_torch.analysis --check --format json`` in a subprocess, which
@@ -4587,6 +4921,21 @@ def phase_analysis(device_line):
         A, b, storage="frsz2_32", m=M, k=GATE_K, p=GATE_P, info=info),
         BLOCK_AUDIT_KERNELS, n=n, m=M, k=GATE_K, p=GATE_P,
         device=device_line)
+    walls[r["audit"]] = r["wall_s"]
+    release()
+    # slice 9: MGS, its second sweep counted at the fired slots
+    r = _gate_row("reads[frsz2_32, mgs]", lambda info: traffic.audit_reads(
+        A, b, storage="frsz2_32", m=M, k=GATE_K, info=info, ortho="mgs"),
+        ("frsz2_matvec", "frsz2_rmatvec", "graph_if"), n=n, m=M, k=GATE_K,
+        device=device_line)
+    walls[r["audit"]] = r["wall_s"]
+    release()
+    r = _gate_row("block-reads[frsz2_32, mgs]", lambda info:
+                  traffic.audit_reads(A, b, storage="frsz2_32", m=M,
+                                      k=GATE_K, p=GATE_P, info=info,
+                                      ortho="mgs"),
+                  BLOCK_AUDIT_KERNELS + ("graph_if",), n=n, m=M, k=GATE_K,
+                  p=GATE_P, device=device_line)
     walls[r["audit"]] = r["wall_s"]
     release()
     for audit, fn in (("recapture", traceaudit.audit_recapture),
@@ -4697,7 +5046,9 @@ def _run(t_start, device_line) -> int:
     entries = phase_kernels()
     entries.update(phase_ell(A))
     entries.update(phase_givens())
+    entries.update(phase_graph_if())
     phase_solve()
+    phase_cycle_profiles(device_line)
     launches, paths, unsharded = phase_full_width(A, target)
     release()
     entries.update(phase_block_kernels(A))
@@ -4772,4 +5123,6 @@ def _run(t_start, device_line) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one-cycle-profiles"]:
+        sys.exit(_cycle_profiles_child(sys.argv[2]))
     sys.exit(main())

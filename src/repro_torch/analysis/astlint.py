@@ -391,12 +391,14 @@ def _check_captured_fn(fn, tainted, path, findings) -> None:
                 kind = "if" if isinstance(node, ast.If) else "while"
                 flag(node, "host-sync",
                      f"Python `{kind}` on a tensor reads it on the host "
-                     "inside captured code; use torch.where")
+                     "inside captured code; use torch.where, or "
+                     "`with solver.graphs.device_if(pred) as put:` for a "
+                     "branch on the card")
         elif isinstance(node, ast.IfExp):
             if _expr_tainted(node.test, tainted):
                 flag(node, "host-sync",
                      "conditional expression on a tensor reads it on the "
-                     "host; use torch.where")
+                     "host; use torch.where, or solver.graphs.device_if")
         elif isinstance(node, ast.Assert):
             if _expr_tainted(node.test, tainted):
                 flag(node, "host-sync",

@@ -35,10 +35,14 @@ Audits:
     ``solver/sharded.py::cycle_wire_bytes``;
   * **basis reads** (:func:`audit_reads`, no group needed): a
     fixed-trajectory solve whose ``bytes_read`` must equal ``cycles x
-    _cycle_row_reads(m, 2, 0) x row_bytes``, the row bytes read off the
-    real store tensors, and whose ``op_reads`` must equal ``1 + cycles x
-    (m + 2)``; also through ``gmres_block`` (one shared block row serves
-    all ``p`` right-hand sides, each result carrying a ``1/p`` share).
+    _cycle_row_reads(m, 2, 0) x row_bytes`` under CGS2, the row bytes read
+    off the real store tensors, and whose ``op_reads`` must equal ``1 +
+    cycles x (m + 2)``; also through ``gmres_block`` (one shared block row
+    serves all ``p`` right-hand sides, each result carrying a ``1/p``
+    share).  Under MGS each cycle is ``_cycle_row_reads(m, 1, extra) x
+    row_bytes``, ``extra`` the rows of the steps whose ``fired`` slot the
+    cycle set (``GmresResult.fired``: the steps where the captured cycle's
+    IF node ran the second sweep).
 """
 from __future__ import annotations
 
@@ -220,14 +224,21 @@ MATVEC_CASES = (("rows", "rows", "rows", False),
 
 
 def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
-                 halo_A=None, info: dict | None = None) -> list[Finding]:
+                 halo_A=None, info: dict | None = None,
+                 ortho: str = "cgs2") -> list[Finding]:
     """The census on this rank of the live default group (the sharded
     solve's); every rank must call it.  Records one partitioned matvec of
     each :data:`MATVEC_CASES` mode and a warmed rows-mode sharded solve
-    (float64, plain transport, CGS2, ``k`` cycles of ``m``), gathers every
-    rank's calls and checks them (the same findings on every rank).
+    (float64, plain transport, ``ortho``, ``k`` cycles of ``m``), gathers
+    every rank's calls and checks them (the same findings on every rank).
     ``rows_A``/``halo_A``: the operators (default ``synth:atmosmod`` n 256
     and ``synth:stencil27`` n 512, as the JAX package's audit).
+
+    Under MGS the model takes each cycle's fired steps from the solve
+    (``GmresResult.fired``): a captured cycle (the card) issues the second
+    pass's collectives only there.  An eager cycle (gloo on the CPU) issues
+    them at every step, so on the CPU MGS matches the model only where it
+    fires at every step.
     """
     import torch.distributed as dist
 
@@ -259,8 +270,9 @@ def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
         recorded[label] = c.calls
 
     b, _ = rhs_for(rows_A, device=device)
-    kw = dict(storage="float64", shard=P, shard_transport="plain",
-              shard_matvec="rows", reorder="none", **fixed_trajectory(m, k))
+    kw = dict(fixed_trajectory(m, k), storage="float64", shard=P,
+              shard_transport="plain", shard_matvec="rows", reorder="none",
+              ortho=ortho)
     gmres(rows_A, b, **kw)                    # warm: capture on the card
     with Census() as c:
         res = gmres(rows_A, b, **kw)
@@ -287,29 +299,33 @@ def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
         findings += f
         info[f"matvec[{label}]"] = dict(priced=priced, model=want)
 
+    fired = None if ortho == "cgs2" else [int(c.sum()) for c in res.fired]
     findings += _check_solve(per_rank, ranks, plans["rows"], res, m, k, P,
-                             info)
+                             info, fired)
     return findings
 
 
-def _check_solve(per_rank, ranks, plan, res, m, k, P, info):
+def _check_solve(per_rank, ranks, plan, res, m, k, P, info, fired=None):
     """The solve census against :func:`solve_census_model`."""
+    label = "census[rows]" if fired is None else "census[rows, mgs]"
     if res.restarts != k or res.iterations != k * m:
-        return [_finding("census[rows]", "wire-model", (
+        return [_finding(label, "wire-model", (
             f"fixed-trajectory assumption broke: {res.restarts} restarts / "
             f"{res.iterations} iterations, expected {k} / {k * m}"))]
-    want = solve_census_model(plan, m, k)
+    want = solve_census_model(plan, m, k, fired)
+    how = "CGS2" if fired is None else f"MGS, fired steps {fired}"
     findings, priced = check_census(
-        "census[rows]", [r["solve"] for r in per_rank], ranks, want,
-        f"cycle_wire_bytes: CGS2, m={m}, j_stop={m}, {k} cycles, P={P}")
-    info["census[rows]"] = dict(priced=priced, model=want,
-                                calls=len(per_rank[0]["solve"]))
+        label, [r["solve"] for r in per_rank], ranks, want,
+        f"cycle_wire_bytes: {how}, m={m}, j_stop={m}, {k} cycles, P={P}")
+    info[label] = dict(priced=priced, model=want, fired=fired,
+                       calls=len(per_rank[0]["solve"]))
     return findings
 
 
-def solve_census_model(plan, m: int, k: int) -> dict:
+def solve_census_model(plan, m: int, k: int, fired=None) -> dict:
     """The modelled per-device wire bytes of a rows-mode plain solve of
-    ``k`` full cycles (CGS2), by bucket.
+    ``k`` full cycles, by bucket: CGS2 (``fired`` None), or MGS with
+    ``fired[c]`` re-orthogonalized steps in cycle ``c``.
 
     ``cycle_wire_bytes`` prices a cycle with its restart terms: the restart
     residual and the explicit RRN after the update (2 norms, 2 exact
@@ -321,13 +337,15 @@ def solve_census_model(plan, m: int, k: int) -> dict:
 
     w = plan.matvec_wire_bytes(dtype=torch.float64)
     r1 = reduce_bytes(1, compressed=False)
-    model = cycle_wire_bytes(m, j_stop=m, reorth=0, passes=2,
-                             dots_compressed=False, norms_compressed=False,
-                             inner_mv_bytes=w, residual_mv_bytes=w)
+    cycles = [cycle_wire_bytes(m, j_stop=m, reorth=f,
+                               passes=2 if fired is None else 1,
+                               dots_compressed=False, norms_compressed=False,
+                               inner_mv_bytes=w, residual_mv_bytes=w)
+              for f in ([0] * k if fired is None else fired)]
     return {
-        "cycle": {"dots": k * model["dots"],
-                  "norms": k * (model["norms"] - 2 * r1),
-                  "matvec": k * (model["matvec"] - 2 * w)},
+        "cycle": {"dots": sum(c["dots"] for c in cycles),
+                  "norms": sum(c["norms"] - 2 * r1 for c in cycles),
+                  "matvec": sum(c["matvec"] - 2 * w for c in cycles)},
         "solve": {"norms": r1 + k * 2 * r1,
                   "matvec": k * 2 * w + gather_bytes(plan.n_local,
                                                      plan.n_shards)},
@@ -364,23 +382,25 @@ def _stores(module: str, fn: str):
 
 
 def audit_reads(A, b, *, storage: str, m: int = 6, k: int = 3,
-                p: int | None = None, info: dict | None = None
-                ) -> list[Finding]:
+                p: int | None = None, info: dict | None = None,
+                ortho: str = "cgs2") -> list[Finding]:
     """The fixed-trajectory reads audit of one storage format: the device
-    driver, or ``gmres_block`` with ``p`` right-hand sides."""
+    driver, or ``gmres_block`` with ``p`` right-hand sides; ``ortho`` CGS2
+    (two sweeps a step) or MGS (one, plus the fired ones)."""
     from repro_torch.analysis.traceaudit import block_rhs, fixed_trajectory
     from repro_torch.solver import gmres
     from repro_torch.solver.block import gmres_block
     from repro_torch.solver.gmres import _cycle_row_reads
 
     info = {} if info is None else info
-    kw = dict(storage=storage, **fixed_trajectory(m, k))
+    kw = dict(fixed_trajectory(m, k), storage=storage, ortho=ortho)
+    tag = "" if ortho == "cgs2" else f", {ortho}"
     if p is None:
-        label = f"reads[{storage}]"
+        label = f"reads[{storage}{tag}]"
         with _stores("repro_torch.solver.gmres", "_device_cycle") as seen:
             res = [gmres(A, b, **kw)]
     else:
-        label = f"block-reads[{storage}, p={p}]"
+        label = f"block-reads[{storage}, p={p}{tag}]"
         with _stores("repro_torch.solver.block", "_block_cycle") as seen:
             res = gmres_block(A, block_rhs(b, p), **kw)
     share = 1 if p is None else p
@@ -406,15 +426,28 @@ def audit_reads(A, b, *, storage: str, m: int = 6, k: int = 3,
             f"{k * m} -- the audit's premises no longer hold, fix the "
             "audit"))]
     findings = []
-    expect = float(k * _cycle_row_reads(m, 2, 0) * row_bytes)
+    if ortho == "cgs2":
+        rows = k * _cycle_row_reads(m, 2, 0)
+        how = f"{k} cycles x _cycle_row_reads({m}, passes=2)"
+    else:
+        if r0.fired.shape != (k, m):
+            return [_finding(label, "reads-model", (
+                f"fired slots of shape {r0.fired.shape}, expected ({k}, "
+                f"{m}): one a step of each cycle"))]
+        extras = [int(sum(j + 1 for j in range(m) if c[j]))
+                  for c in r0.fired]
+        rows = sum(_cycle_row_reads(m, 1, e) for e in extras)
+        how = (f"sum over cycles of _cycle_row_reads({m}, passes=1, extra)"
+               f", extra {extras} from the fired slots")
+        info[label]["fired_steps"] = [int(c.sum()) for c in r0.fired]
+    expect = float(rows * row_bytes)
     expect_reads = 1.0 + k * (m + 2)
     for i, r in enumerate(res):
         if r.bytes_read != expect / share:
             findings.append(_finding(label, "reads-model", (
-                f"result {i}: bytes_read reports {r.bytes_read} B but {k} "
-                f"cycles x _cycle_row_reads({m}, passes=2) x {row_bytes} "
-                f"B/row (from the store tensors) / {share} = "
-                f"{expect / share} B")))
+                f"result {i}: bytes_read reports {r.bytes_read} B but "
+                f"{how} x {row_bytes} B/row (from the store tensors) / "
+                f"{share} = {expect / share} B")))
         if r.op_reads != expect_reads / share:
             findings.append(_finding(label, "reads-model", (
                 f"result {i}: op_reads reports {r.op_reads} but the "
@@ -426,16 +459,20 @@ def audit_reads(A, b, *, storage: str, m: int = 6, k: int = 3,
 def run_local_traffic(device="cuda", info: dict | None = None
                       ) -> list[Finding]:
     """The reads audit at the JAX package's sizes (``synth:atmosmod`` n
-    180; m 6, k 3; the block driver at p 3, m 4, k 2)."""
+    180; m 6, k 3; the block driver at p 3, m 4, k 2), CGS2 as the JAX
+    package's, then MGS (the port's default orthogonalizer) on each
+    driver."""
     from repro_torch.analysis.traceaudit import problem
 
     A, b, _ = problem(180, device)
     findings = []
-    for storage in ("float64", "frsz2_32"):
-        findings += audit_reads(A, b, storage=storage, m=6, k=3, info=info)
-    for storage in ("float64", "frsz2_32"):
-        findings += audit_reads(A, b, storage=storage, m=4, k=2, p=3,
-                                info=info)
+    for ortho in ("cgs2", "mgs"):
+        for storage in ("float64", "frsz2_32"):
+            findings += audit_reads(A, b, storage=storage, m=6, k=3,
+                                    info=info, ortho=ortho)
+        for storage in ("float64", "frsz2_32"):
+            findings += audit_reads(A, b, storage=storage, m=4, k=2, p=3,
+                                    info=info, ortho=ortho)
     return findings
 
 

@@ -20,7 +20,11 @@ A captured CUDA graph runs no Python when it replays.  The capture records
 the calls it holds (:func:`capturing`, used by
 ``repro_torch.solver.gmres._capture``); each replay hands them to every
 census then entered (:func:`replayed`), as the launch counts of
-``ops.LAUNCHES`` are kept.  Nothing is recorded while no census is
+``ops.LAUNCHES`` are kept.  The calls inside an IF node's body (MGS's
+second pass, ``repro_torch.solver.graphs.device_if``) are recorded apart,
+by a nested :func:`capturing`, and a replay hands them on only for the
+steps where the node ran; an eager cycle (the CPU) issues and records them
+at every step, as it runs them.  Nothing is recorded while no census is
 entered and no graph is being captured: the wrappers are installed only
 then.
 """

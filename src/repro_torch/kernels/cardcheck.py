@@ -293,3 +293,38 @@ def row_decode_equal(bc: F.BlockCompressed, values: torch.Tensor) -> bool:
         if not torch.equal(bits(values[a:b]), bits(F.decompress(part))):
             return False
     return True
+
+
+#: the CUDA function that one launch of each wrapper runs once, by its
+#: ``ops.LAUNCHES`` name (the matvec and the block dots also run a finish
+#: kernel; the ELL kernels have several variants and are left out)
+LAUNCH_KERNELS = {"frsz2_matvec": "matvec_rows_kernel",
+                  "frsz2_rmatvec": "rmatvec_kernel",
+                  "frsz2_block_dots": "block_dots_partial",
+                  "frsz2_block_combine": "block_combine_kernel",
+                  "gmres_givens": "givens_step_kernel",
+                  "gmres_block_givens": "block_givens_step_kernel",
+                  "graph_if": "set_condition"}
+
+
+def _kernel_base(name: str) -> str:
+    """``void ns::kernel<T, 7>(args)`` -> ``kernel``."""
+    name = name.replace("(anonymous namespace)", "anon")
+    head = name.split("(", 1)[0].split("<", 1)[0].strip()
+    return head.rsplit(" ", 1)[-1].rsplit("::", 1)[-1]
+
+
+def profiled_launches(fn) -> dict:
+    """Run ``fn()`` under ``torch.profiler`` and count the card's executions
+    of each :data:`LAUNCH_KERNELS` kernel, by wrapper name: what a replayed
+    graph really ran (its IF nodes' bodies only where they ran), which a
+    replay's ``ops.LAUNCHES`` must equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [_kernel_base(e.name) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: names.count(sym) for k, sym in LAUNCH_KERNELS.items()}

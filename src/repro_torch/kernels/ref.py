@@ -263,22 +263,24 @@ _TINY = 1e-300
 def givens_layout(m: int) -> dict:
     """Offsets of the cycle's f64 state vector for restart length ``m``:
     ``R`` ((m+1) x m, row-major), ``g`` (m+1), ``est`` (m), ``extra`` (1),
-    ``cs`` (m), ``sn`` (m), ``alive`` (1).  ``R``, ``g``, ``est`` and
-    ``extra`` come first, so the driver's one read per restart is a
-    prefix of it."""
+    ``cs`` (m), ``sn`` (m), ``alive`` (1), ``fired`` (m: 1 at each step
+    where MGS re-orthogonalized, live or not).  The Givens step
+    (``csrc/gmres_step.cu``) keeps everything before ``fired``; the cycle
+    writes ``fired``, and the driver's one read per restart reads it all."""
     off = {"R": 0, "g": (m + 1) * m}
     off["est"] = off["g"] + m + 1
     off["extra"] = off["est"] + m
     off["cs"] = off["extra"] + 1
     off["sn"] = off["cs"] + m
     off["alive"] = off["sn"] + m
-    off["size"] = off["alive"] + 1
+    off["fired"] = off["alive"] + 1
+    off["size"] = off["fired"] + m
     return off
 
 
 def givens_init_ref(m: int, device) -> torch.Tensor:
     """The state at the start of a cycle, ``g[0]`` still 0: R, g, cs, sn
-    zero, est +inf, extra 0, alive 1."""
+    zero, est +inf, extra 0, alive 1, fired 0."""
     L = givens_layout(m)
     s = torch.zeros(L["size"], dtype=torch.float64, device=device)
     s[L["est"]:L["est"] + m] = math.inf
@@ -345,8 +347,10 @@ def block_givens_layout(m: int, p: int) -> dict:
     """Offsets of the block cycle's f64 state vector for ``m`` block steps
     of ``p`` columns: ``R`` ((m+1)p x mp, row-major), ``G`` ((m+1)p x p),
     ``est`` (m x p), ``extra`` (1), ``cs`` (mp x p), ``sn`` (mp x p),
-    ``alive`` (1).  ``R``, ``G``, ``est`` and ``extra`` come first, so the
-    driver's one read per restart is a prefix of it."""
+    ``alive`` (1), ``fired`` (m: 1 at each block step where MGS
+    re-orthogonalized, live or not).  The block Givens step
+    (``csrc/gmres_step.cu``) keeps everything before ``fired``; the cycle
+    writes ``fired``, and the driver's one read per restart reads it all."""
     mp = m * p
     off = {"R": 0, "G": (mp + p) * mp}
     off["est"] = off["G"] + (mp + p) * p
@@ -354,14 +358,15 @@ def block_givens_layout(m: int, p: int) -> dict:
     off["cs"] = off["extra"] + 1
     off["sn"] = off["cs"] + mp * p
     off["alive"] = off["sn"] + mp * p
-    off["size"] = off["alive"] + 1
+    off["fired"] = off["alive"] + 1
+    off["size"] = off["fired"] + m
     return off
 
 
 def block_givens_init_ref(m: int, p: int, device) -> torch.Tensor:
     """The state at the start of a cycle, ``G`` still 0: ``R``, ``G``, ``sn``
     zero, ``cs`` one (identity rotations), ``est`` +inf, ``extra`` 0,
-    ``alive`` 1."""
+    ``alive`` 1, ``fired`` 0."""
     L = block_givens_layout(m, p)
     s = torch.zeros(L["size"], dtype=torch.float64, device=device)
     s[L["est"]:L["extra"]] = math.inf

@@ -15,6 +15,11 @@ Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k \
       --mesh 1x1 --batch 4 --layers 8 --microbatch 1   (one card's cell)
 
+The reference ladder's last rung (``benchmarks/perf_hillclimb.py``,
+"dots_remat_64x4") is ``run_probes("internlm2-20b", "train_4k",
+mesh_spec="64x4", cfg_overrides=dict(remat_policy="dots"))`` (or
+``run_cell``): selective checkpointing runs on the meta DTensors.
+
 The fake group of 256 (or 512, or ``--mesh``'s) ranks, this process rank
 0, exists ONLY here: :func:`main` starts it as its first act (the
 reference sets its ``XLA_FLAGS`` for 512 host devices there), and tests

@@ -27,22 +27,78 @@ f32 = torch.float32
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "blocked_attention",
            "attention_block", "attention_qkv", "swiglu_block", "moe_block",
-           "remat"]
+           "remat", "dots_saveable"]
 
 
-def remat(cfg, fn, *args):
+def remat(cfg, fn, *args, policy: str | None = None):
     """``fn(*args)``, its activations recomputed in the backward instead of
     kept (the reference's ``jax.checkpoint`` of a scan body) when
     ``cfg.remat`` and autograd records; a plain call otherwise (serving).
-    Only the reference's default policy, ``"full"``, has a counterpart."""
+
+    ``policy`` (default ``cfg.remat_policy``) is the reference's: ``"dots"``
+    keeps the outputs of the matrix products with no batch dimension
+    (:func:`dots_saveable`, ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``) and recomputes everything else; any
+    other value is full remat, which keeps nothing, as the reference
+    treats it.  A full region inside a ``"dots"`` one (an SSM chunk, the
+    reference's policy-less ``jax.checkpoint`` nested in the layer's)
+    keeps nothing either: the outer policy saves none of its products."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn(*args)
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
-    from torch.utils.checkpoint import checkpoint
+    import torch.utils.checkpoint as ckpt
 
-    return checkpoint(fn, *args, use_reentrant=False)
+    if (policy or cfg.remat_policy) != "dots":
+        return ckpt.checkpoint(_unsaved(fn), *args, use_reentrant=False)
+    return ckpt.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     dots_saveable))
+
+
+#: depth of the full-remat regions being run: none of their products is
+#: kept by an enclosing ``"dots"`` region
+_FULL_DEPTH = [0]
+
+
+def _unsaved(fn):
+    def run(*args):
+        _FULL_DEPTH[0] += 1
+        try:
+            return fn(*args)
+        finally:
+            _FULL_DEPTH[0] -= 1
+    return run
+
+
+_aten = torch.ops.aten
+#: matrix products as autograd hands them to the dispatcher: the operands'
+#: position, and whether the product carries a leading batch dimension
+_PRODUCTS = {_aten.mm.default: (0, False), _aten.addmm.default: (1, False),
+             _aten.bmm.default: (0, True), _aten.baddbmm.default: (1, True)}
+
+
+def dots_saveable(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy of :func:`remat`, for
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``: keep a
+    matrix product's output where it has no batch dimension, recompute
+    every other op (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``).
+
+    The test is the product's batch size, not the op's name: ``x @ W``
+    reaches the dispatcher as ``aten.mm`` and ``torch.einsum("bsd,df->bsf",
+    x, W)`` as an ``aten.bmm`` of batch 1 (torch folds ``b`` and ``s``
+    together), and both are the reference's dot_general with no batch
+    dimension; an ``aten.bmm`` of batch ``b > 1`` (the attention tiles,
+    the experts, the SSM chunks) has one."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    spec = _PRODUCTS.get(op)
+    if spec is None or _FULL_DEPTH[0]:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    pos, batched = spec
+    if batched and args[pos].shape[0] != 1:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return CheckpointPolicy.MUST_SAVE
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6

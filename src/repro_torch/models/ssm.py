@@ -24,7 +24,8 @@ plain call otherwise.  Under autograd with ``cfg.remat`` (the default) each chun
 either
 block is recomputed in the backward (``layers.remat``), the reference's
 chunk-level ``jax.checkpoint``: the backward holds one chunk's states at a
-time, not every chunk's.
+time, not every chunk's.  The chunk's remat is full under every
+``remat_policy``, as the reference's carries no policy.
 
 A decode step is the same function at L = 1, with the carried state ``h0``
 and the conv state as left context, which the caller writes back in place.
@@ -151,7 +152,8 @@ def mamba1_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
     ys = []
     for s in range(0, L, c):
         hprev, y = remat(cfg, chunk, hprev, dt[:, s:s + c],
-                         xi[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c], A)
+                         xi[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c], A,
+                         policy="full")
         ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]        # (B, L, di)
     y = y + xi.to(f32) * p["D"].to(f32)
@@ -236,7 +238,8 @@ def mamba2_seq(x: torch.Tensor, p: dict, cfg, *, h0=None, conv_state=None,
     for s in range(0, L, c):
         hprev, y = remat(cfg, chunk, hprev,
                          xi[:, s:s + c].reshape(B, c, Hs, P), dt[:, s:s + c],
-                         loga[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c])
+                         loga[:, s:s + c], Bm[:, s:s + c], Cm[:, s:s + c],
+                         policy="full")
         ys.append(y)
     y = (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]).reshape(B, L, di)
     y = y + xi.to(f32) * p["D"].to(f32).repeat_interleave(P)

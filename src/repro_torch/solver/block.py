@@ -60,7 +60,7 @@ from repro_torch.solver.gmres import (
     _operator_key,
     _plan_unsharded,
     _precond_key,
-    _replay,
+    _replayed,
     _zero_store,
 )
 from repro_torch.solver.pipeline import (
@@ -85,8 +85,10 @@ def _block_cycle(bmv: Callable, acc: BlockBasisAccessor, store, state, init,
     Writes the basis into ``store`` and the least squares into ``state``
     (f64, :func:`repro_torch.kernels.ref.block_givens_layout`: the rotated
     stacked Hessenberg ``R``, the rotated rhs ``G``, the per-step
-    per-column estimates ``est (m, p)``, the extra swept block rows), in
-    place and with no host read if ``branch_free``.
+    per-column estimates ``est (m, p)``, the extra swept block rows, the
+    steps where MGS fired), in place and with no host read if
+    ``branch_free``: then MGS's second pass is an IF node of a captured
+    cycle (:mod:`repro_torch.solver.graphs`).
     """
     mb = acc.m - 1
     p = acc.p
@@ -105,6 +107,7 @@ def _block_cycle(bmv: Callable, acc: BlockBasisAccessor, store, state, init,
             # the host route's flag, an int on the host already; a
             # branch-free (captured) cycle gets a tensor and never comes here
             fired = torch.tensor(bool(fired), device=state.device)  # graphlint: ok[host-sync] host route only
+        state[L["fired"] + j].copy_(fired)
         ops.block_givens_step(state, H, T, fired, bn_safe, j, mb, p, target)
 
 
@@ -114,7 +117,8 @@ class _BlockCycle:
 
     ``branch_free`` (the device driver) on CUDA: captured on the first call
     and replayed on every call (launch counts as :func:`_capture` keeps
-    them).  Otherwise the cycle runs eagerly on every call."""
+    them, MGS's second pass counted at the steps where it fired).
+    Otherwise the cycle runs eagerly on every call."""
 
     def __init__(self, bmv, acc: BlockBasisAccessor, eta: float,
                  target: float, ortho, branch_free: bool, pins=(),
@@ -133,6 +137,7 @@ class _BlockCycle:
         self.graph = None
         self.launches: dict[str, int] = {}
         self.calls = ()             # the collectives the graph holds
+        self.bodies = ()            # its IF nodes' (graphs.Body), by step
         self.fresh = False          # zero the store before the next cycle
 
     def _run(self) -> None:
@@ -144,23 +149,27 @@ class _BlockCycle:
         self.W0.copy_(W0)
         self.bn.copy_(bn_safe)
         if self.capture and self.graph is None:
-            self.graph, self.launches, self.calls = _capture(self._run)
+            self.graph, self.launches, self.calls, self.bodies = _capture(
+                self._run)
         if self.fresh:              # after a capture's warm-up wrote it
             _zero_store(self.store)
             self.fresh = False
         if self.capture:
-            _replay(self.graph, self.launches, self.calls)
+            self.graph.replay()
         else:
             self._run()
         mb, p = self.acc.m - 1, self.acc.p
         mp = mb * p
         L = ref.block_givens_layout(mb, p)
         # one host read per restart (a copy: the next cycle overwrites it)
-        out = self.state[:L["cs"]].cpu().numpy().copy()
+        out = self.state.cpu().numpy().copy()
+        fired = out[L["fired"]:L["fired"] + mb] != 0
+        if self.capture:
+            _replayed(self.launches, self.calls, self.bodies, fired)
         return (out[:L["G"]].reshape(mp + p, mp),
                 out[L["G"]:L["est"]].reshape(mp + p, p),
                 out[L["est"]:L["extra"]].reshape(mb, p),
-                int(out[L["extra"]]))
+                int(out[L["extra"]]), fired)
 
 
 def _cycle_stops(col_hit: np.ndarray, mb: int):
@@ -179,8 +188,8 @@ def _cycle_stops(col_hit: np.ndarray, mb: int):
 
 
 def _block_results(X, rrn, total, converged, history, restart_rrns,
-                   nbytes: float, op_reads: float,
-                   stagnated: bool) -> list[GmresResult]:
+                   nbytes: float, op_reads: float, stagnated: bool,
+                   fired: np.ndarray | None = None) -> list[GmresResult]:
     """One :class:`GmresResult` per right-hand side, each with its ``1/p``
     share of the batch's shared ``bytes_read``/``op_reads``; rows of
     ``rrn_history`` are block steps."""
@@ -194,7 +203,9 @@ def _block_results(X, rrn, total, converged, history, restart_rrns,
                     rrn_history=hist[:, b].copy(),
                     restart_rrns=rsts[:, b].copy(),
                     restarts=len(restart_rrns), bytes_read=nbytes / p,
-                    stagnated=stagnated, op_reads=op_reads / p)
+                    stagnated=stagnated, op_reads=op_reads / p,
+                    fired=(np.zeros((0, 0), bool) if fired is None
+                           else fired.copy()))
         for b in range(p)
     ]
 
@@ -214,8 +225,9 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
     """Restart until every column converged, the guard fired or the block
     steps ran out (``repro/solver/block.py::_gmres_block_host``, decision for
     decision).  ``cycle_for(lvl)`` returns ``(store, run)``; ``run(W0,
-    bn_safe)`` runs one cycle and returns ``(R, G, est, extra_rows)`` on
-    the host."""
+    bn_safe)`` runs one cycle and returns ``(R, G, est, extra_rows,
+    fired)`` on the host (``fired``: the cycle's block steps where MGS
+    re-orthogonalized, (m,) bool)."""
     ad = accs[0].arith_dtype
     p = accs[0].p
     B = B.to(ad)
@@ -227,6 +239,7 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
 
     history: list[np.ndarray] = []
     restart_rrns: list[np.ndarray] = []
+    fired_steps: list[np.ndarray] = []
     total = np.zeros((p,), np.int64)
     blocks = 0
     cycles = 0
@@ -252,7 +265,9 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
         acc = accs[lvl]
         store, run = cycle_for(lvl)
         live = torch.as_tensor(active, device=B.device)[:, None]
-        R, G, est, extra_rows = run(torch.where(live, R0v, 0.0), bn_safe)
+        R, G, est, extra_rows, fired = run(torch.where(live, R0v, 0.0),
+                                           bn_safe)
+        fired_steps.append(fired)
         hit_any, j_stop, j_stop_b = _cycle_stops(est <= target_rrn, m)
         X = _block_solve_and_update(acc, store, R, G, j_stop, X, precond)
         history.append(est[:j_stop])
@@ -273,7 +288,9 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
     if rrn is None:              # max_iters < 1: loop never entered
         rrn = rel_res(X)
     return _block_results(X, rrn, total, converged, history, restart_rrns,
-                          nbytes, op_reads, stagnated)
+                          nbytes, op_reads, stagnated,
+                          np.stack(fired_steps) if fired_steps
+                          else np.zeros((0, m), bool))
 
 
 def _block_drive(bmv, bmv_r, accs, policy, B, m, max_iters, target_rrn,

@@ -22,9 +22,11 @@ computed exactly as the reference computes them).  They differ in the cycle:
     all ``m`` iterations with an ``alive`` mask and no host read, as the
     reference's ``fori_loop`` does (:func:`_device_cycle`).  On CUDA it is
     captured once per policy level as a CUDA graph and replayed once per
-    restart; ``R``, ``g``, ``est`` and the extra-sweep count come back in
-    one tensor, one host read per restart.  On the CPU the same cycle runs
-    eagerly.
+    restart; MGS's second pass is an IF node of the graph, which runs only
+    at the steps where it fires (:mod:`repro_torch.solver.graphs`).  ``R``,
+    ``g``, ``est``, the extra-sweep count and the steps where MGS fired
+    come back in one tensor, one host read per restart.  On the CPU the same
+    cycle runs eagerly.
   * ``driver="host"``: the cycle loops in Python and reads each step's
     Hessenberg column on the host (:func:`_cycle`), stopping once ``alive``
     drops.  It is the parity oracle of the device driver.
@@ -48,6 +50,7 @@ from repro_torch.core.accessor import BasisAccessor
 from repro_torch.dist import census
 from repro_torch.dist.context import LOCAL
 from repro_torch.kernels import ops, ref
+from repro_torch.solver import graphs
 from repro_torch.solver.pipeline import (
     CallablePreconditioner,
     IdentityPreconditioner,
@@ -83,6 +86,11 @@ class GmresResult:
     bytes_read: float = 0.0      # modelled basis read traffic (bytes)
     stagnated: bool = False      # stopped by the stagnation guard
     op_reads: float = 0.0        # modelled full passes over the operator
+    # (restarts run, m): the steps of each cycle where MGS re-orthogonalized;
+    # the host driver runs (and marks) only the live steps, the device
+    # driver all m, dead ones too; none for CGS2
+    fired: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0, 0), bool))
 
 
 def _givens(a: float, b: float) -> tuple[float, float]:
@@ -112,10 +120,11 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
     """One GMRES(m) cycle.  w0 = r0 (unnormalized); beta = ||r0|| (0-d).
 
     Writes the basis into ``store`` in place and returns ``(R, g, est,
-    extra_rows)``: the rotated Hessenberg ``R`` (m+1, m), the rotated rhs
-    ``g`` (m+1,), the implicit residual estimate per inner iteration, and
-    the count of basis rows swept by extra (conditional) orthogonalization
-    passes of live iterations.
+    extra_rows, fired)``: the rotated Hessenberg ``R`` (m+1, m), the
+    rotated rhs ``g`` (m+1,), the implicit residual estimate per inner
+    iteration, the count of basis rows swept by extra (conditional)
+    orthogonalization passes of live iterations, and those iterations
+    (``fired``, (m,) bool).
 
     In the reference every one of the ``m`` iterations runs and an
     ``alive`` flag masks those after the estimate met the target (or the
@@ -134,6 +143,7 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
     sn = np.zeros(m)
     est = np.full(m, np.inf)
     extra_rows = 0
+    fired_steps = np.zeros(m, bool)
 
     for j in range(m):
         v = acc.read_row(store, j)
@@ -141,6 +151,7 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
         w_pre = dist.norm(w)
         w, h, hj1_t, fired = ortho(acc, store, w, j + 1, eta, dist, w_pre)
         extra_rows += fired * (j + 1)
+        fired_steps[j] = fired
 
         *col, hj1, w_pre = torch.cat(
             [h, torch.stack([hj1_t, w_pre])]).tolist()  # one host read per step
@@ -168,7 +179,7 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
         if breakdown or not resid > target:       # alive drops
             est[j + 1:] = resid
             break
-    return R, g, est, extra_rows
+    return R, g, est, extra_rows, fired_steps
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +196,8 @@ def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
     ``r``, ``beta`` and ``b_norm`` are tensors (``beta``, ``b_norm`` 0-d);
     the basis goes into ``store`` and the least squares into ``state`` (f64,
     laid out as :func:`repro_torch.kernels.ref.givens_layout`), both in
-    place.  All ``m`` iterations run: once ``alive`` drops (the estimate met
+    place, with ``fired`` (1 at each step where MGS re-orthogonalized).
+    All ``m`` iterations run: once ``alive`` drops (the estimate met
     ``target``, or a breakdown), the Givens step takes no more columns and
     repeats the last ``est``.  ``fused``: the operator reads each FRSZ2
     basis row as codes (the ELL kernel decodes in registers) instead of a
@@ -206,20 +218,25 @@ def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
         w_pre = dist.norm(w)
         w, h, hj1, fired = ortho.branch_free(acc, store, w, j + 1, eta, dist,
                                              w_pre)
+        state[L["fired"] + j].copy_(fired)
         acc.write_row(store, j + 1, _normalized(w, hj1))
         ops.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m, target)
 
 
 def _capture(run: Callable):
-    """Capture ``run()`` as a CUDA graph: ``(graph, launches, calls)``.
+    """Capture ``run()`` as a CUDA graph: ``(graph, launches, calls,
+    bodies)``.
 
     ``run`` first runs once on a side stream (every kernel library is then
     built and loaded, cuBLAS has its workspace) and counts the launches it
     really makes; the capture then counts them again, and those counts are
-    taken back out of ``ops.LAUNCHES`` and returned, for :func:`_replay` to
-    add per replay (a replay runs no Python), with the collectives the
-    graph holds (:func:`repro_torch.dist.census.capturing`).  A failed
-    capture raises."""
+    taken back out of ``ops.LAUNCHES`` and returned, for :func:`_replayed`
+    to add per replay (a replay runs no Python), with the collectives the
+    graph holds (:func:`repro_torch.dist.census.capturing`).  What the
+    graph's IF nodes hold is kept apart, one
+    :class:`~repro_torch.solver.graphs.Body` a node in the order of the
+    steps, and left out of ``launches`` and ``calls``.  A failed capture
+    raises."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -227,18 +244,32 @@ def _capture(run: Callable):
     torch.cuda.current_stream().wait_stream(side)
     before = dict(ops.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
-    with census.capturing() as calls, torch.cuda.graph(graph):
+    with census.capturing() as calls, graphs.capturing(graph) as cap, \
+            torch.cuda.graph(graph):
         run()
     launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for body in cap.bodies:
+        for k, v in body.launches.items():
+            launches[k] -= v
     ops.LAUNCHES.update(before)               # a capture launches nothing
-    return graph, launches, calls
+    return graph, launches, calls, cap.bodies
 
 
-def _replay(graph, launches: dict, calls=()) -> None:
-    graph.replay()
+def _replayed(launches: dict, calls, bodies, fired) -> None:
+    """Count a replay: its graph's launches and collectives, and those of
+    the IF node of each step ``j`` where ``fired[j]`` is set (a graph
+    without IF nodes has no ``bodies``)."""
+    if bodies and len(bodies) != len(fired):
+        raise RuntimeError(f"{len(bodies)} IF nodes in a cycle of "
+                           f"{len(fired)} steps: one a step expected")
     for k, v in launches.items():
         ops.LAUNCHES[k] += v
     census.replayed(calls)
+    for body, ran in zip(bodies, fired):
+        if ran:
+            for k, v in body.launches.items():
+                ops.LAUNCHES[k] += v
+            census.replayed(body.calls)
 
 
 class _DeviceCycle:
@@ -250,9 +281,10 @@ class _DeviceCycle:
     captures it as a CUDA graph and keeps the kernel launches the capture
     counted; every call then copies its inputs into the static ones,
     replays the graph and adds those launches to ``ops.LAUNCHES`` (a replay
-    runs no Python, so it would count nothing).  A failed capture or replay
-    raises.  On the CPU every call runs the cycle eagerly.  A sharded
-    ``dist`` puts its collectives (NCCL on the card) inside the graph.
+    runs no Python, so it would count nothing), with those of MGS's second
+    pass at the steps where it fired.  A failed capture or replay raises.
+    On the CPU every call runs the cycle eagerly.  A sharded ``dist`` puts
+    its collectives (NCCL on the card) inside the graph.
     """
 
     def __init__(self, matvec, acc: BasisAccessor, eta: float, target: float,
@@ -271,6 +303,7 @@ class _DeviceCycle:
         self.graph = None
         self.launches: dict[str, int] = {}
         self.calls = ()             # the collectives the graph holds
+        self.bodies = ()            # its IF nodes' (graphs.Body), by step
         self.fresh = False          # zero the store before the next cycle
 
     def _run(self) -> None:
@@ -284,21 +317,25 @@ class _DeviceCycle:
         self.beta.copy_(beta)
         self.b_norm.copy_(b_norm)
         if self.state.is_cuda and self.graph is None:
-            self.graph, self.launches, self.calls = _capture(self._run)
+            self.graph, self.launches, self.calls, self.bodies = _capture(
+                self._run)
         if self.fresh:              # after a capture's warm-up wrote it
             _zero_store(self.store)
             self.fresh = False
         if self.state.is_cuda:
-            _replay(self.graph, self.launches, self.calls)
+            self.graph.replay()
         else:
             self._run()
         m = self.acc.m - 1
         L = ref.givens_layout(m)
         # one host read per restart; a copy, since on the CPU .cpu() would
         # hand back the state itself, which the next cycle overwrites
-        out = self.state[:L["cs"]].cpu().numpy().copy()
+        out = self.state.cpu().numpy().copy()
+        fired = out[L["fired"]:L["fired"] + m] != 0
+        if self.state.is_cuda:
+            _replayed(self.launches, self.calls, self.bodies, fired)
         return (out[:L["g"]].reshape(m + 1, m), out[L["g"]:L["est"]],
-                out[L["est"]:L["extra"]], int(out[L["extra"]]))
+                out[L["est"]:L["extra"]], int(out[L["extra"]]), fired)
 
 
 #: captured cycles (scalar and block), least recently used first.  A graph
@@ -469,7 +506,8 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
     ``cycle_for(lvl)`` returns ``(store, run)`` for a policy level:
     ``run(r, beta, b_norm, b_norm_f)`` runs one cycle (``beta``, ``b_norm``
     0-d tensors, ``b_norm_f`` the same as a float) and returns ``(R, g,
-    est, extra_rows)`` on the host.  The explicit residuals apply
+    est, extra_rows, fired)`` on the host (``fired``: the cycle's steps
+    where MGS re-orthogonalized, (m,) bool).  The explicit residuals apply
     ``residual_matvec`` (default: ``matvec``, which serves the cycles).
     Every value read on the host here is reduced by ``dist``, so the ranks
     of a sharded solve take the same decisions.
@@ -486,6 +524,7 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
 
     history: list[np.ndarray] = []
     restart_rrns: list[float] = []
+    fired_steps: list[np.ndarray] = []
     total_iters = 0
     converged = False
     stagnated = False
@@ -509,7 +548,8 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
         lvl = int(policy.level(restart_rrns[-1], len(restart_rrns) - 1))
         acc = accs[lvl]
         store, run = cycle_for(lvl)
-        R, g, est, extra_rows = run(r, beta_t, b_norm_t, b_norm)
+        R, g, est, extra_rows, fired = run(r, beta_t, b_norm_t, b_norm)
+        fired_steps.append(fired)
         # first inner iteration that met the target (1-based count)
         hit = np.nonzero(est <= target_rrn)[0]
         j_stop = int(hit[0]) + 1 if hit.size else m
@@ -547,6 +587,8 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
         bytes_read=bytes_read,
         stagnated=stagnated,
         op_reads=op_reads,
+        fired=(np.stack(fired_steps) if fired_steps
+               else np.zeros((0, m), bool)),
     )
 
 

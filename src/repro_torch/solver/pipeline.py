@@ -18,9 +18,13 @@ Each orthogonalizer, scalar or block, has two forms.  ``__call__`` is the host d
 PyTorch runs eagerly, so MGS reads its ``fired`` flag on the host once per
 iteration and runs the second pass only when it fires.  ``branch_free`` is
 the device driver's, with no host read, so that a CUDA graph can hold it:
-MGS always runs the second pass and selects its results with ``fired`` (a
-0-d device tensor), as the reference's ``lax.cond`` selects.  Both give the
-same bits.
+MGS runs the second pass under :func:`repro_torch.solver.graphs.device_if`
+keyed on ``fired`` (a 0-d device tensor), as the reference runs it under
+``lax.cond``.  In a captured cycle that is an IF node, which runs the pass
+only where it fires; eagerly (a capture's warm-up, the CPU) the pass runs
+and ``torch.where`` keeps the first pass's bits where it does not fire, as
+it does at every step of a cycle sharded over more than one rank
+(:func:`_second_pass`).  Both forms give the same bits.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.core.accessor import NativeFormat, StorageFormat, format_by_name
 from repro_torch.dist.context import LOCAL
+from repro_torch.solver import graphs
 
 __all__ = [
     "Orthogonalizer",
@@ -60,6 +65,19 @@ __all__ = [
 # ---------------------------------------------------------------------------
 # Orthogonalizers
 # ---------------------------------------------------------------------------
+
+
+def _second_pass(fired: torch.Tensor, dist):
+    """Where MGS's second pass runs in a branch-free cycle: inside an IF
+    node (:func:`~repro_torch.solver.graphs.device_if`), except in a cycle
+    sharded over more than one rank, whose NCCL collectives CUDA does not
+    take inside a conditional node: there the pass runs at every step and
+    ``torch.where`` keeps the first pass's bits where it does not fire
+    (:func:`~repro_torch.solver.graphs.select`).  Decided by ``dist`` when
+    the cycle is built, so a capture never falls back."""
+    if dist.sharded and torch.distributed.get_world_size(dist.group) > 1:
+        return graphs.select(fired)
+    return graphs.device_if(fired)
 
 
 class Orthogonalizer:
@@ -113,13 +131,17 @@ class MGSOrthogonalizer(Orthogonalizer):
         w = w - acc.combine(store, h)
         hj1 = dist.norm(w)
         fired = hj1 < eta * w_pre
-        # the second pass always runs; where it does not fire, torch.where
-        # keeps the first pass's bits (a zero coefficient would not: 0 * inf
-        # is nan once a breakdown has put non-finite rows in the basis)
-        u = acc.dots(store, w, rows)
-        w2 = w - acc.combine(store, u)
-        return (torch.where(fired, w2, w), torch.where(fired, h + u, h),
-                torch.where(fired, dist.norm(w2), hj1), fired)
+        # the second pass where it fires, in place (an IF node in a captured
+        # cycle; eagerly, torch.where keeps the first pass's bits where it
+        # does not: a zero coefficient would not, 0 * inf is nan once a
+        # breakdown has put non-finite rows in the basis)
+        with _second_pass(fired, dist) as put:
+            u = acc.dots(store, w, rows)
+            w2 = w - acc.combine(store, u)
+            put(h, h + u)
+            put(hj1, dist.norm(w2))
+            put(w, w2)
+        return w, h, hj1, fired
 
 
 class CGS2Orthogonalizer(Orthogonalizer):
@@ -250,12 +272,12 @@ class BlockMGSOrthogonalizer(BlockOrthogonalizer):
         H = acc.block_dots(store, W, rows)
         W = W - acc.block_combine(store, H)
         fired = (dist.col_norms(W) < eta * w_pre).any()
-        # the second pass always runs; torch.where keeps the first pass's
-        # bits where it does not fire
-        U = acc.block_dots(store, W, rows)
-        W2 = W - acc.block_combine(store, U)
-        W = torch.where(fired, W2, W)
-        H = torch.where(fired, H + U, H)
+        # the second pass where it fires, in place, as the scalar form
+        with _second_pass(fired, dist) as put:
+            U = acc.block_dots(store, W, rows)
+            W2 = W - acc.block_combine(store, U)
+            put(H, H + U)
+            put(W, W2)
         Q, T, _ = block_qr(W, dist, scale=w_pre)
         return Q, H, T, fired
 

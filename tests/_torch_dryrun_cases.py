@@ -2,13 +2,14 @@
 one process with PyTorch's ``fake`` process group (process-global, so one
 world a subprocess), every case inside it, results as JSON.
 
-  python tests/_torch_dryrun_cases.py hand|flat|pod|probes OUT.json
+  python tests/_torch_dryrun_cases.py hand|flat|pod|probes|remat OUT.json
 
 with ``src`` on ``PYTHONPATH``.  ``hand``: a hand-built program with known
 counts on a fake 2x2 mesh; ``flat`` / ``pod``: the ``reduced()`` config of
 every family on 2x2 and on 2x2x2 with a ``pod`` dim, for train, prefill
 and decode; ``probes``: the probe-extrapolated FLOPs of the dense, MoE and
-SSM families at 4 layers against their full-depth counts.
+SSM families at 4 layers against their full-depth counts; ``remat``:
+the reference ladder's ``remat_policy="dots"`` rung beside full remat.
 """
 from __future__ import annotations
 
@@ -151,11 +152,33 @@ def probes() -> dict:
     return out
 
 
+def remat() -> dict:
+    """The reference ladder's last rung (``benchmarks/perf_hillclimb.py``,
+    "dots_remat_64x4"): internlm2-20b x train_4k on the 64x4 mesh at one
+    layer, under full remat and under ``remat_policy="dots"``."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_mesh
+
+    _world(256)
+    mesh = make_mesh((64, 4), ("data", "model"))
+    out = {}
+    for policy in ("full", "dots"):
+        t0 = time.time()
+        row = run_cell("internlm2-20b", "train_4k", mesh=mesh, verbose=False,
+                       cfg_overrides=dict(num_layers=1,
+                                          remat_policy=policy))
+        out[policy] = dict(status=row["status"], temp=row["temp_gib"],
+                           flops=row["flops_per_dev"],
+                           microbatch=row["microbatch"],
+                           wall=time.time() - t0)
+    return out
+
+
 def main() -> None:
     which, path = sys.argv[1], sys.argv[2]
     t0 = time.time()
     res = {"hand": hand, "flat": lambda: cells(0), "pod": lambda: cells(2),
-           "probes": probes}[which]()
+           "probes": probes, "remat": remat}[which]()
     res["_wall"] = time.time() - t0
     with open(path, "w") as f:
         json.dump(res, f)

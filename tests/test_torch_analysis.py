@@ -348,6 +348,33 @@ def test_lint_roots_and_static_parameters():
     assert [(f.rule, f.line) for f in other] == [("host-sync", 10)]
 
 
+def test_lint_device_if_branch_is_clean_and_named_in_the_message():
+    """MGS's branch on the card, ``with device_if(fired) as put:``, lints
+    clean in a captured root with no pragma; the Python ``if`` it replaces
+    fires ``host-sync`` with a message that names the helper."""
+    body = ("import torch\n"
+            "from repro_torch.solver.graphs import device_if\n"
+            "def _device_cycle(acc: object, w, h, eta: float, m: int):\n"
+            "    for j in range(m):\n"
+            "        hj1 = torch.linalg.vector_norm(w)\n"
+            "        fired = hj1 < eta * w.abs().sum()\n"
+            "{branch}"
+            "    return w, h\n")
+    clean = body.format(branch=(
+        "        with device_if(fired) as put:\n"
+        "            u = acc.dots(w)\n"
+        "            put(h, h + u)\n"
+        "            put(w, w - acc.combine(u))\n"))
+    assert TL.lint_source(clean, "src/repro_torch/solver/gmres.py") == []
+    bare = body.format(branch=(
+        "        if fired:\n"
+        "            u = acc.dots(w)\n"
+        "            h = h + u\n"))
+    got = TL.lint_source(bare, "src/repro_torch/solver/gmres.py")
+    assert [(f.rule, f.line) for f in got] == [("host-sync", 7)]
+    assert "device_if" in got[0].message and "torch.where" in got[0].message
+
+
 def test_lint_roots_exist_and_the_block_pragma_is_needed():
     """Each of ``CAPTURED_ROOTS`` is a module-level function of its file;
     ``solver/block.py``'s ``bool(fired)`` is allowed by its pragma only:
@@ -486,6 +513,39 @@ def test_fixed_trajectory_block_reads_equal_the_jax_block_driver(storage):
     assert row["iterations"] == [int(r.iterations) for r in rj] == [8] * 3
 
 
+@pytest.mark.parametrize("route", ["scalar", "block"])
+@pytest.mark.parametrize("storage", ["float64", "frsz2_32"])
+def test_mgs_fixed_trajectory_reads_follow_the_fired_slots(storage, route):
+    """The reads audit's MGS case: each cycle reads ``_cycle_row_reads(m,
+    1, extra)`` rows, ``extra`` from the cycle's fired slots; the JAX
+    device driver's MGS solve on the same trajectory reports the same
+    ``bytes_read`` and ``op_reads``."""
+    from repro.solver import gmres as jgmres
+    from repro.solver.block import gmres_block as jblock
+
+    A, b, _ = traceaudit.problem(180, "cpu")
+    JA, jb = _jax_problem()
+    info = {}
+    fixed = dict(traceaudit.fixed_trajectory(6 if route == "scalar" else 4,
+                                             3 if route == "scalar" else 2),
+                 ortho="mgs")
+    if route == "scalar":
+        assert traffic.audit_reads(A, b, storage=storage, m=6, k=3,
+                                   info=info, ortho="mgs") == []
+        row = info[f"reads[{storage}, mgs]"]
+        rj = [jgmres(JA, jb, storage=storage, driver="device", **fixed)]
+    else:
+        assert traffic.audit_reads(A, b, storage=storage, m=4, k=2, p=3,
+                                   info=info, ortho="mgs") == []
+        row = info[f"block-reads[{storage}, p=3, mgs]"]
+        B = traceaudit.block_rhs(torch.from_numpy(np.array(jb)), 3).numpy()
+        rj = jblock(JA, jnp.asarray(B), storage=storage, **fixed)
+    assert row["bytes_read"] == sum(float(r.bytes_read) for r in rj)
+    assert row["op_reads"] == sum(float(r.op_reads) for r in rj)
+    assert row["iterations"] == [int(r.iterations) for r in rj]
+    assert len(row["fired_steps"]) == (3 if route == "scalar" else 2)
+
+
 def test_reads_audit_finds_a_planted_drift(monkeypatch):
     """A format whose byte model drifts from its buffers (``nbytes`` one
     byte a row high) is a ``reads-model`` finding."""
@@ -586,3 +646,29 @@ def test_census_checks_find_planted_permutations_and_groups(world):
     got, _ = traffic.check_census("t", moved, group, want, "planted")
     assert "axis-mismatch" in {f.rule for f in got}
     assert traffic.check_census("t", calls, group, want, "real")[0] == []
+
+
+def test_mgs_census_model_prices_the_fired_steps():
+    """The census model of an MGS solve: one all-reduce of the dots and two
+    norms a step, plus one of each a fired step; so no fired step is half
+    CGS2's dots at CGS2's norms, every step fired is CGS2's dots plus a
+    norm a step."""
+    from repro_torch.dist.collectives import reduce_bytes
+    from repro_torch.sparse import make_problem
+    from repro_torch.sparse.plan import plan_operator
+
+    A, _ = make_problem("synth:atmosmod", 256, device="cpu")
+    plan = plan_operator(A, 4, reorder="none", matvec_mode="rows")
+    m, k = 8, 2
+    cgs2 = traffic.solve_census_model(plan, m, k)
+    none = traffic.solve_census_model(plan, m, k, fired=[0, 0])
+    every = traffic.solve_census_model(plan, m, k, fired=[m, m])
+    some = traffic.solve_census_model(plan, m, k, fired=[3, 5])
+    assert none["cycle"]["dots"] * 2 == cgs2["cycle"]["dots"]
+    assert none["cycle"]["norms"] == cgs2["cycle"]["norms"]
+    assert every["cycle"]["dots"] == cgs2["cycle"]["dots"]
+    r1 = reduce_bytes(1, compressed=False)
+    assert every["cycle"]["norms"] == cgs2["cycle"]["norms"] + k * m * r1
+    dots1 = reduce_bytes(m + 1, compressed=False)
+    assert some["cycle"]["dots"] == none["cycle"]["dots"] + 8 * dots1
+    assert some["solve"] == cgs2["solve"] == none["solve"]

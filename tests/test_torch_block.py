@@ -281,3 +281,56 @@ def test_batched_arguments_are_validated():
         gmres_batched(At, B[0], method="block")
     with pytest.raises(RuntimeError, match="process group"):
         gmres_batched(At, B, method="block", shard=2)
+
+
+@pytest.mark.parametrize("eta", [0.3, 0.7071067811865475])
+@pytest.mark.parametrize("fmt", ["float64", "frsz2_32"])
+def test_block_fired_slots_equal_the_host_drivers_steps(fmt, eta):
+    """A fixed trajectory (``target_rrn=0``: k full cycles of m block
+    steps): the device cycle's ``fired`` slots equal the block steps where
+    the host driver's block MGS re-orthogonalized (each result carries the
+    shared flags), and ``bytes_read`` counts exactly those sweeps."""
+    _, At, b, _ = _problem("synth:atmosmod", 512)
+    B = torch.from_numpy(_rhs(b, 3, seed=2))
+    m, k = 8, 2
+    kw = dict(storage=fmt, m=m, max_iters=k * m, target_rrn=0.0, eta=eta,
+              method="block")
+    rd = gmres_batched(At, B, **kw)
+    rh = gmres_batched(At, B, driver="host", **kw)
+    acc = BlockBasisAccessor(fmt=format_by_name(fmt), m=m + 1, p=3,
+                             n=b.shape[0], arith_dtype=torch.float64,
+                             device="cpu")
+    for a, c in zip(rd, rh, strict=True):
+        assert a.fired.shape == (k, m)
+        np.testing.assert_array_equal(a.fired, rd[0].fired)
+        np.testing.assert_array_equal(a.fired, c.fired)
+        assert torch.equal(a.x, c.x)
+    fired = rd[0].fired
+    extra = sum(j + 1 for cy in range(k) for j in range(m) if fired[cy, j])
+    from repro_torch.solver.gmres import _cycle_row_reads
+
+    want = (k * _cycle_row_reads(m, 1, 0) + extra) * acc.nbytes() / acc.m
+    assert sum(r.bytes_read for r in rd) == pytest.approx(want, rel=1e-15)
+    assert rd[0].bytes_read == rh[0].bytes_read
+
+
+@pytest.mark.parametrize("fmt", ["float64", "frsz2_32"])
+def test_block_mgs_fires_never_at_eta_0_and_always_at_eta_1_5(fmt):
+    """The two extremes on one block trajectory, against the JAX package's
+    block solve with the same ``eta``: the same iterations and
+    ``bytes_read``, no extra sweep at eta 0 and every step's at 1.5."""
+    A, At, b, _ = _problem("synth:atmosmod", 216)
+    B = _rhs(b, 3, seed=3)
+    m, k = 6, 2
+    for eta, fired in ((0.0, False), (1.5, True)):
+        kw = dict(storage=fmt, m=m, max_iters=k * m, target_rrn=0.0,
+                  eta=eta, method="block")
+        ours = gmres_batched(At, torch.from_numpy(B), **kw)
+        host = gmres_batched(At, torch.from_numpy(B), driver="host", **kw)
+        theirs = jgmres_batched(A, jnp.asarray(B), **kw)
+        for rt, rh, rj in zip(ours, host, theirs, strict=True):
+            assert (rt.fired == fired).all() and (rh.fired == fired).all()
+            assert rt.iterations == rh.iterations == int(rj.iterations)
+            assert rt.bytes_read == rh.bytes_read == float(rj.bytes_read)
+            assert rt.op_reads == rh.op_reads == float(rj.op_reads)
+            assert torch.equal(rt.x, rh.x)

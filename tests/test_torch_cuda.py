@@ -69,7 +69,12 @@ solve of either driver captures no graph (and, with the graph cache
 bypassed, the audit finds the new capture); a warmed solve's host reads
 and host-to-device copies equal its ``HOST_TRAFFIC`` (an extra read is
 found); the f64 audit on kernels 1-6 and the fixed-trajectory reads on
-the kernel route; the collective census on a NCCL group of one rank.
+the kernel route; the collective census on a NCCL group of one rank, CGS2
+and MGS.  MGS's second pass as an IF node of the captured cycles (``-k
+mgs``): one replayed scalar (block) cycle runs kernels 3 and 4 (7 and 8)
+m + (fired steps) times by the profiler's count, m at eta 0 and 2m at eta
+1.5, equal to ``ops.LAUNCHES``; its state and basis bit-equal to the
+eager cycle's; a second solve captures nothing.
 """
 import numpy as np
 import pytest
@@ -1496,3 +1501,178 @@ def test_gate_census_on_a_nccl_group_of_one(nccl):
     solve = info["census[rows]"]
     assert solve["priced"]["cycle"] == solve["model"]["cycle"]
     assert solve["priced"]["cycle"]["dots"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Slice 9: MGS's second pass as an IF node of the captured cycles
+# ---------------------------------------------------------------------------
+
+
+def _last_cycle():
+    from repro_torch.solver.gmres import _GRAPHS
+
+    return next(reversed(_GRAPHS.values()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eta", [0.0, 1.5, 0.3])
+def test_captured_mgs_cycle_sweeps_twice_only_where_it_fires(cuda, eta):
+    """A captured scalar MGS cycle (frsz2_32, m = 20) replayed under the
+    profiler: kernels 3 and 4 run m + (fired steps) times, m at eta 0 and
+    2m at eta 1.5, equal to ``ops.LAUNCHES``; the IF node's condition
+    kernel and the Givens step run m times.  The replay's state and basis
+    equal, bit for bit, the cycle run eagerly (both passes, then
+    ``torch.where``) on the same inputs; a second solve captures
+    nothing."""
+    import importlib
+
+    from repro_torch.solver import clear_graph_cache
+    from repro_torch.solver.gmres import _GRAPHS
+
+    G = importlib.import_module("repro_torch.solver.gmres")
+    A, _ = make_problem("synth:atmosmod", 4096, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    m = 20
+    kw = dict(storage="frsz2_32", m=m, max_iters=2 * m, target_rrn=0.0,
+              eta=eta)
+    clear_graph_cache()
+    r1 = gmres(A, b, **kw)
+    cyc = _last_cycle()
+    graph, keys = cyc.graph, set(_GRAPHS)
+    r2 = gmres(A, b, **kw)
+    assert set(_GRAPHS) == keys and cyc.graph is graph
+    assert torch.equal(r1.x, r2.x)
+    np.testing.assert_array_equal(r1.fired, r2.fired)
+    beta = torch.linalg.vector_norm(b)
+    ops.reset_launches()
+    got = {}
+    counted = cardcheck.profiled_launches(
+        lambda: got.update(out=cyc(b, beta, beta)))
+    fired = int(got["out"][4].sum())
+    if eta == 0.0:
+        assert fired == 0
+    elif eta == 1.5:
+        assert fired == m
+    for k in ("frsz2_matvec", "frsz2_rmatvec"):
+        assert counted[k] == ops.LAUNCHES[k] == m + fired, (k, counted)
+    assert counted["graph_if"] == ops.LAUNCHES["graph_if"] == m
+    assert counted["gmres_givens"] == ops.LAUNCHES["gmres_givens"] == m
+    # the same inputs through the eager cycle
+    matvec, eta_, target, ortho, precond, fused, dist = cyc._args
+    store = cyc.acc.empty()
+    state = torch.empty_like(cyc.state)
+    G._device_cycle(matvec, cyc.acc, store, state, cyc.init, cyc.r,
+                    cyc.beta, cyc.b_norm, eta_, target, ortho, precond,
+                    fused, dist)
+    assert torch.equal(state, cyc.state)
+    for key in ("codes", "exps"):
+        assert torch.equal(store[key], cyc.store[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eta", [0.0, 1.5])
+def test_captured_block_mgs_cycle_sweeps_twice_only_where_it_fires(cuda,
+                                                                   eta):
+    """The block cycle (frsz2_32, p = 3, m = 8) replayed under the
+    profiler: kernels 7 and 8 run m times at eta 0 and 2m at eta 1.5,
+    equal to ``ops.LAUNCHES``; its state and basis bit-equal to the eager
+    cycle's; a second solve captures nothing."""
+    from repro_torch.solver import block as BL
+    from repro_torch.solver import clear_graph_cache
+    from repro_torch.solver.gmres import _GRAPHS
+
+    A, _ = make_problem("synth:atmosmod", 4096, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    t = torch.arange(b.shape[0], dtype=b.dtype, device=cuda)
+    B = torch.stack([b, torch.sin(t), torch.cos(3 * t)])
+    m = 8
+    kw = dict(storage="frsz2_32", m=m, max_iters=2 * m, target_rrn=0.0,
+              eta=eta, method="block")
+    clear_graph_cache()
+    r1 = gmres_batched(A, B, **kw)
+    cyc = _last_cycle()
+    graph, keys = cyc.graph, set(_GRAPHS)
+    r2 = gmres_batched(A, B, **kw)
+    assert set(_GRAPHS) == keys and cyc.graph is graph
+    assert all(torch.equal(a.x, c.x) for a, c in zip(r1, r2))
+    bn = torch.linalg.vector_norm(B, dim=1)
+    ops.reset_launches()
+    got = {}
+    counted = cardcheck.profiled_launches(
+        lambda: got.update(out=cyc(B, bn)))
+    fired = int(got["out"][4].sum())
+    assert fired == (0 if eta == 0.0 else m)
+    for k in ("frsz2_block_dots", "frsz2_block_combine"):
+        assert counted[k] == ops.LAUNCHES[k] == m + fired, (k, counted)
+    assert counted["gmres_block_givens"] == m
+    bmv, eta_, target, ortho, branch_free, dist = cyc._args
+    store = cyc.acc.empty()
+    state = torch.empty_like(cyc.state)
+    BL._block_cycle(bmv, cyc.acc, store, state, cyc.init, cyc.W0, cyc.bn,
+                    eta_, target, ortho, branch_free, dist)
+    assert torch.equal(state, cyc.state)
+    for key in ("codes", "exps"):
+        assert torch.equal(store[key], cyc.store[key])
+
+
+@pytest.mark.cuda
+def test_gate_mgs_census_on_a_nccl_group_of_one(nccl):
+    """The census of a warmed MGS sharded solve on one NCCL rank: the
+    replays add the second pass's all-reduces only at the fired steps, and
+    the recorded bytes equal ``cycle_wire_bytes`` with those steps."""
+    from repro_torch.analysis import traffic
+
+    info = {}
+    assert traffic.census_world(0, "cuda", info=info, ortho="mgs") == []
+    solve = info["census[rows, mgs]"]
+    assert solve["priced"]["cycle"] == solve["model"]["cycle"]
+    assert solve["fired"] is not None
+
+
+def _mgs_ranks(rank, dev, force_if):
+    """One rank of :func:`test_mgs_over_ranks_keeps_the_branch_free_pass`:
+    a sharded frsz2_32 MGS solve (n 8000, m 40) over every rank, with the
+    IF node forced or by the default route; the error text, or the
+    iterations and the unsharded solve's."""
+    import traceback
+
+    from repro_torch.solver import graphs
+    from repro_torch.solver import pipeline as PL
+
+    P = torch.distributed.get_world_size()
+    A, target = make_problem("synth:atmosmod", 8000, device=dev)
+    b, _ = rhs_for(A, device=dev)
+    kw = dict(storage="frsz2_32", m=40, target_rrn=target)
+    if force_if:
+        PL._second_pass = lambda fired, dist: graphs.device_if(fired)
+        try:
+            gmres(A, b, shard=P, **kw)
+        except Exception:
+            return dict(error=traceback.format_exc())
+        return dict(error=None)
+    rs = [gmres(A, b, shard=P, **kw) for _ in range(2)]
+    ru = gmres(A, b, **kw)
+    return dict(iters=[r.iterations for r in rs], unsharded=ru.iterations,
+                fired=rs[1].fired.sum(1).tolist(),
+                equal=bool(torch.equal(rs[0].x, rs[1].x)))
+
+
+@pytest.mark.cuda
+def test_mgs_over_ranks_keeps_the_branch_free_pass(cuda):
+    """Over more than one rank CUDA refuses NCCL's collectives inside the
+    IF node (the capture fails with "invalid argument"), so the sharded
+    MGS cycle keeps the branch-free pass there, chosen by its group's size:
+    it solves in the unsharded iterations and replays with equal bits."""
+    from repro_torch.dist import spawn
+
+    P = min(torch.cuda.device_count(), 4)
+    if P < 2:
+        pytest.skip("needs two cards or more")
+    forced = spawn(_mgs_ranks, P, True, device="cuda", timeout_s=240)
+    assert forced["error"] is not None
+    assert "invalid argument" in forced["error"], forced["error"][-2000:]
+    got = spawn(_mgs_ranks, P, False, device="cuda", timeout_s=240)
+    assert got["equal"] and got["iters"] == [got["unsharded"]] * 2, got
+    cause = [ln for ln in forced["error"].splitlines() if "CUDA error" in ln]
+    print(f"\n[mgs over {P} ranks] forced IF node: {cause[:1]}; "
+          f"branch-free pass: {got}")

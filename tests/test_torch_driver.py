@@ -137,7 +137,7 @@ def test_stagnated_flag_reported_by_both_drivers(monkeypatch):
 
     def fake_cycle(matvec, acc, b_norm, store, w0, beta, eta, tgt, ortho,
                    precond, dist=None):
-        return R.copy(), np.zeros(m + 1), est.copy(), 0
+        return R.copy(), np.zeros(m + 1), est.copy(), 0, np.zeros(m, bool)
 
     def fake_device_cycle(matvec, acc, store, state, init, r, beta, b_norm,
                           eta, tgt, ortho, precond, fused, dist=None):
@@ -272,3 +272,96 @@ def test_graph_cache_keys_by_identity_not_content():
     assert G._precond_key(p1) == G._precond_key(p2)
     assert G._precond_key(p1) != G._precond_key(
         resolve_preconditioner("jacobi", B))
+
+
+# ---------------------------------------------------------------------------
+# MGS's conditional second pass: solver.graphs.device_if and the fired slots
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pred", [True, False])
+def test_device_if_writes_only_where_pred_holds(pred):
+    """Outside a capture (the CPU, a capture's warm-up) the block runs and
+    ``put`` keeps ``dst``'s own bits where ``pred`` is false, non-finite
+    values included; where it is true ``dst`` takes the value's bits."""
+    from repro_torch.solver.graphs import device_if
+
+    dst = torch.tensor([1.0, float("inf"), -0.0, float("nan")],
+                       dtype=torch.float64)
+    keep = dst.clone()
+    value = torch.tensor([float("nan"), 2.0, 0.0, -3.5], dtype=torch.float64)
+    scalar = torch.tensor(5.0, dtype=torch.float64)
+    ran = []
+    with device_if(torch.tensor(pred)) as put:
+        ran.append(True)
+        put(dst, value)
+        put(scalar, scalar * 2)
+    assert ran == [True]
+    want = value if pred else keep
+    assert torch.equal(dst.view(torch.int64), want.view(torch.int64))
+    assert float(scalar) == (10.0 if pred else 5.0)
+
+
+def test_device_if_takes_a_0d_bool_only():
+    from repro_torch.solver.graphs import device_if
+
+    for bad in (torch.tensor(1.0), torch.tensor([True])):
+        with pytest.raises(ValueError, match="0-d bool"):
+            with device_if(bad):
+                pass
+
+
+def _row_bytes(storage, n, m):
+    from repro_torch.core.accessor import BasisAccessor, format_by_name
+
+    acc = BasisAccessor(fmt=format_by_name(storage), m=m + 1, n=n,
+                        arith_dtype=torch.float64, device="cpu")
+    return acc.nbytes() / acc.m
+
+
+@pytest.mark.parametrize("eta", [0.3, 1 / math.sqrt(2)])
+@pytest.mark.parametrize("storage", ["float64", "frsz2_32"])
+def test_fired_slots_equal_the_host_drivers_steps(storage, eta):
+    """On a fixed trajectory (``target_rrn=0``: every step live, k full
+    cycles) the device cycle's ``fired`` slots equal the steps where the
+    host driver's MGS re-orthogonalized; at eta 0.3 some steps fire and
+    some do not."""
+    A, _ = make_problem("synth:atmosmod", 512, device="cpu")
+    b, _ = rhs_for(A, device="cpu")
+    m, k = 20, 2
+    kw = dict(storage=storage, m=m, max_iters=k * m, target_rrn=0.0, eta=eta)
+    rd = gmres(A, b, driver="device", **kw)
+    rh = gmres(A, b, driver="host", **kw)
+    assert rd.fired.shape == (k, m) and rd.fired.dtype == bool
+    np.testing.assert_array_equal(rd.fired, rh.fired)
+    if eta == 0.3:
+        assert 0 < rd.fired.sum() < k * m
+    extra = sum(j + 1 for c in range(k) for j in range(m) if rd.fired[c, j])
+    want = (k * G._cycle_row_reads(m, 1, 0) + extra) * _row_bytes(
+        storage, b.shape[0], m)
+    assert rd.bytes_read == rh.bytes_read == want
+    assert torch.equal(rd.x, rh.x)
+
+
+@pytest.mark.parametrize("storage", ["float64", "frsz2_32"])
+def test_mgs_fires_never_at_eta_0_and_always_at_eta_1_5(storage):
+    """One trajectory, two extremes: ``||w_orth|| < 0 * ||w||`` never
+    holds, ``< 1.5 ||w||`` always does.  ``bytes_read`` counts one sweep a
+    step, plus every step's rows at eta 1.5; the JAX device driver's
+    agrees."""
+    A, At, b, _ = _problem(n=512)
+    m, k = 12, 2
+    rows = _row_bytes(storage, b.shape[0], m)
+    for eta, fired in ((0.0, False), (1.5, True)):
+        kw = dict(storage=storage, m=m, max_iters=k * m, target_rrn=0.0,
+                  eta=eta)
+        rd = gmres(At, torch.from_numpy(b), driver="device", **kw)
+        rh = gmres(At, torch.from_numpy(b), driver="host", **kw)
+        rj = jgmres(A, jnp.asarray(b), driver="device", **kw)
+        assert (rd.fired == fired).all() and (rh.fired == fired).all()
+        extra = k * m * (m + 1) // 2 if fired else 0
+        want = (k * G._cycle_row_reads(m, 1, 0) + extra) * rows
+        assert rd.bytes_read == rh.bytes_read == float(rj.bytes_read) == want
+        assert rd.op_reads == rh.op_reads == float(rj.op_reads)
+        assert rd.iterations == rh.iterations == int(rj.iterations) == k * m
+        assert torch.equal(rd.x, rh.x)

@@ -11,7 +11,9 @@ module's first test asks for them:
   builds and runs, and its argument bytes on a rank are the sum of its
   local shards;
 * ``probes``: the probe-extrapolated FLOPs of the dense, MoE and SSM
-  families at 4 layers equal their full-depth counts exactly.
+  families at 4 layers equal their full-depth counts exactly;
+* ``remat``: the reference ladder's last rung (internlm2-20b x train_4k on
+  64x4, ``remat_policy="dots"``) at one layer, beside full remat.
 
 The constrain call sites and the local regions (``dist.act_sharding``) are
 identities outside a policy: serving and training give the same bits with
@@ -29,7 +31,7 @@ from repro_torch.configs import ARCHS, get_arch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-WORLDS = ("hand", "flat", "pod", "probes")
+WORLDS = ("hand", "flat", "pod", "probes", "remat")
 #: seconds a world may take (each takes ~5-50 s alone on an 8-core host)
 WORLD_S = 420
 KINDS = ("train", "prefill", "decode")
@@ -157,3 +159,16 @@ def test_sites_change_no_bit_outside_a_policy(arch, monkeypatch):
     assert len(with_sites) == len(plain)
     for a, b in zip(with_sites, plain):
         assert torch.equal(a, b)
+
+
+def test_dots_remat_rung_keeps_more_and_recomputes_less(worlds):
+    """The ladder's "dots_remat_64x4" rung on meta DTensors: selective
+    checkpointing runs there, its counted peak a device is at or above
+    full remat's (it keeps the products) and its FLOPs at or below (it
+    recomputes none of them)."""
+    r = _world(worlds, "remat")
+    full, dots = r["full"], r["dots"]
+    assert full["status"] == dots["status"] == "ok"
+    assert full["microbatch"] == dots["microbatch"]
+    assert dots["temp"] >= full["temp"]
+    assert 0 < dots["flops"] < full["flops"]

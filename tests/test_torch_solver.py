@@ -146,3 +146,43 @@ def test_unported_options_raise_naming_the_roadmap():
         gmres(At, bt, reorder="sideways")
     with pytest.raises(ValueError):
         gmres(At, bt, driver="warp")
+
+
+MGS_ROUTES = [(route, fmt, eta) for route in ("scalar", "vmap", "block")
+              for fmt in ("float64", "frsz2_32")
+              for eta in (0.3, 0.7071067811865475)]
+
+
+@pytest.mark.parametrize("route,fmt,eta", MGS_ROUTES,
+                         ids=[f"{r}-{f}-eta{e:.2f}" for r, f, e in MGS_ROUTES])
+def test_mgs_device_results_match_jax(route, fmt, eta):
+    """MGS on the port's device driver (its second pass under
+    ``graphs.device_if``) against the JAX device driver's ``lax.cond``,
+    for one right-hand side, a vmapped batch and a block: at eta 0.3 some
+    steps fire and some do not (``tests/test_torch_driver.py``), at the
+    default nearly all do.  The module's tolerances; every solve
+    converges."""
+    A, At, b, target = _problem("synth:atmosmod")
+    kw = dict(storage=fmt, m=20, target_rrn=target, eta=eta,
+              driver="device")
+    if route == "scalar":
+        ours = [gmres(At, torch.from_numpy(b), **kw)]
+        theirs = [jgmres(A, jnp.asarray(b), **kw)]
+    else:
+        from repro.solver import gmres_batched as jgmres_batched
+
+        rng = np.random.default_rng(5)
+        B = np.stack([b, rng.standard_normal(b.shape[0])
+                      * np.linalg.norm(b) / np.sqrt(b.shape[0])])
+        ours = gmres_batched(At, torch.from_numpy(B), method=route, **kw)
+        theirs = jgmres_batched(A, jnp.asarray(B), method=route, **kw)
+    for rt, rj in zip(ours, theirs, strict=True):
+        assert rt.converged and bool(rj.converged)
+        assert abs(rt.iterations - rj.iterations) <= 1
+        if rt.iterations == rj.iterations:
+            assert rt.restarts == rj.restarts
+            assert rt.bytes_read == float(rj.bytes_read)
+            assert rt.op_reads == float(rj.op_reads)
+            xj = np.asarray(rj.x)
+            assert (np.linalg.norm(rt.x.numpy() - xj)
+                    <= 1e-9 * np.linalg.norm(xj))

@@ -21,6 +21,7 @@ Tolerances:
 """
 import dataclasses
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -64,43 +65,60 @@ def _aux(cfg, rng, batch):
             .astype(np.float32)}
 
 
+def _family(arch):
+    """The reduced configs (reference, port), the reference's weights and
+    one batch of the family."""
+    cj, ct = jget(arch).reduced(), get_arch(arch).reduced()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cj.vocab_size, (B, S + 1))
+             .astype(np.int32), **_aux(cj, rng, B)}
+    with jax.enable_x64(False):
+        pj = jinit(cj, jax.random.PRNGKey(0))
+    return cj, ct, pj, batch
+
+
+def _jax_loss_and_grads(pj, cj, batch):
+    with jax.enable_x64(False):
+        lj, gj = jax.jit(jax.value_and_grad(
+            lambda p, b: jloss(p, cj, b, vocab_chunk=VOCAB_CHUNK)))(
+                pj, jax.tree.map(jnp.asarray, batch))
+        return float(lj), jax.tree.map(np.asarray, gj)
+
+
+def _port_loss_and_grads(pt, ct, tb):
+    # ``value_and_grad``'s steps, with the loss's chunk set
+    live = tree_map(lambda p: p.detach().requires_grad_(), pt)
+    lt = lm.loss_fn(live, ct, tb, vocab_chunk=VOCAB_CHUNK)
+    leaves = tree_leaves(live)
+    gs = dict(zip(map(id, leaves), torch.autograd.grad(lt, leaves)))
+    return float(lt.detach()), params_to_numpy(
+        tree_map(lambda p: gs[id(p)], live))
+
+
 @pytest.fixture(scope="module")
 def grads():
-    """Per family: the reference's weights, loss and gradients (remat on
-    and off), and the port's, on one batch."""
+    """Per family and remat setting (on, off, and on under ``"dots"``):
+    the reference's loss and gradients, and the port's, from the
+    reference's weights on one batch."""
     out = {}
 
-    def get(arch):
-        if arch in out:
-            return out[arch]
-        cj, ct = jget(arch).reduced(), get_arch(arch).reduced()
-        rng = np.random.default_rng(0)
-        batch = {"tokens": rng.integers(0, cj.vocab_size, (B, S + 1))
-                 .astype(np.int32), **_aux(cj, rng, B)}
-        with jax.enable_x64(False):
-            pj = jinit(cj, jax.random.PRNGKey(0))
-            ref = {}
-            for remat in (True, False):
-                c = dataclasses.replace(cj, remat=remat)
-                lj, gj = jax.jit(jax.value_and_grad(
-                    lambda p, b, c=c: jloss(p, c, b,
-                                            vocab_chunk=VOCAB_CHUNK)))(
-                        pj, jax.tree.map(jnp.asarray, batch))
-                ref[remat] = (float(lj), jax.tree.map(np.asarray, gj))
+    def get(arch, settings=(True, False)):
+        key = (arch, settings)
+        if key in out:
+            return out[key]
+        cj, ct, pj, batch = _family(arch)
         pt = params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
         tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-        port = {}
-        for remat in (True, False):
-            # ``value_and_grad``'s steps, with the loss's chunk set
-            live = tree_map(lambda p: p.detach().requires_grad_(), pt)
-            lt = lm.loss_fn(live, dataclasses.replace(ct, remat=remat), tb,
-                            vocab_chunk=VOCAB_CHUNK)
-            leaves = tree_leaves(live)
-            gs = dict(zip(map(id, leaves), torch.autograd.grad(lt, leaves)))
-            port[remat] = (float(lt.detach()), params_to_numpy(
-                tree_map(lambda p: gs[id(p)], live)))
-        out[arch] = (ref, port)
-        return out[arch]
+        ref, port = {}, {}
+        for remat in settings:
+            over = (dict(remat=True, remat_policy="dots") if remat == "dots"
+                    else dict(remat=remat))
+            ref[remat] = _jax_loss_and_grads(
+                pj, dataclasses.replace(cj, **over), batch)
+            port[remat] = _port_loss_and_grads(
+                pt, dataclasses.replace(ct, **over), tb)
+        out[key] = (ref, port)
+        return out[key]
 
     return get
 
@@ -127,6 +145,151 @@ def test_remat_repeats_the_forward_bits(grads, arch):
     for a, b in zip(jax.tree.leaves(port[True][1]),
                     jax.tree.leaves(port[False][1])):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dots_remat_loss_and_grads_match_jax(grads, arch):
+    """``remat_policy="dots"`` on both sides: the reference checkpoints with
+    ``dots_with_no_batch_dims_saveable``, the port with
+    ``layers.dots_saveable``; the same tolerances as full remat."""
+    ref, port = grads(arch, ("dots",))
+    lj, gj = ref["dots"]
+    lt, gt = port["dots"]
+    assert abs(lt - lj) <= 1e-5 * abs(lj), (lt, lj)
+    flat_j = jax.tree_util.tree_flatten_with_path(gj)[0]
+    flat_t = jax.tree.leaves(gt)
+    assert len(flat_j) == len(flat_t)
+    for (path, a), b in zip(flat_j, flat_t):
+        assert a.shape == b.shape, path
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max(), path
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dots_remat_repeats_the_forward_bits(grads, arch):
+    """A kept product is the forward's own output and a recomputed one
+    repeats the forward's bits: "dots" gives no remat's loss and
+    gradients bit for bit."""
+    _, plain = grads(arch)
+    _, dots = grads(arch, ("dots",))
+    assert dots["dots"][0] == plain[False][0]
+    for a, b in zip(jax.tree.leaves(dots["dots"][1]),
+                    jax.tree.leaves(plain[False][1])):
+        assert np.array_equal(a, b)
+
+
+def _jax_saved_products(cj, pj, x):
+    """The non-argument residuals ``jax.ad_checkpoint.print_saved_residuals``
+    reports for one layer of the reference's stack under ``"dots"``, as
+    (dtype, size, last dim)."""
+    import contextlib
+    import io
+    import re
+
+    import jax.ad_checkpoint
+
+    from repro.models import lm as jlm
+
+    pos = jnp.arange(x.shape[1])
+    body = (jlm._moe_body if cj.family == "moe" else jlm._dense_body)(
+        cj, pos, cj.window)
+    f = jax.checkpoint(
+        body, policy=jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+    lp = jax.tree.map(lambda a: a[0], pj["layers"])
+    buf = io.StringIO()
+    with jax.enable_x64(False), contextlib.redirect_stdout(buf):
+        jax.ad_checkpoint.print_saved_residuals(f, jnp.asarray(x), lp)
+    out = []
+    for line in buf.getvalue().splitlines():
+        if "from the argument" in line or "from a constant" in line:
+            continue
+        dt, dims = re.match(r"(\w+)\[([\d,]*)\]", line).groups()
+        shape = [int(d) for d in dims.split(",") if d]
+        out.append((dt, math.prod(shape), shape[-1]))
+    return out
+
+
+def _port_saved(monkeypatch, ct, pt, x, policy):
+    """One layer of the port's stack under ``remat_policy=policy`` (or
+    none): the outputs ``layers.dots_saveable`` keeps, in forward order,
+    as (dtype, size, last dim), and the bytes that autograd saves outside
+    the remat regions apart from the layer's arguments (read through
+    ``torch.autograd.graph.saved_tensors_hooks``) plus the kept outputs."""
+    from repro_torch.models import layers
+
+    kept = []
+    orig = layers.dots_saveable
+
+    def recording(ctx, op, *args, **kwargs):
+        got = orig(ctx, op, *args, **kwargs)
+        if got.name == "MUST_SAVE" and not ctx.is_recompute:
+            o = ctx.op_output
+            kept.append((str(o.dtype).replace("torch.", "")
+                         .replace("float32", "f32"), o.numel(), o.shape[-1],
+                         o.numel() * o.element_size()))
+        return got
+
+    monkeypatch.setattr(layers, "dots_saveable", recording)
+    lp = lm._layer(pt["layers"], 0)
+    args = {t.untyped_storage().data_ptr()
+            for t in tree_leaves(lp) + [x]}
+    saved = {}
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in args:
+            saved[ptr] = t.untyped_storage().nbytes()
+        return t
+
+    cfg = (dataclasses.replace(ct, remat=False) if policy is None else
+           dataclasses.replace(ct, remat=True, remat_policy=policy))
+    pos = torch.arange(x.shape[1])
+
+    def body(h):
+        h = layers.attention_block(h, lp["attn"], cfg, positions=pos,
+                                   window=cfg.window)
+        return lm._ffn(h, lp, cfg)
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out, aux = layers.remat(cfg, body, x)
+    (out.square().sum() + (0 if aux is None else aux)).backward()
+    return kept, sum(saved.values()) + sum(k[3] for k in kept)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "mixtral-8x22b"])
+def test_dots_saves_the_products_the_reference_saves(monkeypatch, arch):
+    """The products kept under ``"dots"`` for one layer: the reference's
+    non-argument residuals (the q/k/v and output projections, the gate and
+    up projections or the router), by dtype and size.  One more in the
+    dense layer: the MLP's down projection, the region's last product,
+    whose output only the residual add reads.  torch's selective
+    checkpoint decides at the op, before any later op reads the output;
+    JAX keeps only what the backward reads."""
+    cj, ct, pj, _ = _family(arch)
+    x = (np.random.default_rng(1).standard_normal((B, S, cj.d_model))
+         * 0.1).astype(np.float32)
+    want = _jax_saved_products(cj, pj, x)
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    kept, _ = _port_saved(monkeypatch, ct, pt, xt, "dots")
+    got = [k[:3] for k in kept]
+    if cj.family == "dense":
+        assert got[-1] == ("f32", B * S * cj.d_model, cj.d_model)
+        got = got[:-1]
+    assert sorted(got) == sorted(want) and len(want) >= 5
+
+
+def test_saved_bytes_full_below_dots_below_no_remat(monkeypatch):
+    """One dense layer's saved activations: full remat keeps none, "dots"
+    the products, no remat every saved tensor."""
+    cj, ct, pj, _ = _family("yi-9b")
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+    x = (np.random.default_rng(1).standard_normal((B, S, cj.d_model))
+         * 0.1).astype(np.float32)
+    got = {}
+    for policy in ("full", "dots", None):
+        xt = torch.from_numpy(x).requires_grad_()
+        got[policy] = _port_saved(monkeypatch, ct, pt, xt, policy)[1]
+    assert got["full"] < got["dots"] < got[None], got
 
 
 def test_layers_unbinds_each_stack_once():
