@@ -116,7 +116,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions and kernel 5 on the halo-localized ELL of the chunk (x with
    its zero halos) bit-equal to its plain version, timed beside their byte
    bounds; then the sharded block solve (p = 8, frsz2_32, plain) against
-   phase 7's unsharded one.  With more than one card the same solves
+   phase 7's unsharded one.  Slice 10: the peer reduction (MGS's
+   second-pass reductions inside the IF node) at one rank, bit-equal to
+   its plain version (NCCL's all-gather, the decode, the sum in rank
+   order) at the scalar body's 101 f64, plain and coded, and the block
+   body's 101 x 8 x 8 f64, timed beside NCCL's all-reduce; then the
+   frsz2_32 plain MGS solve at eta 0.3, where the pass fires at some steps
+   only, unsharded and sharded (capture, then the replay under the census,
+   the launch counts set to 0 just before and read just after): the route
+   ``if+peer_gather``, the unsharded iterations, one replayed cycle
+   launching kernels 3 and 4 m + fired times and the peer gather twice a
+   fired step, bit-equal to the same cycle run eagerly, the census of the
+   cycles' reductions equal to ``cycle_wire_bytes`` with the fired steps,
+   the IF bodies holding peer reductions only; the frsz2_32 solve at the
+   default eta on the IF route against the select route (route, select,
+   select, route; one replayed cycle of each profiled); the gate's MGS
+   census at eta 0.3.  With more than one card the same solves
    (and a frsz2_32 coded solve on the plan's own matvec, block3d at P = 4)
    run again on ``device_count()`` spawned NCCL ranks (one a card), each
    captured and replayed with equal bits, converged; plain within an
@@ -125,10 +140,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    coded halo strips are lossier than its basis (the reference takes the
    same extra iterations: ``tests/test_torch_sharded.py::
    test_coded_halo_costs_float64_iterations_as_in_the_reference``); the
-   block solve's columns within an iteration of phase 7's.  Their modelled
-   wire bytes and every rank's timeline (start, problem, each plan,
-   capture and replay, teardown) are printed; one card skips that by
-   count.
+   block solve's columns within an iteration of phase 7's; slice 10's
+   eta 0.3 MGS solve, held as at one rank (iterations within one of the
+   unsharded solve's), with the gate's MGS census and the reads audit of
+   the fixed trajectory at that eta over every rank, the peer reduction's
+   times and the two routes over the cards.  Their modelled wire bytes and every rank's
+   timeline (start, problem, each plan, capture and replay, teardown) are
+   printed; one card skips that by count.
 
 8. decode attention (slice 4's kernel) at the ``decode_32k`` length with
    yi-9b's heads — B = 8, Hkv = 4, G = 8, D = 128, S = 32768, lengths from
@@ -314,11 +332,16 @@ relative, step walls, peak memory); in 15, the MGS reads audits.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
+
+On a machine with more cards, ``--multi-card`` runs phase 7c's
+multi-card run after the phases (5, 7, 7c) that make the unsharded solves
+it is held to, and nothing else.
 The sharded path's entries (``frsz2_compress_wire``, ...) carry
 ``kernel`` (the counter they read) and ``path: "sharded"``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -371,9 +394,17 @@ P_BLOCK = 8                # right-hand sides of the block solves
 #: slice 6's path on one rank: the basis written and read back through the
 #: codec (the sharded matvec exchanges decoded rows, so no coded-operand
 #: ELL), the wire codec of the coded reductions and halo strips, the local
-#: contractions and the ELL on localized columns, the Givens step
+#: contractions and the ELL on localized columns, the Givens step; slice
+#: 10: MGS's second pass in the IF node, its reductions over the peer
+#: gather
 SHARDED_PATH = ("frsz2_compress", "frsz2_decompress", "frsz2_matvec",
-                "frsz2_rmatvec", "ell_spmv", "gmres_givens", "graph_if")
+                "frsz2_rmatvec", "ell_spmv", "gmres_givens", "graph_if",
+                "peer_gather")
+#: slice 10: the eta of the MGS solves whose fired pattern is mixed (at
+#: the default eta the pass fires at nearly every step)
+MIXED_ETA = 0.3
+#: NVLink on an H100 SXM: 900 GB/s to the other cards, 450 GB/s each way
+NVLINK_BYTES_PER_S = 450e9
 TRANSPORTS = ("plain", "compressed", "compressed+norms")
 
 #: phase 7b: operator planning on the paper's atmosmodd row count
@@ -2221,7 +2252,305 @@ def _sharded_kernels(A):
         library="torch.sparse_csr_tensor @ x (the whole operator, one rank)")
     print(f"[sharded] kernel 5 on the halo-localized ELL ({nr} x {w}, "
           f"x_ext {x_ext.numel()}): bit-equal to plain and to the matvec")
+    t = _peer_gather_times(P)
+    sc = t["scalar"]
+    entries["peer_gather"] = entry(
+        "peer_gather", "src/repro_torch/kernels/csrc/peer_gather.cu",
+        "src/repro/solver/pipeline.py:118-132 (the psums inside "
+        "jax.lax.cond's branch of MGS's second pass; no Pallas kernel: a "
+        "helper, not a TPU-kernel port)",
+        sc["ms"], sc["plain_ms"], sc["moved"], 0.0, 0.0,
+        library_ms=sc["library_ms"], kernel="peer_gather", path="sharded",
+        shape=f"{sc['shape']} f64 over {P} rank(s)", helper=True,
+        library="NCCL all_reduce of the same values (collectives.psum)",
+        coded=t["coded"], block=t["block"])
     return entries
+
+
+def _peer_gather_times(P: int) -> dict:
+    """Slice 10's helper kernel on this rank of the default group of P
+    (every rank calls it together): the peer reduction
+    (``csrc/peer_gather.cu``: every rank's buffer gathered through peer
+    memory and summed in rank order) at MGS's second-pass sizes, the scalar
+    body's (m + 1) f64 dots plain and coded (``WIRE_SPEC`` codes, decoded
+    before the sum) and the block body's (m + 1) p^2 f64 plain, bit-equal
+    to its plain version (NCCL's all-gather, the decode, the sum in rank
+    order) twice (the slots' two parities); its CUDA-event time beside the
+    plain version's, NCCL's all-reduce of the same f64 values
+    (``collectives.psum``, the yardstick) and its bound: the larger of the
+    bytes over HBM (the buffer read, the sums written) and P - 1 buffers
+    over NVLink each way.  Latency rules at these sizes."""
+    import torch
+
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops, peer_gather
+    from repro_torch.solver.sharded import second_pass_bytes
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    route = peer_gather.Route(None, "cuda", second_pass_bytes(M, P_BLOCK))
+    out = {}
+    for tag, shape, coded in (("scalar", (M + 1,), False),
+                              ("coded", (M + 1,), True),
+                              ("block", (M + 1, P_BLOCK, P_BLOCK), False)):
+        x = torch.randn(shape, generator=gen, dtype=torch.float64,
+                        device="cuda")
+        src, kw = x, {}
+        if coded:
+            bc = ops.compress(x.reshape(-1).to(collectives.WIRE_SPEC.dtype),
+                              collectives.WIRE_SPEC)
+            src, kw = collectives._pack(bc), dict(coded=bc,
+                                                  out_dtype=torch.float64)
+
+        def kern(src=src, kw=kw):
+            return peer_gather.reduce(src, route, **kw)  # graphlint: ok[raw-collective] the kernel against its plain version
+
+        def plain(src=src, kw=kw):
+            return peer_gather.reduce(src, route, kernel=False, **kw)  # graphlint: ok[raw-collective] its plain version
+
+        for _ in range(2):
+            check(torch.equal(kern(), plain()),
+                  f"peer reduction of {tag} {shape} over {P} rank(s) != its "
+                  "plain version")
+        nbytes = src.numel() * src.element_size()
+        moved = nbytes + x.numel() * x.element_size()
+        hbm = moved / HBM_BYTES_PER_S * 1e3
+        link = (P - 1) * nbytes / NVLINK_BYTES_PER_S * 1e3
+        out[tag] = dict(shape=list(shape), nbytes=nbytes, moved=moved, P=P,
+                        ms=timed(kern), plain_ms=timed(plain),
+                        library_ms=timed(lambda x=x: collectives.psum(x)),
+                        bound_ms=max(hbm, link),
+                        bound_by="bytes (NVLink)" if link > hbm else "bytes")
+    if torch.distributed.get_rank() != 0:
+        return out
+    print(f"[peer_gather] over {P} rank(s): " + "; ".join(
+        f"{tag} {r['nbytes']} B: kernel {r['ms'] * 1e3:.1f} us, plain "
+        f"(NCCL all-gather + sum) {r['plain_ms'] * 1e3:.1f} us, NCCL "
+        f"all-reduce {r['library_ms'] * 1e3:.1f} us, bound "
+        f"{r['bound_ms'] * 1e3:.3f} us" for tag, r in out.items())
+        + "; bit-equal to the plain version", flush=True)
+    return out
+
+
+def _mgs_mixed(A, b, target, P: int) -> dict:
+    """Slice 10's main path: the full-width frsz2_32 MGS solve sharded over
+    the default group of P ranks (halo matvec, plain transport) at eta
+    :data:`MIXED_ETA`, where the second pass fires at some steps and not at
+    others, captured and then replayed, the replay under the census with
+    the launch counts set to 0 just before and read just after; then one
+    replayed cycle on its own inputs against the same cycle run eagerly
+    (``cardcheck.replay_against_eager``).  Every rank calls it; returns
+    its row (:func:`_check_mgs_mixed` holds it)."""
+    import torch
+
+    from repro_torch.analysis import traffic
+    from repro_torch.dist.census import Census
+    from repro_torch.dist.collectives import reduce_bytes
+    from repro_torch.kernels import cardcheck, ops
+    from repro_torch.solver import gmres
+    from repro_torch.solver.sharded import cycle_wire_bytes
+
+    kw = dict(storage="frsz2_32", m=M, max_iters=FULL_MAX_ITERS,
+              target_rrn=target, eta=MIXED_ETA, shard=P,
+              shard_transport="plain", shard_matvec="halo")
+    first = gmres(A, b, **kw)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Census() as cen:
+        res = gmres(A, b, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cyc = cardcheck.last_sharded_cycle()
+    one_fired, one, eager_equal = cardcheck.replay_against_eager(cyc)
+    fired = [int(c.sum()) for c in res.fired]
+    # the cycles' reductions as cycle_wire_bytes prices them, less the two
+    # restart norms it adds a cycle (the restart loop issues those)
+    r1 = reduce_bytes(1, compressed=False)
+    model = [cycle_wire_bytes(M, M, f, passes=1, dots_compressed=False,
+                              norms_compressed=False, inner_mv_bytes=0,
+                              residual_mv_bytes=0) for f in fired]
+    priced = traffic.price_calls(cen.calls)["cycle"]
+    return dict(
+        phase="sharded-mgs-mixed", shard=P, eta=MIXED_ETA,
+        format="frsz2_32", transport="plain", matvec="halo",
+        route=res.second_pass, iters=res.iterations, restarts=res.restarts,
+        rrn=res.rrn, converged=bool(res.converged), fired=fired,
+        replay_equal=bool(torch.equal(first.x, res.x)
+                          and first.iterations == res.iterations),
+        wall_s=wall, wall_per_iter_ms=wall * 1e3 / max(res.iterations, 1),
+        bytes_read=res.bytes_read,
+        launches={k: launches[k] for k in SHARDED_PATH},
+        one_cycle=dict(fired=one_fired, eager_equal=eager_equal,
+                       launches={k: one[k] for k in (
+                           "frsz2_matvec", "frsz2_rmatvec", "graph_if",
+                           "gmres_givens", "peer_gather")}),
+        census_cycle={k: priced.get(k, 0) for k in ("dots", "norms")},
+        model_cycle=dict(dots=sum(c["dots"] for c in model),
+                         norms=sum(c["norms"] - 2 * r1 for c in model)),
+        body_calls=sorted({c.name for body in cyc.bodies
+                           for c in body.calls}))
+
+
+@contextlib.contextmanager
+def _without_peer_access():
+    """Inside, a sharded solve takes the select route (the branch-free
+    pass, its reductions on NCCL), as on cards without peer access: the
+    capability the route is decided from (``peer_gather.reachable``)
+    answers no, and its cached answers are forgotten on both sides."""
+    import repro_torch.solver.sharded as S
+    from repro_torch.kernels import peer_gather
+
+    reachable = peer_gather.reachable
+    peer_gather.reachable = lambda group, device: False
+    S._REACHABLE.clear()
+    try:
+        yield
+    finally:
+        peer_gather.reachable = reachable
+        S._REACHABLE.clear()
+
+
+def _split_summary(split: dict) -> dict:
+    """The card's time in one replayed cycle (``cardcheck.profiled_split``)
+    by kind: NCCL's kernels, the peer kernel, the basis kernels 3 and 4,
+    the ELL, the rest; with the busy and span microseconds."""
+    kinds = dict(nccl=0.0, peer_gather=0.0, kernels_3_4=0.0, ell=0.0,
+                 other=0.0)
+    for name, us in split["kernels"].items():
+        if name.startswith("nccl"):
+            kinds["nccl"] += us
+        elif name == "peer_reduce_kernel":
+            kinds["peer_gather"] += us
+        elif name in ("matvec_rows_kernel", "matvec_finish_kernel",
+                      "rmatvec_kernel"):
+            kinds["kernels_3_4"] += us
+        elif name.startswith("ell_"):
+            kinds["ell"] += us
+        else:
+            kinds["other"] += us
+    return dict(kinds, busy_us=split["busy_us"], span_us=split["span_us"],
+                top=dict(list(split["kernels"].items())[:8]))
+
+
+def _second_pass_routes(A, b, target, P: int) -> dict:
+    """The full-width frsz2_32 MGS solve sharded over the default group of
+    P ranks at the default eta (the pass fires at nearly every step), halo
+    matvec, plain and compressed transports, on the group's route
+    (``if+peer_gather``: the IF node, its reductions on the peer kernel)
+    and on the select route (:func:`_without_peer_access`), in the order
+    route, select, select, route: each solve captured, then replayed three
+    times (walls by the host clock ending in a synchronize), then one
+    replayed cycle under the profiler (``cardcheck.profiled_split``; the
+    first of each route is printed: after a captured graph has been freed
+    the profiler may misname the kernels of an IF node's body, so the
+    split by kernel of the route's first run holds only in a process that
+    has freed none).  Every rank calls it; returns one row."""
+    import torch
+
+    from repro_torch.kernels import cardcheck
+    from repro_torch.solver import clear_graph_cache, gmres
+
+    row = dict(phase="sharded-routes", shard=P, format="frsz2_32",
+               matvec="halo")
+    for transport in ("plain", "compressed"):
+        kw = dict(storage="frsz2_32", m=M, max_iters=FULL_MAX_ITERS,
+                  target_rrn=target, shard=P, shard_transport=transport,
+                  shard_matvec="halo")
+        runs = {"peer": [], "select": []}
+        for route in ("peer", "select", "select", "peer"):
+            with (_without_peer_access() if route == "select"
+                  else contextlib.nullcontext()):
+                gmres(A, b, **kw)
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = gmres(A, b, **kw)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                cyc = cardcheck.last_sharded_cycle()
+                r, beta, bn = (cyc.r.clone(), cyc.beta.clone(),
+                               cyc.b_norm.clone())
+                split = cardcheck.profiled_split(lambda: cyc(r, beta, bn))
+            runs[route].append(dict(
+                route=res.second_pass, iters=res.iterations,
+                converged=bool(res.converged),
+                fired=res.fired.sum(1).tolist(), walls=walls,
+                ms_per_iter=min(walls) * 1e3 / max(res.iterations, 1),
+                cycle=_split_summary(split)))
+            clear_graph_cache()
+        row[transport] = runs
+    return row
+
+
+def _check_routes(row) -> None:
+    """The checks of a :func:`_second_pass_routes` row, and its print."""
+    P = row["shard"]
+    for transport in ("plain", "compressed"):
+        runs = row[transport]
+        what = f"frsz2_32 {transport} MGS over {P} rank(s)"
+        check(all(r["route"] == "if+peer_gather" for r in runs["peer"])
+              and all(r["route"] == "select" for r in runs["select"]),
+              f"{what}: routes {[r['route'] for v in runs.values() for r in v]}")
+        check(all(r["converged"] for v in runs.values() for r in v),
+              f"{what}: a solve did not converge")
+        # the plain norm sums in another order on each route: within one
+        its = [r["iters"] for v in runs.values() for r in v]
+        check(max(its) - min(its) <= 1, f"{what}: iterations {its}")
+        med = {k: statistics.median(r["ms_per_iter"] for r in v)
+               for k, v in runs.items()}
+        cyc = {k: v[0]["cycle"] for k, v in runs.items()}
+        print(f"[sharded] {what}, default eta (fired {runs['peer'][0]['fired']}"
+              f"): ms/it IF+peer {med['peer']:.4f}, select {med['select']:.4f}"
+              f" ({[round(r['ms_per_iter'], 4) for v in runs.values() for r in v]}"
+              "); one replayed cycle on the card (us): " + "; ".join(
+                  f"{k}: busy {c['busy_us']:.0f} of {c['span_us']:.0f}, nccl "
+                  f"{c['nccl']:.0f}, peer {c['peer_gather']:.0f}, kernels 3/4 "
+                  f"{c['kernels_3_4']:.0f}, ell {c['ell']:.0f}, other "
+                  f"{c['other']:.0f}" for k, c in cyc.items()), flush=True)
+
+
+def _check_mgs_mixed(row, unsharded_iters, tol: int) -> None:
+    """The checks of a :func:`_mgs_mixed` row: the IF node with the peer
+    gather; converged, the replay equal to the capture and one replayed
+    cycle to the same cycle run eagerly; the fired pattern mixed; kernels
+    3 and 4 m + fired times in that cycle, the IF condition m times, the
+    peer gather twice a fired step (the dots and the norm); the census of
+    the cycles' reductions equal to ``cycle_wire_bytes`` with each cycle's
+    fired steps; only peer gathers in the IF bodies; iterations within
+    ``tol`` of the unsharded solve's."""
+    what = f"MGS at eta {row['eta']} over {row['shard']} rank(s)"
+    check(row["route"] == "if+peer_gather",
+          f"{what}: second pass route {row['route']}")
+    check(row["converged"] and row["replay_equal"],
+          f"{what}: not converged or the replay differs")
+    one = row["one_cycle"]
+    f = one["fired"]
+    check(one["eager_equal"], f"{what}: a replayed cycle differs from the "
+                              "same cycle run eagerly")
+    check(0 < sum(row["fired"]) < M * len(row["fired"]),
+          f"{what}: the fired pattern {row['fired']} is not mixed")
+    want = dict(frsz2_matvec=M + f, frsz2_rmatvec=M + f, graph_if=M,
+                gmres_givens=M, peer_gather=2 * f)
+    check(one["launches"] == want, f"{what}: one replayed cycle launched "
+                                   f"{one['launches']}, expected {want}")
+    check(row["census_cycle"] == row["model_cycle"],
+          f"{what}: the census of the cycles' reductions "
+          f"{row['census_cycle']} != cycle_wire_bytes {row['model_cycle']}")
+    check(row["body_calls"] == ["peer_gather"],
+          f"{what}: the IF bodies hold {row['body_calls']}")
+    check(abs(row["iters"] - unsharded_iters) <= tol,
+          f"{what}: {row['iters']} it vs unsharded {unsharded_iters}")
+    print(f"[sharded] {what}: route {row['route']}, {row['iters']} it "
+          f"(unsharded {unsharded_iters}), fired {row['fired']} of "
+          f"{M} a cycle; one replayed cycle ({f} fired): kernels 3/4 "
+          f"{one['launches']['frsz2_rmatvec']}, peer gathers "
+          f"{one['launches']['peer_gather']}, IF conditions "
+          f"{one['launches']['graph_if']}, bit-equal to the eager cycle; "
+          f"census dots {row['census_cycle']['dots']} B, norms "
+          f"{row['census_cycle']['norms']} B = cycle_wire_bytes; wall "
+          f"{row['wall_per_iter_ms']:.4f} ms/it")
 
 
 def phase_sharded(A, target, unsharded, block_unsharded):
@@ -2321,32 +2650,56 @@ def phase_sharded(A, target, unsharded, block_unsharded):
           f"{r2['iters']} (unsharded {ru['iters']}), X relative "
           f"{x_rel:.3e}; walls capture {r1['wall_s']:.4f} s, replay "
           f"{r2['wall_s']:.4f} s (unsharded replay {ru['wall_s']:.4f} s)")
+    release()
+    # slice 10: MGS at a mixed fired pattern, unsharded and on this rank
+    from repro_torch.solver import gmres
+
+    mixed = gmres(A, b, storage="frsz2_32", m=M, max_iters=FULL_MAX_ITERS,
+                  target_rrn=target, eta=MIXED_ETA)
+    mixed_ref = dict(iters=mixed.iterations,
+                     fired=mixed.fired.sum(1).tolist())
+    row = _mgs_mixed(A, b, target, dist.get_world_size())
+    row["unsharded_iters"], row["unsharded_fired"] = (mixed_ref["iters"],
+                                                      mixed_ref["fired"])
+    emit(row)
+    _check_mgs_mixed(row, mixed_ref["iters"], 0)
+    entries["peer_gather"]["mixed_eta_launches"] = row["launches"][
+        "peer_gather"]
+    release()
+    routes = _second_pass_routes(A, b, target, dist.get_world_size())
+    emit(routes)
+    _check_routes(routes)
     _sharded_mgs_census()
-    return entries, launches
+    return entries, launches, mixed_ref
 
 
 def _sharded_mgs_census():
     """Slice 9: the census of a warmed MGS sharded solve on this NCCL rank
-    (the gate's rows-mode solve: atmosmod n 256, m 8, 2 full cycles): the
-    replays put the second pass's all-reduces on the wire only at the
-    fired steps, and the recorded bytes equal ``cycle_wire_bytes`` with
-    them."""
+    (the gate's rows-mode solve: atmosmod n 256, m 8, 2 full cycles), at
+    eta :data:`MIXED_ETA` (slice 10): the replays put the second pass's
+    reductions, over the peer gather, on the wire only at the fired steps,
+    and the recorded bytes equal ``cycle_wire_bytes`` with them; the IF
+    bodies hold no NCCL call."""
     from repro_torch.analysis import traffic
 
     info = {}
     t0 = time.perf_counter()
-    findings = traffic.census_world(0, "cuda", info=info, ortho="mgs")
+    findings = traffic.census_world(0, "cuda", info=info, ortho="mgs",
+                                    eta=MIXED_ETA)
     row = info["census[rows, mgs]"]
     emit(dict(phase="sharded-mgs-census", wall_s=time.perf_counter() - t0,
               findings=[f.render() for f in findings], fired=row["fired"],
               priced=row["priced"], model=row["model"], calls=row["calls"]))
     check(not findings, "the MGS census: "
           + "; ".join(f.render() for f in findings))
+    check(0 < sum(row["fired"]) < 16,
+          f"the MGS census: fired {row['fired']}, not a mixed pattern")
     cyc = row["priced"]["cycle"]
     print(f"[sharded] MGS census on one NCCL rank (n 256, m 8, 2 cycles, "
-          f"fired steps {row['fired']}): cycle dots {cyc['dots']} B, norms "
-          f"{cyc['norms']} B, equal to cycle_wire_bytes; {row['calls']} "
-          "calls a solve")
+          f"eta {MIXED_ETA}, fired steps {row['fired']}): cycle dots "
+          f"{cyc['dots']} B, norms {cyc['norms']} B, equal to "
+          f"cycle_wire_bytes; {row['calls']} calls a solve, "
+          f"{row['names'].get('peer_gather', 0)} of them peer gathers")
 
 
 def _plan_sharded_solve(A, target, rcm_iters):
@@ -2388,12 +2741,16 @@ def _sharded_rank(rank, dev, target, ref, block_ref):
     """One rank of the multi-card run at P = ``device_count()``: phase
     7c's full-width atmosmodd solves (halo, every transport, frsz2_32 and
     float64; the frsz2_32 coded solve also on the plan's own matvec; the
-    p = 8 block solve), each captured and then replayed.  Rank 0 returns
-    the rows, with the modelled wire bytes a cycle, and every rank's
+    p = 8 block solve), each captured and then replayed; then slice 10's
+    MGS solve at eta :data:`MIXED_ETA` (:func:`_mgs_mixed`), the gate's
+    MGS census and the reads audit of the fixed trajectory at that eta
+    over every rank, and the peer gather's times at P.  Rank 0 returns the
+    rows, with the modelled wire bytes a cycle, and every rank's
     timeline: seconds from its start to the end of each step."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.analysis import traffic
     from repro_torch.dist.collectives import gather_objects
     from repro_torch.launch.solve import _batch_rhs
     from repro_torch.solver import clear_graph_cache, gmres, gmres_batched
@@ -2433,6 +2790,10 @@ def _sharded_rank(rank, dev, target, ref, block_ref):
     mark("problem")
     rows = []
     try:
+        # first: the profiler names the kernels of an IF node's body
+        # reliably only before this process has freed a captured graph
+        rows.append(_second_pass_routes(A, b, target, P))
+        mark("second-pass routes")
         for fmt in ("frsz2_32", "float64"):
             cases = [("halo", t) for t in TRANSPORTS]
             if fmt == "frsz2_32":
@@ -2476,6 +2837,26 @@ def _sharded_rank(rank, dev, target, ref, block_ref):
                          converged=all(r.converged for r in rb),
                          replay_equal=same, capture_s=capture_s,
                          wall_s=wall))
+        del rb
+        clear_graph_cache()
+        row = _mgs_mixed(A, b, target, P)
+        row.update(unsharded_iters=ref["mgs_mixed"]["iters"],
+                   unsharded_fired=ref["mgs_mixed"]["fired"])
+        mark("mgs mixed")
+        clear_graph_cache()
+        info = {}
+        row["census"] = [f.render() for f in traffic.census_world(
+            rank, dev, info=info, ortho="mgs", eta=MIXED_ETA)]
+        row["census_info"] = info["census[rows, mgs]"]
+        row["reads"] = [f.render() for f in traffic.audit_reads(
+            A, b, storage="frsz2_32", m=M, k=2, info=info, ortho="mgs",
+            eta=MIXED_ETA, shard=P)]
+        row["reads_info"] = info[f"reads[frsz2_32, mgs, shard={P}]"]
+        mark("mgs census and reads")
+        clear_graph_cache()
+        row["peer_gather"] = _peer_gather_times(P)
+        mark("peer gather times")
+        rows.append(row)
     finally:
         clear_graph_cache()
         mark("end")
@@ -2483,11 +2864,12 @@ def _sharded_rank(rank, dev, target, ref, block_ref):
     return dict(rows=rows, timelines=timelines) if rank == 0 else None
 
 
-def phase_sharded_multi(target, unsharded, block_unsharded):
+def phase_sharded_multi(target, unsharded, block_unsharded, mixed_ref):
     """With more than one card: :func:`_sharded_rank` on one spawned NCCL
-    rank a card, held against phase 5's and phase 7's unsharded solves
-    (``unsharded``, ``block_unsharded``); prints the rows and where the
-    world's time went."""
+    rank a card, held against phase 5's, phase 7's and phase 7c's
+    unsharded solves (``unsharded``, ``block_unsharded``, ``mixed_ref``:
+    MGS at eta :data:`MIXED_ETA`); prints the rows and where the world's
+    time went."""
     import torch
 
     from repro_torch.dist import spawn
@@ -2499,15 +2881,35 @@ def phase_sharded_multi(target, unsharded, block_unsharded):
     ref = {fmt: dict(iters=rd["iters"], wall_per_iter_ms=rd[
         "wall_per_iter_ms"], x=d.x.cpu().numpy())
         for fmt, (d, rd) in unsharded.items()}
+    ref["mgs_mixed"] = mixed_ref
     t0 = time.time()
     out = spawn(_sharded_rank, P, target, ref, block_unsharded[1]["iters"],
                 device="cuda", timeout_s=MULTI_DEADLINE_S)
     total = time.time() - t0
     rows, timelines = out["rows"], out["timelines"]
     plain = {r["format"]: r["iters"] for r in rows
-             if r.get("transport") == "plain" and r.get("matvec") == "halo"}
+             if r["phase"] == "sharded-multi" and r["transport"] == "plain"
+             and r["matvec"] == "halo"}
     for row in rows:
         emit(row)
+        if row["phase"] == "sharded-routes":
+            _check_routes(row)
+            continue
+        if row["phase"] == "sharded-mgs-mixed":
+            # NCCL sums the first pass in another order: within an
+            # iteration, as the plain solves above
+            _check_mgs_mixed(row, row["unsharded_iters"], 1)
+            check(not row["census"] and not row["reads"],
+                  f"MGS over {P}: census {row['census']}, reads "
+                  f"{row['reads']}")
+            ci = row["census_info"]
+            print(f"[sharded] MGS census over {P} ranks (n 256, m 8, eta "
+                  f"{MIXED_ETA}): fired {ci['fired']}, priced "
+                  f"{ci['priced']['cycle']} = the model; reads audit over "
+                  f"{P} ranks (m {M}, 2 cycles): fired "
+                  f"{row['reads_info'].get('fired_steps')}, bytes_read "
+                  f"{row['reads_info']['bytes_read']} = the model")
+            continue
         what = (f"sharded over {P}: {row['format']} {row['transport']} "
                 f"{row.get('matvec', 'block')}")
         check(row["converged"], f"{what} did not converge")
@@ -2532,7 +2934,8 @@ def phase_sharded_multi(target, unsharded, block_unsharded):
                   f"{plain[row['format']]}")
     print(f"[sharded] over {P} cards: " + "; ".join(
         f"{r['format']} {r['transport']} {r.get('matvec', 'block')}: "
-        f"{r['iters']} it" for r in rows))
+        f"{r['iters']} it" for r in rows
+        if r["phase"] in ("sharded-multi", "sharded-multi-block")))
     starts = [tl["start"] - t0 for tl in timelines]
     ends = [tl["start"] + tl["marks"][-1][1] - t0 for tl in timelines]
     print(f"[sharded] multi-card world {total:.1f} s: ranks started "
@@ -5004,7 +5407,9 @@ def _leaves(tree):
             yield v
 
 
-def main() -> int:
+def main(run=None) -> int:
+    """The full run (:func:`_run`), or ``run`` in its place after the same
+    set-up."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5027,7 +5432,7 @@ def main() -> int:
     rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
     init_rank(0, 1, "file://" + str(pathlib.Path(rdv) / "rendezvous"))
     try:
-        return _run(t_start, device_line)
+        return (run or _run)(t_start, device_line)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -5057,11 +5462,11 @@ def _run(t_start, device_line) -> int:
     release()
     block_launches, block_unsharded = phase_block_full_width(A, target)
     release()
-    sharded_entries, sharded_launches = phase_sharded(A, target, unsharded,
-                                                      block_unsharded)
+    sharded_entries, sharded_launches, mixed_ref = phase_sharded(
+        A, target, unsharded, block_unsharded)
     entries.update(sharded_entries)
     release()
-    phase_sharded_multi(target, unsharded, block_unsharded)
+    phase_sharded_multi(target, unsharded, block_unsharded, mixed_ref)
     del A, unsharded, block_unsharded
     release()
     phase_plan(entries)
@@ -5122,7 +5527,32 @@ def _run(t_start, device_line) -> int:
     return 0
 
 
+def _multi_card(t_start, device_line) -> int:
+    """``python3 chip_smoke.py --multi-card``: phase 7c's multi-card run
+    (:func:`phase_sharded_multi`, one rank a card) after the phases that
+    make the unsharded solves it is held to, run as the full run runs them:
+    5 (:func:`phase_full_width`), 7 (:func:`phase_block_full_width`) and
+    7c (:func:`phase_sharded`, on one rank)."""
+    import torch
+
+    from repro_torch.sparse import make_problem
+
+    A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
+    torch.cuda.synchronize()
+    _, _, unsharded = phase_full_width(A, target)
+    release()
+    _, block_unsharded = phase_block_full_width(A, target)
+    release()
+    _, _, mixed_ref = phase_sharded(A, target, unsharded, block_unsharded)
+    release()
+    phase_sharded_multi(target, unsharded, block_unsharded, mixed_ref)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one-cycle-profiles"]:
         sys.exit(_cycle_profiles_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--multi-card"]:
+        sys.exit(main(_multi_card))
     sys.exit(main())

@@ -29,7 +29,9 @@ outside its homes (``rules.COLLECTIVE_HOMES``).  The rule resolves the
 module's import bindings -- ``import torch.distributed as d``, ``from torch
 import distributed as D``, ``from torch.distributed import all_reduce as
 p`` -- a module-level alias ``f = dist.all_reduce``, and a collective
-smuggled through ``functools.partial(dist.all_reduce, ...)``.
+smuggled through ``functools.partial(dist.all_reduce, ...)``.  The peer
+gather's entry points (``rules.PEER_MODULES``: ``peer_gather.reduce``, the
+NVLink transport of MGS's second pass) are flagged alike.
 
 Deliberately shallow: calls *out* of a captured function are not followed
 (mark the callee if it matters), and value flow beyond plain assignment is
@@ -56,6 +58,8 @@ from repro_torch.analysis.rules import (
     HOST_SYNC_CALLS,
     HOST_SYNC_METHODS,
     NUMPY_MODULE_NAMES,
+    PEER_MODULES,
+    PEER_PRIMITIVES,
 )
 
 __all__ = ["lint_file", "lint_paths", "lint_source"]
@@ -450,29 +454,36 @@ def _check_captured_fn(fn, tainted, path, findings) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _collective_bindings(tree) -> tuple[set[str], dict[str, str]]:
-    """Bindings that reach torch.distributed collectives in this module.
+#: the transports the rule holds: (module paths, entry points, the prefix
+#: a finding names them with)
+_TRANSPORTS = ((COLLECTIVE_MODULES, COLLECTIVE_PRIMITIVES, "dist."),
+               (PEER_MODULES, PEER_PRIMITIVES, "peer_gather."))
 
-    Returns ``(module aliases, local name -> primitive name)``: ``import
-    torch.distributed as d``, ``from torch import distributed as D``,
-    ``from torch.distributed import _functional_collectives as fc``,
-    ``from torch.distributed import all_reduce as p``, and a module-level
-    ``f = dist.all_reduce``."""
-    modules = set(COLLECTIVE_MODULES)
+
+def _collective_bindings(tree) -> tuple[list[set[str]], dict[str, str]]:
+    """Bindings that reach torch.distributed collectives (or the peer
+    gather) in this module.
+
+    Returns ``(module aliases of each transport, local name -> primitive
+    name)``: ``import torch.distributed as d``, ``from torch import
+    distributed as D``, ``from torch.distributed import
+    _functional_collectives as fc``, ``from torch.distributed import
+    all_reduce as p``, ``from repro_torch.kernels import peer_gather``, and
+    a module-level ``f = dist.all_reduce``."""
+    modules = [set(mods) for mods, _, _ in _TRANSPORTS]
     prims: dict[str, str] = {}
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                if a.name in COLLECTIVE_MODULES and a.asname:
-                    modules.add(a.asname)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            for a in node.names:
-                full = f"{node.module}.{a.name}"
-                if full in COLLECTIVE_MODULES:
-                    modules.add(a.asname or a.name)
-                elif (node.module in COLLECTIVE_MODULES
-                        and a.name in COLLECTIVE_PRIMITIVES):
-                    prims[a.asname or a.name] = a.name
+        for (mods, names, prefix), aliases in zip(_TRANSPORTS, modules):
+            if isinstance(node, ast.Import):
+                for a in node.names:
+                    if a.name in mods and a.asname:
+                        aliases.add(a.asname)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                for a in node.names:
+                    if f"{node.module}.{a.name}" in mods:
+                        aliases.add(a.asname or a.name)
+                    elif node.module in mods and a.name in names:
+                        prims[a.asname or a.name] = prefix + a.name
     for node in tree.body:                   # module-level aliases
         if isinstance(node, ast.Assign) and len(node.targets) == 1 \
                 and isinstance(node.targets[0], ast.Name):
@@ -483,12 +494,12 @@ def _collective_bindings(tree) -> tuple[set[str], dict[str, str]]:
 
 
 def _collective_ref(node, modules, prims) -> str | None:
-    """Primitive name if ``node`` references a torch.distributed
-    collective, else None."""
-    if (isinstance(node, ast.Attribute)
-            and node.attr in COLLECTIVE_PRIMITIVES
-            and _dotted(node.value) in modules):
-        return node.attr
+    """The primitive (``dist.all_reduce``, ``peer_gather.reduce``) if
+    ``node`` references one, else None."""
+    if isinstance(node, ast.Attribute):
+        for (_, names, prefix), aliases in zip(_TRANSPORTS, modules):
+            if node.attr in names and _dotted(node.value) in aliases:
+                return prefix + node.attr
     if isinstance(node, ast.Name):
         return prims.get(node.id)
     return None
@@ -503,10 +514,10 @@ def _check_raw_collectives(tree, path, findings) -> None:
         if not isinstance(node, ast.Call):
             continue
         hit = _collective_ref(node.func, modules, prims)
-        spelled = f"direct dist.{hit}"
+        spelled = f"direct {hit}"
         if hit is None and _last_name(node.func) == "partial" and node.args:
             hit = _collective_ref(node.args[0], modules, prims)
-            spelled = f"dist.{hit} bound via functools.partial"
+            spelled = f"{hit} bound via functools.partial"
         if hit:
             findings.append(Finding(
                 path=path, line=node.lineno, rule="raw-collective",

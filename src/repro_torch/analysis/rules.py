@@ -40,6 +40,8 @@ __all__ = [
     "HOST_SYNC_METHODS",
     "NO_COUNTERPART",
     "NUMPY_MODULE_NAMES",
+    "PEER_MODULES",
+    "PEER_PRIMITIVES",
     "RULES",
     "Rule",
 ]
@@ -81,7 +83,10 @@ RULES: dict[str, Rule] = {
             "is complete only if every byte that crosses the fabric moves "
             "through repro_torch.dist.collectives (or the DTensor and "
             "group-setup plumbing); a direct all_reduce elsewhere is "
-            "invisible to the census and to every wire figure.",
+            "invisible to the census and to every wire figure.  The peer "
+            "gather (kernels/peer_gather.py), the NVLink transport of "
+            "MGS's second pass, is held alike, and a captured IF node's "
+            "body may hold no other collective: CUDA refuses NCCL there.",
         ),
         # -- stage 2: audits of what runs ---------------------------------
         Rule(
@@ -199,13 +204,15 @@ F64_DTYPE_NAMES = frozenset({"float64", "f64", "double"})
 #: attribute roots treated as numpy (host) modules inside captured code
 NUMPY_MODULE_NAMES = frozenset({"np", "numpy"})
 
-#: path suffixes where raw torch.distributed calls may live: the audited
-#: wrappers and the census that records them, group setup, and the DTensor
+#: path suffixes where raw torch.distributed calls (and the peer gather)
+#: may live: the audited wrappers and the census that records them, the
+#: peer gather's binding and plain version, group setup, and the DTensor
 #: plumbing of the dry run (whose functional collectives the roofline
 #: records itself)
 COLLECTIVE_HOMES = (
     "repro_torch/dist/collectives.py",
     "repro_torch/dist/census.py",
+    "repro_torch/kernels/peer_gather.py",
     "repro_torch/dist/launch.py",
     "repro_torch/dist/act_sharding.py",
     "repro_torch/launch/mesh.py",
@@ -231,3 +238,9 @@ COLLECTIVE_MODULES = frozenset({
     "torch.distributed", "torch.distributed._functional_collectives",
     "torch.distributed.distributed_c10d",
 })
+
+#: the peer gather's module: its entry points move bytes across NVLink (the
+#: transport of MGS's second-pass reductions inside an IF node), so they
+#: are held to the homes above like the primitives of torch.distributed
+PEER_MODULES = frozenset({"repro_torch.kernels.peer_gather"})
+PEER_PRIMITIVES = frozenset({"reduce", "reduce_ref", "gather_ref"})

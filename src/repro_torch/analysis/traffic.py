@@ -15,7 +15,11 @@ the JAX package's rules (``repro/analysis/traffic.py``), per device:
   * an exchange (``batch_isend_irecv`` of one permutation) ships its payload
     across one link once (:func:`exchange_bytes`), whichever ranks its
     pairs name; a coded payload is its codes and exponents, the buffer as
-    it travels.
+    it travels;
+  * a reduction over the peer gather (``peer_gather``, MGS's second pass in
+    a captured cycle's IF node) is priced as the reference prices the
+    reduction of its values (:func:`reduce_bytes`, recorded so by the
+    census): a norm or the dots, as an ``all_reduce``.
 
 and holds the model to exact equality -- both sides count the same
 integers.  Every rank's recorded sequence must be the same (the group
@@ -43,6 +47,10 @@ Audits:
     row_bytes``, ``extra`` the rows of the steps whose ``fired`` slot the
     cycle set (``GmresResult.fired``: the steps where the captured cycle's
     IF node ran the second sweep).
+
+An IF node's body holds no NCCL call: the census checks every captured
+body's recorded calls (``raw-collective``), since CUDA refuses them there
+and only the peer gather may carry the second pass's reductions.
 """
 from __future__ import annotations
 
@@ -86,7 +94,7 @@ def _numel(shape) -> int:
 
 def price(call) -> tuple[str, int]:
     """``(category, per-device wire bytes)`` of one recorded call."""
-    if call.name == "all_reduce":
+    if call.name in ("all_reduce", "peer_gather"):
         return ("norms" if _numel(call.shape) == 1 else "dots"), call.nbytes
     if call.name == "all_gather_into_tensor":
         return "matvec", (len(call.group) - 1) * call.nbytes
@@ -225,7 +233,8 @@ MATVEC_CASES = (("rows", "rows", "rows", False),
 
 def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
                  halo_A=None, info: dict | None = None,
-                 ortho: str = "cgs2") -> list[Finding]:
+                 ortho: str = "cgs2", eta: float | None = None
+                 ) -> list[Finding]:
     """The census on this rank of the live default group (the sharded
     solve's); every rank must call it.  Records one partitioned matvec of
     each :data:`MATVEC_CASES` mode and a warmed rows-mode sharded solve
@@ -234,11 +243,15 @@ def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
     ``rows_A``/``halo_A``: the operators (default ``synth:atmosmod`` n 256
     and ``synth:stencil27`` n 512, as the JAX package's audit).
 
-    Under MGS the model takes each cycle's fired steps from the solve
-    (``GmresResult.fired``): a captured cycle (the card) issues the second
-    pass's collectives only there.  An eager cycle (gloo on the CPU) issues
-    them at every step, so on the CPU MGS matches the model only where it
-    fires at every step.
+    Under MGS (at ``eta``, or the solver's default) the model is the
+    reference's: the second pass's reductions at the fired steps only
+    (``GmresResult.fired``), as a captured cycle's IF node (the card)
+    issues them over the peer kernel.  A cycle that runs the pass at every
+    step -- an eager one (gloo on the CPU), or a branch-free one
+    (``second_pass == "select"``: cards without peer access) -- ships more
+    than the reference wherever a step did not fire, and the census reports
+    it (``wire-model``).  The captured bodies must hold no NCCL call
+    (:func:`_check_bodies`).
     """
     import torch.distributed as dist
 
@@ -273,6 +286,8 @@ def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
     kw = dict(fixed_trajectory(m, k), storage="float64", shard=P,
               shard_transport="plain", shard_matvec="rows", reorder="none",
               ortho=ortho)
+    if eta is not None:
+        kw["eta"] = eta
     gmres(rows_A, b, **kw)                    # warm: capture on the card
     with Census() as c:
         res = gmres(rows_A, b, **kw)
@@ -302,6 +317,24 @@ def census_world(rank: int, device, *, m: int = 8, k: int = 2, rows_A=None,
     fired = None if ortho == "cgs2" else [int(c.sum()) for c in res.fired]
     findings += _check_solve(per_rank, ranks, plans["rows"], res, m, k, P,
                              info, fired)
+    return findings + _check_bodies()
+
+
+def _check_bodies() -> list[Finding]:
+    """No collective but the peer gather inside any captured IF body (of
+    the cycles in the graph cache): CUDA refuses NCCL's there."""
+    from repro_torch.solver.gmres import _GRAPHS
+
+    findings = []
+    for cyc in _GRAPHS.values():
+        for j, body in enumerate(cyc.bodies):
+            bad = sorted({c.name for c in body.calls} - {"peer_gather"})
+            if bad:
+                findings.append(_finding(
+                    "census[if-bodies]", "raw-collective",
+                    f"the IF node of step {j} of a captured cycle holds "
+                    f"{bad}: only the peer gather may carry the second "
+                    "pass's reductions inside a conditional node"))
     return findings
 
 
@@ -313,12 +346,17 @@ def _check_solve(per_rank, ranks, plan, res, m, k, P, info, fired=None):
             f"fixed-trajectory assumption broke: {res.restarts} restarts / "
             f"{res.iterations} iterations, expected {k} / {k * m}"))]
     want = solve_census_model(plan, m, k, fired)
-    how = "CGS2" if fired is None else f"MGS, fired steps {fired}"
+    how = ("CGS2" if fired is None else
+           f"MGS, second pass at the fired steps {fired} a cycle (route "
+           f"{res.second_pass})")
     findings, priced = check_census(
         label, [r["solve"] for r in per_rank], ranks, want,
         f"cycle_wire_bytes: {how}, m={m}, j_stop={m}, {k} cycles, P={P}")
     info[label] = dict(priced=priced, model=want, fired=fired,
-                       calls=len(per_rank[0]["solve"]))
+                       second_pass=res.second_pass,
+                       calls=len(per_rank[0]["solve"]),
+                       names=dict(Counter(c.name
+                                          for c in per_rank[0]["solve"])))
     return findings
 
 
@@ -383,10 +421,14 @@ def _stores(module: str, fn: str):
 
 def audit_reads(A, b, *, storage: str, m: int = 6, k: int = 3,
                 p: int | None = None, info: dict | None = None,
-                ortho: str = "cgs2") -> list[Finding]:
+                ortho: str = "cgs2", eta: float | None = None,
+                shard: int | None = None) -> list[Finding]:
     """The fixed-trajectory reads audit of one storage format: the device
     driver, or ``gmres_block`` with ``p`` right-hand sides; ``ortho`` CGS2
-    (two sweeps a step) or MGS (one, plus the fired ones)."""
+    (two sweeps a step) or MGS (one, plus the fired ones) at ``eta`` (the
+    solver's default if None).  ``shard``: the scalar solve sharded over
+    the live group of that many ranks (every rank calls it; the rows are
+    this rank's chunk)."""
     from repro_torch.analysis.traceaudit import block_rhs, fixed_trajectory
     from repro_torch.solver import gmres
     from repro_torch.solver.block import gmres_block
@@ -394,7 +436,12 @@ def audit_reads(A, b, *, storage: str, m: int = 6, k: int = 3,
 
     info = {} if info is None else info
     kw = dict(fixed_trajectory(m, k), storage=storage, ortho=ortho)
+    if eta is not None:
+        kw["eta"] = eta
     tag = "" if ortho == "cgs2" else f", {ortho}"
+    if shard is not None:
+        kw["shard"] = shard
+        tag += f", shard={shard}"
     if p is None:
         label = f"reads[{storage}{tag}]"
         with _stores("repro_torch.solver.gmres", "_device_cycle") as seen:
@@ -440,6 +487,13 @@ def audit_reads(A, b, *, storage: str, m: int = 6, k: int = 3,
         how = (f"sum over cycles of _cycle_row_reads({m}, passes=1, extra)"
                f", extra {extras} from the fired slots")
         info[label]["fired_steps"] = [int(c.sum()) for c in r0.fired]
+        unfired = k * _cycle_row_reads(m, 1, m * (m + 1) // 2) - rows
+        if r0.second_pass == "select" and unfired:
+            findings.append(_finding(label, "reads-model", (
+                f"the second pass runs branch-free (route select: the "
+                f"group's cards lack peer access) and sweeps {unfired} basis "
+                "rows at the steps that did not fire, which bytes_read, as "
+                "the reference's, does not count")))
     expect = float(rows * row_bytes)
     expect_reads = 1.0 + k * (m + 2)
     for i, r in enumerate(res):

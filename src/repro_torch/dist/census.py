@@ -2,7 +2,8 @@
 
 :class:`Census` wraps the ``torch.distributed`` entry points that
 :mod:`repro_torch.dist.collectives` calls (``all_reduce``,
-``all_gather_into_tensor`` and ``batch_isend_irecv`` with its ``P2POp``\\ s)
+``all_gather_into_tensor`` and ``batch_isend_irecv`` with its ``P2POp``\\ s,
+and the peer gather's reductions)
 while it is entered, and keeps one :class:`Call` for each: the entry point,
 the group's ranks, the operand's shape and dtype, its bytes, the exchange's
 permutation and the bucket.  The bucket is ``"cycle"`` when the call is
@@ -15,6 +16,13 @@ payload and the whole permutation, also on a rank that no pair names (it
 sends and receives nothing, and issues no call): every rank then holds one
 entry an exchange, and the entry's ``ops`` say what the rank really put on
 the wire.
+
+A reduction over the peer gather (``collectives._peer_reduce``, MGS's
+second pass inside an IF node) is recorded as one ``peer_gather`` call
+carrying the values summed and priced as the reference prices their
+reduction (:func:`~repro_torch.dist.collectives.reduce_bytes`, plain or
+coded); the all-gather its plain version issues on the CPU is part of it
+and not recorded apart.
 
 A captured CUDA graph runs no Python when it replays.  The capture records
 the calls it holds (:func:`capturing`, used by
@@ -106,11 +114,15 @@ _CAPTURES: list[list] = []
 #: the exchange being issued (innermost last), and the point-to-point
 #: operations its ``batch_isend_irecv`` put on the wire
 _EXCHANGES: list[dict] = []
+#: the peer reductions being issued: what they call is part of them
+_PEER: list = []
 #: the wrapped entry points while the wrappers are installed
 _saved: dict = {}
 
 
 def _emit(call: Call) -> None:
+    if _PEER:
+        return
     for sink in (_CAPTURES[-1:] if _CAPTURES else _SINKS):
         sink.append(call)
 
@@ -166,6 +178,21 @@ def _exchange(payload, group, perm):
     return out
 
 
+def _peer_reduce(x, route, compressed):
+    from repro_torch.dist.collectives import reduce_bytes
+
+    _PEER.append(route)
+    try:
+        out = _saved["_peer_reduce"](x, route, compressed)
+    finally:
+        _PEER.pop()
+    shape, dtype, _ = _operand(x)
+    _emit(Call("peer_gather", _group_ranks(route.group), shape, dtype,
+               reduce_bytes(x.numel(), compressed=compressed,
+                            plain_itemsize=x.element_size()), _bucket()))
+    return out
+
+
 _WRAPPERS = dict(all_reduce=_all_reduce,
                  all_gather_into_tensor=_all_gather_into_tensor,
                  batch_isend_irecv=_batch_isend_irecv)
@@ -179,14 +206,17 @@ def _sync() -> None:
     if want and not _saved:
         _saved.update({k: getattr(dist, k) for k in _WRAPPERS},
                       isend=dist.isend,
-                      _exchange=collectives._exchange)
+                      _exchange=collectives._exchange,
+                      _peer_reduce=collectives._peer_reduce)
         for k, f in _WRAPPERS.items():
             setattr(dist, k, f)
         collectives._exchange = _exchange
+        collectives._peer_reduce = _peer_reduce
     elif not want and _saved:
         for k in _WRAPPERS:
             setattr(dist, k, _saved[k])
         collectives._exchange = _saved["_exchange"]
+        collectives._peer_reduce = _saved["_peer_reduce"]
         _saved.clear()
 
 

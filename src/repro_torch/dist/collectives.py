@@ -12,6 +12,13 @@ collective of the reference has one counterpart:
   rank; a rank that receives nothing gets zeros, the open boundary the
   halo exchanges rely on.
 
+Inside :func:`over_peers` (MGS's second pass in a CUDA graph IF node, whose
+body CUDA does not let NCCL into), ``psum`` and ``compressed_psum`` go
+through the route's peer kernel instead (``kernels/peer_gather.py``), which
+gathers every rank's buffer and sums in rank order: the coded sum keeps
+its bits, the plain one may differ from NCCL's all-reduce in the last
+bit.
+
 The compressed reductions are the reference's bit for bit: each rank
 compresses its values with :data:`WIRE_SPEC` (kernel 1 on the card), the
 codes and exponents are all-gathered, every rank decodes all shards
@@ -25,11 +32,13 @@ are the reference's model, whatever the packing.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import frsz2 as F
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, peer_gather
 from repro_torch.tree import tree_leaves
 
 __all__ = [
@@ -45,6 +54,7 @@ __all__ = [
     "halo_exchange_3d",
     "halo_exchange_3d_start",
     "halo_wire_spec",
+    "over_peers",
     "perm_defect",
     "pmean_bytes",
     "psum",
@@ -124,10 +134,61 @@ def _unpack(buf: torch.Tensor, like: F.BlockCompressed,
 # ---------------------------------------------------------------------------
 
 
+#: the peer routes of the reductions being issued, innermost last
+#: (:func:`over_peers`)
+_ROUTES: list = []
+
+
+@contextlib.contextmanager
+def over_peers(route):
+    """Inside, every reduction (:func:`psum`, :func:`compressed_psum`) goes
+    through ``route``'s peer gather (a
+    :class:`~repro_torch.kernels.peer_gather.Route`, or ``None``: NCCL
+    stays): MGS's second pass enters it inside its IF node, so that the
+    rest of the cycle stays on NCCL.  A reduction on another group than the
+    route's raises."""
+    if route is None:
+        yield
+        return
+    _ROUTES.append(route)
+    try:
+        yield
+    finally:
+        _ROUTES.pop()
+
+
+def _route(group):
+    if not _ROUTES:
+        return None
+    route = _ROUTES[-1]
+    if route.group is not group:
+        raise RuntimeError("a reduction inside over_peers() on another group "
+                           "than its route's")
+    return route
+
+
+def _peer_reduce(x: torch.Tensor, route, compressed: bool) -> torch.Tensor:
+    """One reduction of ``x`` over ``route``'s group through its peer
+    kernel, which sums in rank order: coded, ``x``'s :data:`WIRE_SPEC`
+    codes, decoded before the sum (:func:`compressed_psum`'s bits); plain,
+    ``x`` itself.  Priced by :func:`reduce_bytes` of ``x``'s values (the
+    census records it so)."""
+    if compressed:
+        bc = ops.compress(x.reshape(-1).to(WIRE_SPEC.dtype), WIRE_SPEC)
+        total = peer_gather.reduce(_pack(bc), route, coded=bc,
+                                   out_dtype=x.dtype)
+        return total.reshape(x.shape)
+    return peer_gather.reduce(x, route)
+
+
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over the group (``all_reduce``), as a new tensor: the
     one spelling of a plain reduction, priced by :func:`reduce_bytes` with
-    ``compressed=False``."""
+    ``compressed=False``.  Inside :func:`over_peers`, the peer kernel's sum
+    in rank order."""
+    route = _route(group)
+    if route is not None:
+        return _peer_reduce(x, route, compressed=False)
     y = x.clone()
     dist.all_reduce(y, group=group)
     return y
@@ -177,9 +238,13 @@ def _tree_map(fn, tree):
 def compressed_psum(tree, group=None):
     """Sum of each tensor of ``tree`` over the group, its values shipped as
     :data:`WIRE_SPEC` codes: the transport of the sharded basis' partial
-    dot products.  Bit-equal to the reference's ``compressed_psum``."""
+    dot products.  Bit-equal to the reference's ``compressed_psum``, also
+    inside :func:`over_peers`."""
+    route = _route(group)
 
     def leaf(x):
+        if route is not None:
+            return _peer_reduce(x, route, compressed=True)
         total = _sum_in_rank_order(_gathered_shards(x, group))
         return total[:x.numel()].reshape(x.shape).to(x.dtype)
 

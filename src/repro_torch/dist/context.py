@@ -15,6 +15,12 @@ same restart and convergence decisions and issue the same collectives.
 sharded basis' dots.  For a scalar that costs more wire bytes than a plain
 all-reduce (one 128-code block against 8 bytes); it exists so that a solve
 can run every collective on the coded transport.
+
+``peer`` is the route of MGS's second-pass reductions (a
+:class:`~repro_torch.kernels.peer_gather.Route`, set by the sharded solve
+where the group's cards reach each other's memory): the pass then runs in
+the captured cycle's IF node and reduces over the peer gather
+(:attr:`DistContext.second_pass`).
 """
 from __future__ import annotations
 
@@ -41,6 +47,18 @@ class DistContext:
     group: Any = None
     sharded: bool = False
     compressed_norms: bool = False
+    peer: Any = dataclasses.field(default=None, compare=False)
+
+    @property
+    def second_pass(self) -> str:
+        """Where MGS's second pass runs in a captured cycle: ``"if"`` (an
+        IF node; unsharded, its body holds no collective),
+        ``"if+peer_gather"`` (an IF node whose reductions go over
+        :attr:`peer`), or ``"select"`` (a sharded group without peer
+        access: the branch-free pass at every step)."""
+        if not self.sharded:
+            return "if"
+        return "select" if self.peer is None else "if+peer_gather"
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """Global sum of an already locally reduced value (any shape)."""
@@ -69,7 +87,7 @@ class DistContext:
         if not self.sharded:
             return ("dist", None)
         return ("dist", "world" if self.group is None else id(self.group),
-                self.compressed_norms)
+                self.compressed_norms, self.second_pass)
 
 
 #: the default, single-device context: every reduction is local.

@@ -8,7 +8,8 @@ checks across the scaled decode's guard (matvec, block combine, decode
 attention), the row codec's spot list and edge cases (rows past the old
 grid limit, a ragged n, views at an offset), each launching once, and the
 codec on one long row (an AdamW moment of a whole leaf) against the plain
-codec a block-aligned chunk at a time.  Each
+codec a block-aligned chunk at a time, and a captured cycle's replay
+against the same cycle run eagerly.  Each
 check runs the kernel through ``ops`` (so it launches on a CUDA generator's
 device) and compares with the plain ``decompress`` or the plain version of
 the kernel.
@@ -328,3 +329,70 @@ def profiled_launches(fn) -> dict:
     names = [_kernel_base(e.name) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     return {k: names.count(sym) for k, sym in LAUNCH_KERNELS.items()}
+
+
+def last_sharded_cycle():
+    """The most recently used sharded scalar cycle of the graph cache."""
+    from repro_torch.solver.gmres import _GRAPHS, _DeviceCycle
+
+    return next(c for c in reversed(_GRAPHS.values())
+                if isinstance(c, _DeviceCycle) and c._args[-1].sharded)
+
+
+def replay_against_eager(cyc) -> tuple[int, dict, bool]:
+    """Replay the captured scalar cycle ``cyc`` once on its own last
+    inputs, counting its launches, then run the same cycle eagerly (the
+    route a capture's warm-up takes: both passes, ``torch.where``) on the
+    same inputs into a fresh store and state.  Sharded, every rank calls
+    it together.  Returns the replay's fired steps, its launches
+    (``ops.LAUNCHES``) and whether the two runs agree bit for bit (state
+    and basis)."""
+    import importlib
+
+    G = importlib.import_module("repro_torch.solver.gmres")
+    r, beta, bn = cyc.r.clone(), cyc.beta.clone(), cyc.b_norm.clone()
+    ops.reset_launches()
+    out = cyc(r, beta, bn)
+    launches = dict(ops.LAUNCHES)
+    matvec, eta, target, ortho, precond, fused, dist = cyc._args
+    store = cyc.acc.empty()
+    state = torch.empty_like(cyc.state)
+    G._device_cycle(matvec, cyc.acc, store, state, cyc.init, r, beta, bn,
+                    eta, target, ortho, precond, fused, dist)
+    stores = (store.values(), cyc.store.values()) if isinstance(store, dict) \
+        else ((store,), (cyc.store,))
+    equal = torch.equal(state, cyc.state) and all(
+        torch.equal(a, b) for a, b in zip(*stores))
+    return int(out[4].sum()), launches, equal
+
+
+def profiled_split(fn) -> dict:
+    """Run ``fn()`` under ``torch.profiler`` and split the card's time by
+    kernel: ``kernels`` the busy microseconds of each kernel (by its base
+    name; copies and sets by the profiler's name), largest first,
+    ``launches`` their counts, ``busy_us`` the union of the card's busy
+    intervals and ``span_us`` the time from the first one's start to the
+    last one's end (so ``1 - busy / span`` is the card's idle share while
+    ``fn`` ran)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, _kernel_base(e.name))
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return dict(kernels={}, launches={}, busy_us=0.0, span_us=0.0)
+    times, counts = Counter(), Counter()
+    busy, end = 0.0, spans[0][0]
+    for s, e, name in spans:
+        times[name] += e - s
+        counts[name] += 1
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return dict(kernels=dict(times.most_common()), launches=dict(counts),
+                busy_us=busy, span_us=end - spans[0][0])

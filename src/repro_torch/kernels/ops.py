@@ -41,13 +41,14 @@ __all__ = ["LAUNCHES", "reset_launches", "kernel_supported", "compress",
 
 #: launches per kernel since the last :func:`reset_launches`
 #: (``graph_if``: an IF node's condition, counted by
-#: :func:`repro_torch.solver.graphs.device_if`)
+#: :func:`repro_torch.solver.graphs.device_if`; ``peer_gather``: counted by
+#: :func:`repro_torch.kernels.peer_gather.reduce`)
 LAUNCHES = {"frsz2_compress": 0, "frsz2_decompress": 0,
             "frsz2_cache_write": 0, "frsz2_matvec": 0,
             "frsz2_rmatvec": 0, "frsz2_block_dots": 0,
             "frsz2_block_combine": 0, "ell_spmv": 0, "ell_spmv_frsz2": 0,
             "gmres_givens": 0, "gmres_block_givens": 0, "decode_attn": 0,
-            "graph_if": 0}
+            "graph_if": 0, "peer_gather": 0}
 
 #: the widest block (right-hand sides per block row) the block kernels take
 _MAX_BLOCK_P = 16

@@ -76,13 +76,15 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
     if target_rrn is not None:
         rrn = target_rrn
     b, x_sol = rhs_for(A, device=dev)
+    plan = None
     if (reorder == "rcm" or shard) and verbose:
         # the solves below fetch this plan from the plan cache (the sharded
         # solve re-plans without a permutation that its preconditioner
-        # cannot follow)
-        print(plan_operator(A, shard or 1, reorder=reorder,
-                            matvec_mode=shard_matvec if shard else "auto",
-                            pgrid=shard_grid).describe())
+        # cannot follow); printed after the first solve, with the route its
+        # MGS second pass took on the group
+        plan = plan_operator(A, shard or 1, reorder=reorder,
+                             matvec_mode=shard_matvec if shard else "auto",
+                             pgrid=shard_grid)
     rows = []
     runs = [dict(label=fmt, storage=fmt, policy=None) for fmt in formats]
     if policy:
@@ -104,6 +106,10 @@ def solve_suite(problem: str, n: int, formats: list[str], *, m: int = 100,
         _sync(dev)
         wall = time.perf_counter() - t0
         res = results[0]                   # reference rhs: accuracy metrics
+        if plan is not None:
+            print(plan.describe(res.second_pass
+                                if shard and ortho == "mgs" else None))
+            plan = None
         err = float(torch.linalg.vector_norm(res.x - x_sol)
                     / torch.linalg.vector_norm(x_sol))
         rows.append(dict(problem=problem, n=A.shape[0], format=run["label"],

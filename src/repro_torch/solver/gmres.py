@@ -49,7 +49,7 @@ import torch
 from repro_torch.core.accessor import BasisAccessor
 from repro_torch.dist import census
 from repro_torch.dist.context import LOCAL
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, peer_gather, ref
 from repro_torch.solver import graphs
 from repro_torch.solver.pipeline import (
     CallablePreconditioner,
@@ -91,6 +91,11 @@ class GmresResult:
     # driver all m, dead ones too; none for CGS2
     fired: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0, 0), bool))
+    # where MGS's second pass runs in a captured cycle
+    # (DistContext.second_pass): "if" (unsharded), "if+peer_gather" or
+    # "select" (sharded: its reductions over the peer gather in the IF
+    # node, or branch-free at every step where the cards lack peer access)
+    second_pass: str = "if"
 
 
 def _givens(a: float, b: float) -> tuple[float, float]:
@@ -349,8 +354,11 @@ _GRAPHS_SIZE = 8
 
 def clear_graph_cache() -> None:
     """Drop every captured cycle, with the basis stores and the graph
-    memory it holds (a full-width block basis holds gigabytes)."""
+    memory it holds (a full-width block basis holds gigabytes), and free
+    the peer gather's regions, which the graphs read by address (on the
+    card every rank of their groups calls it together)."""
     _GRAPHS.clear()
+    peer_gather.free_regions()
 
 
 def _cached_graph(key, build):

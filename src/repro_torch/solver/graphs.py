@@ -76,7 +76,13 @@ def capturing(graph: torch.cuda.CUDAGraph, device=None):
     graph_if.load()
     idx = torch.device("cuda" if device is None else device).index
     idx = torch.cuda.current_device() if idx is None else idx
-    cap = Capture(torch.cuda.Stream(idx), torch.cuda.graph_pool_handle())
+    # PyTorch hands out streams round-robin from a pool a priority; the
+    # graph captures on one of the default priority's, and a body stream of
+    # that pool would come back as that very stream after a few dozen
+    # captures, whose body capture then fails ("illegal state"): the bodies
+    # take the high priority's pool
+    cap = Capture(torch.cuda.Stream(idx, priority=-1),
+                  torch.cuda.graph_pool_handle())
     with torch.cuda.stream(cap.stream):
         torch._C._cuda_beginAllocateCurrentStreamToPool(idx, cap.pool)
     weakref.finalize(graph, torch._C._cuda_releasePool, idx, cap.pool)

@@ -23,11 +23,15 @@ keyed on ``fired`` (a 0-d device tensor), as the reference runs it under
 ``lax.cond``.  In a captured cycle that is an IF node, which runs the pass
 only where it fires; eagerly (a capture's warm-up, the CPU) the pass runs
 and ``torch.where`` keeps the first pass's bits where it does not fire, as
-it does at every step of a cycle sharded over more than one rank
-(:func:`_second_pass`).  Both forms give the same bits.
+it does at every step of a sharded cycle whose cards cannot reach each
+other's memory (:func:`_second_pass`).  A sharded pass reduces its dots and
+norm over the peer gather in both forms
+(:func:`repro_torch.dist.collectives.over_peers`): NCCL does not run
+inside an IF node.  Both forms give the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections.abc import Callable
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accessor import NativeFormat, StorageFormat, format_by_name
+from repro_torch.dist.collectives import over_peers
 from repro_torch.dist.context import LOCAL
 from repro_torch.solver import graphs
 
@@ -68,16 +73,25 @@ __all__ = [
 
 
 def _second_pass(fired: torch.Tensor, dist):
-    """Where MGS's second pass runs in a branch-free cycle: inside an IF
-    node (:func:`~repro_torch.solver.graphs.device_if`), except in a cycle
-    sharded over more than one rank, whose NCCL collectives CUDA does not
-    take inside a conditional node: there the pass runs at every step and
-    ``torch.where`` keeps the first pass's bits where it does not fire
-    (:func:`~repro_torch.solver.graphs.select`).  Decided by ``dist`` when
-    the cycle is built, so a capture never falls back."""
-    if dist.sharded and torch.distributed.get_world_size(dist.group) > 1:
+    """Where MGS's second pass runs in a branch-free cycle, by the route
+    ``dist`` carries (:attr:`~repro_torch.dist.context.DistContext.
+    second_pass`, decided from the cards' peer access when the solve is
+    set up, so a capture never falls back): inside an IF node
+    (:func:`~repro_torch.solver.graphs.device_if`), its reductions over the
+    peer gather where the cycle is sharded (CUDA does not take NCCL's
+    collectives inside a conditional node); or, for a sharded group whose
+    cards cannot reach each other's memory, at every step, with
+    ``torch.where`` keeping the first pass's bits where it does not fire
+    (:func:`~repro_torch.solver.graphs.select`)."""
+    if dist.second_pass == "select":
         return graphs.select(fired)
-    return graphs.device_if(fired)
+    return _in_if_node(fired, dist)
+
+
+@contextlib.contextmanager
+def _in_if_node(fired: torch.Tensor, dist):
+    with graphs.device_if(fired) as put, over_peers(dist.peer):
+        yield put
 
 
 class Orthogonalizer:
@@ -119,10 +133,11 @@ class MGSOrthogonalizer(Orthogonalizer):
         hj1 = dist.norm(w)
         fired = bool(hj1 < eta * w_pre)          # one host read per iteration
         if fired:
-            u = acc.dots(store, w, rows)
-            w = w - acc.combine(store, u)
-            h = h + u
-            hj1 = dist.norm(w)
+            with over_peers(dist.peer):
+                u = acc.dots(store, w, rows)
+                w = w - acc.combine(store, u)
+                h = h + u
+                hj1 = dist.norm(w)
         return w, h, hj1, int(fired)
 
     def branch_free(self, acc, store, w, rows, eta, dist=LOCAL, w_norm=None):
@@ -261,9 +276,10 @@ class BlockMGSOrthogonalizer(BlockOrthogonalizer):
         W = W - acc.block_combine(store, H)
         fired = bool((dist.col_norms(W) < eta * w_pre).any())  # host read
         if fired:
-            U = acc.block_dots(store, W, rows)
-            W = W - acc.block_combine(store, U)
-            H = H + U
+            with over_peers(dist.peer):
+                U = acc.block_dots(store, W, rows)
+                W = W - acc.block_combine(store, U)
+                H = H + U
         Q, T, _ = block_qr(W, dist, scale=w_pre)
         return Q, H, T, int(fired)
 

@@ -30,7 +30,11 @@ same on every rank after its collective, so all ranks take the same
 restart and convergence decisions and issue the same collectives in the
 same order; a rank-local value is never read to decide anything.  On the
 card each restart cycle is one captured CUDA graph with its collectives
-inside, as in the unsharded device driver.
+inside, as in the unsharded device driver.  MGS's second pass sits in the
+graph's IF node and reduces over the peer gather
+(``kernels/peer_gather.py``) where every pair of the group's cards can
+reach each other's memory; elsewhere it runs at every step, branch-free
+(:func:`second_pass_route`, ``GmresResult.second_pass``).
 
 Vector lengths that do not divide the group are zero-padded through
 ``plan.embed``/``plan.extract`` (the block3d layout puts pad slots inside
@@ -44,14 +48,20 @@ from collections import OrderedDict
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import frsz2 as F
 from repro_torch.core.accessor import (
     BasisAccessor,
     BlockBasisAccessor,
     ShardedFormat,
     format_by_name,
 )
-from repro_torch.dist.collectives import gather_operand, reduce_bytes
+from repro_torch.dist.collectives import (
+    WIRE_SPEC,
+    gather_operand,
+    reduce_bytes,
+)
 from repro_torch.dist.context import DistContext
+from repro_torch.kernels import peer_gather
 from repro_torch.solver.block import _block_drive
 from repro_torch.solver.gmres import (
     _apply_rows,
@@ -71,7 +81,8 @@ from repro_torch.solver.pipeline import (
 from repro_torch.sparse.plan import plan_operator
 from repro_torch.sparse.shard import partition_matvec
 
-__all__ = ["TRANSPORTS", "cycle_wire_bytes", "sharded_gmres", "wire_bytes"]
+__all__ = ["TRANSPORTS", "cycle_wire_bytes", "second_pass_bytes",
+           "second_pass_route", "sharded_gmres", "wire_bytes"]
 
 TRANSPORTS = ("plain", "compressed", "compressed+norms")
 
@@ -146,6 +157,35 @@ def _partition_for(plan, rank: int, group, device, compressed: bool):
     return mv
 
 
+def second_pass_bytes(m: int, p: int = 1) -> int:
+    """The largest buffer one of MGS's second-pass reductions gathers: the
+    ``(m + 1) p^2`` dots plain (8 bytes a value) or as :data:`WIRE_SPEC`
+    codes, or a coded norm (a whole 128-value block)."""
+    n = (m + 1) * p * p
+    return max(8 * n, F.storage_nbytes(n, WIRE_SPEC),
+               F.storage_nbytes(1, WIRE_SPEC))
+
+
+#: whether each group reaches its peers' memory, by group and device
+_REACHABLE: dict = {}
+
+
+def second_pass_route(group, device, nbytes: int):
+    """The route of MGS's second-pass reductions on ``group``: a
+    :class:`~repro_torch.kernels.peer_gather.Route` for buffers of up to
+    ``nbytes`` where the group's cards reach each other's memory
+    (:func:`~repro_torch.kernels.peer_gather.reachable`, asked once a group
+    and device; never on the CPU, whose eager cycles hold no IF node), else
+    ``None`` (the pass stays branch-free).  Every rank calls it
+    together."""
+    key = ("world" if group is None else id(group), str(torch.device(device)),
+           dist.get_world_size(group))
+    hit = _REACHABLE.get(key)
+    if hit is None or hit[0] is not group:
+        hit = _REACHABLE[key] = (group, peer_gather.reachable(group, device))
+    return peer_gather.Route(group, device, nbytes) if hit[1] else None
+
+
 def _check_group(p_dev: int, group) -> int:
     """This process's rank in a live group of ``p_dev`` ranks, or raise."""
     if p_dev < 1:
@@ -214,7 +254,9 @@ def sharded_gmres(A, b, *, batched: bool = False, x0=None, storage=None,
     precond = resolve_preconditioner(precond, plan.operator).shard_local(
         rank, n_local, n_pad)
     ctx = DistContext(group=group, sharded=True,
-                      compressed_norms=transport == "compressed+norms")
+                      compressed_norms=transport == "compressed+norms",
+                      peer=second_pass_route(group, dev, second_pass_bytes(
+                          m, b.shape[0] if block else 1)))
     mv = _partition_for(plan, rank, group, dev, compressed)
 
     if x0 is None:
@@ -256,6 +298,7 @@ def sharded_gmres(A, b, *, batched: bool = False, x0=None, storage=None,
             results = [one(b_loc, x0_loc)]
     for r in results:
         r.x = plan.extract(gather_operand(r.x, group))
+        r.second_pass = ctx.second_pass
     return results if batched else results[0]
 
 

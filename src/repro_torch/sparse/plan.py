@@ -205,8 +205,10 @@ class OperatorPlan:
                                 plain_itemsize=plain_itemsize)
         return 0
 
-    def describe(self) -> str:
-        """One-line human summary (the solve CLI prints it)."""
+    def describe(self, second_pass: str | None = None) -> str:
+        """One-line human summary (the solve CLI prints it); with
+        ``second_pass``, the route of MGS's second pass on the group
+        (``GmresResult.second_pass``) at its end."""
         re_part = (f"rcm (bw {self.raw_bandwidth} -> "
                    f"{self.probe.bandwidth})" if self.reorder == "rcm"
                    else f"none (bw {self.raw_bandwidth})")
@@ -214,8 +216,9 @@ class OperatorPlan:
         if mv == "block3d" and self.block is not None:
             mv = (f"block3d pgrid={'x'.join(map(str, self.block.pgrid))} "
                   f"wire={sum(self.block.wire_sizes)}")
+        route = "" if second_pass is None else f" second_pass={second_pass}"
         return (f"plan: n={self.n} pad={self.n_pad} shards={self.n_shards} "
-                f"reorder={re_part} matvec={mv}")
+                f"reorder={re_part} matvec={mv}{route}")
 
 
 def _fingerprint(A) -> str | None:

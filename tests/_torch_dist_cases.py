@@ -28,7 +28,9 @@ WORLD = 8
 #: slowest world measured, 140.7 s (the sharded module's world in a run of
 #: that module alone on a shared 8-core host; 111.0 s alone on an idle
 #: one, 112.0 and 121.5 s under ``pytest -n 6 --dist loadfile``; the
-#: collectives module's 12-20 s).  Most of a world's wall is gloo's
+#: collectives module's 12-20 s; 148.0 s and 25.7 s with the peer-route
+#: cases, ``_routes`` and the MGS census, beside the analysis module at
+#: ``-n 3``).  Most of a world's wall is gloo's
 #: all-reduce at 8 ranks (3.6 of a 4.7 s solve, 307 calls), whose latency
 #: grows with the host's load: 2.8 ms idle, 17 ms beside 48 busy threads,
 #: where a solve took 1.9 times as long.  Under a full test run on a
@@ -75,6 +77,17 @@ SOLVE_CASES = [
          transport="plain", mode="auto", reorder="auto"),
     dict(problem="synth:varcoef", n=512, storage="frsz2_32",
          transport="compressed", mode="halo", precond="jacobi"),
+    # MGS's second pass with its reductions over the peer gather, the
+    # route of cards that reach each other's memory (``peer``: forced here,
+    # where gloo ranks reach none; the cases above take the branch-free
+    # pass): at the default eta, where it fires at nearly every step, and at
+    # eta 0.3, where it fires at a mixed pattern of steps
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="compressed", mode="auto", peer=True),
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="compressed", mode="auto", eta=0.3, peer=True),
+    dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+         transport="plain", mode="auto", eta=0.3, peer=True),
 ]
 M = 20
 MAX_ITERS = 2000
@@ -94,7 +107,17 @@ def case_id(c: dict) -> str:
     for k in ("method", "reorder", "precond"):
         if k in c:
             parts.append(str(c[k]))
+    if "eta" in c:
+        parts.append(f"eta{c['eta']}")
+    if c.get("peer"):
+        parts.append("peer")
     return "-".join(parts)
+
+
+def solve_kw(c: dict) -> dict:
+    """The case's options both packages' ``gmres`` take beside the
+    problem's (``eta`` only where the case sets it)."""
+    return {"eta": c["eta"]} if "eta" in c else {}
 
 
 def rhs(n: int) -> np.ndarray:
@@ -249,42 +272,123 @@ def _same_on_every_rank(t) -> bool:
     return bool((g == g[0]).all())
 
 
+def _fired_on_every_rank(res) -> bool:
+    """Each result's fired slots gathered from every rank: all the same
+    (the ranks take the IF node's branch in lockstep)."""
+    from repro_torch.dist.collectives import gather_objects
+
+    mine = [r.fired.tolist() for r in res]
+    return all(f == mine for f in gather_objects(mine))
+
+
+@contextlib.contextmanager
+def peer_route(on: bool):
+    """MGS's second pass over the peer gather (``on``) or branch-free: the
+    capability the sharded solve asks (``peer_gather.reachable``) set
+    through the port's own seam, its answers forgotten on both sides."""
+    import repro_torch.solver.sharded as S
+    from repro_torch.kernels import peer_gather
+
+    reachable = peer_gather.reachable
+    peer_gather.reachable = lambda group, device: on
+    S._REACHABLE.clear()
+    try:
+        yield
+    finally:
+        peer_gather.reachable = reachable
+        S._REACHABLE.clear()
+
+
 def solve_rank(rank, dev, cases):
+    out = []
+    for c in cases:
+        with peer_route(bool(c.get("peer"))):
+            out.append(_solve_case(rank, dev, c))
+    return dict(cases=out, switches=_switched_solves(rank, dev),
+                routes=_routes(rank, dev))
+
+
+def _solve_case(rank, dev, c):
     import torch
 
     from repro_torch.solver import gmres, gmres_batched
     from repro_torch.solver.sharded import _plan_and_precond, wire_bytes
     from repro_torch.sparse import make_problem
 
-    out = []
-    for c in cases:
-        t0 = time.perf_counter()
-        A, target = make_problem(c["problem"], c["n"], device=dev)
-        b = torch.from_numpy(rhs(A.shape[0]))
-        kw = dict(storage=c["storage"], m=M, max_iters=MAX_ITERS,
-                  target_rrn=target, shard=WORLD,
-                  shard_transport=c["transport"], shard_matvec=c["mode"],
-                  reorder=c.get("reorder", "auto"),
-                  precond=c.get("precond"))
-        if "method" in c:
-            B = torch.from_numpy(batch_rhs(b.numpy(), c["k"]))
-            res = gmres_batched(A, B, method=c["method"], **kw)
-        else:
-            res = [gmres(A, b, **kw)]
-        plan, _ = _plan_and_precond(A, WORLD, kw["reorder"], c["mode"],
-                                    kw["precond"])
-        same = all(_same_on_every_rank(r.x) for r in res) and \
-            _same_on_every_rank(torch.tensor(
-                [[r.iterations, r.restarts, r.rrn] for r in res],
-                dtype=torch.float64))
-        out.append(dict(
-            b=b.numpy(), mode=plan.matvec_mode, reorder=plan.reorder,
-            results=[result_row(r) for r in res], same_on_every_rank=same,
-            wire=(wire_bytes(res[0], plan, storage=c["storage"], m=M,
-                             transport=c["transport"])
-                  if "method" not in c else None)))
-        _progress(rank, case_id(c), t0)
-    return dict(cases=out, switches=_switched_solves(rank, dev))
+    t0 = time.perf_counter()
+    A, target = make_problem(c["problem"], c["n"], device=dev)
+    b = torch.from_numpy(rhs(A.shape[0]))
+    kw = dict(storage=c["storage"], m=M, max_iters=MAX_ITERS,
+              target_rrn=target, shard=WORLD,
+              shard_transport=c["transport"], shard_matvec=c["mode"],
+              reorder=c.get("reorder", "auto"),
+              precond=c.get("precond"), **solve_kw(c))
+    if "method" in c:
+        B = torch.from_numpy(batch_rhs(b.numpy(), c["k"]))
+        res = gmres_batched(A, B, method=c["method"], **kw)
+    else:
+        res = [gmres(A, b, **kw)]
+    plan, _ = _plan_and_precond(A, WORLD, kw["reorder"], c["mode"],
+                                kw["precond"])
+    same = all(_same_on_every_rank(r.x) for r in res) and \
+        _same_on_every_rank(torch.tensor(
+            [[r.iterations, r.restarts, r.rrn] for r in res],
+            dtype=torch.float64))
+    _progress(rank, case_id(c), t0)
+    return dict(
+        b=b.numpy(), mode=plan.matvec_mode, reorder=plan.reorder,
+        results=[result_row(r) for r in res], same_on_every_rank=same,
+        fired=[r.fired.sum(1).tolist() for r in res],
+        fired_on_every_rank=_fired_on_every_rank(res),
+        second_pass=[r.second_pass for r in res],
+        wire=(wire_bytes(res[0], plan, storage=c["storage"], m=M,
+                         transport=c["transport"])
+              if "method" not in c else None))
+
+
+#: the solve of :func:`_routes`: MGS at a mixed pattern, plain transport
+ROUTE_CASE = dict(problem="synth:atmosmod", n=512, storage="frsz2_32",
+                  transport="plain", mode="auto", eta=0.3)
+
+
+def _routes(rank, dev):
+    """MGS's second-pass route is the group's capability, not its size:
+    the :data:`ROUTE_CASE` solve on all 8 ranks with the peer gather
+    reachable and unreachable (:func:`peer_route`), each under a census;
+    and on a group of one rank (every rank alone, the same two ways).  Each
+    run's route, iterations, fired steps and the names of the collectives
+    its cycles issued."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.solver.sharded as S
+    from repro_torch.dist.census import Census
+    from repro_torch.sparse import make_problem
+
+    t0 = time.perf_counter()
+    c = ROUTE_CASE
+    A, target = make_problem(c["problem"], c["n"], device=dev)
+    b = torch.from_numpy(rhs(A.shape[0]))
+    alone = [dist.new_group([r]) for r in range(WORLD)][rank]
+    out = {}
+    for name, on in (("reachable", True), ("unreachable", False)):
+        with peer_route(on):
+            for P, group in ((WORLD, None), (1, alone)):
+                with Census() as cen:
+                    res = S.sharded_gmres(
+                        A, b, storage=c["storage"], m=M,
+                        max_iters=MAX_ITERS, target_rrn=target, shard=P,
+                        transport=c["transport"], partition_mode=c["mode"],
+                        eta=c["eta"], group=group)
+                names = collections.Counter(
+                    x.name for x in cen.calls if x.bucket == "cycle")
+                out[(name, P)] = dict(
+                    route=res.second_pass, iterations=res.iterations,
+                    fired=res.fired.sum(1).tolist(), cycle_calls=dict(names))
+    _progress(rank, "second-pass routes", t0)
+    return out
 
 
 def _progress(rank, what, t0):
@@ -329,6 +433,7 @@ def collectives_rank(rank, dev, _):
     import torch.distributed as dist
 
     from repro_torch.dist import collectives as C
+    from repro_torch.kernels import peer_gather
     from repro_torch.sparse import make_problem, partition_matvec
     from repro_torch.sparse.plan import plan_operator
 
@@ -377,6 +482,18 @@ def collectives_rank(rank, dev, _):
         out[("cpsum_tree", P)] = {k: gather(v, group) for k, v in got.items()}
         out[("gather", P)] = gather(C.gather_operand(mine(inp["x"]), group),
                                     group)
+        # MGS's second-pass reductions over the peer kernel (its plain
+        # version on the CPU): the plain version's gather, and the coded and
+        # plain sums inside over_peers()
+        route = peer_gather.Route(group, dev, 8 * max(PSUM_SIZES))
+        for k in PSUM_SIZES:
+            v = torch.from_numpy(inp[("v", k)][rank].copy())
+            out[("peer_gather", P, k)] = gather(
+                peer_gather.gather_ref(v, group), group)
+            with C.over_peers(route):
+                out[("peer_cpsum", P, k)] = gather(C.compressed_psum(v, group),
+                                                   group)
+                out[("peer_psum", P, k)] = gather(C.psum(v, group), group)
         # every partition of the atmosmod operator, plain and coded halo
         for mode in MATVEC_MODES:
             plan = plan_operator(A, P, reorder="none", matvec_mode=mode)
@@ -437,6 +554,11 @@ def _planted(plant, rank):
         SP.partition_matvec, TC.gather_objects = part, gather
 
 
+#: the eta of the MGS census (fired steps [1, 2] of the two cycles of
+#: ``census_world``'s solve at P = 1)
+MGS_CENSUS_ETA = 0.3
+
+
 def analysis_rank(rank, dev):
     """The analysis gate's sharded legs on the world's 8 ranks: the census
     (``repro_torch.analysis.traffic.census_world``) as the gate runs it and
@@ -454,8 +576,13 @@ def analysis_rank(rank, dev):
         return [dataclasses.asdict(f) for f in fs]
 
     t0 = time.perf_counter()
-    out = {"info": {}}
+    out = {"info": {}, "info_mgs": {}}
     out["census"] = rows(census_world(rank, dev, info=out["info"]))
+    # MGS at a mixed fired pattern: its second pass over the peer gather
+    with peer_route(True):
+        out["census_mgs"] = rows(census_world(
+            rank, dev, info=out["info_mgs"], ortho="mgs", eta=MGS_CENSUS_ETA))
+    out["info_mgs"].pop("calls")
     for plant in ("extra", "rank"):
         with _planted(plant, rank):
             out[f"census_{plant}"] = rows(census_world(rank, dev))

@@ -297,10 +297,32 @@ def test_lint_raw_collective_allowed_in_its_homes():
            "    return dist.all_reduce(x, group=g)\n")
     for home in ("dist/collectives.py", "dist/census.py", "dist/launch.py",
                  "dist/act_sharding.py", "launch/mesh.py",
-                 "roofline/analysis.py"):
+                 "roofline/analysis.py", "kernels/peer_gather.py"):
         assert TL.lint_source(src, f"src/repro_torch/{home}") == []
     assert [f.rule for f in TL.lint_source(
         src, "src/repro_torch/solver/gmres.py")] == ["raw-collective"]
+
+
+def test_lint_raw_collective_knows_the_peer_gather():
+    """The peer gather (the NVLink transport of MGS's second pass) is held
+    to the collectives' homes: its module, aliased or its entry points
+    imported, is flagged elsewhere; its queries are not."""
+    src = ("from repro_torch.kernels import peer_gather\n"
+           "from repro_torch.kernels.peer_gather import reduce as g\n"
+           "import repro_torch.kernels.peer_gather as pg\n"
+           "def f(x, route):\n"
+           "    peer_gather.reduce(x, route)\n"
+           "    g(x, route)\n"
+           "    pg.gather_ref(x, None)\n"
+           "    return peer_gather.reachable(None, 'cpu')\n")
+    f = TL.lint_source(src, "src/repro_torch/solver/x.py")
+    assert [(x.rule, x.line) for x in f] == [("raw-collective", 5),
+                                             ("raw-collective", 6),
+                                             ("raw-collective", 7)]
+    assert "peer_gather.reduce" in f[0].message
+    for home in ("dist/collectives.py", "kernels/peer_gather.py"):
+        assert TL.lint_source(src, f"src/repro_torch/{home}") == []
+    assert "peer gather" in RULES["raw-collective"].rationale
 
 
 def test_lint_sees_aliases_partials_and_functional_collectives():
@@ -606,6 +628,50 @@ def test_census_clean_and_equal_to_the_models(world):
     for bucket in ("solve", "cycle"):
         assert solve["priced"][bucket] == solve["model"][bucket]
     assert solve["priced"]["cycle"]["dots"] > 0
+
+
+def test_mgs_census_over_ranks_holds_the_reference_model(world):
+    """The MGS solve of the census at eta 0.3 on the world's 8 ranks, its
+    second pass over the peer kernel (two ``peer_gather`` calls a step it
+    runs, the dots and the norm, priced as the reference's reductions).
+    The model is the reference's: the pass's reductions at the fired steps
+    only, as a replay on the card issues them (``tests/test_torch_cuda.py``).
+    The eager cycle on the CPU runs the IF node's body at every step, so
+    the census reports what it ships beyond the model: exactly one dots
+    and one norm reduction a step that did not fire."""
+    from repro_torch.dist.collectives import reduce_bytes
+
+    solve = world["info_mgs"]["census[rows, mgs]"]
+    m, k = 8, 2
+    assert solve["second_pass"] == "if+peer_gather"
+    unfired = k * m - sum(solve["fired"])
+    assert 0 < unfired < k * m, solve["fired"]
+    assert solve["names"]["peer_gather"] == 2 * k * m
+    assert "peer_gather" not in world["info"]["census[rows]"]["names"]
+    assert solve["priced"]["solve"] == solve["model"]["solve"]
+    got, want = solve["priced"]["cycle"], solve["model"]["cycle"]
+    assert got["matvec"] == want["matvec"]
+    assert got["dots"] - want["dots"] == unfired * reduce_bytes(
+        m + 1, compressed=False)
+    assert got["norms"] - want["norms"] == unfired * reduce_bytes(
+        1, compressed=False)
+    found = world["census_mgs"]
+    assert [(f["rule"], f["path"]) for f in found] == [
+        ("wire-model", "traffic:census[rows, mgs]")] * 2
+    assert "per-cycle dots" in found[0]["message"]
+    assert "per-cycle norms" in found[1]["message"]
+
+
+def test_census_prices_a_peer_gather_as_the_reduction_of_its_values():
+    from repro_torch.dist.census import Call
+    from repro_torch.dist.collectives import reduce_bytes
+
+    for n, comp in ((1, False), (101, False), (1, True), (101, True)):
+        nbytes = reduce_bytes(n, compressed=comp)
+        call = Call("peer_gather", (0, 1, 2, 3), (n,) if n > 1 else (),
+                    "float64", nbytes, "cycle")
+        assert traffic.price(call) == ("norms" if n == 1 else "dots",
+                                       nbytes)
 
 
 def test_census_finds_a_planted_extra_all_reduce(world):

@@ -16,6 +16,11 @@ deadlines of their own and under the run's world lock
   and ``gather_operand``: bit-equal, on every rank;
 * ``psum``: within 8 ulps of the sum of magnitudes (gloo's all-reduce sums
   in its own order, XLA's ``psum`` in its own);
+* the peer gather (``kernels/peer_gather.py``, its plain version on the
+  CPU): each rank's buffer in rank order, bit for bit; inside
+  ``over_peers`` (MGS's second pass) ``compressed_psum`` bit-equal to the
+  reference's, ``psum`` bit-equal to the sum in rank order and within the
+  reference's by the rule above;
 * ``partition_matvec`` in all four modes, plain and coded halo: within
   1e-13 of the largest entry (the ELL kernel sums each row in slot order,
   XLA in its own), and the same executed mode;
@@ -193,6 +198,38 @@ def test_plain_psum_within_the_summation_order(worlds, P, k):
     slack = 8 * np.finfo(np.float64).eps * np.abs(inp).sum(axis=0)
     assert (np.abs(got - want) <= slack).all()
     assert (got == got[0]).all()
+
+
+@pytest.mark.parametrize("P,k", [(P, k) for P in C.GROUPS
+                                 for k in C.PSUM_SIZES])
+def test_peer_gather_is_every_rank_in_rank_order(worlds, P, k):
+    port, _ = worlds
+    inp = C.collective_inputs(P, 1)[("v", k)]
+    got = port[("peer_gather", P, k)]          # (rank, P, k): every rank's
+    assert got.shape == (P,) + inp.shape
+    for r in range(P):
+        _bits_equal(got[r], inp)
+
+
+@pytest.mark.parametrize("P,k", [(P, k) for P in C.GROUPS
+                                 for k in C.PSUM_SIZES])
+def test_second_pass_reductions_over_peers(worlds, P, k):
+    """MGS's second-pass reductions inside ``over_peers``: the coded sum
+    bit-equal to the reference's ``compressed_psum``; the plain one the sum
+    in rank order, bit for bit (``0 + s_0 + s_1 + ...``), and within the
+    reference's ``psum`` by the summation-order rule; the same on every
+    rank."""
+    port, ref = worlds
+    _bits_equal(port[("peer_cpsum", P, k)], ref[("cpsum", P, k)])
+    inp = C.collective_inputs(P, 1)[("v", k)]
+    total = np.zeros(k)
+    for row in inp:
+        total = total + row
+    got = port[("peer_psum", P, k)]
+    for r in range(P):
+        _bits_equal(got[r], total)
+    slack = 8 * np.finfo(np.float64).eps * np.abs(inp).sum(axis=0)
+    assert (np.abs(got - ref[("psum", P, k)]) <= slack).all()
 
 
 MV = [(P, mode, c) for P in C.GROUPS for mode in C.MATVEC_MODES

@@ -1629,50 +1629,262 @@ def test_gate_mgs_census_on_a_nccl_group_of_one(nccl):
     assert solve["fired"] is not None
 
 
-def _mgs_ranks(rank, dev, force_if):
-    """One rank of :func:`test_mgs_over_ranks_keeps_the_branch_free_pass`:
-    a sharded frsz2_32 MGS solve (n 8000, m 40) over every rank, with the
-    IF node forced or by the default route; the error text, or the
-    iterations and the unsharded solve's."""
+@pytest.mark.cuda
+def test_if_node_bodies_never_capture_on_the_capturing_stream(cuda):
+    """An IF node's body is captured on a stream of its own: however far
+    PyTorch's round-robin stream pool has turned (one more stream taken
+    before every other capture, past two whole turns of the pool), the
+    body's stream is never the stream the graph captures on, and every
+    capture builds its node."""
+    from repro_torch.solver import graphs
+
+    x = torch.arange(8.0, device="cuda")
+    y = torch.zeros_like(x)
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    for i in range(70):
+        for _ in range(i % 2):
+            torch.cuda.Stream()
+        g = torch.cuda.CUDAGraph()
+        with graphs.capturing(g) as cap, torch.cuda.graph(g):
+            assert cap.stream != torch.cuda.current_stream()
+            with graphs.device_if(pred) as put:
+                put(y, x + 1.0)
+        y.zero_()
+        g.replay()
+        assert torch.equal(y, x + 1.0)
+
+
+#: the eta of the over-ranks MGS solve: a mixed fired pattern in both of
+#: its cycles (8 and 4 of 40 steps at P = 1 on the CPU)
+OVER_RANKS_ETA = 0.4
+
+
+def _mgs_ranks(rank, dev, mode):
+    """One rank of the over-ranks tests: a sharded frsz2_32 MGS solve
+    (atmosmod n 8000, m 40; eta :data:`OVER_RANKS_ETA` for ``"if"``, the
+    default eta else) over every rank.
+    ``mode``: ``"forced"`` puts the pass into an IF node with its
+    reductions on NCCL (the error text); ``"select"`` makes the peer gather
+    unreachable (the branch-free route); ``"if"`` the default route.  Two
+    solves (capture, replay), the unsharded solve, one replayed cycle's
+    launches against the same cycle run eagerly, the IF bodies' recorded
+    collectives; for ``"if"`` also the census and the reads audit of the
+    fixed trajectory at the same eta."""
     import traceback
 
-    from repro_torch.solver import graphs
+    import repro_torch.solver.sharded as S
+    from repro_torch.analysis import traffic
+    from repro_torch.dist.collectives import gather_objects
+    from repro_torch.kernels import peer_gather
+    from repro_torch.solver import clear_graph_cache, graphs
     from repro_torch.solver import pipeline as PL
 
     P = torch.distributed.get_world_size()
     A, target = make_problem("synth:atmosmod", 8000, device=dev)
     b, _ = rhs_for(A, device=dev)
     kw = dict(storage="frsz2_32", m=40, target_rrn=target)
-    if force_if:
+    if mode == "if":
+        kw["eta"] = OVER_RANKS_ETA
+    if mode == "forced":
         PL._second_pass = lambda fired, dist: graphs.device_if(fired)
         try:
             gmres(A, b, shard=P, **kw)
         except Exception:
             return dict(error=traceback.format_exc())
         return dict(error=None)
+    if mode == "select":
+        peer_gather.reachable = lambda group, device: False
+        S._REACHABLE.clear()
     rs = [gmres(A, b, shard=P, **kw) for _ in range(2)]
+    fired_by_rank = gather_objects(rs[1].fired.tolist())
+    cyc = cardcheck.last_sharded_cycle()
+    fired, launches, eager_equal = cardcheck.replay_against_eager(cyc)
+    body_calls = sorted({c.name for body in cyc.bodies for c in body.calls})
     ru = gmres(A, b, **kw)
-    return dict(iters=[r.iterations for r in rs], unsharded=ru.iterations,
-                fired=rs[1].fired.sum(1).tolist(),
-                equal=bool(torch.equal(rs[0].x, rs[1].x)))
+    out = dict(route=rs[1].second_pass, iters=[r.iterations for r in rs],
+               unsharded=ru.iterations, fired=rs[1].fired.sum(1).tolist(),
+               unsharded_fired=ru.fired.sum(1).tolist(),
+               equal=bool(torch.equal(rs[0].x, rs[1].x)),
+               fired_on_every_rank=all(f == fired_by_rank[0]
+                                       for f in fired_by_rank),
+               cycle_fired=fired, launches=launches, m=kw["m"],
+               eager_equal=eager_equal, bodies=len(cyc.bodies),
+               body_calls=body_calls)
+    clear_graph_cache()
+    if mode == "if":
+        info = {}
+        out["census"] = [f.render() for f in traffic.census_world(
+            rank, dev, info=info, ortho="mgs", eta=OVER_RANKS_ETA)]
+        out["census_info"] = info["census[rows, mgs]"]
+        out["reads"] = [f.render() for f in traffic.audit_reads(
+            A, b, storage="frsz2_32", m=20, k=2, info=info, ortho="mgs",
+            eta=OVER_RANKS_ETA, shard=P)]
+        out["reads_info"] = info["reads[frsz2_32, mgs, shard=%d]" % P]
+        clear_graph_cache()
+    return out
 
 
-@pytest.mark.cuda
-def test_mgs_over_ranks_keeps_the_branch_free_pass(cuda):
-    """Over more than one rank CUDA refuses NCCL's collectives inside the
-    IF node (the capture fails with "invalid argument"), so the sharded
-    MGS cycle keeps the branch-free pass there, chosen by its group's size:
-    it solves in the unsharded iterations and replays with equal bits."""
+def _over_ranks(mode):
     from repro_torch.dist import spawn
 
     P = min(torch.cuda.device_count(), 4)
     if P < 2:
         pytest.skip("needs two cards or more")
-    forced = spawn(_mgs_ranks, P, True, device="cuda", timeout_s=240)
+    return P, spawn(_mgs_ranks, P, mode, device="cuda", timeout_s=300)
+
+
+@pytest.mark.cuda
+def test_mgs_over_ranks_keeps_the_branch_free_pass(cuda):
+    """Over cards that cannot reach each other's memory (the peer gather
+    made unreachable here) the sharded MGS cycle keeps the branch-free
+    pass, chosen from that capability and not from the group's size: it
+    solves in the unsharded iterations, replays with equal bits, and runs
+    both sweeps at every step.  Why it may not simply put the pass into an
+    IF node with its reductions on NCCL: CUDA refuses NCCL's collectives
+    inside a conditional node (the capture fails with "invalid
+    argument"), kept here as the record."""
+    P, forced = _over_ranks("forced")
     assert forced["error"] is not None
     assert "invalid argument" in forced["error"], forced["error"][-2000:]
-    got = spawn(_mgs_ranks, P, False, device="cuda", timeout_s=240)
-    assert got["equal"] and got["iters"] == [got["unsharded"]] * 2, got
+    _, got = _over_ranks("select")
+    assert got["route"] == "select"
+    assert got["equal"] and got["eager_equal"], got
+    assert got["fired_on_every_rank"], got
+    assert got["iters"] == [got["unsharded"]] * 2, got
+    m = got["m"]
+    assert got["launches"]["frsz2_rmatvec"] == 2 * m, got["launches"]
+    assert got["launches"]["peer_gather"] == 0 and got["bodies"] == 0
     cause = [ln for ln in forced["error"].splitlines() if "CUDA error" in ln]
-    print(f"\n[mgs over {P} ranks] forced IF node: {cause[:1]}; "
-          f"branch-free pass: {got}")
+    print(f"\n[mgs over {P} ranks] forced IF node on NCCL: {cause[:1]}; "
+          f"branch-free pass: {got['iters']} it")
+
+
+@pytest.mark.cuda
+def test_mgs_over_ranks_runs_the_pass_in_the_if_node(cuda):
+    """Over 2-4 cards with peer access the sharded MGS cycle holds its
+    second pass in an IF node a step, its reductions over the peer gather
+    (no NCCL call in any body): at eta 0.4 a replayed cycle launches
+    kernels 3 and 4 m + fired times and the peer gather twice a fired step
+    (the dots and the norm); the replay equals the eagerly run cycle bit
+    for bit and the replayed solve the captured one; the iterations are
+    the unsharded solve's within one (NCCL sums the first pass's partials
+    in another order than one card sums its rows, so a borderline step
+    may fire or converge otherwise), and every rank fired at the same
+    steps; the census and the reads audit equal their models with the
+    fired steps."""
+    P, got = _over_ranks("if")
+    assert got["route"] == "if+peer_gather"
+    m, fired = got["m"], got["cycle_fired"]
+    assert 0 < fired < m, got
+    assert got["bodies"] == m and got["body_calls"] == ["peer_gather"]
+    launches = got["launches"]
+    for k in ("frsz2_matvec", "frsz2_rmatvec"):
+        assert launches[k] == m + fired, (k, launches)
+    assert launches["graph_if"] == m
+    assert launches["peer_gather"] == 2 * fired
+    assert got["equal"] and got["eager_equal"], got
+    assert got["fired_on_every_rank"], got
+    assert got["iters"][0] == got["iters"][1], got
+    assert abs(got["iters"][1] - got["unsharded"]) <= 1, got
+    assert got["census"] == [] and got["reads"] == [], got
+    info = got["census_info"]
+    assert 0 < sum(info["fired"]) < 2 * 8, info["fired"]
+    assert info["priced"]["cycle"] == info["model"]["cycle"]
+    print(f"\n[mgs over {P} ranks] IF node + peer gather: {got['iters']} it"
+          f" (unsharded {got['unsharded']}), fired {got['fired']}; one "
+          f"cycle: {fired} fired, kernels 3/4 {launches['frsz2_rmatvec']}, "
+          f"peer gathers {launches['peer_gather']}; census cycle "
+          f"{info['priced']['cycle']}")
+
+
+@pytest.mark.cuda
+def test_peer_gather_on_a_nccl_group_of_one(nccl):
+    """The kernel at one rank against its plain version (NCCL's
+    all-gather, the decode, the sum in rank order), bit for bit: f64 at
+    the scalar body's (m + 1), the block body's (m + 1) p^2 and a norm's
+    0-d, f32, and the wire's codes of (m + 1) values summed into f64 and
+    f32; twice each (the slots' two parities), the call counters advancing
+    once a call.  At one rank the sum is the buffer itself (its decode,
+    coded)."""
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import peer_gather
+    from repro_torch.solver.sharded import second_pass_bytes
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    route = peer_gather.Route(None, "cuda", second_pass_bytes(100, 8))
+    region = route.region       # a live one of this group may be reused
+    assert region.chunks == peer_gather._chunks(1, region.slot_bytes) >= 12
+    before = region.counters.clone()
+    calls = 0
+    cases = [((101,), torch.float64, None), ((101, 8, 8), torch.float64, None),
+             ((), torch.float64, None), ((101,), torch.float32, None),
+             ((101,), torch.float32, torch.float64),
+             ((101,), torch.float32, torch.float32)]
+    for shape, dtype, coded_into in cases:
+        x = torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+        src, kw, want = x, {}, x
+        if coded_into is not None:
+            bc = ops.compress(x, collectives.WIRE_SPEC)
+            src = collectives._pack(bc)
+            kw = dict(coded=bc, out_dtype=coded_into)
+            want = ops.decompress(bc).to(coded_into)
+        for _ in range(2):
+            ops.reset_launches()
+            got = peer_gather.reduce(src, route, **kw)  # graphlint: ok[raw-collective] the kernel against its plain version
+            assert ops.LAUNCHES["peer_gather"] == 1
+            plain = peer_gather.reduce(src, route, kernel=False, **kw)  # graphlint: ok[raw-collective] its plain version
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got, plain) and torch.equal(got, want)
+            calls += 1
+    assert torch.equal(region.counters, before + calls)
+
+
+_TRAP_CHILD = r"""
+import ctypes, sys
+import torch
+from repro_torch.kernels import build, peer_gather as PG
+P, slot = 2, 256
+total = ctypes.c_longlong(0)
+PG._call("peer_gather_region_bytes", [ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)], P, 1, slot,
+         ctypes.byref(total))
+hsize = build.bind("peer_gather", "peer_gather_handle_bytes", [])()
+bases = []
+for _ in range(P):
+    base, h = ctypes.c_void_p(), ctypes.create_string_buffer(hsize)
+    PG._call("peer_gather_alloc", [ctypes.c_longlong, PG._PP, PG._P],
+             total.value, ctypes.byref(base), h)
+    bases.append(base.value)
+peers = torch.tensor(bases, dtype=torch.int64, device="cuda")
+counters = torch.zeros(P, dtype=torch.int64, device="cuda")
+x = torch.ones(8, dtype=torch.float64, device="cuda")
+out = torch.empty(8, dtype=torch.float64, device="cuda")
+# rank 0 of two; rank 1 never calls: the kernel waits 0.2 s for its flag
+PG._call("peer_gather_run", PG._RUN, peers.data_ptr(), 0, P, 1, x.data_ptr(),
+         64, slot, 1, 8, 0, 1, out.data_ptr(), counters.data_ptr(),
+         200_000_000, build.stream())
+try:
+    torch.cuda.synchronize()
+except Exception as exc:
+    print("TRAPPED", type(exc).__name__, str(exc).splitlines()[0])
+    sys.exit(0)
+print("NO TRAP")
+"""
+
+
+@pytest.mark.cuda
+def test_peer_gather_traps_when_a_peer_never_comes(cuda, tmp_path):
+    """A rank whose peer takes the other branch (or stops) gets a CUDA
+    error from the kernel's bounded wait, not a hang: rank 0 of two whose
+    rank 1 never calls, with a 0.2 s bound, in a process of its own (a
+    trap ends the process's context)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_CHILD], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert "TRAPPED" in proc.stdout, (proc.stdout, proc.stderr[-2000:])
+    print(f"\n[peer gather] a peer that never comes: {proc.stdout.strip()}")

@@ -36,7 +36,21 @@ a crashed one reads them from the run's shared directory,
   residual, and local sums in another order (the ELL kernel's row sums,
   the squared norms) move it by 2e-6 to 1e-3 relative between two
   otherwise equal solves, for every transport;
-* every rank returns the same ``x``, iterations, restarts and RRN bits.
+* every rank returns the same ``x``, iterations, restarts and RRN bits,
+  and the same fired steps (gathered from every rank: the ranks take MGS's
+  IF node in lockstep).
+
+MGS's second pass: gloo ranks reach no peer's memory, so the CPU's route is
+the branch-free pass (``GmresResult.second_pass == "select"``, its
+reductions all-reduces, as before).  The cases marked ``peer`` force the
+route of cards that do (``_torch_dist_cases.peer_route``): the pass's
+reductions over the peer gather (its plain version, gloo's all-gather, on
+the CPU), the coded transport keeping its bits, the plain one summing in
+rank order; one at the default eta, where the pass fires at nearly every
+step, two at eta 0.3, where it fires at a mixed pattern of steps.  The
+route is the group's capability, not its size (``_routes``): reachable, a
+solve of 8 ranks or of one reduces over the peer gather; unreachable, both
+take the branch-free pass, with the same iterations.
 
 The same world also solves float64 at n = 8000, m = 100 with the coded
 transport's two halves switched one at a time (coded dots, coded halo
@@ -92,7 +106,8 @@ for c in C.SOLVE_CASES:
     kw = dict(storage=c["storage"], m=C.M, max_iters=C.MAX_ITERS,
               target_rrn=target, shard=C.WORLD,
               shard_transport=c["transport"], shard_matvec=c["mode"],
-              reorder=c.get("reorder", "auto"), precond=c.get("precond"))
+              reorder=c.get("reorder", "auto"), precond=c.get("precond"),
+              **C.solve_kw(c))
     if "method" in c:
         B = jnp.asarray(C.batch_rhs(np.asarray(b), c["k"]))
         res = gmres_batched(A, B, method=c["method"], **kw)
@@ -174,7 +189,8 @@ def worlds(tmp_path_factory):
         port = pickle.load(f)
     return dict(ref=ref["cases"], port=port["cases"], cli_ref=ref["cli"],
                 cli_port=json.loads(cli_json.read_text()),
-                switches_ref=ref["switches"], switches_port=port["switches"])
+                switches_ref=ref["switches"], switches_port=port["switches"],
+                routes=port["routes"])
 
 
 def _assert_rrn_bound(rt, rj, A, b):
@@ -214,6 +230,9 @@ def test_sharded_solve_matches_jax(worlds, i):
     np.testing.assert_array_equal(pt["b"], pj["b"])
     assert (pt["mode"], pt["reorder"]) == (pj["mode"], pj["reorder"])
     assert pt["same_on_every_rank"]
+    assert pt["fired_on_every_rank"]
+    route = "if+peer_gather" if c.get("peer") else "select"
+    assert pt["second_pass"] == [route] * len(pt["results"])
     assert len(pt["results"]) == len(pj["results"])
     A, _ = jmake(c["problem"], c["n"])
     B = (C.batch_rhs(pj["b"], c["k"]) if "method" in c else pj["b"][None])
@@ -222,6 +241,41 @@ def test_sharded_solve_matches_jax(worlds, i):
         same = _assert_result(rt, rj, c["transport"], A, jnp.asarray(b))
         if pt["wire"] is not None and same:
             assert pt["wire"] == pj["wire"]
+
+
+def test_mixed_eta_fires_a_mixed_pattern(worlds):
+    """The eta 0.3 cases fire MGS's second pass at some steps and not at
+    others, so the IF node's two branches both run; at the default eta it
+    fires at most steps."""
+    for c, pt in zip(C.SOLVE_CASES, worlds["port"]):
+        if "method" in c:
+            continue
+        cycles = pt["fired"][0]            # fired steps of each cycle of m
+        fired, steps = sum(cycles), len(cycles) * C.M
+        if c.get("eta") == 0.3:
+            assert 0 < fired < steps / 2, (C.case_id(c), cycles)
+        else:
+            assert fired > steps / 2, (C.case_id(c), cycles)
+
+
+@pytest.mark.parametrize("P", [C.WORLD, 1])
+def test_second_pass_route_is_capability_not_group_size(worlds, P):
+    """With the peer gather reachable MGS's second pass runs in the IF
+    node and reduces over it, on 8 ranks and on one; unreachable, it runs
+    branch-free, its reductions all-reduces, whatever the group's size.  Both give the same iterations and fired
+    steps; the branch-free pass issues its reductions at every step (the
+    eager cycle runs the IF node's body at every step too)."""
+    got, off = (worlds["routes"][("reachable", P)],
+                worlds["routes"][("unreachable", P)])
+    assert got["route"] == "if+peer_gather" and off["route"] == "select"
+    assert (got["iterations"], got["fired"]) == (off["iterations"],
+                                                 off["fired"])
+    assert "peer_gather" not in off["cycle_calls"]
+    steps = len(got["fired"]) * C.M
+    # the pass's dots and norm: two peer gathers a step, or two all-reduces
+    assert got["cycle_calls"]["peer_gather"] == 2 * steps
+    assert (off["cycle_calls"]["all_reduce"]
+            == got["cycle_calls"]["all_reduce"] + 2 * steps)
 
 
 @pytest.mark.parametrize("name", list(C.SWITCHES))
