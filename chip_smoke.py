@@ -316,6 +316,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    solve whose cycles replay from a graph); one ``{"phase": "analysis"}``
    row each, any finding fails; then ``python -m repro_torch.analysis
    --check --format json`` in a subprocess, which must print ``[]``.
+16. the solver's options (slice 11): (a) ``repro_torch.examples.
+   quickstart``'s ``codec_demo`` and ``solve_demo`` on the card beside the
+   CPU in this process (the codec's lines equal, its codes bit-equal; the
+   float64 / float32 / frsz2_32 solves converged, within one iteration of
+   the CPU's) and ``solve_cfd.pipeline_demo(8000, "cuda")`` (Jacobi in
+   fewer iterations than the identity on ``synth:varcoef``, the adaptive
+   policy under static frsz2_32's ``bytes_read``); (b) the paper's grid,
+   every problem of ``PROBLEMS`` x float64, float32, float16, frsz2_32 and
+   frsz2_16 at n = 8000, m = 50: the device driver twice (capture, then
+   replay, bit-equal) and the host driver, equal iterations, restarts,
+   ``bytes_read`` and ``op_reads``, every solve converged; the FRSZ2
+   pairs within one iteration of the plain route (two on
+   ``synth:varcoef``), launching kernels 1, 3, 4 and 6, the native pairs
+   no FRSZ2 kernel; the ELL row kernel serving aniso2d (w = 5) and lung
+   (w = 4); the 40 rows printed with the reference's headline check
+   (frsz2_32 iterations <= float32's, printed, not gated); (c) at full
+   width (atmosmodd, m = 100) float32, float16, frsz2_16,
+   ``mixed:2:frsz2_32``, frsz2_32 with CGS2 and ``policy="adaptive"`` (at
+   m = 100 and at m = 10, where it steps through its levels), then
+   ``synth:varcoef`` at the same n with frsz2_32 and Jacobi: device
+   (capture, replay: no new graph) and host drivers bit-equal, converged
+   within ``FULL_MAX_ITERS``, one graph a level reached, each launching
+   its format's kernels, walls, ``bytes_read`` an iteration and peaks
+   beside phase 5's; (d) kernels 3 and 4 at the frsz2_16 solver spec (bs
+   32, l 16, f64, 101 x 1,259,712) against their plain versions (1e-12
+   relative), timed beside the bound and ``torch.mv`` on the decoded basis
+   (rows ``frsz2_matvec_l16`` and ``frsz2_rmatvec_l16``, "3h" and "4h",
+   launches from the full-width frsz2_16 solve).
 
 Slice 9 (MGS's second pass as a CUDA graph IF node, ``remat_policy=
 "dots"``) adds to these phases: in 3, the IF node's condition kernel
@@ -490,6 +518,27 @@ ROOF_DEADLINE_S, ROOF_DECODE_SEQ = 300, 2052
 STEP_TIMES: dict = {}
 #: H100 SXM data sheet: dense bf16 tensor-core peak (the MFU's denominator)
 BF16_FLOPS = 989e12
+#: phase 16 (slice 11): 16a's ``pipeline_demo`` size; 16b's grid (the
+#: formats of ``benchmarks/iteration_table.py`` over ``PROBLEMS``) at phase
+#: 4's n, the reference's m = 50; 16c's options at full width (label,
+#: storage, options; at m = 100 the float64 level converges within the
+#: first cycle, so the adaptive policy runs again at ``pipeline_demo``'s
+#: m = 10, where it steps through its levels); each within
+#: ``FULL_MAX_ITERS``, as the Jacobi solve of ``synth:varcoef`` at that n
+DEMO_N = 8000
+GRID_FORMATS = ("float64", "float32", "float16", "frsz2_32", "frsz2_16")
+GRID_N, GRID_M, GRID_MAX_ITERS = 8000, 50, 6000
+#: iterations the kernel route may take from the plain route (phase 4's
+#: one); ``synth:varcoef``'s 25-28 restarts of a row-scaled operator drift
+#: by two (frsz2_16: 1,370 against 1,368 on an H100), as the port drifts
+#: from the JAX package there (``tests/test_torch_examples.py``)
+GRID_DRIFT = {"synth:varcoef": 2}
+FULL_OPTIONS = (("float32", "float32", {}), ("float16", "float16", {}),
+                ("frsz2_16", "frsz2_16", {}),
+                ("mixed:2:frsz2_32", "mixed:2:frsz2_32", {}),
+                ("frsz2_32+cgs2", "frsz2_32", {"ortho": "cgs2"}),
+                ("adaptive", None, {"policy": "adaptive"}),
+                ("adaptive, m = 10", None, {"policy": "adaptive", "m": 10}))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1050,7 +1099,10 @@ def phase_graph_if():
 
 
 def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver,
-               reorder="auto"):
+               reorder="auto", m=M, **kw):
+    """One ``gmres`` solve as a user calls it, the launch counts set to 0
+    just before and read just after; ``kw``: the pipeline's options
+    (``ortho``, ``policy``, ``precond``), recorded in the row."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1060,8 +1112,8 @@ def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver,
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = gmres(A, b, storage=fmt, m=M, max_iters=max_iters, target_rrn=target,
-                driver=driver, reorder=reorder)
+    res = gmres(A, b, storage=fmt, m=m, max_iters=max_iters, target_rrn=target,
+                driver=driver, reorder=reorder, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -1077,6 +1129,9 @@ def _solve_row(label, A, b, x_sol, fmt, target, max_iters, driver,
                launches=launches)
     if reorder != "auto":
         row["reorder"] = reorder
+    if m != M:
+        row["m"] = m
+    row.update({k: str(v) for k, v in kw.items()})
     emit(row)
     return res, row
 
@@ -5392,6 +5447,339 @@ def phase_analysis(device_line):
           + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
 
+def _coded_launch_check(row, coded: bool, what):
+    """A device solve on an FRSZ2 basis (``coded``) launches kernels 1, 3, 4
+    and 6 (and the rest of the device path); on a native one no FRSZ2
+    kernel."""
+    lc = row["launches"]
+    if coded:
+        _check_launches(row, DEVICE_PATH, what)
+    else:
+        check(lc["ell_spmv"] > 0 and lc["gmres_givens"] > 0,
+              f"{what}: the device path skipped a kernel: {lc}")
+        check(not any(v for k, v in lc.items()
+                      if k.startswith("frsz2_") or k == "ell_spmv_frsz2"),
+              f"{what}: a native basis launched an FRSZ2 kernel: {lc}")
+
+
+def _phase_quickstart(walls):
+    """16a: the quickstart's two functions on the card beside the CPU, then
+    ``pipeline_demo(DEMO_N, "cuda")``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import FRSZ2_16, FrszSpec, compress
+    from repro_torch.examples import quickstart, solve_cfd
+    from repro_torch.sparse.problems import PROBLEMS
+
+    t0 = time.perf_counter()
+    card, cpu = quickstart.codec_demo("cuda"), quickstart.codec_demo("cpu")
+    check(card == cpu, f"quickstart's codec lines differ: card {card}, "
+                       f"CPU {cpu}")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    x64 = torch.from_numpy(rng.standard_normal(4096))
+    for v, spec in ((x, FRSZ2_16),
+                    (x64, FrszSpec(bs=32, l=32, dtype=torch.float64))):
+        bg, bc = compress(v.cuda(), spec), compress(v, spec)
+        check(torch.equal(bg.codes.cpu(), bc.codes)
+              and torch.equal(bg.exps.cpu(), bc.exps),
+              f"quickstart's {spec.name} codes differ on the card")
+    for line in card:
+        print(f"[options] quickstart (card = CPU, codes bit-equal): {line}")
+    target = PROBLEMS["synth:atmosmod"][1]
+    lines_card, res_card = quickstart.solve_demo("cuda")
+    lines_cpu, res_cpu = quickstart.solve_demo("cpu")
+    for fmt in quickstart.FORMATS:
+        g, c = res_card[fmt], res_cpu[fmt]
+        check(g.converged and g.rrn <= target,
+              f"quickstart {fmt} on the card: rrn {g.rrn:.3e}, converged "
+              f"{g.converged}")
+        check(abs(g.iterations - c.iterations) <= 1,
+              f"quickstart {fmt}: {g.iterations} iterations on the card, "
+              f"{c.iterations} on the CPU")
+    for a, b in zip(lines_card[1:-1], lines_cpu[1:-1]):
+        print(f"[options] quickstart card: {a.strip()} | CPU: {b.strip()}")
+    emit(dict(phase="options-quickstart",
+              card={f: [r.iterations, r.rrn] for f, r in res_card.items()},
+              cpu={f: [r.iterations, r.rrn] for f, r in res_cpu.items()}))
+    walls["16a quickstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines, res = solve_cfd.pipeline_demo(DEMO_N, "cuda")
+    for line in lines:
+        print(f"[options] pipeline_demo({DEMO_N}): {line}")
+    check(all(r.converged for r in res.values()),
+          f"pipeline_demo: not every solve converged: "
+          f"{ {k: r.rrn for k, r in res.items()} }")
+    check(res["jacobi"].iterations < res["identity"].iterations,
+          "pipeline_demo: Jacobi took no fewer iterations than the identity")
+    check(res["adaptive"].bytes_read < res["static"].bytes_read,
+          "pipeline_demo: the adaptive policy read no fewer bytes than "
+          "static frsz2_32")
+    emit(dict(phase="options-pipeline-demo", n=DEMO_N,
+              **{k: dict(iters=r.iterations, restarts=r.restarts, rrn=r.rrn,
+                         bytes_read=r.bytes_read) for k, r in res.items()}))
+    walls["16a pipeline_demo"] = time.perf_counter() - t0
+
+
+def _phase_grid(walls):
+    """16b: the paper's grid on the card; returns the rows."""
+    import torch
+
+    from repro_torch.core.accessor import format_by_name
+    from repro_torch.kernels import ell_spmv as KE
+    from repro_torch.sparse import make_problem, rhs_for
+    from repro_torch.sparse.problems import PROBLEMS
+
+    t0 = time.perf_counter()
+    table = []
+    for name in PROBLEMS:
+        A, target = make_problem(name, GRID_N, device="cuda")
+        b, x_sol = rhs_for(A, device="cuda")
+        w = A._ell().vals.shape[1]
+        iters = {}
+        for fmt in GRID_FORMATS:
+            what = f"grid {name} {fmt}"
+            kw = dict(m=GRID_M)     # the reference's restart length
+            d1, rd1 = _solve_row("grid-capture", A, b, x_sol, fmt, target,
+                                 GRID_MAX_ITERS, "device", **kw)
+            d2, rd2 = _solve_row("grid", A, b, x_sol, fmt, target,
+                                 GRID_MAX_ITERS, "device", **kw)
+            h, rh = _solve_row("grid", A, b, x_sol, fmt, target,
+                               GRID_MAX_ITERS, "host", **kw)
+            check(d1.converged and d2.converged and h.converged,
+                  f"{what} did not converge: rrn {d1.rrn:.3e}, "
+                  f"stagnated {d1.stagnated}")
+            _check_drivers_agree(d1, h, rd1, rh, what)
+            check(d1.iterations == d2.iterations and torch.equal(d1.x, d2.x),
+                  f"{what}: two device solves differ")
+            _coded_launch_check(rd2, fmt.startswith("frsz2_"), what)
+            row = dict(problem=name, n=A.shape[0], w=w, format=fmt,
+                       iters=d2.iterations, restarts=d2.restarts, rrn=d2.rrn,
+                       converged=d2.converged, wall_s=rd2["wall_s"],
+                       host_wall_s=rh["wall_s"])
+            if fmt.startswith("frsz2_"):
+                p, rp = _solve_row("grid-plain", A, b, x_sol,
+                                   format_by_name(fmt, use_kernels=False),
+                                   target, GRID_MAX_ITERS, "host", **kw)
+                drift = GRID_DRIFT.get(name, 1)
+                check(p.converged
+                      and abs(p.iterations - d2.iterations) <= drift,
+                      f"{what}: kernel route {d2.iterations} iterations, "
+                      f"plain route {p.iterations} (converged "
+                      f"{p.converged}), more than {drift} apart")
+                check(not any(v for k, v in rp["launches"].items()
+                              if k.startswith("frsz2_")
+                              or k == "ell_spmv_frsz2"),
+                      f"{what}: the plain route launched FRSZ2 kernels")
+                row["plain_iters"] = p.iterations
+            iters[fmt] = d2.iterations
+            table.append(row)
+        if KE.body(w) == "row":
+            print(f"[options] {name}: ELL width {w}, every solve's SpMV on "
+                  f"the row kernel (ell_row_kernel, "
+                  f"{rd2['launches']['ell_spmv']} ell_spmv and "
+                  f"{rd2['launches']['ell_spmv_frsz2']} ell_spmv_frsz2 "
+                  "launches in its frsz2_16 device solve)")
+        print(f"[options] {name}: frsz2_32 {iters['frsz2_32']} <= float32 "
+              f"{iters['float32']} iterations (the paper's headline check, "
+              f"not gated): {iters['frsz2_32'] <= iters['float32']}")
+        del A, b, x_sol, d1, d2, h
+        release()
+    print("[options] the paper's grid on the card, n = 8000, m = 50: "
+          "iterations / restarts / final rrn / converged / device wall s")
+    for row in table:
+        print(f"[options]   {row['problem']:20s} {row['format']:9s} "
+              f"{row['iters']:5d} {row['restarts']:3d} {row['rrn']:.3e} "
+              f"{row['converged']} {row['wall_s']:.4f}")
+    emit(dict(phase="options-grid", rows=table))
+    walls["16b grid"] = time.perf_counter() - t0
+    return table
+
+
+def _full_launch_check(label, row, cycles):
+    """A full-width option's device launches match its format(s); for the
+    adaptive policy, each level's captured cycle matches its own."""
+    lc = row["launches"]
+    if label in ("float32", "float16"):
+        _coded_launch_check(row, False, f"full-width {label}")
+    elif label == "frsz2_32+cgs2":
+        path = tuple(k for k in DEVICE_PATH if k != "graph_if")
+        _check_launches(row, path, "full-width frsz2_32 CGS2")
+        check(lc["graph_if"] == 0, f"CGS2 launched an IF node: {lc}")
+    elif label == "jacobi":
+        # the preconditioned operator reads each row decoded (kernel 2)
+        _check_launches(row, ("frsz2_compress", "frsz2_decompress",
+                              "frsz2_matvec", "frsz2_rmatvec", "ell_spmv",
+                              "gmres_givens", "graph_if"),
+                        "full-width frsz2_32 Jacobi")
+        check(lc["ell_spmv_frsz2"] == 0, f"Jacobi fused the operand: {lc}")
+    elif label.startswith("adaptive"):
+        # the coded path where a level past float64 ran
+        _coded_launch_check(row, any("frsz2" in c.acc.fmt.name
+                                     for c in cycles), f"full-width {label}")
+    else:
+        _check_launches(row, DEVICE_PATH, f"full-width {label}")
+    for cyc in cycles:
+        fmt = cyc.acc.fmt.name
+        coded = any(cyc.launches.get(k) for k in (
+            "frsz2_compress", "frsz2_matvec", "frsz2_rmatvec",
+            "ell_spmv_frsz2"))
+        check(coded == ("frsz2" in fmt),
+              f"full-width {label}: the {fmt} level's cycle launches "
+              f"{cyc.launches}")
+
+
+def _policy_levels(res, target):
+    """The adaptive policy's level at each cycle ``res`` ran."""
+    import torch
+
+    from repro_torch.solver.pipeline import resolve_policy
+
+    policy = resolve_policy("adaptive", None, torch.float64, target, M)
+    return [policy.level(float(rr), i)
+            for i, rr in enumerate(res.restart_rrns[:len(res.fired)])]
+
+
+def _full_option(label, A, b, x_sol, target, fmt, kw):
+    """One option at full width: the device driver twice (capture, then
+    replay: no new graph) and the host driver, bit-equal; the launches of
+    its path and of each captured level's cycle.  Returns the replay's row
+    and the graphs its capture made."""
+    import torch
+
+    from repro_torch.solver.gmres import _GRAPHS
+
+    keys = set(_GRAPHS)
+    d1, rd1 = _solve_row("options-full-capture", A, b, x_sol, fmt, target,
+                         FULL_MAX_ITERS, "device", **kw)
+    new = [_GRAPHS[k] for k in _GRAPHS if k not in keys]
+    keys = set(_GRAPHS)
+    d2, rd2 = _solve_row("options-full", A, b, x_sol, fmt, target,
+                         FULL_MAX_ITERS, "device", **kw)
+    check(set(_GRAPHS) == keys,
+          f"full-width {label}: the second solve captured a graph")
+    h, rh = _solve_row("options-full", A, b, x_sol, fmt, target,
+                       FULL_MAX_ITERS, "host", **kw)
+    for res in (d1, d2, h):
+        check(res.converged, f"full-width {label}: not converged within "
+              f"{FULL_MAX_ITERS} iterations (rrn {res.rrn:.3e}, stagnated "
+              f"{res.stagnated})")
+    rel = _check_drivers_agree(d2, h, rd2, rh, f"full-width {label}")
+    check(torch.equal(d1.x, d2.x) and torch.equal(d2.x, h.x),
+          f"full-width {label}: the device solves and the host solve are "
+          "not bit-equal")
+    _full_launch_check(label, rd2, new)
+    levels = (sorted(set(_policy_levels(d2, target))) if "policy" in kw
+              else [0])
+    check(len(new) == len(levels),
+          f"full-width {label}: {len(new)} graphs captured for the levels "
+          f"{levels}")
+    graphs = [c.acc.fmt.name for c in new]
+    it = max(d2.iterations, 1)
+    emit(dict(phase="options-full-summary", option=label, graphs=graphs,
+              levels=levels, x_rel_host=rel, stagnated=d2.stagnated,
+              capture_wall_s=rd1["wall_s"], host_wall_s=rh["wall_s"]))
+    print(f"[options] full width {label}: device {d2.iterations} it = host "
+          f"{h.iterations} it ({d2.restarts} restarts, rrn {d2.rrn:.3e}, "
+          f"converged {d2.converged}), bit-equal; graphs {graphs}; wall "
+          f"{rd2['wall_s']:.4f} s, {rd2['wall_per_iter_ms']:.4f} ms/it (host"
+          f" {rh['wall_per_iter_ms']:.4f}, capture {rd1['wall_s']:.2f} s), "
+          f"{d2.bytes_read / it / 1e6:.1f} MB read/it, peak "
+          f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in rd2["launches"].items() if v))
+    return rd2
+
+
+def _phase_options_full(walls, full_rows):
+    """16c: the options at full width; returns the frsz2_16 replay's
+    launches (rows 3h and 4h)."""
+    from repro_torch.sparse import make_problem, rhs_for
+
+    t0 = time.perf_counter()
+    A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
+    b, x_sol = rhs_for(A, device="cuda")
+    rows = {}
+    for label, fmt, kw in FULL_OPTIONS:
+        rows[label] = _full_option(label, A, b, x_sol, target, fmt, kw)
+        release()
+    del A, b, x_sol
+    A, target = make_problem("synth:varcoef", N_MAIN, device="cuda")
+    b, x_sol = rhs_for(A, device="cuda")
+    rows["jacobi"] = _full_option("jacobi", A, b, x_sol, target, "frsz2_32",
+                                  dict(precond="jacobi"))
+    del A, b, x_sol
+    release()
+    for fmt, row in full_rows.items():
+        print(f"[options] beside phase 5's {fmt}: {row['iters']} it, wall "
+              f"{row['wall_s']:.4f} s, {row['wall_per_iter_ms']:.4f} ms/it, "
+              f"{row['bytes_read'] / max(row['iters'], 1) / 1e6:.1f} MB "
+              f"read/it, peak {row['peak_mem_bytes'] / 2**30:.2f} GiB")
+    walls["16c full width"] = time.perf_counter() - t0
+    return dict(rows["frsz2_16"]["launches"])
+
+
+def _phase_l16_kernels(walls):
+    """16d: kernels 3 and 4 at the frsz2_16 solver spec (bs 32, l 16, f64
+    values), 101 rows of a main-path row, timed as phase 3 times them."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1616)
+    n = round(N_MAIN ** (1 / 3)) ** 3
+    spec = F.FrszSpec(bs=32, l=16, dtype=torch.float64)
+    V = torch.randn((R_FULL, n), generator=gen, dtype=torch.float64,
+                    device=dev)
+    V /= torch.linalg.vector_norm(V, dim=1, keepdim=True)
+    w = torch.randn((n,), generator=gen, dtype=torch.float64, device=dev)
+    h = torch.randn((R_FULL,), generator=gen, dtype=torch.float64, device=dev)
+    bc, Vdec, _, _ = _codec_pair(V, spec)
+    del V
+    dot_src = "src/repro_torch/kernels/csrc/frsz2_dot.cu"
+    nbytes = (R_FULL * (bc.codes[0].numel() * 2 + bc.exps[0].numel() * 4)
+              + n * 8 + R_FULL * 8)
+    entries = {}
+    for row, op, fn, vec, lib, replaces in (
+            ("3h", "matvec", ops.matvec, w, lambda: torch.mv(Vdec, w),
+             "src/repro/kernels/frsz2_dot.py:77"),
+            ("4h", "rmatvec", ops.rmatvec, h, lambda: torch.mv(Vdec.t(), h),
+             "src/repro/kernels/frsz2_dot.py:114")):
+        abs_err, rel, _ = _contraction_err(bc, vec, op, R_FULL)
+        check(rel <= 1e-12, f"{op} at l 16: relative error {rel:.3e}")
+        entries[f"frsz2_{op}_l16"] = entry(
+            f"frsz2_{op}_l16", dot_src, replaces,
+            timed(lambda fn=fn, vec=vec: fn(bc, vec, kernel=True)),
+            timed(lambda fn=fn, vec=vec: fn(bc, vec, kernel=False)),
+            nbytes, 2.0 * R_FULL * n, abs_err, library_ms=timed(lib),
+            rows=R_FULL, shape=f"{R_FULL} x {n}, bs 32, l 16, f64",
+            library="torch.mv on the decoded f64 basis", row=row,
+            kernel=f"frsz2_{op}", path="options")
+    del bc, Vdec
+    release()
+    walls["16d kernels at l 16"] = time.perf_counter() - t0
+    return entries
+
+
+def phase_options(device_line, full_rows):
+    """Slice 11: the solver's storage formats and pipeline options on the
+    card (16a-16d); returns rows 3h and 4h and their launches."""
+    t_phase = time.perf_counter()
+    walls = {}
+    _phase_quickstart(walls)
+    release()
+    _phase_grid(walls)
+    l16 = _phase_options_full(walls, full_rows)
+    entries = _phase_l16_kernels(walls)
+    emit(dict(phase="options", walls=walls, device=device_line))
+    print(f"[options] phase 16 took {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return entries, l16
+
+
 def _cast(tree, dtype):
     """A copy of a weight tree with every floating tensor in ``dtype``."""
     return {k: _cast(v, dtype) if isinstance(v, dict)
@@ -5467,6 +5855,7 @@ def _run(t_start, device_line) -> int:
     entries.update(sharded_entries)
     release()
     phase_sharded_multi(target, unsharded, block_unsharded, mixed_ref)
+    full_rows = {fmt: row for fmt, (_, row) in unsharded.items()}
     del A, unsharded, block_unsharded
     release()
     phase_plan(entries)
@@ -5490,6 +5879,9 @@ def _run(t_start, device_line) -> int:
     phase_roofline(device_line)
     release()
     phase_analysis(device_line)
+    release()
+    options_entries, options_launches = phase_options(device_line, full_rows)
+    entries.update(options_entries)
     # kernel 1 as the serving cache writes with it, counted in the prefill
     # and in the decode steps of the frsz2_16 run; timed at the prefill's
     # shape, where the kernel does work worth timing, a decode step's (at
@@ -5516,6 +5908,8 @@ def _run(t_start, device_line) -> int:
             e["launches"] = serve_launches[key]
         elif e.get("path") == "train":
             e["launches"] = train_launches[key]
+        elif e.get("path") == "options":
+            e["launches"] = options_launches[key]
         else:
             e["launches"] = launches[key]
             e["path"] = paths[key]

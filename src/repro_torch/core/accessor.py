@@ -169,6 +169,11 @@ class StorageFormat:
         return Y2.T @ V.reshape(rows * p, n_seg)
 
 
+#: values a native basis of another dtype than the arithmetic's converts
+#: at a time in its dots and combine (128 MiB of f64): a chunk of rows
+NATIVE_CHUNK_VALUES = 1 << 24
+
+
 def f64_to_f16(v: torch.Tensor) -> torch.Tensor:
     """f64 -> f16 through f32, rounding to nearest even at each step: what
     PyTorch's own conversion does on the CPU and on the card, and what the
@@ -224,6 +229,39 @@ class NativeFormat(StorageFormat):
 
     def read_all(self, store, arith_dtype, n: int):
         return store.to(arith_dtype)
+
+    def _chunks(self, store, rows: int, arith_dtype):
+        """The first ``rows`` rows converted to ``arith_dtype``: ``(i,
+        V[i:i + k])`` in chunks of a fixed number of rows, written into one
+        buffer whose size does not depend on ``rows``.  A copy of the first
+        ``rows`` rows would grow by a row at every step of a cycle, and a
+        captured cycle keeps each step's allocation in its graph's pool (and
+        each IF node's in its own), which at full width passes the card's
+        memory.  Up to ``NATIVE_CHUNK_VALUES`` values a chunk; a store that
+        fits is one chunk, the same product as converting it whole."""
+        n = store.shape[1]
+        k = max(1, min(store.shape[0], NATIVE_CHUNK_VALUES // max(n, 1)))
+        buf = torch.empty((k, n), dtype=arith_dtype, device=store.device)
+        for i in range(0, max(rows, 1), k):      # rows = 0: one empty
+            kk = min(k, rows - i)
+            yield i, buf[:kk].copy_(store[i:i + kk])
+
+    def dots(self, store, w, arith_dtype, n: int, rows: int):
+        if self.dtype == arith_dtype:
+            return super().dots(store, w, arith_dtype, n, rows)
+        w = w.to(arith_dtype)
+        return torch.cat([V @ w for _, V in
+                          self._chunks(store, rows, arith_dtype)])
+
+    def combine(self, store, h, arith_dtype, n: int):
+        if self.dtype == arith_dtype:
+            return super().combine(store, h, arith_dtype, n)
+        h = h.to(arith_dtype)
+        y = None
+        for i, V in self._chunks(store, h.shape[0], arith_dtype):
+            part = h[i:i + V.shape[0]] @ V
+            y = part if y is None else y + part
+        return y
 
     def nbytes(self, m: int, n: int) -> int:
         return m * n * self.dtype.itemsize

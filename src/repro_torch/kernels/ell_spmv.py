@@ -29,6 +29,15 @@ _DENSE = [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P]
 # (vals, cols, codes, exps, y, nr, w, bs_log2, code_kind, l, kind, stream)
 _CODED = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]
 
+#: the widths the source compiles a tiled body for; every other width runs
+#: the row kernel (``ell_row_kernel``, ``ell_row_batched_kernel``)
+TILE_WIDTHS = (7, 27)
+
+
+def body(w: int) -> str:
+    """The body a launch at ELL width ``w`` runs: ``"tile"`` or ``"row"``."""
+    return "tile" if w in TILE_WIDTHS else "row"
+
 
 def ell_spmv_2d(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                 y: torch.Tensor) -> None:

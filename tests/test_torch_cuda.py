@@ -1888,3 +1888,123 @@ def test_peer_gather_traps_when_a_peer_never_comes(cuda, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert "TRAPPED" in proc.stdout, (proc.stdout, proc.stderr[-2000:])
     print(f"\n[peer gather] a peer that never comes: {proc.stdout.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: the solver's storage formats and pipeline options on the card
+# ---------------------------------------------------------------------------
+
+#: (problem, storage, options) of the options the card tests drive at
+#: n = 8000 (``-k options``)
+OPTION_CASES = [
+    ("synth:atmosmod", "float32", {}),
+    ("synth:atmosmod", "float16", {}),
+    ("synth:atmosmod", "frsz2_16", {}),
+    ("synth:atmosmod", "mixed:2:frsz2_32", {}),
+    ("synth:atmosmod", "frsz2_32", {"ortho": "cgs2"}),
+    ("synth:atmosmod", None, {"policy": "adaptive"}),
+    ("synth:varcoef", "frsz2_32", {"precond": "jacobi"}),
+    ("synth:lung", "frsz2_32", {}),
+]
+FRSZ2_KERNELS = ("frsz2_compress", "frsz2_matvec", "frsz2_rmatvec")
+
+
+def _option_launches(storage, kw):
+    """(kernels that must launch, kernels that must not) in a device solve
+    of an option."""
+    if storage in ("float32", "float16"):
+        return (("ell_spmv", "gmres_givens", "graph_if"),
+                FRSZ2_KERNELS + ("frsz2_decompress", "ell_spmv_frsz2"))
+    if "precond" in kw:           # the preconditioned operand is decoded
+        return (FRSZ2_KERNELS + ("frsz2_decompress", "ell_spmv",
+                                 "gmres_givens", "graph_if"),
+                ("ell_spmv_frsz2",))
+    path = FRSZ2_KERNELS + ("ell_spmv_frsz2", "ell_spmv", "gmres_givens")
+    if kw.get("ortho") == "cgs2":  # two passes at every step, no IF node
+        return path, ("frsz2_decompress", "graph_if")
+    return path + ("graph_if",), ("frsz2_decompress",)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,storage,kw", OPTION_CASES,
+                         ids=[f"{p.split(':')[1]}-{s}-"
+                              f"{'-'.join(map(str, k.values())) or 'mgs'}"
+                              for p, s, k in OPTION_CASES])
+def test_options_device_driver_equals_host_on_card(cuda, name, storage, kw):
+    """Each storage format and pipeline option at n = 8000 on the card: the
+    device driver (captured, then replayed) bit-equal to the host driver
+    (iterations, restarts, ``bytes_read``, ``op_reads``, x); a second and a
+    third solve capture no graph and launch the same kernels as often; the
+    kernels each option's path launches, and no other FRSZ2 kernel.  The
+    adaptive policy captures one graph a level it reaches, each launching
+    its own format's kernels.  ``synth:lung`` has ELL width 4: its SpMV
+    runs the row kernel."""
+    from repro_torch.kernels import ell_spmv as KE
+    from repro_torch.solver.gmres import _GRAPHS
+    from repro_torch.solver.pipeline import resolve_policy
+
+    A, target = make_problem(name, 8000, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    sk = dict(storage=storage, m=50, max_iters=6000, target_rrn=target, **kw)
+    rh = gmres(A, b, driver="host", **sk)
+    keys = set(_GRAPHS)
+    r1 = gmres(A, b, **sk)
+    new = [_GRAPHS[k] for k in _GRAPHS if k not in keys]
+    keys = set(_GRAPHS)
+    ops.reset_launches()
+    r2 = gmres(A, b, **sk)
+    launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    r3 = gmres(A, b, **sk)
+    assert set(_GRAPHS) == keys and dict(ops.LAUNCHES) == launches
+    assert rh.converged
+    for r in (r1, r2, r3):
+        assert (r.iterations, r.restarts) == (rh.iterations, rh.restarts)
+        assert r.bytes_read == rh.bytes_read and r.op_reads == rh.op_reads
+        assert torch.equal(r.x, rh.x)
+    must, never = _option_launches(storage, kw)
+    assert all(launches[k] > 0 for k in must), launches
+    assert not any(launches[k] for k in never), launches
+    if "policy" in kw:
+        policy = resolve_policy(kw["policy"], None, torch.float64, target, 50)
+        levels = {policy.level(float(rr), i) for i, rr in
+                  enumerate(r2.restart_rrns[:len(r2.fired)])}
+        assert len(new) == len(levels) >= 2, (len(new), levels)
+        for cyc in new:
+            coded = any(cyc.launches.get(k) for k in FRSZ2_KERNELS)
+            assert coded == ("frsz2" in cyc.acc.fmt.name), cyc.launches
+    else:
+        assert len(new) == 1
+    if name == "synth:lung":
+        assert KE.body(A._ell().vals.shape[1]) == "row"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "float16"])
+def test_options_native_basis_captures_in_bounded_memory_on_card(cuda,
+                                                                storage):
+    """A float32 / float16 basis at n = 1,000,000, m = 100: one captured
+    cycle and its IF nodes hold the rows' f64 conversions in chunks of a
+    fixed size.  Converting the first j rows whole at step j put a copy a
+    row larger at every step into the graph's pools (about 40 GB here), and
+    the full-width float32 capture ran out of the card's memory.  The
+    capture now reserves under 4 GiB beyond the store, and the replayed
+    solve is bit-equal to the host driver's."""
+    from repro_torch.solver import clear_graph_cache
+
+    clear_graph_cache()
+    torch.cuda.empty_cache()
+    A, target = make_problem("synth:atmosmod", 1_000_000, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    kw = dict(storage=storage, m=100, max_iters=100, target_rrn=target)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    r1 = gmres(A, b, **kw)
+    grown = torch.cuda.max_memory_reserved() - base
+    r2 = gmres(A, b, **kw)
+    rh = gmres(A, b, driver="host", **kw)
+    assert grown < 4 * 2**30, grown / 2**30
+    assert r1.iterations == r2.iterations == rh.iterations > 0
+    assert torch.equal(r1.x, r2.x) and torch.equal(r2.x, rh.x)
+    clear_graph_cache()

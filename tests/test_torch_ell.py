@@ -135,3 +135,20 @@ def test_port_operator_matches_jax_operator(rng):
     x = rng.standard_normal(At.shape[0])
     yj = np.asarray(Aj.to_ell().matvec(jnp.asarray(x), kernel=False))
     _close(At.matvec(torch.from_numpy(x)).numpy(), yj)
+
+
+def test_ell_body_names_the_widths_the_source_tiles():
+    """``ell_spmv.body`` names the body a width runs: the tiled one at the
+    widths ``csrc/ell_spmv.cu`` compiles (its ``case`` labels), the row
+    kernel at every other (aniso2d's 5, lung's 4)."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels import ell_spmv as KE
+
+    src = (pathlib.Path(KE.__file__).parent / "csrc" / "ell_spmv.cu")
+    cases = {int(c) for c in re.findall(r"case (\d+):\s*\n\s*ell_tile",
+                                        src.read_text())}
+    assert cases == set(KE.TILE_WIDTHS)
+    assert [KE.body(w) for w in (4, 5, 7, 27, 28)] == [
+        "row", "row", "tile", "tile", "row"]
