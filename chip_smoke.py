@@ -17,7 +17,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    design's grid limit) and on views at an offset (``cardcheck.codec_edges``);
    the matvec at 1, 2, 7, 33, 64, 65 and 101 rows, two calls bit-equal,
    x one-hot equal to the decoded basis, and rows whose exponents cross the scaled decode's
-   guard (flush zone, 2*bias+1) equal to ``decompress``;
+   guard (flush zone, 2*bias+1) equal to ``decompress``; the rmatvec
+   (slice 12) bit-equal to its row-order plain sum (``ref.rmatvec_rows_ref``:
+   one fma a row, rows in order) at those rows, at every f32/f64 spot at
+   n = 1001 and on codes one code past a 16-byte word, two calls bit-equal,
+   one replay of a captured call equal to the eager call, and rows whose
+   codec blocks cross the guard (bs 32 and 2, h one-hot) equal to
+   ``decompress``;
    the ELL SpMV on that operator, dense and with a frsz2_32-coded operand,
    bit-equal to its plain version and to a second call, with spot checks of
    f32 values, a ragged column count and bs = 8/64/128; the scaled FRSZ2
@@ -343,7 +349,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    32, l 16, f64, 101 x 1,259,712) against their plain versions (1e-12
    relative), timed beside the bound and ``torch.mv`` on the decoded basis
    (rows ``frsz2_matvec_l16`` and ``frsz2_rmatvec_l16``, "3h" and "4h",
-   launches from the full-width frsz2_16 solve).
+   launches from the full-width frsz2_16 solve); (e, slice 12) a float32
+   block basis at full width (p = 8, m = 100): the block device driver
+   (capture, replay) bit-equal to the block host driver, its peak memory
+   (``max_memory_allocated``) printed, no FRSZ2 kernel launched.
 
 Slice 9 (MGS's second pass as a CUDA graph IF node, ``remat_policy=
 "dots"``) adds to these phases: in 3, the IF node's condition kernel
@@ -725,6 +734,46 @@ def _matvec_checks(bc, Vdec, w):
     _matvec_guard_checks(bc.codes.device)
 
 
+def _rmatvec_checks(bc, h):
+    """The rmatvec at the main-path shape bit-equal to its row-order plain
+    sum (``ref.rmatvec_rows_ref``) at EDGE_ROWS live rows and on codes one
+    code past a 16-byte word; two calls bit-equal; one replay of a captured
+    call equal to the eager call; across the decode guards."""
+    import torch
+
+    from repro_torch.core import frsz2 as F
+    from repro_torch.kernels import cardcheck, ops
+    from repro_torch.kernels.cardcheck import EDGE_ROWS
+
+    for r in EDGE_ROWS:
+        sub = F.BlockCompressed(codes=bc.codes[:r], exps=bc.exps[:r],
+                                n=bc.n, spec=bc.spec)
+        check(cardcheck.rmatvec_rows_equal(sub, h[:r]),
+              f"rmatvec r={r} != the row-order plain sum")
+    check(cardcheck.rmatvec_rows_equal(cardcheck.offset_view(bc), h),
+          "rmatvec on codes at an offset != the row-order plain sum")
+    check(torch.equal(ops.rmatvec(bc, h), ops.rmatvec(bc, h)),
+          "rmatvec: two calls differ")
+    check(cardcheck.replay_equals_eager(lambda: ops.rmatvec(bc, h)),
+          "rmatvec: a captured call's replay != the eager call")
+    gen = torch.Generator(device=bc.codes.device).manual_seed(32)
+    checked = 0
+    for dtype, bias in cardcheck.GUARD_DTYPES:
+        for l in (32, 16, 8):
+            for bs in (32, 2):
+                bad, codes = cardcheck.rmatvec_across_guard(dtype, bias, l,
+                                                            bs, gen)
+                check(not bad, f"rmatvec across the guard "
+                               f"({F.dtype_name(dtype)}, l={l}, bs={bs}, "
+                               f"rows {bad}) != decompress")
+                checked += codes
+    print(f"[kernels] rmatvec bit-equal to the row-order plain sum at rows "
+          f"{list(EDGE_ROWS)} and on codes one code past a word; two calls "
+          "bit-equal; a graph replay = the eager call; across the decode "
+          f"guards {checked} codes (f64/f32, l 8/16/32, bs 32/2) equal to "
+          "decompress")
+
+
 def phase_kernels():
     import torch
 
@@ -770,13 +819,21 @@ def phase_kernels():
                 for op, vec in (("matvec", xv), ("rmatvec", hv)):
                     _, rel, _ = _contraction_err(sbc, vec, op, 5)
                     check(rel <= tol, f"{op} {sp.name} relative error {rel:.3e}")
-    print(f"[kernels] spot checks passed: {len(spots) * 2} specs, ragged n=1001")
+                for view in (sbc, cardcheck.offset_view(sbc)):
+                    check(cardcheck.rmatvec_rows_equal(view, hv),
+                          f"rmatvec {sp.name} != the row-order plain sum "
+                          f"(codes at {view.codes.data_ptr() % 16} bytes "
+                          "past a word)")
+    print(f"[kernels] spot checks passed: {len(spots) * 2} specs, ragged "
+          "n=1001; the rmatvec bit-equal to its row-order plain sum there, "
+          "also on codes at an offset")
     faults = cardcheck.codec_edges(g2)
     check(not faults, f"row codec edge cases: {faults}")
     print(f"[kernels] row codec: rows {[c[0] for c in cardcheck.CODEC_MANY_ROWS]}"
           " (past the first design's grid limit), every spot at n=1001, views "
           "at an offset: bit-equal to plain, one launch each")
     _matvec_checks(bc, Vdec, w)
+    _rmatvec_checks(bc, results[("rmatvec", R_FULL)]["vec"])
 
     # times at the main-path shape
     npad = bc.codes.shape[1] * spec.bs
@@ -2478,7 +2535,7 @@ def _split_summary(split: dict) -> dict:
         elif name == "peer_reduce_kernel":
             kinds["peer_gather"] += us
         elif name in ("matvec_rows_kernel", "matvec_finish_kernel",
-                      "rmatvec_kernel"):
+                      "rmatvec_rows_kernel"):
             kinds["kernels_3_4"] += us
         elif name.startswith("ell_"):
             kinds["ell"] += us
@@ -5764,15 +5821,61 @@ def _phase_l16_kernels(walls):
     return entries
 
 
+def _phase_block_float32(walls):
+    """16e: a float32 block basis at full width (atmosmodd, p = P_BLOCK,
+    m = M, phase 7's frsz2_32 block solve's settings otherwise): the block
+    device driver (capture, then replay) bit-equal to the block host
+    driver, within the card's memory (its contractions convert the live
+    block rows in chunks of a fixed size), launching no FRSZ2 kernel."""
+    import torch
+
+    from repro_torch.launch.solve import _batch_rhs
+    from repro_torch.sparse import make_problem, rhs_for
+
+    t0 = time.perf_counter()
+    A, target = make_problem("synth:atmosmod", N_MAIN, device="cuda")
+    b, x_sol = rhs_for(A, device="cuda")
+    B = _batch_rhs(b, P_BLOCK)
+    what = "full-width float32 block"
+    _, Xd1, rd1 = _block_row("options-block-capture", A, B, x_sol, "float32",
+                             target, FULL_MAX_ITERS, "block", "device")
+    _, Xd2, rd2 = _block_row("options-block", A, B, x_sol, "float32", target,
+                             FULL_MAX_ITERS, "block", "device")
+    _, Xh, rh = _block_row("options-block", A, B, x_sol, "float32", target,
+                           FULL_MAX_ITERS, "block", "host")
+    for r in (rd1, rd2, rh):
+        check(r["converged"], f"{what} {r['driver']}: a column did not "
+                              "converge")
+    _check_block_drivers(Xd1, Xh, rd1, rh, what)
+    _check_block_drivers(Xd2, Xh, rd2, rh, f"{what} replay")
+    lc = rd2["launches"]
+    check(lc["ell_spmv"] > 0 and lc["gmres_block_givens"] > 0
+          and not any(v for k, v in lc.items()
+                      if k.startswith("frsz2_") or k == "ell_spmv_frsz2"),
+          f"{what}: launches {lc}")
+    print(f"[options] {what} (p = {P_BLOCK}, m = {M}): device = host, "
+          f"iterations {rd2['iters']}, restarts {rd2['restarts'][0]}, rrn "
+          f"max {rd2['rrn_max']:.3e}; walls capture {rd1['wall_s']:.3f} s, "
+          f"replay {rd2['wall_s']:.3f} s, host {rh['wall_s']:.3f} s; "
+          f"max_memory_allocated capture "
+          f"{rd1['peak_mem_bytes'] / 2**30:.2f} GiB, replay "
+          f"{rd2['peak_mem_bytes'] / 2**30:.2f} GiB, host "
+          f"{rh['peak_mem_bytes'] / 2**30:.2f} GiB")
+    del A, b, x_sol, B, Xd1, Xd2, Xh
+    release()
+    walls["16e float32 block"] = time.perf_counter() - t0
+
+
 def phase_options(device_line, full_rows):
     """Slice 11: the solver's storage formats and pipeline options on the
-    card (16a-16d); returns rows 3h and 4h and their launches."""
+    card (16a-16e); returns rows 3h and 4h and their launches."""
     t_phase = time.perf_counter()
     walls = {}
     _phase_quickstart(walls)
     release()
     _phase_grid(walls)
     l16 = _phase_options_full(walls, full_rows)
+    _phase_block_float32(walls)
     entries = _phase_l16_kernels(walls)
     emit(dict(phase="options", walls=walls, device=device_line))
     print(f"[options] phase 16 took {time.perf_counter() - t_phase:.1f} s: "

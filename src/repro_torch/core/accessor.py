@@ -170,7 +170,8 @@ class StorageFormat:
 
 
 #: values a native basis of another dtype than the arithmetic's converts
-#: at a time in its dots and combine (128 MiB of f64): a chunk of rows
+#: at a time in its contractions, scalar and block (128 MiB of f64): a
+#: chunk of rows
 NATIVE_CHUNK_VALUES = 1 << 24
 
 
@@ -262,6 +263,31 @@ class NativeFormat(StorageFormat):
             part = h[i:i + V.shape[0]] @ V
             y = part if y is None else y + part
         return y
+
+    # the block contract over the same chunks of block rows: a copy of the
+    # live block rows would grow by p segments at every block step
+    def block_dots(self, store, W, arith_dtype, n: int, p: int, n_seg: int,
+                   rows: int):
+        if self.dtype == arith_dtype:
+            return super().block_dots(store, W, arith_dtype, n, p, n_seg,
+                                      rows)
+        q = W.shape[0]
+        Wp = torch.nn.functional.pad(W.to(arith_dtype), (0, n_seg - n))
+        return torch.cat([(V.reshape(len(V) * p, n_seg) @ Wp.T).reshape(
+            len(V), p, q) for _, V in self._chunks(store, rows, arith_dtype)])
+
+    def block_combine(self, store, Y, arith_dtype, n: int, p: int,
+                      n_seg: int):
+        if self.dtype == arith_dtype:
+            return super().block_combine(store, Y, arith_dtype, n, p, n_seg)
+        Y = Y.to(arith_dtype)
+        q = Y.shape[2]
+        out = None
+        for i, V in self._chunks(store, Y.shape[0], arith_dtype):
+            k = len(V) * p
+            part = Y[i:i + len(V)].reshape(k, q).T @ V.reshape(k, n_seg)
+            out = part if out is None else out + part
+        return out
 
     def nbytes(self, m: int, n: int) -> int:
         return m * n * self.dtype.itemsize

@@ -1,15 +1,17 @@
 """Shared checks of the redesigned kernels on the card.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` both hold the kernels to
-these, so the two cannot drift apart: the row counts that cross the matvec's
-and the block combine's tilings, the lengths that cross the decode
-attention's tiles and splits, bit comparison of values, seeded codes, the
-checks across the scaled decode's guard (matvec, block combine, decode
-attention), the row codec's spot list and edge cases (rows past the old
-grid limit, a ragged n, views at an offset), each launching once, and the
-codec on one long row (an AdamW moment of a whole leaf) against the plain
-codec a block-aligned chunk at a time, and a captured cycle's replay
-against the same cycle run eagerly.  Each
+these, so the two cannot drift apart: the row counts that cross the matvec's,
+the rmatvec's and the block combine's tilings, the lengths that cross the
+decode attention's tiles and splits, bit comparison of values, seeded
+codes, the checks across the scaled decode's guard (matvec, rmatvec, block
+combine, decode attention), the rmatvec against its row-order plain sum
+and on codes at an offset, the row codec's spot list and edge cases (rows
+past the old grid limit, a ragged n, views at an offset), each launching
+once, and the codec on one long row (an AdamW moment of a whole leaf)
+against the plain codec a block-aligned chunk at a time, a captured
+cycle's replay against the same cycle run eagerly, and one captured call
+replayed against the eager call.  Each
 check runs the kernel through ``ops`` (so it launches on a CUDA generator's
 device) and compares with the plain ``decompress`` or the plain version of
 the kernel.
@@ -22,8 +24,9 @@ from repro_torch.core import frsz2 as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attn import TILE
 
-#: rows across the matvec's 8-row ring turns and 128-row groups, and block
-#: rows across the combine's ring turns and Y tiles (p = 8: M = 8 ... 808)
+#: rows across the matvec's and the rmatvec's 8-row ring turns and the
+#: matvec's 128-row groups, and block rows across the combine's ring turns
+#: and Y tiles (p = 8: M = 8 ... 808)
 EDGE_ROWS = (1, 2, 7, 33, 64, 65, 101)
 
 #: (value dtype, exponent bias) of the checks across the guard
@@ -127,6 +130,76 @@ def combine_across_guard(dtype, bias: int, l: int,
     Y = torch.ones((1, 1, 1), dtype=dtype, device=dev)
     got = ops.block_combine(bc, Y, p=1, kernel=True)[0]
     return same_values(got, ops.decompress(bc, kernel=False)[0]), nb * 32
+
+
+def rmatvec_across_guard(dtype, bias: int, l: int, bs: int,
+                         gen: torch.Generator) -> tuple[list[int], int]:
+    """The rmatvec over nine rows (past its ring of eight) whose codec
+    blocks carry exponents across the guard (:func:`guard_exponents`, a
+    whole number of 16-byte words of codes a row at bs = 2): row k holds
+    seeded codes, the others zero codes (+0 at any exponent), h is one-hot
+    at k, so the output is row k decoded (``fma(1, v, +0)``, equal after
+    ``+ 0.0``).  bs = 2 spreads a word over several codec blocks (the out of
+    line decode, an exponent a code).  Returns (rows whose output differs
+    from ``decompress``, codes checked)."""
+    dev = gen.device
+    spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+    E = guard_exponents(l, bias, gen)
+    E = torch.cat([E, E[:(-E.numel()) % 8]])
+    R, nb = 9, E.numel()
+    exps = E[None].repeat(R, 1).contiguous()
+    bad = []
+    for k in range(R):
+        codes = torch.zeros((R, nb, bs), dtype=F.code_dtype(l), device=dev)
+        codes[k] = rand_codes((nb, bs), l, gen)
+        bc = F.BlockCompressed(codes=codes, exps=exps, n=nb * bs, spec=spec)
+        h = torch.zeros((R,), dtype=dtype, device=dev)
+        h[k] = 1.0
+        if not same_values(ops.rmatvec(bc, h, kernel=True),
+                           ops.decompress(bc, kernel=False)[k]):
+            bad.append(k)
+    return bad, R * nb * bs
+
+
+def rmatvec_rows_equal(bc: F.BlockCompressed, h: torch.Tensor) -> bool:
+    """The rmatvec kernel over ``bc``'s rows bit-equal to its row-order
+    plain version (``ref.rmatvec_rows_ref``), one launch."""
+    from repro_torch.kernels import ref
+
+    before = ops.LAUNCHES["frsz2_rmatvec"]
+    got = ops.rmatvec(bc, h, kernel=True)
+    want = ref.rmatvec_rows_ref(bc.codes, bc.exps, h, bc.spec)[:bc.n]
+    return (ops.LAUNCHES["frsz2_rmatvec"] == before + 1
+            and torch.equal(bits(got), bits(want)))
+
+
+def offset_view(bc: F.BlockCompressed, by: int = 1) -> F.BlockCompressed:
+    """``bc`` with its codes copied into a view ``by`` codes past the start
+    of a larger buffer (the row stride unchanged): codes that do not start
+    on a 16-byte word."""
+    flat = torch.zeros(bc.codes.numel() + by, dtype=bc.codes.dtype,
+                       device=bc.codes.device)
+    codes = flat[by:].view(bc.codes.shape)
+    codes.copy_(bc.codes)
+    return F.BlockCompressed(codes=codes, exps=bc.exps, n=bc.n, spec=bc.spec)
+
+
+def replay_equals_eager(fn) -> bool:
+    """``fn()`` eagerly, then captured in a CUDA graph (after a warm-up on
+    a side stream) and replayed once: the replay's output bit-equal to the
+    eager call's."""
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return torch.equal(bits(got), bits(want))
 
 
 def attn_pair(q, k_bc, v_bc, lengths, **kw):
@@ -300,7 +373,7 @@ def row_decode_equal(bc: F.BlockCompressed, values: torch.Tensor) -> bool:
 #: ``ops.LAUNCHES`` name (the matvec and the block dots also run a finish
 #: kernel; the ELL kernels have several variants and are left out)
 LAUNCH_KERNELS = {"frsz2_matvec": "matvec_rows_kernel",
-                  "frsz2_rmatvec": "rmatvec_kernel",
+                  "frsz2_rmatvec": "rmatvec_rows_kernel",
                   "frsz2_block_dots": "block_dots_partial",
                   "frsz2_block_combine": "block_combine_kernel",
                   "gmres_givens": "givens_step_kernel",

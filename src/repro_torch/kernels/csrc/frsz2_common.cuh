@@ -271,43 +271,47 @@ __device__ __forceinline__ unsigned ld_stream(const unsigned* p) {
   return r;
 }
 
-// Four consecutive codes of type CodeT as one word (16, 8 or 4 bytes), and
-// code i of it, zero-extended.
+// G consecutive codes of type CodeT as one word of 4, 8 or 16 bytes (four
+// codes by default: 16, 8 or 4 bytes), and code i of it, zero-extended.
+template <typename CodeT, int G = 4>
+using CodeWord = typename std::conditional<
+    G * sizeof(CodeT) == 16, uint4,
+    typename std::conditional<G * sizeof(CodeT) == 8, uint2, unsigned>::type>::type;
 template <typename CodeT>
-using Word4 = typename std::conditional<
-    sizeof(CodeT) == 4, uint4,
-    typename std::conditional<sizeof(CodeT) == 2, uint2, unsigned>::type>::type;
-template <typename CodeT>
-__device__ __forceinline__ unsigned code_of(Word4<CodeT> w, int i) {
+using Word4 = CodeWord<CodeT, 4>;
+template <typename CodeT, int G = 4>
+__device__ __forceinline__ unsigned code_of(CodeWord<CodeT, G> w, int i) {
+  static_assert(G * sizeof(CodeT) == 4 || G * sizeof(CodeT) == 8 ||
+                    G * sizeof(CodeT) == 16, "a word is 4, 8 or 16 bytes");
   union {
-    Word4<CodeT> w;
-    CodeT k[4];
+    CodeWord<CodeT, G> w;
+    CodeT k[G];
   } u;
   u.w = w;
   return static_cast<unsigned>(u.k[i]);
 }
 
-// The four values of a word.
-template <class L>
+// The G values of a word (four by default).
+template <class L, int G = 4>
 struct Quad {
-  Value<L> v[4];
+  Value<L> v[G];
 };
 
-// The four codes of a word decoded one by one by the guarded decode, code i
+// The G codes of a word decoded one by one by the guarded decode, code i
 // with its own block's exponent erow[i >> bs_log2] unless one_exp (then e;
 // erow holds the exponents of the row from the word's first column, a
-// multiple of four); codes at or past `nlive` give zero: the rare path of
-// the contractions, out of line, so that their hot loops hold no copy of
-// the bit decode.
-template <class L, typename CodeT>
-__device__ __noinline__ Quad<L> decode_quad(Word4<CodeT> w, int e, bool one_exp,
-                                           const int* __restrict__ erow, int bs_log2,
-                                           int nlive) {
+// multiple of G); codes at or past `nlive` give zero (and read no
+// exponent): the rare path of the contractions, out of line, so that their
+// hot loops hold no copy of the bit decode.
+template <class L, typename CodeT, int G = 4>
+__device__ __noinline__ Quad<L, G> decode_quad(CodeWord<CodeT, G> w, int e, bool one_exp,
+                                              const int* __restrict__ erow, int bs_log2,
+                                              int nlive) {
   constexpr int LB = 8 * static_cast<int>(sizeof(CodeT));
-  Quad<L> out;
+  Quad<L, G> out;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    out.v[i] = i < nlive ? decode_scaled<L, LB>(code_of<CodeT>(w, i),
+  for (int i = 0; i < G; ++i)
+    out.v[i] = i < nlive ? decode_scaled<L, LB>(code_of<CodeT, G>(w, i),
                                                 one_exp ? e : __ldg(erow + (i >> bs_log2)))
                          : Value<L>(0);
   return out;

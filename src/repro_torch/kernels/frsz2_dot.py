@@ -7,8 +7,13 @@ device memory as values.  The products accumulate in the spec's value dtype
 (the TPU kernels round every tile's dot to f32, ``frsz2_dot.py:66``/``:99``).
 The matvec reads x once a call and reduces across blocks through a scratch
 buffer of partial sums, summed in a fixed order by a second pass, so its
-result does not change from run to run.  The source file says what bounds
-the kernels and how their design answers it.
+result does not change from run to run.  The rmatvec has no reduction
+across threads: a thread owns the consecutive columns of one 16-byte word
+of codes a row (:func:`word_bytes`) and sums each column by one fma a row,
+in row order, from +0 (``ref.rmatvec_rows_ref``); it reads the codes as
+words where the caller says they start on one (``vec``), one by one
+elsewhere.  The source file says what bounds the kernels and how their
+design answers it.
 
 These functions launch and nothing else: :mod:`repro_torch.kernels.ops`
 validates, allocates and counts.
@@ -16,6 +21,7 @@ validates, allocates and counts.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,8 +32,8 @@ from repro_torch.kernels.frsz2_kernel import KIND, bs_log2
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # (codes, exps, x, partial, y, rows, n, npad, bs_log2, kind, l, stream)
 _MATVEC = [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P]
-# (codes, exps, h, y, rows, n, npad, bs_log2, kind, l, stream)
-_RMATVEC = [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P]
+# (codes, exps, h, y, rows, n, npad, bs_log2, kind, l, vec, stream)
+_RMATVEC = [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P]
 
 
 def chunk() -> int:
@@ -47,12 +53,20 @@ def matvec_2d(codes: torch.Tensor, exps: torch.Tensor, x: torch.Tensor,
                 "frsz2_matvec")
 
 
+@functools.cache
+def word_bytes() -> int:
+    """Bytes of codes one rmatvec thread reads a row as one word."""
+    return int(build.bind("frsz2_dot", "frsz2_rmatvec_word_bytes", [])())
+
+
 def rmatvec_2d(codes: torch.Tensor, exps: torch.Tensor, h: torch.Tensor,
-               y: torch.Tensor, spec: F.FrszSpec) -> None:
-    """codes (r, npad), exps (r, npad / bs), h (r,) -> y (n,)."""
+               y: torch.Tensor, spec: F.FrszSpec, vec: bool) -> None:
+    """codes (r, npad), exps (r, npad / bs), h (r,) -> y (n,); ``vec``:
+    npad is a multiple of the codes a word and the codes start on a word
+    (the kernel refuses the vector route elsewhere)."""
     rows, npad = codes.shape
     f = build.bind("frsz2_dot", "frsz2_rmatvec", _RMATVEC)
     build.check(f(codes.data_ptr(), exps.data_ptr(), h.data_ptr(),
                   y.data_ptr(), rows, y.shape[0], npad, bs_log2(spec),
-                  KIND[spec.dtype], spec.l, build.stream()),
+                  KIND[spec.dtype], spec.l, int(vec), build.stream()),
                 "frsz2_rmatvec")

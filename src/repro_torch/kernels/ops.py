@@ -299,7 +299,14 @@ def rmatvec(bc: F.BlockCompressed, h: torch.Tensor, *,
         return y.zero_()
     from repro_torch.kernels import frsz2_dot as KD
 
-    KD.rmatvec_2d(bc.codes.view(m, nb * spec.bs), bc.exps, hs, y, spec)
+    # the route: whole words of codes a row where the rows start on one (a
+    # codes view at another offset, or a row length that is no multiple of
+    # the codes a word, reads the codes one by one inside the kernel)
+    word = KD.word_bytes()
+    npad = nb * spec.bs
+    vec = (npad % (word // bc.codes.element_size()) == 0
+           and bc.codes.data_ptr() % word == 0)
+    KD.rmatvec_2d(bc.codes.view(m, npad), bc.exps, hs, y, spec, vec)
     LAUNCHES["frsz2_rmatvec"] += 1
     return y
 

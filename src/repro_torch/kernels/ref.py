@@ -222,6 +222,25 @@ def block_combine_rows_ref(codes, exps, Y, spec: F.FrszSpec) -> torch.Tensor:
     return out
 
 
+def rmatvec_rows_ref(codes, exps, h, spec: F.FrszSpec) -> torch.Tensor:
+    """:func:`rmatvec_ref` summed as the rmatvec kernel sums: each output
+    starts at +0 and takes one fma a row, rows in order (``y = fma(h[r],
+    V[r], y)``), the block combine's sum at p = q = 1.  Bit for bit what
+    the kernel gives; the tests and ``chip_smoke.py`` hold it to that.
+
+    codes: (m, nb, bs); exps: (m, nb); h: (m,)  ->  y: (nb*bs,)
+    """
+    h = h.to(spec.dtype)
+    nb, bs = codes.shape[-2:]
+    y = h.new_zeros((nb * bs,))
+    for r0 in range(0, codes.shape[0], _REF_ROWS):
+        V = decompress_ref(codes[r0:r0 + _REF_ROWS], exps[r0:r0 + _REF_ROWS],
+                           spec)
+        for i, v in enumerate(V):
+            y = fma_ref(h[r0 + i], v, y)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # ELL SpMV (csrc/ell_spmv.cu)
 # ---------------------------------------------------------------------------

@@ -20,8 +20,10 @@ instructions one pass executes when it takes no rare branch). For the
 decode attention it prints the warp instructions a cache position costs
 (:func:`attn_per_position`), for the dense ELL the instructions a slot of
 one column (:func:`ell_per_slot`: the batched launch at q = 8), for the
-codec the instructions a value (:func:`codec_per_value`). Needs ``nvcc``
-and ``cuobjdump``, so it runs on the card's machine; it launches nothing.
+codec the instructions a value (:func:`codec_per_value`), for the f64
+rmatvec at l = 32 and 16 the instructions a code (:func:`per_code`).
+Needs ``nvcc`` and ``cuobjdump``, so it runs on the card's machine; it
+launches nothing.
 """
 from __future__ import annotations
 
@@ -39,13 +41,17 @@ SOURCES = ("frsz2_block.cu", "frsz2_dot.cu", "ell_spmv.cu", "decode_attn.cu",
            "frsz2_codec.cu")
 #: the main-path instantiations: the matvec as redesigned (vector loads)
 #: and as first designed (``matvec_partial_kernel``, for ``--csrc`` of an
-#: older checkout)
+#: older checkout); the f64 rmatvec at l = 32 and 16 (frsz2_32, frsz2_16),
+#: redesigned (vector loads) and as first designed (``rmatvec_kernel``)
 MATCH = (r"block_dots_partial<frsz2::Layout<64, 52, 11>, unsigned int, 8>"
          r"|block_combine_kernel<frsz2::Layout<64, 52, 11>, unsigned int, 8"
          r"(, (true|1))?>"
          r"|matvec_(rows_kernel<frsz2::Layout<64, 52, 11>, unsigned int, "
          r"(true|1)>"
          r"|partial_kernel<frsz2::Layout<64, 52, 11>, unsigned int>)"
+         r"|rmatvec_(rows_kernel<frsz2::Layout<64, 52, 11>, unsigned "
+         r"(int|short), \d+, (true|1)>"
+         r"|kernel<frsz2::Layout<64, 52, 11>, unsigned (int|short)>)"
          r"|ell_\w+_kernel<double, ell::(CodedX<double, frsz2::Layout"
          r"<64, 52, 11>, unsigned int>|DenseX<double>)"
          r"|ell_tile_batched_kernel<double, 7>"
@@ -98,9 +104,10 @@ def _tool(name: str) -> str:
     return found
 
 
-def compile_sources(csrc: pathlib.Path, out: pathlib.Path) -> list[pathlib.Path]:
+def compile_sources(csrc: pathlib.Path, out: pathlib.Path,
+                    names: tuple[str, ...] = SOURCES) -> list[pathlib.Path]:
     libs = []
-    for name in SOURCES:
+    for name in names:
         lib = out / f"lib{pathlib.Path(name).stem}.so"
         res = subprocess.run([build._nvcc(), *build.FLAGS, "-I", str(csrc),
                               "-o", str(lib), str(csrc / name)],
@@ -306,6 +313,29 @@ def ell_per_slot(insns, batched: bool,
                 per_slot=n / (ELL_W * ELL_Q))
 
 
+#: f64 FMAs a code of each rmatvec design: the first one's accumulation
+#: only (its bit decode is integer work); the redesign's one-FMA decode too
+RMATVEC_FMAS = {"rmatvec_kernel": 1, "rmatvec_rows_kernel": 2}
+
+
+def per_code(insns, fmas_a_code: int) -> dict | None:
+    """Instructions a code on the hot path of a contraction whose loops
+    hold ``fmas_a_code`` DFMAs a code: for each loop holding DFMAs, the
+    shortest pass that runs all of them (:func:`shortest_path`) over the
+    codes they stand for; the loop with the fewest a code (an unrolled
+    body rather than its remainder loop)."""
+    best = None
+    for lp in loops(insns):
+        if not lp["ops"].get("DFMA"):
+            continue
+        p = _path(insns, lp["start"], lp["end"], "DFMA")
+        codes = p["ops"].get("DFMA", 0) / fmas_a_code
+        if codes and (best is None or p["n"] / codes < best["per_code"]):
+            best = dict(pass_n=p["n"], codes_a_pass=codes,
+                        per_code=p["n"] / codes)
+    return best
+
+
 def _width(op: str) -> int:
     m = re.search(r"\.(64|128)\b", op)
     return int(m.group(1)) if m else 32
@@ -384,6 +414,9 @@ def report(csrc: pathlib.Path) -> list[dict]:
                     unit = ell_per_slot(insns, "batched" in name, geo)
                 elif "compress_kernel" in name or "cache_write" in name:
                     unit = codec_per_value(insns, codec_values(name))
+                elif "rmatvec_" in name:
+                    base = re.search(r"(rmatvec_\w+)<", name).group(1)
+                    unit = per_code(insns, RMATVEC_FMAS[base])
                 rows.append(dict(source=lib.name, kernel=name, n=len(insns),
                                  ops=dict(hist.most_common()),
                                  loops=loops(insns), hot=hot_path(insns),

@@ -264,3 +264,57 @@ def test_native_dots_and_combine_in_row_chunks_match_jax(name, chunk_rows,
     assert torch.equal(ft.combine(st, torch.zeros(0, dtype=torch.float64),
                                   torch.float64, n),
                        torch.zeros(n, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("name", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("chunk_rows", [1, 3, 7, 50])
+def test_native_block_dots_and_combine_in_row_chunks_match_jax(
+        name, chunk_rows, monkeypatch):
+    """The block contract of a native basis of another dtype than the
+    arithmetic's converts its block rows in the same chunks as the scalar
+    contract (a copy of the live block rows would grow by p segments a
+    block step): ``block_dots``/``block_combine`` at every chunk size
+    against the JAX base class's einsum on the same stored rows, p = 3,
+    1e-13 relative, never converting the store whole; no rows gives an
+    empty ``H`` and a zero combine."""
+    rng = np.random.default_rng(6)
+    m, p, q, n = 9, 3, 2, 85
+    fj = JA.format_by_name(name)
+    ft = TA.format_by_name(name)
+    n_seg = n            # native formats pack their segments tightly
+    monkeypatch.setattr(TA, "NATIVE_CHUNK_VALUES", chunk_rows * p * n_seg)
+
+    def whole(*args):
+        raise AssertionError("the block contract converted the store whole")
+
+    monkeypatch.setattr(TA.NativeFormat, "read_all", whole)
+    V = rng.standard_normal((m, p * n_seg))
+    W = rng.standard_normal((q, n))
+    sj = fj.empty(m, p * n_seg)
+    st = ft.empty(m, p * n_seg, "cpu")
+    for j in range(m):
+        sj = fj.write_row(sj, j, jnp.asarray(V[j]))
+        ft.write_row(st, j, torch.from_numpy(V[j]))
+    for rows in (1, 4, m):
+        Hj = np.asarray(fj.block_dots(sj[:rows], jnp.asarray(W), jnp.float64,
+                                      n, p, n_seg))
+        Ht = ft.block_dots(st, torch.from_numpy(W), torch.float64, n, p,
+                           n_seg, rows).numpy()
+        assert Ht.shape == (rows, p, q)
+        np.testing.assert_allclose(Ht, Hj, rtol=1e-13,
+                                   atol=1e-13 * np.abs(Hj).max())
+        Y = rng.standard_normal((rows, p, q))
+        Oj = np.asarray(fj.block_combine(sj[:rows], jnp.asarray(Y),
+                                         jnp.float64, n, p, n_seg))
+        Ot = ft.block_combine(st[:rows], torch.from_numpy(Y), torch.float64,
+                              n, p, n_seg).numpy()
+        assert Ot.shape == (q, n_seg)
+        np.testing.assert_allclose(Ot, Oj, rtol=1e-13,
+                                   atol=1e-13 * np.abs(Oj).max())
+    W0 = torch.from_numpy(W)
+    assert ft.block_dots(st, W0, torch.float64, n, p, n_seg, 0).shape == (
+        0, p, q)
+    assert torch.equal(
+        ft.block_combine(st, torch.zeros((0, p, q), dtype=torch.float64),
+                         torch.float64, n, p, n_seg),
+        torch.zeros((q, n_seg), dtype=torch.float64))

@@ -20,6 +20,9 @@ to the largest output (f32 sums in another order, base-2 exponentials);
 with bf16 q within 2^-7 (one bf16 step); a cache written on the card bit-equal to one written on the
 CPU; yi-9b ``reduced()`` decode logits on the card within 1e-3 of the CPU's
 (relative to the largest logit: f32 matrix products in another order).
+The redesigned rmatvec bit-equal to its row-order plain sum
+(``ref.rmatvec_rows_ref``) at rows 1..101, at every f32/f64 codec spot, on
+codes at an offset, across the decode guard, in a graph replay.
 The redesigned matvec and block combine: the matvec within 1e-12 (f64) /
 1e-5 (f32) of its plain version at rows 1..101 across its row-ring and
 row-group edges, two calls bit-equal, x one-hot equal
@@ -509,6 +512,70 @@ def test_matvec_and_combine_across_the_decode_guard_on_card(cuda, dtype,
     assert not bad
     ok, _ = cardcheck.combine_across_guard(dtype, bias, l, gen)
     assert ok
+
+
+#: the rmatvec's card cases: the solver's frsz2_32 and frsz2_16, every code
+#: width, a block size under the codes a word (bs 1 and 8 at l 8), n a
+#: multiple of no word and a row length that is no multiple of a word
+RMATVEC_CASES = [(torch.float64, 32, 32, 20011), (torch.float64, 16, 32, 4096),
+                 (torch.float64, 16, 128, 3001), (torch.float64, 8, 8, 3001),
+                 (torch.float64, 32, 1, 3001), (torch.float32, 32, 32, 5003),
+                 (torch.float32, 16, 8, 2048), (torch.float32, 8, 1, 1001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,bs,n", RMATVEC_CASES)
+def test_rmatvec_row_order_bits_on_card(cuda, dtype, l, bs, n):
+    """The rmatvec is the row-order fma sum (``ref.rmatvec_rows_ref``) bit
+    for bit at rows 1..101 across its ring turns, one launch each, within
+    1e-12 (f64) / 1e-5 (f32) of the plain matrix product, repeats its bits;
+    so on codes one code past a 16-byte word (the kernel's one-by-one
+    route), and in one replay of a captured call."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+    V = torch.randn((101, n), generator=gen, dtype=dtype, device=cuda)
+    bc = ops.compress(V, spec)
+    h = torch.randn((101,), generator=gen, dtype=dtype, device=cuda)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for r in EDGE_ROWS:
+        sub = F.BlockCompressed(codes=bc.codes[:r], exps=bc.exps[:r], n=n,
+                                spec=spec)
+        assert cardcheck.rmatvec_rows_equal(sub, h[:r]), r
+        yk = ops.rmatvec(sub, h[:r])
+        yp = ops.rmatvec(sub, h[:r], kernel=False)
+        assert float((yk - yp).abs().max()) <= tol * float(yp.abs().max())
+        assert torch.equal(yk, ops.rmatvec(sub, h[:r]))
+    assert cardcheck.rmatvec_rows_equal(cardcheck.offset_view(bc), h)
+    assert cardcheck.replay_equals_eager(lambda: ops.rmatvec(bc, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,bs", [s for s in cardcheck.CODEC_SPOTS
+                                        if s[0] in (torch.float32,
+                                                    torch.float64)])
+def test_rmatvec_spots_on_card(cuda, dtype, l, bs):
+    """Every f32/f64 spot of ``cardcheck.CODEC_SPOTS`` at a ragged n =
+    1001: bit-equal to the row-order plain sum, also on codes at an
+    offset."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    spec = F.FrszSpec(bs=bs, l=l, dtype=dtype)
+    bc = ops.compress(cardcheck.spread_values((5, 1001), dtype, gen), spec)
+    h = torch.randn((5,), generator=gen, dtype=dtype, device=cuda)
+    assert cardcheck.rmatvec_rows_equal(bc, h)
+    assert cardcheck.rmatvec_rows_equal(cardcheck.offset_view(bc), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bias", cardcheck.GUARD_DTYPES)
+@pytest.mark.parametrize("l", [32, 16, 8])
+@pytest.mark.parametrize("bs", [32, 2])
+def test_rmatvec_across_the_decode_guard_on_card(cuda, dtype, bias, l, bs):
+    """Exponents in the flush zone, on the guard's edges and past 2*bias,
+    one exponent a word (bs 32) and several (bs 2): each row, h one-hot
+    there, gives its decoded values, NaN where they are NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    bad, _ = cardcheck.rmatvec_across_guard(dtype, bias, l, bs, gen)
+    assert not bad
 
 
 @pytest.mark.cuda

@@ -107,6 +107,49 @@ def test_pallas_dots_are_f32_rounded_for_f64_specs(rng):
         assert rel > 1e-12, "Pallas dots no longer f32-rounded"
 
 
+
+#: the row-order rmatvec's cases: every value type, code width and block
+#: size class of the kernel (bs 1 and 8 put several codec blocks in one
+#: 16-byte word of codes; 32 and 128 share one exponent a word)
+ROWS_CASES = [(jdt, l, bs) for jdt in (jnp.float64, jnp.float32)
+              for l in (8, 16, 32) for bs in (1, 8, 32, 128)]
+#: against the JAX jnp route (decode, ``h @ V``): f64 and f32 sums of the
+#: same products in another order; against the Pallas kernel in interpret
+#: mode only 2e-5, its f32 tile dots (the module docstring)
+_ROWS_TOL = {jnp.float64: 1e-12, jnp.float32: 1e-5}
+
+
+@pytest.mark.parametrize("jdt,l,bs", ROWS_CASES, ids=str)
+def test_rmatvec_rows_ref_is_the_row_order_sum(jdt, l, bs, rng):
+    """``ref.rmatvec_rows_ref`` (the rmatvec kernel's bits: one fma a row,
+    rows in order, from +0) is bit-equal to the block combine's row-order
+    sum at p = q = 1, and the same function as the JAX ``ref.rmatvec_ref``
+    (``_ROWS_TOL``) and the JAX Pallas ``ops.rmatvec`` in interpret mode
+    (2e-5), at a ragged n."""
+    js, ts = _specs(jdt, l, bs)
+    m, n = 7, 1001
+    V = _basis(rng, m, n, jdt)
+    jb = JF.compress(jnp.asarray(V), js)
+    st = store_from_numpy({"codes": np.asarray(jb.codes),
+                           "exps": np.asarray(jb.exps)}, ts, device="cpu")
+    h = rng.standard_normal(m).astype(V.dtype)
+    th = torch.from_numpy(h)
+    got = ref.rmatvec_rows_ref(st["codes"], st["exps"], th, ts)
+    combine = ref.block_combine_rows_ref(st["codes"], st["exps"], th[:, None],
+                                         ts)[0]
+    assert got.dtype == ts.dtype
+    assert np.array_equal(got.numpy().view(np.uint8),
+                          combine.numpy().view(np.uint8))
+    got = got[:n].double().numpy()
+    want = np.asarray(jref.rmatvec_ref(jb.codes, jb.exps, jnp.asarray(h),
+                                       js))[:n]
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=_ROWS_TOL[jdt] * np.abs(want).max())
+    pallas = np.asarray(jops.rmatvec(jb, jnp.asarray(h), interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=0,
+                               atol=2e-5 * np.abs(pallas).max())
+
+
 def test_kernel_supported_agrees():
     for jdt in (jnp.float32, jnp.float64, jnp.float16, jnp.bfloat16):
         tdt = {jnp.float32: torch.float32, jnp.float64: torch.float64,

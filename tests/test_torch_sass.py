@@ -72,7 +72,9 @@ def test_instruction_pattern_reads_predicates():
 def test_match_selects_the_main_path_instantiations():
     """f64 frsz2_32 at q = 8 for the block kernels (the combine with its
     shared-exponent path), the vector-load matvec (and the first matvec and
-    combine, for an older checkout), the f64 ELL SpMVs (the batched one at
+    combine, for an older checkout), the f64 rmatvec at l = 32 and 16 (the
+    vector-load route, and the first design for an older checkout), the f64
+    ELL SpMVs (the batched one at
     w = 7), the decode attention at l = 16, D = 128, G = 8 (the tiled kernel
     and, for an older checkout, the first one); nothing else of those four
     sources (the codec's: ``test_codec_kernels_and_their_values_a_thread``)."""
@@ -86,6 +88,10 @@ def test_match_selects_the_main_path_instantiations():
         f"void frsz2::matvec_rows_kernel<{lay}, unsigned int, true>(x)",
         f"void frsz2::matvec_rows_kernel<{lay}, unsigned int, 1>(x)",
         f"void frsz2::matvec_partial_kernel<{lay}, unsigned int>(x)",
+        f"void frsz2::rmatvec_rows_kernel<{lay}, unsigned int, 4, true>(x)",
+        f"void frsz2::rmatvec_rows_kernel<{lay}, unsigned short, 8, 1>(x)",
+        f"void frsz2::rmatvec_kernel<{lay}, unsigned int>(x)",
+        f"void frsz2::rmatvec_kernel<{lay}, unsigned short>(x)",
         "void ell::ell_tile_kernel<double, ell::DenseX<double>, 7>(x)",
         "void ell::ell_tile_batched_kernel<double, 7>(x)",
         "void frsz2::attn::split_kernel<float, unsigned short, 128, 8>(x)",
@@ -102,7 +108,13 @@ def test_match_selects_the_main_path_instantiations():
         "unsigned int, 8>(x)",
         f"void frsz2::matvec_rows_kernel<{lay}, unsigned int, false>(x)",
         "void frsz2::matvec_finish_kernel<double>(x)",
-        f"void frsz2::rmatvec_kernel<{lay}, unsigned int>(x)",
+        f"void frsz2::rmatvec_rows_kernel<{lay}, unsigned int, 4, false>(x)",
+        f"void frsz2::rmatvec_rows_kernel<{lay}, unsigned char, 16, true>(x)",
+        "void frsz2::rmatvec_rows_kernel<frsz2::Layout<32, 23, 8>, unsigned "
+        "int, 4, true>(x)",
+        f"void frsz2::rmatvec_kernel<{lay}, unsigned char>(x)",
+        "void frsz2::rmatvec_kernel<frsz2::Layout<32, 23, 8>, unsigned "
+        "short>(x)",
         "void ell::ell_tile_batched_kernel<float, 7>(x)",
         "void ell::ell_tile_batched_kernel<double, 27>(x)",
         "void frsz2::attn::split_kernel<float, unsigned char, 128, 8>(x)",
@@ -338,3 +350,35 @@ def test_codec_kernels_and_their_values_a_thread():
                  "void frsz2::cachew::cache_write_kernel<3, unsigned short, 8>(a)",
                  "void frsz2::cachew::cache_write_kernel<0, unsigned char, 8>(a)"):
         assert not pat.search(name), name
+
+
+def test_per_code_takes_the_unrolled_loop_of_the_fewest_a_code():
+    """The first rmatvec's loop unrolled by two beside its remainder loop
+    (one DFMA a code): the unrolled pass, 7 instructions for 2 codes, not
+    the remainder's 5 for 1; the redesign counts two DFMAs a code (its
+    one-FMA decode and the accumulation), and skips the out-of-line call."""
+    code = [(0x00, "LDG.E.U16", "R4, [R2]"),
+            (0x10, "DFMA", "R10, R4, R6, R10"),
+            (0x20, "LDG.E.U16", "R5, [R2+0x2]"),
+            (0x30, "DFMA", "R10, R5, R6, R10"),
+            (0x40, "IADD3", "R2, R2, 0x4, RZ"),
+            (0x50, "ISETP.GE.AND", "P0, PT, R2, R7, PT"),
+            (0x60, "BRA", "@!P0 | 0x0"),
+            (0x70, "LDG.E.U16", "R4, [R2]"),
+            (0x80, "DFMA", "R10, R4, R6, R10"),
+            (0x90, "ISETP.GE.AND", "P1, PT, R2, R8, PT"),
+            (0xa0, "BRA", "@!P1 | 0x70")]
+    got = sass.per_code(code, 1)
+    assert got == dict(pass_n=7, codes_a_pass=2, per_code=3.5)
+    redesign = [(0x00, "LDG.E.128", "R4, [R2]"),
+                (0x10, "ISETP.GT.U32.AND", "P2, PT, R8, 0x7df, PT"),
+                (0x20, "BRA", "@P2 | 0x60"),
+                (0x30, "DFMA", "R12, R4, R14, R16"),
+                (0x40, "DFMA", "R18, R5, R14, R16"),
+                (0x50, "BRA", "0x68"),
+                (0x60, "CALL.REL.NOINC", "0x100"),
+                (0x68, "DFMA", "R10, R12, R6, R10"),
+                (0x70, "DFMA", "R11, R18, R6, R11"),
+                (0x80, "BRA", "@P3 | 0x0")]
+    got = sass.per_code(redesign, 2)
+    assert got["codes_a_pass"] == 2 and got["pass_n"] == 9
