@@ -1,0 +1,41 @@
+"""``between_cycles_ms_per_rhs``: the time a request spends outside the
+captured cycles, a right-hand side: the program's root ``gmres.solve``
+spans' wall (host clock) less their ``gmres.replay`` spans' ``device_ms``
+(CUDA events around each graph replay), summed over the traced requests
+and divided by their right-hand sides.  It holds the host's reads and
+back substitution, the residuals and the update, and the launches of the
+graphs.  Read from ``repro_torch.tracing``'s rows; ``None`` for a program
+without them, unless they hold exactly one root ``gmres.solve`` of the
+request's right-hand sides per traced request, and where a replay has no
+device time (the CPU times none)."""
+
+
+def _solves(run):
+    """The tracer's rows and the ids of the traced requests' solves, or
+    ``None``."""
+    try:
+        from repro_torch import tracing
+    except ImportError:
+        return None
+    rows = tracing.rows()
+    roots = [r for r in rows if r["name"] == "gmres.solve"
+             and r["parent"] is None and r["end_ns"] is not None]
+    if (not run.traced or tracing.counters().get("rows_dropped")
+            or [r["attrs"].get("p") for r in roots]
+            != [q.p for q in run.traced]):
+        return None
+    return rows, roots
+
+
+def read(run):
+    got = _solves(run)
+    if got is None:
+        return None
+    rows, roots = got
+    ids = {r["solve"] for r in roots}
+    ms = [r["attrs"].get("device_ms") for r in rows
+          if r["name"] == "gmres.replay" and r["solve"] in ids]
+    if not ms or None in ms:
+        return None
+    wall_ms = sum(r["end_ns"] - r["start_ns"] for r in roots) * 1e-6
+    return (wall_ms - sum(ms)) / sum(q.p for q in run.traced)

@@ -6,10 +6,11 @@ small problems and check what only a run shows:
 
 * **retrace** (``audit_recapture``) -- a second same-shape solve must
   capture no new graph: no entry added to ``solver/gmres.py::_GRAPHS`` and
-  no further call of ``_capture``.  Only CUDA captures, so the graph legs
-  run on the card; the sharded leg (``audit_sharded_recapture``, inside a
-  process group) also holds the partition cache
-  (``solver/sharded.py::_PARTITIONS``) to one entry, on either device.
+  no further capture (``tracing.COUNTERS["graph_captures"]``).  Only CUDA
+  captures, so the graph legs run on the card; the sharded leg
+  (``audit_sharded_recapture``, inside a process group) also holds the
+  partition cache (``solver/sharded.py::_PARTITIONS``) to one entry, on
+  either device.
 * **f64-leak** (``audit_f64_leak``) -- one ``_device_cycle`` of an
   ``frsz2_16`` basis at f32 arithmetic, fused (the coded-operand SpMV) and
   not, runs under a :class:`~torch.utils._python_dispatch.TorchDispatchMode`
@@ -29,7 +30,6 @@ leg (``repro_torch.analysis.__main__``), never into a clean report.
 """
 from __future__ import annotations
 
-import contextlib
 import importlib
 import sys
 import warnings
@@ -37,6 +37,7 @@ import warnings
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import tracing
 from repro_torch.analysis.report import Finding
 
 __all__ = [
@@ -96,37 +97,18 @@ def fixed_trajectory(m: int, k: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _counting_captures():
-    """Count the calls of ``_capture`` made by either driver."""
-    from repro_torch.solver import block as B
-
-    G = importlib.import_module("repro_torch.solver.gmres")
-
-    count = [0]
-    orig = G._capture
-
-    def counted(run):
-        count[0] += 1
-        return orig(run)
-
-    G._capture = B._capture = counted
-    try:
-        yield count
-    finally:
-        G._capture = B._capture = orig
-
-
 def _two_solves(label, solve, info) -> list[Finding]:
     """Run ``solve()`` twice; the second must add no graph and no capture."""
     G = importlib.import_module("repro_torch.solver.gmres")
 
     findings = []
-    with _counting_captures() as captures:
-        r1 = solve()
-        graphs1, caps1 = len(G._GRAPHS), captures[0]
-        r2 = solve()
-        graphs2, caps2 = len(G._GRAPHS), captures[0]
+    start = tracing.COUNTERS["graph_captures"]
+    r1 = solve()
+    graphs1 = len(G._GRAPHS)
+    caps1 = tracing.COUNTERS["graph_captures"] - start
+    r2 = solve()
+    graphs2 = len(G._GRAPHS)
+    caps2 = tracing.COUNTERS["graph_captures"] - start
     info[label] = dict(graphs=[graphs1, graphs2], captures=[caps1, caps2])
     if caps1 == 0 or graphs1 == 0:
         findings.append(_finding(label, "retrace", (

@@ -7,8 +7,12 @@ For each format: one warm-up solve (with ``--driver device`` it captures the
 cycle's CUDA graph), then one solve under ``torch.profiler``
 (CPU + CUDA activities).  Prints the wall time (host clock around work that
 ends in a synchronize), the summed device time of all kernels, their ratio
-(the device busy share; the rest is the card waiting on the host), and the
-kernels that took the most device time, as JSON lines.  ``--batch k``
+(the device busy share; the rest is the card waiting on the host), beside
+it the program's own spans of the profiled solve by name (``spans``: count,
+total and self milliseconds, :mod:`repro_torch.tracing`) and the counters
+that moved in it (``counters``: graph captures, cache hits, steps run and
+live, ``launches.<kernel>``), and the kernels that took the most device
+time, as JSON lines.  ``--batch k``
 profiles a solve of k right-hand sides (``_batch_rhs``) through
 ``gmres_batched`` with ``--method block`` or ``vmap``.
 
@@ -148,13 +152,26 @@ def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
     else:
         def solve():
             return [gmres(A, b, **kw)]
+    try:
+        from repro_torch import tracing
+    except ImportError:             # an older port, without the tracer
+        tracing = None
     solve()                                         # warm-up: builds, caches
     torch.cuda.synchronize()
+    if tracing is not None:
+        rows0, counts0 = len(tracing.rows()), tracing.counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         results = solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    program = {}
+    if tracing is not None:
+        program = dict(
+            spans=tracing.summary(tracing.rows()[rows0:]),
+            counters={k: v - counts0[k]
+                      for k, v in tracing.counters().items()
+                      if v != counts0[k]})
     kernels = _device_kernels(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
     kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
@@ -163,7 +180,7 @@ def profile_solve(A, b, fmt: str, *, m: int, max_iters: int, target: float,
                 method=method if batch > 1 else None, n=A.shape[0],
                 iters=iters, wall_s=wall, device_s=device_us * 1e-6,
                 device_busy_share=device_us * 1e-6 / wall,
-                wall_per_iter_ms=wall * 1e3 / max(iters, 1),
+                wall_per_iter_ms=wall * 1e3 / max(iters, 1), **program,
                 top=[dict(name=e.key[:100], calls=e.count,
                           device_ms=e.self_device_time_total * 1e-3)
                      for e in kernels])

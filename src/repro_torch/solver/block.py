@@ -44,6 +44,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.accessor import BlockBasisAccessor
 from repro_torch.dist import census
 from repro_torch.dist.context import LOCAL
@@ -61,6 +62,7 @@ from repro_torch.solver.gmres import (
     _plan_unsharded,
     _precond_key,
     _replayed,
+    _run_and_read,
     _zero_store,
 )
 from repro_torch.solver.pipeline import (
@@ -154,16 +156,12 @@ class _BlockCycle:
         if self.fresh:              # after a capture's warm-up wrote it
             _zero_store(self.store)
             self.fresh = False
-        if self.capture:
-            self.graph.replay()
-        else:
-            self._run()
         mb, p = self.acc.m - 1, self.acc.p
         mp = mb * p
         L = ref.block_givens_layout(mb, p)
-        # one host read per restart (a copy: the next cycle overwrites it)
-        out = self.state.cpu().numpy().copy()
-        fired = out[L["fired"]:L["fired"] + mb] != 0
+        out, fired = _run_and_read(
+            self.graph.replay if self.capture else self._run, self.state, mb,
+            L["fired"])
         if self.capture:
             _replayed(self.launches, self.calls, self.bodies, fired)
         return (out[:L["G"]].reshape(mp + p, mp),
@@ -251,8 +249,9 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
     rrn = None
 
     while blocks < max_iters and not converged.all() and not stagnated:
-        R0v = B - bmv_r(X).to(ad)
-        rr = (dist.col_norms(R0v) / bn_safe).cpu().numpy()
+        with tracing.span("gmres.restart_residual"):
+            R0v = B - bmv_r(X).to(ad)
+            rr = (dist.col_norms(R0v) / bn_safe).cpu().numpy()
         restart_rrns.append(rr)
         op_reads += 1.0
         rrn = rr
@@ -269,6 +268,8 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
                                            bn_safe)
         fired_steps.append(fired)
         hit_any, j_stop, j_stop_b = _cycle_stops(est <= target_rrn, m)
+        tracing.COUNTERS["steps_live"] += j_stop
+        tracing.annotate("gmres.replay", level=lvl, steps_live=j_stop)
         X = _block_solve_and_update(acc, store, R, G, j_stop, X, precond)
         history.append(est[:j_stop])
         blocks += j_stop
@@ -277,7 +278,8 @@ def _block_restart_loop(bmv_r, accs, policy, B, m, max_iters, target_rrn,
         nbytes += _cycle_row_reads(j_stop, ortho.passes, extra_rows) * (
             acc.nbytes() / acc.m)
         op_reads += float(j_stop) + 1.0
-        rrn = rel_res(X)
+        with tracing.span("gmres.explicit_residual"):
+            rrn = rel_res(X)
         converged = rrn <= target_rrn
         last = float(np.max(np.where(active, est[max(j_stop - 1, 0)], 0.0)))
         if (not converged.all() and hit_any and j_stop >= m and cycles > 4
@@ -344,6 +346,7 @@ def _block_matvec(A, user_matvec, precond=None) -> Callable:
     return lambda X: mv(_apply_rows(precond, X))
 
 
+@tracing.solve_span
 def gmres_block(
     A: Any,
     B: torch.Tensor,

@@ -46,6 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.accessor import BasisAccessor
 from repro_torch.dist import census
 from repro_torch.dist.context import LOCAL
@@ -151,6 +152,7 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
     fired_steps = np.zeros(m, bool)
 
     for j in range(m):
+        tracing.COUNTERS["steps_run"] += 1
         v = acc.read_row(store, j)
         w = matvec(precond.apply(v)).to(acc.arith_dtype)
         w_pre = dist.norm(w)
@@ -240,24 +242,56 @@ def _capture(run: Callable):
     graph holds (:func:`repro_torch.dist.census.capturing`).  What the
     graph's IF nodes hold is kept apart, one
     :class:`~repro_torch.solver.graphs.Body` a node in the order of the
-    steps, and left out of ``launches`` and ``calls``.  A failed capture
-    raises."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        run()                                 # warm-up: real launches
-    torch.cuda.current_stream().wait_stream(side)
-    before = dict(ops.LAUNCHES)
-    graph = torch.cuda.CUDAGraph()
-    with census.capturing() as calls, graphs.capturing(graph) as cap, \
-            torch.cuda.graph(graph):
-        run()
+    steps, and left out of ``launches`` and ``calls``.  Each call counts in
+    ``tracing.COUNTERS["graph_captures"]``.  A failed capture raises."""
+    tracing.COUNTERS["graph_captures"] += 1
+    with tracing.span("gmres.capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()                             # warm-up: real launches
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(ops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with census.capturing() as calls, graphs.capturing(graph) as cap, \
+                torch.cuda.graph(graph):
+            run()
     launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
     for body in cap.bodies:
         for k, v in body.launches.items():
             launches[k] -= v
     ops.LAUNCHES.update(before)               # a capture launches nothing
     return graph, launches, calls, cap.bodies
+
+
+def _run_and_read(run: Callable, state: torch.Tensor, m: int, fired_at: int):
+    """Run one cycle of ``m`` steps (``run()``: a graph replay on the card)
+    and read its ``state`` to the host, the one host read of a restart:
+    ``(state, fired)`` on the host, ``fired`` the steps where MGS's second
+    pass ran (``m`` flags from ``fired_at``).  The state comes back as a
+    copy, since on the CPU ``.cpu()`` would hand back the state itself,
+    which the next cycle overwrites.
+
+    The two are the spans ``gmres.replay`` (``steps_run``, ``fired``, and
+    on the card ``device_ms``: two CUDA events around the replay, read once
+    the state's read has synchronised) and ``gmres.cycle_read``."""
+    with tracing.span("gmres.replay", steps_run=m) as attrs:
+        ev = None
+        if attrs is not None and state.is_cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        run()
+        if ev:
+            ev[1].record()
+    tracing.COUNTERS["steps_run"] += m
+    with tracing.span("gmres.cycle_read"):
+        out = state.cpu().numpy().copy()
+    fired = out[fired_at:fired_at + m] != 0
+    if attrs is not None:
+        attrs["fired"] = int(fired.sum())
+        if ev:
+            attrs["device_ms"] = ev[0].elapsed_time(ev[1])
+    return out, fired
 
 
 def _replayed(launches: dict, calls, bodies, fired) -> None:
@@ -327,16 +361,11 @@ class _DeviceCycle:
         if self.fresh:              # after a capture's warm-up wrote it
             _zero_store(self.store)
             self.fresh = False
-        if self.state.is_cuda:
-            self.graph.replay()
-        else:
-            self._run()
         m = self.acc.m - 1
         L = ref.givens_layout(m)
-        # one host read per restart; a copy, since on the CPU .cpu() would
-        # hand back the state itself, which the next cycle overwrites
-        out = self.state.cpu().numpy().copy()
-        fired = out[L["fired"]:L["fired"] + m] != 0
+        out, fired = _run_and_read(
+            self.graph.replay if self.state.is_cuda else self._run,
+            self.state, m, L["fired"])
         if self.state.is_cuda:
             _replayed(self.launches, self.calls, self.bodies, fired)
         return (out[:L["g"]].reshape(m + 1, m), out[L["g"]:L["est"]],
@@ -365,8 +394,10 @@ def _cached_graph(key, build):
     """The cached cycle under ``key``, or ``build()`` cached there."""
     cyc = _GRAPHS.get(key)
     if cyc is not None:
+        tracing.COUNTERS["graph_cache_hits"] += 1
         _GRAPHS.move_to_end(key)
         return cyc
+    tracing.COUNTERS["graph_cache_misses"] += 1
     cyc = _GRAPHS[key] = build()
     while len(_GRAPHS) > _GRAPHS_SIZE:
         _GRAPHS.popitem(last=False)
@@ -440,17 +471,21 @@ def _solve_and_update(acc: BasisAccessor, store, R, g, j_stop: int, x0,
     hold non-finite values after a breakdown, and a zero coefficient would
     not keep them out (0 * inf is nan)."""
     m = acc.m - 1
-    active = np.arange(m) < j_stop
-    # back substitution on the leading (j_stop, j_stop) block of R
-    Rm = np.where(active[None, :] & active[:, None], R[:m, :m], 0.0)
-    Rm = Rm + np.where(np.eye(m, dtype=bool) & ~active[:, None], 1.0, 0.0)
-    gm = np.where(active, g[:m], 0.0)
-    y = np.zeros(m)
-    for jj in range(m - 1, -1, -1):
-        yi = (gm[jj] - np.dot(Rm[jj], y)) / Rm[jj, jj]
-        y[jj] = yi if active[jj] else 0.0
-    yt = torch.as_tensor(y[:j_stop], dtype=acc.arith_dtype, device=x0.device)
-    return x0 + precond.apply(acc.combine(store, yt))
+    with tracing.span("gmres.lstsq"):
+        active = np.arange(m) < j_stop
+        # back substitution on the leading (j_stop, j_stop) block of R
+        Rm = np.where(active[None, :] & active[:, None], R[:m, :m], 0.0)
+        Rm = Rm + np.where(np.eye(m, dtype=bool) & ~active[:, None], 1.0,
+                           0.0)
+        gm = np.where(active, g[:m], 0.0)
+        y = np.zeros(m)
+        for jj in range(m - 1, -1, -1):
+            yi = (gm[jj] - np.dot(Rm[jj], y)) / Rm[jj, jj]
+            y[jj] = yi if active[jj] else 0.0
+    with tracing.span("gmres.update"):
+        yt = torch.as_tensor(y[:j_stop], dtype=acc.arith_dtype,
+                             device=x0.device)
+        return x0 + precond.apply(acc.combine(store, yt))
 
 
 def _block_solve_and_update(acc, store, R, G, j_stop: int, X0, precond):
@@ -466,15 +501,17 @@ def _block_solve_and_update(acc, store, R, G, j_stop: int, X0, precond):
     rows are combined."""
     p = acc.p
     k = j_stop * p
-    Rk = R[:k, :k]
-    solved = np.abs(np.diagonal(Rk)) > _TINY
-    Y = np.zeros((k, p))
-    for jj in range(k - 1, -1, -1):
-        if solved[jj]:
-            Y[jj] = (G[jj] - Rk[jj, jj + 1:] @ Y[jj + 1:]) / Rk[jj, jj]
-    Yt = torch.as_tensor(Y.reshape(j_stop, p, p), dtype=acc.arith_dtype,
-                         device=X0.device)
-    return X0 + _apply_rows(precond, acc.block_combine(store, Yt))
+    with tracing.span("gmres.lstsq"):
+        Rk = R[:k, :k]
+        solved = np.abs(np.diagonal(Rk)) > _TINY
+        Y = np.zeros((k, p))
+        for jj in range(k - 1, -1, -1):
+            if solved[jj]:
+                Y[jj] = (G[jj] - Rk[jj, jj + 1:] @ Y[jj + 1:]) / Rk[jj, jj]
+    with tracing.span("gmres.update"):
+        Yt = torch.as_tensor(Y.reshape(j_stop, p, p), dtype=acc.arith_dtype,
+                             device=X0.device)
+        return X0 + _apply_rows(precond, acc.block_combine(store, Yt))
 
 
 def _apply_rows(precond, X):
@@ -526,8 +563,9 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
     b = b.to(arith_dtype)
     # a zero right-hand side divides by a floor, as the block method's
     # ``bn_safe`` does: its residual 0 converges at the first restart
-    b_norm_t = torch.clamp(dist.norm(b), min=_norm_floor(arith_dtype))
-    b_norm = b_norm_t.item()
+    with tracing.span("gmres.b_norm"):
+        b_norm_t = torch.clamp(dist.norm(b), min=_norm_floor(arith_dtype))
+        b_norm = b_norm_t.item()
     x = torch.zeros_like(b) if x0 is None else x0.to(arith_dtype)
 
     history: list[np.ndarray] = []
@@ -544,9 +582,10 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
     rrn = None
 
     while total_iters < max_iters and not converged:
-        r = b - matvec(x).to(arith_dtype)
-        beta_t = dist.norm(r)
-        beta = beta_t.item()
+        with tracing.span("gmres.restart_residual"):
+            r = b - matvec(x).to(arith_dtype)
+            beta_t = dist.norm(r)
+            beta = beta_t.item()
         restart_rrns.append(beta / b_norm)
         op_reads += 1.0
         rrn = restart_rrns[-1]
@@ -561,13 +600,16 @@ def _restart_loop(matvec, accs, policy, b, m, max_iters, target_rrn, ortho,
         # first inner iteration that met the target (1-based count)
         hit = np.nonzero(est <= target_rrn)[0]
         j_stop = int(hit[0]) + 1 if hit.size else m
+        tracing.COUNTERS["steps_live"] += j_stop
+        tracing.annotate("gmres.replay", level=lvl, steps_live=j_stop)
         x = _solve_and_update(acc, store, R, g, j_stop, x, precond)
         history.append(est[:j_stop])
         total_iters += j_stop
         bytes_read += _cycle_row_reads(j_stop, ortho.passes, extra_rows) * (
             acc.nbytes() / acc.m)
         op_reads += float(j_stop) + 1.0
-        rrn = (dist.norm(b - matvec(x).to(arith_dtype)) / b_norm).item()
+        with tracing.span("gmres.explicit_residual"):
+            rrn = (dist.norm(b - matvec(x).to(arith_dtype)) / b_norm).item()
         if rrn <= target_rrn:
             converged = True
         elif hit.size:
@@ -671,7 +713,8 @@ def _plan_unsharded(A, reorder: str, user_matvec):
         raise ValueError(
             "reorder='rcm' needs an operator with an inspectable sparsity "
             "pattern (CSR/ELL); a bare matvec callable cannot be reordered")
-    return plan_operator(A, 1, reorder="rcm")
+    with tracing.span("gmres.plan"):
+        return plan_operator(A, 1, reorder="rcm")
 
 
 def _permuted_precond(precond, plan):
@@ -699,6 +742,7 @@ def _apply_plan(plan, A, precond, vectors):
             [None if v is None else plan.permute(v) for v in vectors])
 
 
+@tracing.solve_span
 def gmres(
     A: Any,
     b: torch.Tensor,

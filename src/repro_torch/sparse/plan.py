@@ -35,6 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.dist.collectives import exchange_bytes, gather_bytes
 from repro_torch.sparse.halo_probe import (
     MAX_HALO_FRAC,
@@ -269,7 +270,8 @@ def plan_operator(A, n_shards: int = 1, *, reorder: str = "auto",
     Plans are cached (bounded LRU) by ``(content fingerprint, n_shards,
     reorder, matvec_mode, max_halo_frac, pgrid, allow_block3d, cell grid,
     device)``; operators without a content fingerprint are planned
-    uncached.
+    uncached.  Each call counts in ``tracing.COUNTERS``: a hit, or a miss
+    (a plan built, cached or not).
     """
     if reorder not in REORDERS:
         raise ValueError(f"unknown reorder mode {reorder!r}; "
@@ -291,9 +293,11 @@ def plan_operator(A, n_shards: int = 1, *, reorder: str = "auto",
                      grid_of(A), str(_device_of(A)))
         hit = _PLAN_CACHE.get(cache_key)
         if hit is not None:
+            tracing.COUNTERS["plan_cache_hits"] += 1
             _PLAN_CACHE.move_to_end(cache_key)
             return hit
 
+    tracing.COUNTERS["plan_cache_misses"] += 1
     plan = _build_plan(A, int(n_shards), reorder, matvec_mode,
                        max_halo_frac, fp, pgrid_t, bool(allow_block3d))
     if cache_key is not None:
