@@ -359,7 +359,8 @@ Slice 9 (MGS's second pass as a CUDA graph IF node, ``remat_policy=
 (``graph_if``) against the branch-free select; before 5, one replayed
 cycle of the full-width frsz2_32 scalar and block solves under
 ``torch.profiler`` in a fresh process, whose kernels 3 and 4 (7 and 8)
-run m + fired times, as ``ops.LAUNCHES`` counts; in 5 and 7, the steps a
+run (steps run) + fired times, as ``ops.LAUNCHES`` counts (a replayed
+scalar cycle runs no step after its last live one); in 5 and 7, the steps a
 cycle where MGS fired (scalar and block, float64 and frsz2_32), one
 replayed cycle's launches, and the replayed solves bit-equal to the host
 driver's; in 7c, the census of a warmed MGS sharded
@@ -1304,36 +1305,61 @@ def phase_solve():
           f"{p.iterations} it")
 
 
-def _cycle_launches(contractions, givens, m, fired) -> dict:
-    """What one replayed cycle of m steps, ``fired`` of them where MGS
-    fired, launches: each kernel of ``contractions`` at every step and
-    again at every fired one, MGS's IF condition and ``givens`` at every
-    step."""
-    want = dict.fromkeys(contractions, m + fired)
-    want.update({"graph_if": m, givens: m})
+def _cycle_launches(contractions, givens, m, fired, ran) -> dict:
+    """What one replayed cycle of m steps launches, ``ran`` of them run
+    (all m for the block cycle; the scalar cycle runs no step after its
+    last live one) and ``fired`` of those where MGS fired: each kernel of
+    ``contractions`` at every step that ran and again at every fired one,
+    ``givens`` at every step that ran, and the IF nodes' conditions: the
+    block cycle's MGS node at every step; the scalar cycle's step node at
+    every step and the MGS node nested in it at every step that ran."""
+    want = dict.fromkeys(contractions, ran + fired)
+    want.update({"graph_if": m + ran if givens == "gmres_givens" else m,
+                 givens: ran})
     return want
 
 
-def _one_replay(call, contractions, givens, m, what):
+def _steps_ran(out, givens, m, target) -> int:
+    """The steps a replayed cycle ran, from its host tuple ``out``: the
+    scalar cycle's up to its first estimate at ``target`` (its ``est``
+    third), the block cycle's all m."""
+    import numpy as np
+
+    if givens != "gmres_givens":
+        return m
+    hit = np.nonzero(out[2] <= target)[0]
+    return int(hit[0]) + 1 if hit.size else m
+
+
+def _one_replay(call, contractions, givens, m, what, target):
     """One replayed cycle (``call()`` returns the cycle's host tuple, its
     fired slots last): ``ops.LAUNCHES`` must count each kernel of
-    ``contractions`` m + (fired steps) times, MGS's IF condition and
-    ``givens`` m times.  Returns (fired steps, those counts).  The
-    profiler's own count of the same replay runs in a fresh process
-    (:func:`phase_cycle_profiles`)."""
+    ``contractions`` (steps run) + (fired steps) times, ``givens`` once a
+    step run and the IF conditions at every step (:func:`_cycle_launches`);
+    the tracer's ``steps_run`` must count the steps that ran.  Returns
+    (fired steps, those counts).  The profiler's own count of the same
+    replay runs in a fresh process (:func:`phase_cycle_profiles`)."""
+    from repro_torch import tracing
     from repro_torch.kernels import ops
 
     ops.reset_launches()
-    fired = int(call()[-1].sum())
-    want = _cycle_launches(contractions, givens, m, fired)
+    before = tracing.COUNTERS["steps_run"]
+    out = call()
+    fired = int(out[-1].sum())
+    ran = _steps_ran(out, givens, m, target)
+    check(tracing.COUNTERS["steps_run"] - before == ran,
+          f"{what}: steps_run counted {tracing.COUNTERS['steps_run'] - before}"
+          f", the estimate says {ran} steps ran")
+    want = _cycle_launches(contractions, givens, m, fired, ran)
     for k, v in want.items():
         check(ops.LAUNCHES[k] == v,
               f"{what}: one replayed cycle counted {k} {ops.LAUNCHES[k]} "
-              f"launches, expected {v} (m = {m}, {fired} fired steps)")
+              f"launches, expected {v} (m = {m}, {ran} run, {fired} fired "
+              "steps)")
     return fired, {k: ops.LAUNCHES[k] for k in want}
 
 
-def _profile_one_cycle(call, contractions, givens, m, what) -> dict:
+def _profile_one_cycle(call, contractions, givens, m, what, target) -> dict:
     """As :func:`_one_replay`, and the replay under ``torch.profiler``: each
     kernel must also have run as often as ``ops.LAUNCHES`` counts."""
     from repro_torch.kernels import cardcheck, ops
@@ -1342,13 +1368,15 @@ def _profile_one_cycle(call, contractions, givens, m, what) -> dict:
     out = {}
     counted = cardcheck.profiled_launches(lambda: out.update(r=call()))
     fired = int(out["r"][-1].sum())
-    want = _cycle_launches(contractions, givens, m, fired)
+    ran = _steps_ran(out["r"], givens, m, target)
+    want = _cycle_launches(contractions, givens, m, fired, ran)
     for k, v in want.items():
         check(counted[k] == ops.LAUNCHES[k] == v,
               f"{what}: one replayed cycle ran {k} {counted[k]} times (the "
               f"profiler), counted {ops.LAUNCHES[k]}, expected {v} (m = {m},"
-              f" {fired} fired steps)")
-    return dict(fired=fired, m=m, profiled={k: counted[k] for k in want})
+              f" {ran} run, {fired} fired steps)")
+    return dict(fired=fired, m=m, ran=ran,
+                profiled={k: counted[k] for k in want})
 
 
 def _cycle_profiles_child(path: str) -> int:
@@ -1373,7 +1401,7 @@ def _cycle_profiles_child(path: str) -> int:
     bn = torch.clamp(torch.linalg.vector_norm(B, dim=1), min=1e-300)
     out["block"] = _profile_one_cycle(
         lambda: cyc(B, bn), ("frsz2_block_dots", "frsz2_block_combine"),
-        "gmres_block_givens", M, "full-width block frsz2_32")
+        "gmres_block_givens", M, "full-width block frsz2_32", target)
     del cyc
     release()
     for _ in range(2):
@@ -1382,7 +1410,7 @@ def _cycle_profiles_child(path: str) -> int:
     bn = torch.linalg.vector_norm(b)
     out["scalar"] = _profile_one_cycle(
         lambda: cyc(b, bn, bn), ("frsz2_matvec", "frsz2_rmatvec"),
-        "gmres_givens", M, "full-width frsz2_32")
+        "gmres_givens", M, "full-width frsz2_32", target)
     pathlib.Path(path).write_text(json.dumps(out))
     return 0
 
@@ -1390,9 +1418,9 @@ def _cycle_profiles_child(path: str) -> int:
 def phase_cycle_profiles(device_line):
     """Slice 9: one replayed cycle of the full-width frsz2_32 scalar and
     block device solves under ``torch.profiler``, in a fresh process:
-    kernels 3 and 4 (7 and 8) run m + (fired steps) times, the IF
-    condition and the Givens step m times, each as ``ops.LAUNCHES``
-    counts.  A fresh process, because in one that has made and freed
+    kernels 3 and 4 (7 and 8) run (steps run) + (fired steps) times, the
+    Givens step once a step run and the IF conditions at every step
+    (:func:`_cycle_launches`), each as ``ops.LAUNCHES`` counts.  A fresh process, because in one that has made and freed
     other graphs the profiler names some kernel records of the IF nodes'
     bodies after other kernels (a block cycle's block-dots records read
     fewer than ran, while its results stay bit-equal to the host
@@ -1465,7 +1493,7 @@ def phase_full_width(A, target):
         fired, counted = _one_replay(
             lambda: cyc(b, bn, bn),
             ("frsz2_matvec", "frsz2_rmatvec") if fmt == "frsz2_32" else (),
-            "gmres_givens", M, f"full-width {fmt}")
+            "gmres_givens", M, f"full-width {fmt}", target)
         check(fired == int(d2.fired[0].sum()), f"full-width {fmt}: the "
               f"replayed cycle fired {fired} steps, the solve's first "
               f"{int(d2.fired[0].sum())}")
@@ -1952,7 +1980,7 @@ def phase_block_full_width(A, target):
             lambda: cyc(B, bn),
             (("frsz2_block_dots", "frsz2_block_combine")
              if fmt == "frsz2_32" else ()),
-            "gmres_block_givens", M, f"full-width block {fmt}")
+            "gmres_block_givens", M, f"full-width block {fmt}", target)
         check(fired == int(rs2[0].fired[0].sum()), f"full-width block {fmt}:"
               f" the replayed cycle fired {fired} steps, the solve's first "
               f"{int(rs2[0].fired[0].sum())}")
@@ -5657,13 +5685,16 @@ def _phase_grid(walls):
 def _full_launch_check(label, row, cycles):
     """A full-width option's device launches match its format(s); for the
     adaptive policy, each level's captured cycle matches its own."""
+    from repro_torch.kernels import cardcheck
+
     lc = row["launches"]
     if label in ("float32", "float16"):
         _coded_launch_check(row, False, f"full-width {label}")
     elif label == "frsz2_32+cgs2":
-        path = tuple(k for k in DEVICE_PATH if k != "graph_if")
-        _check_launches(row, path, "full-width frsz2_32 CGS2")
-        check(lc["graph_if"] == 0, f"CGS2 launched an IF node: {lc}")
+        _check_launches(row, DEVICE_PATH, "full-width frsz2_32 CGS2")
+        # no MGS pass: the IF nodes are the steps' alone
+        check(lc["graph_if"] == M * row["restarts"],
+              f"CGS2 launched an IF node beside its steps': {lc}")
     elif label == "jacobi":
         # the preconditioned operator reads each row decoded (kernel 2)
         _check_launches(row, ("frsz2_compress", "frsz2_decompress",
@@ -5679,12 +5710,12 @@ def _full_launch_check(label, row, cycles):
         _check_launches(row, DEVICE_PATH, f"full-width {label}")
     for cyc in cycles:
         fmt = cyc.acc.fmt.name
-        coded = any(cyc.launches.get(k) for k in (
+        held = cardcheck.held_launches(cyc)
+        coded = any(held.get(k) for k in (
             "frsz2_compress", "frsz2_matvec", "frsz2_rmatvec",
             "ell_spmv_frsz2"))
         check(coded == ("frsz2" in fmt),
-              f"full-width {label}: the {fmt} level's cycle launches "
-              f"{cyc.launches}")
+              f"full-width {label}: the {fmt} level's cycle launches {held}")
 
 
 def _policy_levels(res, target):

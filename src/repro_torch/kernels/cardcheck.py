@@ -404,6 +404,16 @@ def profiled_launches(fn) -> dict:
     return {k: names.count(sym) for k, sym in LAUNCH_KERNELS.items()}
 
 
+def held_launches(cyc) -> dict:
+    """The kernel launches a captured cycle holds: its graph's own and each
+    IF node's body once (a step's body holds the step's kernels)."""
+    out = dict(cyc.launches)
+    for body in cyc.bodies:
+        for k, v in body.launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def last_sharded_cycle():
     """The most recently used sharded scalar cycle of the graph cache."""
     from repro_torch.solver.gmres import _GRAPHS, _DeviceCycle

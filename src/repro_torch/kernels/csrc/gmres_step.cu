@@ -8,11 +8,14 @@
 //
 // The state is one f64 vector laid out as `kernels/ref.py::givens_layout`
 // says: R ((m+1) x m, row-major) | g (m+1) | est (m) | extra | cs (m) |
-// sn (m) | alive.  Step j, while alive: apply the j earlier rotations to the
-// new Hessenberg column [h_0..h_j, hj1], form rotation j, update g, write
-// column j of R, cs[j], sn[j], est[j] = |g[j+1]| / b_norm, add fired*(j+1)
-// to extra, and drop alive on a breakdown or once est[j] <= target.  Once
-// dead, est[j] repeats est[j-1].
+// sn (m) | alive | fired (m).  Step j, while alive: apply the j earlier
+// rotations to the new Hessenberg column [h_0..h_j, hj1], form rotation j,
+// update g, write column j of R, cs[j], sn[j], est[j] = |g[j+1]| / b_norm,
+// fired[j], add fired*(j+1) to extra, and drop alive on a breakdown or once
+// est[j] <= target; the step that drops it writes its est into est[j+1:m]
+// too, which is what the dead steps would repeat, so that a captured cycle
+// may skip them (its steps after the last live one never run).  Once dead,
+// est[j] repeats est[j-1].
 //
 // What bounds it: latency.  The rotations form a chain of j dependent steps
 // (each reads the column entry the previous one wrote), so one thread runs
@@ -29,7 +32,7 @@
 namespace gmres_step {
 
 struct Layout {
-  long long g, est, extra, cs, sn, alive;
+  long long g, est, extra, cs, sn, alive, fired;
   __device__ explicit Layout(int m) {
     g = static_cast<long long>(m + 1) * m;
     est = g + m + 1;
@@ -37,6 +40,7 @@ struct Layout {
     cs = extra + 1;
     sn = cs + m;
     alive = sn + m;
+    fired = alive + 1;
   }
 };
 
@@ -87,8 +91,12 @@ __global__ void givens_step_kernel(double* __restrict__ state, const T* __restri
   sn[j] = s;
   const double resid = __ddiv_rn(fabs(g1), static_cast<double>(*b_norm_p));
   est[j] = resid;
+  state[L.fired + j] = *fired_p ? 1.0 : 0.0;
   if (*fired_p) state[L.extra] = __dadd_rn(state[L.extra], static_cast<double>(j + 1));
-  state[L.alive] = (!breakdown && resid > target) ? 1.0 : 0.0;
+  const bool alive = !breakdown && resid > target;
+  state[L.alive] = alive ? 1.0 : 0.0;
+  if (!alive)
+    for (int i = j + 1; i < m; ++i) est[i] = resid;
 }
 
 // ---------------------------------------------------------------------------

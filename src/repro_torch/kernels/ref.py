@@ -283,9 +283,10 @@ def givens_layout(m: int) -> dict:
     """Offsets of the cycle's f64 state vector for restart length ``m``:
     ``R`` ((m+1) x m, row-major), ``g`` (m+1), ``est`` (m), ``extra`` (1),
     ``cs`` (m), ``sn`` (m), ``alive`` (1), ``fired`` (m: 1 at each step
-    where MGS re-orthogonalized, live or not).  The Givens step
-    (``csrc/gmres_step.cu``) keeps everything before ``fired``; the cycle
-    writes ``fired``, and the driver's one read per restart reads it all."""
+    where MGS re-orthogonalized).  The Givens step (``csrc/gmres_step.cu``)
+    keeps all of it, ``fired`` at the live steps; a cycle that runs its
+    dead steps too writes ``fired`` at every step (a sharded cycle), and
+    the driver's one read per restart reads it all."""
     off = {"R": 0, "g": (m + 1) * m}
     off["est"] = off["g"] + m + 1
     off["extra"] = off["est"] + m
@@ -318,10 +319,13 @@ def givens_step_ref(state: torch.Tensor, h: torch.Tensor, hj1: torch.Tensor,
     ``fired`` whether MGS re-orthogonalized.  While ``alive``: apply the j
     earlier rotations to the column, form rotation j, update ``g``, write
     column j of ``R``, ``cs[j]``, ``sn[j]`` and ``est[j] = |g[j+1]| /
-    b_norm``, add ``fired * (j+1)`` to ``extra``, and drop ``alive`` on a
-    breakdown or once ``est[j]`` meets ``target``.  Once dead, ``est[j]``
-    repeats ``est[j-1]`` and nothing else changes.  The arithmetic is the
-    host driver's, in Python floats, operation for operation.
+    b_norm``, ``fired[j]``, add ``fired * (j+1)`` to ``extra``, and drop
+    ``alive`` on a breakdown or once ``est[j]`` meets ``target``; the step
+    that drops it writes its ``est`` into ``est[j+1:m]`` too, the values
+    the dead steps would repeat, so that a captured cycle may skip them.
+    Once dead, ``est[j]`` repeats ``est[j-1]`` and nothing else changes.
+    The arithmetic is the host driver's, in Python floats, operation for
+    operation.
     """
     L = givens_layout(m)
     s = state
@@ -353,8 +357,12 @@ def givens_step_ref(state: torch.Tensor, h: torch.Tensor, hj1: torch.Tensor,
     s[L["sn"] + j] = sj
     resid = abs(g1) / float(b_norm)
     s[L["est"] + j] = resid
+    s[L["fired"] + j] = float(bool(fired))
     s[L["extra"]] += float(bool(fired)) * (j + 1)
-    s[L["alive"]] = float(not breakdown and resid > target)
+    alive = not breakdown and resid > target
+    s[L["alive"]] = float(alive)
+    if not alive:
+        s[L["est"] + j + 1:L["est"] + m] = resid
 
 
 # ---------------------------------------------------------------------------

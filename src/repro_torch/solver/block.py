@@ -159,7 +159,7 @@ class _BlockCycle:
         mb, p = self.acc.m - 1, self.acc.p
         mp = mb * p
         L = ref.block_givens_layout(mb, p)
-        out, fired = _run_and_read(
+        out, fired, _ = _run_and_read(
             self.graph.replay if self.capture else self._run, self.state, mb,
             L["fired"])
         if self.capture:

@@ -18,15 +18,17 @@ substitution on the host in f64, the solution update, the stagnation guard,
 and ``bytes_read`` / ``op_reads`` (the modelled basis and operator traffic,
 computed exactly as the reference computes them).  They differ in the cycle:
 
-  * ``driver="device"`` (the default, as in the reference): one cycle runs
+  * ``driver="device"`` (the default, as in the reference): one cycle holds
     all ``m`` iterations with an ``alive`` mask and no host read, as the
     reference's ``fori_loop`` does (:func:`_device_cycle`).  On CUDA it is
     captured once per policy level as a CUDA graph and replayed once per
     restart; MGS's second pass is an IF node of the graph, which runs only
-    at the steps where it fires (:mod:`repro_torch.solver.graphs`).  ``R``,
-    ``g``, ``est``, the extra-sweep count and the steps where MGS fired
-    come back in one tensor, one host read per restart.  On the CPU the same
-    cycle runs eagerly.
+    at the steps where it fires, and an unsharded cycle's steps are IF nodes
+    keyed on ``alive``, so that a replay runs no step after the last live
+    one (:mod:`repro_torch.solver.graphs`).  ``R``, ``g``, ``est``, the
+    extra-sweep count and the steps where MGS fired come back in one
+    tensor, one host read per restart.  On the CPU the same cycle runs
+    eagerly, every step.
   * ``driver="host"``: the cycle loops in Python and reads each step's
     Hessenberg column on the host (:func:`_cycle`), stopping once ``alive``
     drops.  It is the parity oracle of the device driver.
@@ -38,6 +40,7 @@ drivers normalize basis rows by the same tensor division.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 from collections.abc import Callable
@@ -49,7 +52,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.core.accessor import BasisAccessor
 from repro_torch.dist import census
-from repro_torch.dist.context import LOCAL
+from repro_torch.dist.context import LOCAL, DistContext
 from repro_torch.kernels import ops, peer_gather, ref
 from repro_torch.solver import graphs
 from repro_torch.solver.pipeline import (
@@ -88,8 +91,9 @@ class GmresResult:
     stagnated: bool = False      # stopped by the stagnation guard
     op_reads: float = 0.0        # modelled full passes over the operator
     # (restarts run, m): the steps of each cycle where MGS re-orthogonalized;
-    # the host driver runs (and marks) only the live steps, the device
-    # driver all m, dead ones too; none for CGS2
+    # the live ones (a dead step reads 0: the host driver and an unsharded
+    # device cycle, on the card and on the CPU alike), but a sharded device
+    # cycle, which runs all m, marks the dead ones too; none for CGS2
     fired: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0, 0), bool))
     # where MGS's second pass runs in a captured cycle
@@ -197,37 +201,67 @@ def _cycle(matvec: Callable, acc: BasisAccessor, b_norm: float, store, w0,
 @census.cycle
 def _device_cycle(matvec: Callable, acc: BasisAccessor, store, state, init,
                   r, beta, b_norm, eta: float, target: float, ortho, precond,
-                  fused: bool, dist=LOCAL) -> None:
+                  fused: bool, dist: DistContext = LOCAL) -> None:
     """One GMRES(m) cycle with no host read (the reference's ``_cycle``).
 
     ``r``, ``beta`` and ``b_norm`` are tensors (``beta``, ``b_norm`` 0-d);
     the basis goes into ``store`` and the least squares into ``state`` (f64,
     laid out as :func:`repro_torch.kernels.ref.givens_layout`), both in
     place, with ``fired`` (1 at each step where MGS re-orthogonalized).
-    All ``m`` iterations run: once ``alive`` drops (the estimate met
-    ``target``, or a breakdown), the Givens step takes no more columns and
-    repeats the last ``est``.  ``fused``: the operator reads each FRSZ2
-    basis row as codes (the ELL kernel decodes in registers) instead of a
-    decompressed row; it needs the operator's own matvec and no
-    preconditioner, and gives the same bits.
+    Once ``alive`` drops (the estimate met ``target``, or a breakdown), the
+    Givens step takes no more columns, and the step that dropped it writes
+    its ``est`` into the rest of the cycle's.  Unsharded, each step is an
+    IF node keyed on ``alive`` in a captured cycle (MGS's node nested in
+    it; :func:`repro_torch.solver.graphs.device_if`), so that a replay
+    runs no step after the last live one; eagerly every step runs (a dead
+    one writes nothing that is read: its ``fired`` slot stays 0, its basis
+    row lies past the live ones).  A sharded cycle's steps hold
+    collectives, which no IF node takes: all ``m`` run, each writing its
+    ``fired`` slot.  ``fused``: the operator reads each FRSZ2 basis row as
+    codes (the ELL kernel decodes in registers) instead of a decompressed
+    row; it needs the operator's own matvec and no preconditioner, and
+    gives the same bits.
     """
     m = acc.m - 1
     L = ref.givens_layout(m)
     acc.write_row(store, 0, _normalized(r, beta))
     state.copy_(init)
     state[L["g"]].copy_(beta)
+    skips = not dist.sharded            # a step's body holds no collective
+    alive = state[L["alive"]]
     for j in range(m):
-        if fused:
-            w = matvec(acc.operand(store, j))
-        else:
-            w = matvec(precond.apply(acc.read_row(store, j)))
-        w = w.to(acc.arith_dtype)
-        w_pre = dist.norm(w)
-        w, h, hj1, fired = ortho.branch_free(acc, store, w, j + 1, eta, dist,
-                                             w_pre)
-        state[L["fired"] + j].copy_(fired)
-        acc.write_row(store, j + 1, _normalized(w, hj1))
-        ops.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m, target)
+        with _while_alive(alive, skips):
+            if fused:
+                w = matvec(acc.operand(store, j))
+            else:
+                w = matvec(precond.apply(acc.read_row(store, j)))
+            w = w.to(acc.arith_dtype)
+            w_pre = dist.norm(w)
+            w, h, hj1, fired = ortho.branch_free(acc, store, w, j + 1, eta,
+                                                 dist, w_pre)
+            if not skips:               # the Givens step marks live steps
+                state[L["fired"] + j].copy_(fired)
+            acc.write_row(store, j + 1, _normalized(w, hj1))
+            ops.givens_step(state, h, hj1, w_pre, fired, b_norm, j, m,
+                            target)
+
+
+def _while_alive(alive: torch.Tensor, skips: bool):
+    """A step's body: an IF node keyed on the f64 ``alive`` slot where the
+    cycle ``skips`` its dead steps, else no branch."""
+    if not skips:
+        return contextlib.nullcontext()
+    return graphs.device_if(alive, tag="step")
+
+
+def _steps_run(out: np.ndarray, m: int) -> int:
+    """The steps a replay of an unsharded cycle ran, from its state ``out``
+    on the host: those that formed a rotation.  Steps run up to the last
+    live one; each writes ``(cs[j], sn[j])``, a unit vector or ``(1, 0)``,
+    never ``(0, 0)``, which is what a step that did not run leaves."""
+    L = ref.givens_layout(m)
+    cs, sn = out[L["cs"]:L["cs"] + m], out[L["sn"]:L["sn"] + m]
+    return int(np.count_nonzero((cs != 0) | (sn != 0)))
 
 
 def _capture(run: Callable):
@@ -264,18 +298,23 @@ def _capture(run: Callable):
     return graph, launches, calls, cap.bodies
 
 
-def _run_and_read(run: Callable, state: torch.Tensor, m: int, fired_at: int):
+def _run_and_read(run: Callable, state: torch.Tensor, m: int, fired_at: int,
+                  skips: bool = False):
     """Run one cycle of ``m`` steps (``run()``: a graph replay on the card)
     and read its ``state`` to the host, the one host read of a restart:
-    ``(state, fired)`` on the host, ``fired`` the steps where MGS's second
-    pass ran (``m`` flags from ``fired_at``).  The state comes back as a
+    ``(state, fired, ran)`` on the host, ``fired`` the steps where MGS's
+    second pass ran (``m`` flags from ``fired_at``), ``ran`` the steps that
+    ran: all ``m``, or where ``run`` ``skips`` the dead steps (a replayed
+    unsharded scalar cycle), :func:`_steps_run`.  The state comes back as a
     copy, since on the CPU ``.cpu()`` would hand back the state itself,
     which the next cycle overwrites.
 
-    The two are the spans ``gmres.replay`` (``steps_run``, ``fired``, and
-    on the card ``device_ms``: two CUDA events around the replay, read once
-    the state's read has synchronised) and ``gmres.cycle_read``."""
-    with tracing.span("gmres.replay", steps_run=m) as attrs:
+    The two are the spans ``gmres.replay`` (``steps_run``,
+    ``steps_skipped``, ``fired``, and on the card ``device_ms``: two CUDA
+    events around the replay, read once the state's read has synchronised)
+    and ``gmres.cycle_read``; ``ran`` and ``m - ran`` count in
+    ``tracing.COUNTERS`` as ``steps_run`` and ``steps_skipped``."""
+    with tracing.span("gmres.replay") as attrs:
         ev = None
         if attrs is not None and state.is_cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -283,29 +322,38 @@ def _run_and_read(run: Callable, state: torch.Tensor, m: int, fired_at: int):
         run()
         if ev:
             ev[1].record()
-    tracing.COUNTERS["steps_run"] += m
     with tracing.span("gmres.cycle_read"):
         out = state.cpu().numpy().copy()
     fired = out[fired_at:fired_at + m] != 0
+    ran = _steps_run(out, m) if skips else m
+    tracing.COUNTERS["steps_run"] += ran
+    tracing.COUNTERS["steps_skipped"] += m - ran
     if attrs is not None:
-        attrs["fired"] = int(fired.sum())
+        attrs.update(steps_run=ran, steps_skipped=m - ran,
+                     fired=int(fired.sum()))
         if ev:
             attrs["device_ms"] = ev[0].elapsed_time(ev[1])
-    return out, fired
+    return out, fired, ran
 
 
-def _replayed(launches: dict, calls, bodies, fired) -> None:
+def _replayed(launches: dict, calls, bodies, fired, ran=None) -> None:
     """Count a replay: its graph's launches and collectives, and those of
-    the IF node of each step ``j`` where ``fired[j]`` is set (a graph
-    without IF nodes has no ``bodies``)."""
-    if bodies and len(bodies) != len(fired):
-        raise RuntimeError(f"{len(bodies)} IF nodes in a cycle of "
-                           f"{len(fired)} steps: one a step expected")
+    its IF nodes that ran.  ``bodies`` hold the same number of nodes a
+    step, in the order of the steps (a graph without IF nodes has none);
+    a node tagged ``"step"`` ran at the first ``ran`` steps (default: all),
+    one tagged ``"fired"`` at each step ``j`` where ``fired[j]`` is set."""
+    m = len(fired)
+    ran = m if ran is None else ran
+    if len(bodies) % m:
+        raise RuntimeError(f"{len(bodies)} IF nodes in a cycle of {m} "
+                           "steps: the same number a step expected")
     for k, v in launches.items():
         ops.LAUNCHES[k] += v
     census.replayed(calls)
-    for body, ran in zip(bodies, fired):
-        if ran:
+    per = len(bodies) // m
+    for i, body in enumerate(bodies):
+        j = i // per
+        if j < ran if body.tag == "step" else fired[j]:
             for k, v in body.launches.items():
                 ops.LAUNCHES[k] += v
             census.replayed(body.calls)
@@ -363,11 +411,14 @@ class _DeviceCycle:
             self.fresh = False
         m = self.acc.m - 1
         L = ref.givens_layout(m)
-        out, fired = _run_and_read(
+        # a replay of an unsharded cycle runs no step after the last live
+        # one; eagerly (the CPU) and sharded, every step runs
+        out, fired, ran = _run_and_read(
             self.graph.replay if self.state.is_cuda else self._run,
-            self.state, m, L["fired"])
+            self.state, m, L["fired"],
+            self.state.is_cuda and not self._args[-1].sharded)
         if self.state.is_cuda:
-            _replayed(self.launches, self.calls, self.bodies, fired)
+            _replayed(self.launches, self.calls, self.bodies, fired, ran)
         return (out[:L["g"]].reshape(m + 1, m), out[L["g"]:L["est"]],
                 out[L["est"]:L["extra"]], int(out[L["extra"]]), fired)
 

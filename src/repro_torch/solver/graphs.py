@@ -11,10 +11,15 @@ CUDA graph conditional node::
         w2 = w - acc.combine(store, u)
         put(w, w2)                               # w <- w2 where fired
 
+An unsharded cycle also holds each Arnoldi step in such a node, keyed on
+the least-squares state's f64 ``alive`` slot (nonzero: the step is live),
+with MGS's node nested inside it, so that a replay runs no step after the
+last live one.
+
 * While the current stream captures a CUDA graph (inside :func:`capturing`),
   the block's work goes into an IF node keyed on ``pred``
-  (``csrc/graph_if.cu``): a replay runs it only where ``pred`` is true at
-  that point of the replay.  ``put(dst, value)`` copies ``value`` into
+  (``csrc/graph_if.cu``): a replay runs it only where ``pred`` is nonzero
+  at that point of the replay.  ``put(dst, value)`` copies ``value`` into
   ``dst`` inside the node.  A capture that cannot build the node raises.
 * Otherwise the block runs, and ``put(dst, value)`` writes
   ``torch.where(pred, value, dst)`` into ``dst``: the same bits as the node
@@ -24,10 +29,11 @@ CUDA graph conditional node::
   the body and selects rather than branching in Python: no host read.
 
 The bodies' allocations go to a memory pool of their own, on one side
-stream a capture, which lives as long as the graph.  :func:`capturing`
-records each body's kernel launches (``ops.LAUNCHES``) and collectives
-(the census) apart from the rest of the graph, so that a replay can add
-them once per node that ran.
+stream a capture, which lives as long as the graph; a node inside a body
+is captured on the same stream.  :func:`capturing` records each body's
+kernel launches (``ops.LAUNCHES``) and collectives (the census) apart from
+the rest of the graph and from the bodies nested in it, with the body's
+``tag``, so that a replay can add them once per node that ran.
 """
 from __future__ import annotations
 
@@ -44,11 +50,14 @@ __all__ = ["Body", "Capture", "capturing", "device_if", "select"]
 
 @dataclasses.dataclass
 class Body:
-    """What one IF node's body holds: its kernel launches by name and its
-    collectives (:class:`repro_torch.dist.census.Call`)."""
+    """What one IF node's body holds, those of the nodes nested in it left
+    out: its kernel launches by name, its collectives
+    (:class:`repro_torch.dist.census.Call`) and its ``tag``
+    (:func:`device_if`'s: what a replay counts the node by)."""
 
     launches: dict
     calls: list
+    tag: str = "fired"
 
 
 @dataclasses.dataclass
@@ -59,6 +68,8 @@ class Capture:
     stream: torch.cuda.Stream
     pool: tuple
     bodies: list = dataclasses.field(default_factory=list)
+    #: the launches of the bodies nested in each open body, innermost last
+    nested: list = dataclasses.field(default_factory=list)
 
 
 #: the captures in progress, innermost last
@@ -113,15 +124,17 @@ def select(pred: torch.Tensor):
 
 
 @contextlib.contextmanager
-def device_if(pred: torch.Tensor):
-    """Run the block where the 0-d bool ``pred`` holds; yields ``put(dst,
-    value)``, which writes ``value`` into ``dst`` where it does (see the
-    module's docstring)."""
-    if pred.dtype != torch.bool or pred.ndim != 0:
-        raise ValueError(f"device_if needs a 0-d bool, got {pred.dtype} "
-                         f"{tuple(pred.shape)}")
+def device_if(pred: torch.Tensor, *, tag: str = "fired"):
+    """Run the block where the 0-d ``pred`` (a bool, or an f64 read as
+    nonzero) holds; yields ``put(dst, value)``, which writes ``value`` into
+    ``dst`` where it does (see the module's docstring).  ``tag`` names what
+    a replay counts the node by: ``"fired"`` (MGS's second pass: the step's
+    ``fired`` slot) or ``"step"`` (an Arnoldi step: the steps that ran)."""
+    if pred.ndim != 0 or pred.dtype not in (torch.bool, torch.float64):
+        raise ValueError(f"device_if needs a 0-d bool (or f64), got "
+                         f"{pred.dtype} {tuple(pred.shape)}")
     if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
-        yield _selector(pred)
+        yield _selector(pred if pred.dtype == torch.bool else pred != 0)
         return
     if not _CAPTURES:
         raise RuntimeError("device_if inside a capture needs "
@@ -130,13 +143,19 @@ def device_if(pred: torch.Tensor):
 
     cap = _CAPTURES[-1]
     graph_if.begin(torch.cuda.current_stream().cuda_stream, pred.data_ptr(),
-                   cap.stream.cuda_stream)
+                   pred.dtype == torch.float64, cap.stream.cuda_stream)
     ops.LAUNCHES["graph_if"] += 1
     before = dict(ops.LAUNCHES)
+    cap.nested.append(dict.fromkeys(before, 0))
     with census.capturing() as calls, torch.cuda.stream(cap.stream):
         try:
             yield _copy
         finally:
             graph_if.end(cap.stream.cuda_stream)
-    cap.bodies.append(Body({k: ops.LAUNCHES[k] - before[k] for k in before},
-                           calls))
+    inner = cap.nested.pop()
+    spent = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    if cap.nested:                  # this body's launches, in its outer's
+        for k, v in spent.items():
+            cap.nested[-1][k] += v
+    cap.bodies.append(Body({k: v - inner[k] for k, v in spent.items()},
+                           calls, tag))

@@ -25,17 +25,19 @@ is one solve.  Its spans, the block driver's under the same names:
   cycle's CUDA graph captured), ``gmres.b_norm`` (the read of ``||b||``);
 * per restart: ``gmres.restart_residual`` (the loop head's residual and its
   read), ``gmres.replay`` (the cycle: a graph replay on the card, the eager
-  cycle on the CPU; ``level``, ``steps_run``, ``steps_live``, ``fired``, and
-  on the card ``device_ms``, two CUDA events around the replay read after
-  the cycle's own synchronising read), ``gmres.cycle_read`` (the cycle's
+  cycle on the CPU; ``level``, ``steps_run``, ``steps_skipped`` (a replay
+  of an unsharded scalar cycle runs no step after its last live one),
+  ``steps_live``, ``fired``, and on the card ``device_ms``, two CUDA events
+  around the replay read after the cycle's own synchronising read), ``gmres.cycle_read`` (the cycle's
   least squares to the host), ``gmres.lstsq`` (the back substitution on the
   host), ``gmres.update`` (the coefficients to the device and the combine),
   ``gmres.explicit_residual`` (the residual after the update and its read).
 
 **Counters** are always on: plain ints in :data:`COUNTERS`
 (``graph_captures``, ``graph_cache_hits`` / ``_misses``, ``plan_cache_hits``
-/ ``_misses``, ``steps_run`` (steps the cycles ran), ``steps_live`` (the
-steps the restart loops took), ``rows_dropped``).  :func:`counters`
+/ ``_misses``, ``steps_run`` (steps the cycles ran), ``steps_skipped``
+(steps the replayed cycles skipped: their ``m`` less ``steps_run``),
+``steps_live`` (the steps the restart loops took), ``rows_dropped``).  :func:`counters`
 snapshots them with the kernel launches of ``ops.LAUNCHES`` as
 ``launches.<kernel>``, which stay where they are counted.
 
@@ -66,8 +68,8 @@ MAX_ROWS = 200_000
 
 COUNTERS = dict.fromkeys(
     ("graph_captures", "graph_cache_hits", "graph_cache_misses",
-     "plan_cache_hits", "plan_cache_misses", "steps_run", "steps_live",
-     "rows_dropped"), 0)
+     "plan_cache_hits", "plan_cache_misses", "steps_run", "steps_skipped",
+     "steps_live", "rows_dropped"), 0)
 
 _ROWS: list[dict] = []
 _OPEN: list[int] = []            # row indices of the open spans, innermost last

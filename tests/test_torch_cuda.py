@@ -77,7 +77,11 @@ and MGS.  MGS's second pass as an IF node of the captured cycles (``-k
 mgs``): one replayed scalar (block) cycle runs kernels 3 and 4 (7 and 8)
 m + (fired steps) times by the profiler's count, m at eta 0 and 2m at eta
 1.5, equal to ``ops.LAUNCHES``; its state and basis bit-equal to the
-eager cycle's; a second solve captures nothing.
+eager cycle's; a second solve captures nothing.  The dead steps of a
+captured unsharded cycle (``-k live_steps``): its replays run the live
+steps alone, bit-equal to the host driver in four formats, counted by
+``steps_run`` / ``steps_skipped`` and by the profiler; a sharded cycle
+runs all m.
 """
 import numpy as np
 import pytest
@@ -90,6 +94,7 @@ from repro_torch.kernels import cardcheck, ops, ref
 from repro_torch.kernels.cardcheck import EDGE_ROWS, same_values
 from repro_torch.solver import gmres, gmres_batched
 from repro_torch.sparse import make_problem, rhs_for
+from repro_torch import tracing
 from repro_torch.configs import get_arch
 from repro_torch.models import decode_step, init_params, kvcache, prefill
 
@@ -1112,7 +1117,10 @@ def test_sharded_dots_wire_codec_bit_equal_to_plain_route(nccl):
 def test_captured_sharded_cycle_replays_with_equal_bits(nccl, transport):
     """``gmres(..., shard=1)`` on the card: the cycle is captured once with
     its NCCL collectives inside and replayed; a second solve captures
-    nothing new and gives the same bits.  The plain transport takes the
+    nothing new and gives the same bits, and its replays run all m steps
+    (a step that holds a collective is no IF node's), bit-equal to the
+    cycle run eagerly into an empty store on the plain transport (the
+    coded ones code wire blocks over the stored rows, stale ones too).  The plain transport takes the
     unsharded device solve's iterations, restarts and ``bytes_read``."""
     from repro_torch.solver.gmres import _GRAPHS
 
@@ -1124,10 +1132,20 @@ def test_captured_sharded_cycle_replays_with_equal_bits(nccl, transport):
     r1 = gmres(A, b, **kw)
     keys = set(_GRAPHS)
     ops.reset_launches()
+    steps = {k: tracing.COUNTERS[k] for k in ("steps_run", "steps_skipped")}
     r2 = gmres(A, b, **kw)
     assert set(_GRAPHS) == keys
     assert r1.converged and r1.iterations == r2.iterations
     assert torch.equal(r1.x, r2.x)
+    # its steps hold collectives: every replay runs all m, dead ones too
+    assert tracing.COUNTERS["steps_skipped"] == steps["steps_skipped"]
+    assert (tracing.COUNTERS["steps_run"] - steps["steps_run"]
+            == 40 * len(r2.fired))
+    cyc = cardcheck.last_sharded_cycle()
+    assert all(body.tag == "fired" for body in cyc.bodies)
+    if transport == "plain":    # the coded dots' blocks span stale rows
+        _, _, eager_equal = cardcheck.replay_against_eager(cyc)
+        assert eager_equal
     assert ops.LAUNCHES["ell_spmv"] > 0 and ops.LAUNCHES["gmres_givens"] > 0
     assert ops.LAUNCHES["ell_spmv_frsz2"] == 0
     if transport == "plain":
@@ -1586,8 +1604,9 @@ def _last_cycle():
 def test_captured_mgs_cycle_sweeps_twice_only_where_it_fires(cuda, eta):
     """A captured scalar MGS cycle (frsz2_32, m = 20) replayed under the
     profiler: kernels 3 and 4 run m + (fired steps) times, m at eta 0 and
-    2m at eta 1.5, equal to ``ops.LAUNCHES``; the IF node's condition
-    kernel and the Givens step run m times.  The replay's state and basis
+    2m at eta 1.5, equal to ``ops.LAUNCHES``; the Givens step runs m
+    times, and the IF nodes' condition kernels 2m times (each step's node,
+    keyed on ``alive``, and MGS's nested in it).  The replay's state and basis
     equal, bit for bit, the cycle run eagerly (both passes, then
     ``torch.where``) on the same inputs; a second solve captures
     nothing."""
@@ -1622,7 +1641,7 @@ def test_captured_mgs_cycle_sweeps_twice_only_where_it_fires(cuda, eta):
         assert fired == m
     for k in ("frsz2_matvec", "frsz2_rmatvec"):
         assert counted[k] == ops.LAUNCHES[k] == m + fired, (k, counted)
-    assert counted["graph_if"] == ops.LAUNCHES["graph_if"] == m
+    assert counted["graph_if"] == ops.LAUNCHES["graph_if"] == 2 * m
     assert counted["gmres_givens"] == ops.LAUNCHES["gmres_givens"] == m
     # the same inputs through the eager cycle
     matvec, eta_, target, ortho, precond, fused, dist = cyc._args
@@ -1634,6 +1653,91 @@ def test_captured_mgs_cycle_sweeps_twice_only_where_it_fires(cuda, eta):
     assert torch.equal(state, cyc.state)
     for key in ("codes", "exps"):
         assert torch.equal(store[key], cyc.store[key])
+
+
+def _parts(store):
+    """The tensors of a basis store (a tensor or a dict of them), each a
+    row of the basis a row."""
+    return list(store.values()) if isinstance(store, dict) else [store]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["frsz2_32", "float64", "float32",
+                                     "frsz2_16"])
+def test_replayed_cycle_runs_only_its_live_steps(cuda, storage):
+    """A captured unsharded cycle skips its dead steps.  Whole solves
+    (atmosmod n 4096, m 40, restarts that end part way through a cycle):
+    the captured and the replayed solve bit-equal to the host driver in
+    ``x``, ``rrn_history``, ``restart_rrns``, ``bytes_read`` and
+    ``fired``, and the replays ran exactly the live steps
+    (``steps_run``), skipping the rest (``steps_skipped``).  One replayed
+    cycle that converges at step k < m, its basis filled with a marker
+    first: the basis rows past k keep the marker (no step past the live
+    ones wrote one); ``ops.LAUNCHES`` counts the Givens step k times,
+    kernels 3 and 4 k + (fired steps) times (FRSZ2) and the IF conditions
+    m + k times (each step's node, and MGS's nested in the k that ran);
+    the state equals, bit for bit, the cycle run eagerly (every step) on
+    the same inputs, and so do the basis rows the live steps wrote.  (The
+    profiler's own count runs in a fresh process, ``chip_smoke.py``'s
+    one-cycle profiles: in a process that has made and freed graphs it
+    misnames IF bodies' kernels.)"""
+    import importlib
+
+    from repro_torch.solver import clear_graph_cache
+
+    G = importlib.import_module("repro_torch.solver.gmres")
+    A, target = make_problem("synth:atmosmod", 4096, device=cuda)
+    b, _ = rhs_for(A, device=cuda)
+    m = 40
+    kw = dict(storage=storage, m=m, target_rrn=target)
+    clear_graph_cache()
+    rh = gmres(A, b, driver="host", **kw)
+    assert rh.converged and rh.restarts > 1 and rh.iterations % m
+    runs = []
+    for _ in range(2):                          # capture, then replay
+        before = dict(tracing.COUNTERS)
+        rd = gmres(A, b, **kw)
+        runs.append((rd, {k: tracing.COUNTERS[k] - before[k]
+                          for k in ("steps_run", "steps_skipped")}))
+    for rd, steps in runs:
+        assert (rd.iterations, rd.restarts) == (rh.iterations, rh.restarts)
+        assert torch.equal(rd.x, rh.x)
+        np.testing.assert_array_equal(rd.rrn_history, rh.rrn_history)
+        np.testing.assert_array_equal(rd.restart_rrns, rh.restart_rrns)
+        assert rd.bytes_read == rh.bytes_read and rd.op_reads == rh.op_reads
+        np.testing.assert_array_equal(rd.fired, rh.fired)
+        cycles = len(rd.fired)
+        assert steps == dict(steps_run=rd.iterations,
+                             steps_skipped=cycles * m - rd.iterations)
+    # one cycle that stops part way
+    kw1 = dict(kw, target_rrn=1e-6)
+    gmres(A, b, **kw1)
+    cyc = _last_cycle()
+    beta = torch.linalg.vector_norm(b)
+    for part in _parts(cyc.store):
+        part.view(torch.uint8).fill_(0xA5)
+    ops.reset_launches()
+    _, _, est, _, fired = cyc(b, beta, beta)
+    k = int(np.argmax(est <= 1e-6)) + 1
+    assert 1 < k < m and not fired[k:].any()
+    for part in _parts(cyc.store):
+        rows = part.view(torch.uint8)
+        assert (rows[k + 1:] == 0xA5).all() and not (rows[k] == 0xA5).all()
+    fired = int(fired.sum())
+    if storage.startswith("frsz2"):
+        for key in ("frsz2_matvec", "frsz2_rmatvec"):
+            assert ops.LAUNCHES[key] == k + fired, (key, ops.LAUNCHES)
+    assert ops.LAUNCHES["gmres_givens"] == k
+    assert ops.LAUNCHES["graph_if"] == m + k
+    matvec, eta_, target_, ortho, precond, fused, dist = cyc._args
+    store = cyc.acc.empty()
+    state = torch.empty_like(cyc.state)
+    G._device_cycle(matvec, cyc.acc, store, state, cyc.init, cyc.r,
+                    cyc.beta, cyc.b_norm, eta_, target_, ortho, precond,
+                    fused, dist)
+    assert torch.equal(state, cyc.state)
+    for a, c in zip(_parts(store), _parts(cyc.store)):
+        assert torch.equal(a[:k + 1], c[:k + 1])
 
 
 @pytest.mark.cuda
@@ -1986,10 +2090,8 @@ def _option_launches(storage, kw):
         return (FRSZ2_KERNELS + ("frsz2_decompress", "ell_spmv",
                                  "gmres_givens", "graph_if"),
                 ("ell_spmv_frsz2",))
-    path = FRSZ2_KERNELS + ("ell_spmv_frsz2", "ell_spmv", "gmres_givens")
-    if kw.get("ortho") == "cgs2":  # two passes at every step, no IF node
-        return path, ("frsz2_decompress", "graph_if")
-    return path + ("graph_if",), ("frsz2_decompress",)
+    return (FRSZ2_KERNELS + ("ell_spmv_frsz2", "ell_spmv", "gmres_givens",
+                             "graph_if"), ("frsz2_decompress",))
 
 
 @pytest.mark.cuda
@@ -2032,14 +2134,17 @@ def test_options_device_driver_equals_host_on_card(cuda, name, storage, kw):
     must, never = _option_launches(storage, kw)
     assert all(launches[k] > 0 for k in must), launches
     assert not any(launches[k] for k in never), launches
+    if kw.get("ortho") == "cgs2":  # no MGS node: the steps' nodes alone
+        assert launches["graph_if"] == 50 * len(r2.fired), launches
     if "policy" in kw:
         policy = resolve_policy(kw["policy"], None, torch.float64, target, 50)
         levels = {policy.level(float(rr), i) for i, rr in
                   enumerate(r2.restart_rrns[:len(r2.fired)])}
         assert len(new) == len(levels) >= 2, (len(new), levels)
         for cyc in new:
-            coded = any(cyc.launches.get(k) for k in FRSZ2_KERNELS)
-            assert coded == ("frsz2" in cyc.acc.fmt.name), cyc.launches
+            held = cardcheck.held_launches(cyc)
+            coded = any(held.get(k) for k in FRSZ2_KERNELS)
+            assert coded == ("frsz2" in cyc.acc.fmt.name), held
     else:
         assert len(new) == 1
     if name == "synth:lung":
